@@ -1,0 +1,461 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+1. requires CUDA and prints the card's name and power limit;
+2. builds the port's CUDA kernels from ``classpose_tpu_torch/csrc`` with
+   nvcc (one process per source, in parallel) and prints the build time;
+3. holds each kernel against its plain PyTorch version on the card at the
+   shapes the main path gives it (attention: 25 crops × 16 heads × 1024
+   tokens, bf16; sampler, histogram and diffusion: 8 tiles of 1024²) and
+   times kernel, plain version, a one-call PyTorch yardstick where there
+   is one, and the least time the card could take (the bound);
+4. runs ``ClassposeModel.eval_batch`` at full ViT-L width (24 blocks,
+   1024 wide, bf16) with the structured synthetic checkpoint on 8 uint8
+   tiles of 1024², ``batch_size=32``, ``niter=200``, with every launch
+   count reset just before and read just after; checks ~1k instances per
+   tile, that every kernel was launched, and that the masks agree with a
+   run of the same slice with the plain versions swapped in;
+5. prints one JSON line describing the kernels, then the last line
+   ``{"ok": true, "device": {...}}``.
+
+Any failure raises, so the exit code is not 0 and the last line is not
+printed. Without CUDA, or without the rest of the repository beside it,
+it fails before printing a result.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+import classpose_tpu_torch.dynamics.flows as port_flows
+import classpose_tpu_torch.dynamics.masks as port_masks
+import classpose_tpu_torch.nn.vit_sam as port_vit
+from classpose_tpu_torch import _build
+from classpose_tpu_torch.nn.attention import (
+    attention_relpos,
+    attention_relpos_plain,
+)
+from classpose_tpu_torch.nn.synthetic import PERIOD, RADIUS, structured_params
+from classpose_tpu_torch.nn.vit_sam import ClassTransformerConfig
+from classpose_tpu_torch.ops.diffusion import (
+    masked_diffusion,
+    masked_diffusion_plain,
+)
+from classpose_tpu_torch.ops.sample import (
+    bilinear_sample,
+    bilinear_sample_plain,
+    landing_histogram,
+    landing_histogram_plain,
+)
+from classpose_tpu_torch.runner import ClassposeModel
+
+# published H100 SXM peaks (dense): bf16 tensor cores, fp32 outside them,
+# HBM bandwidth
+PEAK_BF16 = 989e12
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+
+SEED = 0
+N_TILES, TILE = 8, 1024
+
+
+def log(msg: str) -> None:
+    print(msg, file=sys.stderr, flush=True)
+
+
+def time_ms(fn, reps: int = 5) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn()`` after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def bound_ms(nbytes: float, ops: float, peak_ops: float):
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / peak_ops * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def design_labels(dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, S, S) instance ids and centre maps of the synthetic design
+    (period-32 grid of radius-13 cells), the QC diffusion's input."""
+    yy, xx = torch.meshgrid(torch.arange(TILE, device=dev),
+                            torch.arange(TILE, device=dev), indexing="ij")
+    cy = (yy // PERIOD) * PERIOD + PERIOD // 2
+    cx = (xx // PERIOD) * PERIOD + PERIOD // 2
+    inside = (yy - cy) ** 2 + (xx - cx) ** 2 <= RADIUS ** 2
+    cell = (yy // PERIOD) * (TILE // PERIOD) + xx // PERIOD + 1
+    ids = torch.where(inside, cell, 0).to(torch.int32)
+    cen = ((yy == cy) & (xx == cx)).to(torch.float32)
+    return (ids[None].repeat(N_TILES, 1, 1).contiguous(),
+            cen[None].repeat(N_TILES, 1, 1).contiguous())
+
+
+# ---------------------------------------------------------------- phase 3
+
+def check_attention(gen, dev) -> dict:
+    B, n, L, hd, G = 25, 16, 1024, 64, 32
+    qkv = torch.randn(B, L, 3 * n * hd, generator=gen, device=dev).to(
+        torch.bfloat16)
+    rel = torch.randn(B, L, n, 2 * G, generator=gen, device=dev).to(
+        torch.bfloat16)
+    scale = hd ** -0.5
+    got = attention_relpos(qkv, rel, scale, (G, G), n)
+    ref = attention_relpos_plain(qkv, rel, scale, (G, G), n)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs()
+    # bf16 output: the kernel rounds unnormalized probabilities to bf16,
+    # the plain version normalized ones; both round the output to bf16
+    tol = 1e-2 + 1e-2 * ref.float().abs()
+    if not bool((err <= tol).all()):
+        raise AssertionError(f"attention max|Δ| {float(err.max())}")
+    q, k, v = (qkv[..., i * n * hd:(i + 1) * n * hd].reshape(B, L, n, hd)
+               .transpose(1, 2).contiguous() for i in range(3))
+    mask = (rel[..., :G].transpose(1, 2)[..., :, None]
+            + rel[..., G:].transpose(1, 2)[..., None, :]).reshape(B, n, L, L)
+    nbytes = (qkv.numel() + rel.numel() + got.numel()) * 2
+    b, by = bound_ms(nbytes, 4.0 * B * n * L * L * hd, PEAK_BF16)
+    return dict(
+        name="attention_fwd", route="cuda",
+        source="classpose_tpu_torch/csrc/attention.cu",
+        replaces="classpose_tpu/nn/attention.py:404",
+        max_abs_err=float(err.max()),
+        ms=time_ms(lambda: attention_relpos(qkv, rel, scale, (G, G), n)),
+        plain_ms=time_ms(
+            lambda: attention_relpos_plain(qkv, rel, scale, (G, G), n), 3),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=scale)),
+        bound_ms=b, bound_by=by,
+    )
+
+
+def positions(gen, dev, spread: float):
+    B, H, W = N_TILES, TILE, TILE
+    gy = torch.arange(H, dtype=torch.float32, device=dev)[None, :, None]
+    gx = torch.arange(W, dtype=torch.float32, device=dev)[None, None, :]
+    d = lambda: (torch.rand(B, H, W, generator=gen, device=dev) * 2 - 1) \
+        * spread  # noqa: E731
+    py = torch.clamp(gy + d(), 0, H - 1).contiguous()
+    px = torch.clamp(gx + d(), 0, W - 1).contiguous()
+    return py, px
+
+
+def check_sampler(gen, dev) -> dict:
+    B, C, H, W = N_TILES, 2, TILE, TILE
+    u = (torch.randn(B, C, H, W, generator=gen, device=dev) * 2).contiguous()
+    py, px = positions(gen, dev, 20.0)
+    got = bilinear_sample(u, py, px)
+    ref = bilinear_sample_plain(u, py, px)
+    err2 = float((got - ref).abs().max())
+    if err2 > 1e-6:
+        raise AssertionError(f"sampler C=2 max|Δ| {err2}")
+    # C=1 at integer positions (the label lookup) must be exact
+    lab = torch.randint(0, 5000, (B, 1, H, W), generator=gen,
+                        device=dev).float()
+    fy, fx = torch.round(py), torch.round(px)
+    g1 = bilinear_sample(lab, fy, fx)
+    exact = torch.gather(lab.reshape(B, 1, -1), 2,
+                         (fy * W + fx).long().reshape(B, 1, -1))
+    if not torch.equal(g1.reshape(B, 1, -1), exact) or not torch.equal(
+            g1, bilinear_sample_plain(lab, fy, fx)):
+        raise AssertionError("sampler C=1 at integer positions not exact")
+    # yardstick: grid_sample computes the same bilinear function for
+    # in-image positions (align_corners=True)
+    grid = torch.stack([px / (W - 1) * 2 - 1, py / (H - 1) * 2 - 1], -1)
+    npx = B * H * W
+    b, by = bound_ms(npx * (2 * C * 4 + 2 * 4), npx * (6 * C + 4),
+                     PEAK_FP32)
+    return dict(
+        name="bilinear_sample", route="cuda",
+        source="classpose_tpu_torch/csrc/sample.cu",
+        replaces="classpose_tpu/ops/sample_pallas.py:297",
+        max_abs_err=err2,
+        ms=time_ms(lambda: bilinear_sample(u, py, px)),
+        plain_ms=time_ms(lambda: bilinear_sample_plain(u, py, px)),
+        library_ms=time_ms(lambda: F.grid_sample(
+            u, grid, mode="bilinear", padding_mode="border",
+            align_corners=True)),
+        bound_ms=b, bound_by=by,
+    )
+
+
+def check_histogram(gen, dev) -> dict:
+    B, H, W = N_TILES, TILE, TILE
+    py, px = positions(gen, dev, 8.0)
+    fy = torch.round(py).to(torch.int32).contiguous()
+    fx = torch.round(px).to(torch.int32).contiguous()
+    cell = (torch.rand(B, H, W, generator=gen, device=dev) < 0.6).float()
+    got = landing_histogram(fy, fx, cell)
+    ref = landing_histogram_plain(fy, fx, cell)
+    if not torch.equal(got, ref):
+        raise AssertionError("histogram not exact")
+    flat = (torch.arange(B, device=dev)[:, None, None] * H * W
+            + fy.long() * W + fx.long()).reshape(-1)
+    w = cell.reshape(-1)
+    b, by = bound_ms(B * H * W * 16, float(cell.sum()), PEAK_FP32)
+    return dict(
+        name="landing_histogram", route="cuda",
+        source="classpose_tpu_torch/csrc/sample.cu",
+        replaces="classpose_tpu/ops/sample_pallas.py:496",
+        max_abs_err=float((got - ref).abs().max()),
+        ms=time_ms(lambda: landing_histogram(fy, fx, cell)),
+        plain_ms=time_ms(lambda: landing_histogram_plain(fy, fx, cell)),
+        library_ms=time_ms(lambda: torch.bincount(
+            flat, weights=w, minlength=B * H * W)),
+        bound_ms=b, bound_by=by,
+    )
+
+
+def check_diffusion(dev) -> dict:
+    ids, cen = design_labels(dev)
+    niter = torch.tensor([40, 80, 120, 40, 80, 120, 40, 80],
+                         dtype=torch.int32, device=dev)
+    got = masked_diffusion(ids, cen, niter)
+    ref = masked_diffusion_plain(ids, cen, niter)
+    if not torch.equal(got, ref):
+        raise AssertionError("diffusion not bitwise equal to plain")
+    # operations this run needs: per iteration and foreground pixel, two
+    # adds per matching 3×3 neighbour (centre included) and one multiply
+    ip = F.pad(ids, (1, 1, 1, 1))
+    H, W = ids.shape[1:]
+    match = sum((ip[:, 1 + dy:1 + dy + H, 1 + dx:1 + dx + W] == ids)
+                for dy in (-1, 0, 1) for dx in (-1, 0, 1))
+    per_it = ((2 * match + 1) * (ids > 0)).sum(dim=(1, 2)).double()
+    ops = float((per_it * niter.double()).sum())
+    b, by = bound_ms(ids.numel() * 12, ops, PEAK_FP32)
+    return dict(
+        name="masked_diffusion", route="cuda",
+        source="classpose_tpu_torch/csrc/diffusion.cu",
+        replaces="classpose_tpu/ops/diffusion_pallas.py:289",
+        max_abs_err=float((got - ref).abs().max()),
+        ms=time_ms(lambda: masked_diffusion(ids, cen, niter)),
+        plain_ms=time_ms(lambda: masked_diffusion_plain(ids, cen, niter), 3),
+        library_ms=None,
+        bound_ms=b, bound_by=by,
+    )
+
+
+# ---------------------------------------------------------------- phase 4
+
+def match_masks(ma: np.ndarray, mb: np.ndarray):
+    """Pair instances of two label maps by IoU: [(a, b, iou)]."""
+    pairs = []
+    fg = ma > 0
+    a_ids, b_ids = ma[fg], mb[fg]
+    inter = np.bincount(a_ids.astype(np.int64) * (int(mb.max()) + 1) + b_ids,
+                        minlength=(int(ma.max()) + 1) * (int(mb.max()) + 1))
+    inter = inter.reshape(int(ma.max()) + 1, int(mb.max()) + 1)
+    inter[:, 0] = 0
+    na, nb = np.bincount(ma.ravel()), np.bincount(mb.ravel())
+    for a in range(1, len(na)):
+        b = int(inter[a].argmax())
+        i = inter[a, b]
+        pairs.append((a, b, i / (na[a] + (nb[b] if b else 0) - i)))
+    return pairs
+
+
+def instance_classes(m: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """Class of each instance id of label map ``m`` (classes are constant
+    per instance)."""
+    out = np.zeros(int(m.max()) + 1, np.int64)
+    out[m.ravel()] = c.ravel()
+    return out
+
+
+def compare_slices(run, ref) -> float:
+    """Mask agreement of two eval_batch results (counts equal, every
+    instance matched at IoU ≥ 0.95, ≥ 99.5% pixel agreement, equal
+    classes on matched instances); returns the worst IoU."""
+    worst = 1.0
+    for (m, c), (m_ref, c_ref) in zip(run, ref):
+        if m.max() != m_ref.max():
+            raise AssertionError(f"instances {m.max()} vs {m_ref.max()}")
+        pairs = match_masks(m_ref, m)
+        worst = min([worst] + [iou for _, _, iou in pairs])
+        if worst < 0.95 or ((m > 0) == (m_ref > 0)).mean() < 0.995:
+            raise AssertionError(f"masks disagree (worst IoU {worst})")
+        cls, cls_ref = instance_classes(m, c), instance_classes(m_ref, c_ref)
+        for a, b, _ in pairs:
+            if cls_ref[a] != cls[b]:
+                raise AssertionError(f"class of instance {a} differs")
+    return worst
+
+
+def plain_versions():
+    """Swap the plain versions in where the slice calls the kernels."""
+    saved = (port_masks.bilinear_sample, port_masks.landing_histogram,
+             port_flows.masked_diffusion, port_vit.attention_relpos)
+    port_masks.bilinear_sample = bilinear_sample_plain
+    port_masks.landing_histogram = landing_histogram_plain
+    port_flows.masked_diffusion = masked_diffusion_plain
+    port_vit.attention_relpos = attention_relpos_plain
+
+    def restore():
+        (port_masks.bilinear_sample, port_masks.landing_histogram,
+         port_flows.masked_diffusion, port_vit.attention_relpos) = saved
+
+    return restore
+
+
+def profile_slice(model, tiles, kw) -> dict:
+    """Where one batch's time goes: the device program's wall (synced)
+    against the whole call's, and the device time by kernel from a
+    torch.profiler trace of one more call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.as_tensor(tiles).to(model.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model._device_program(x, kw["batch_size"], False, kw["niter"], 0.4, 0.0,
+                          0.4)
+    torch.cuda.synchronize()
+    device_program_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.eval_batch(tiles, **kw)
+        torch.cuda.synchronize()
+        traced_wall_s = time.perf_counter() - t0
+    rows = []  # device-side kernel and memcpy events only
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        if t > 0:
+            rows.append((t / 1e3, e.key, e.count))
+    rows.sort(reverse=True)
+    device_ms = sum(r[0] for r in rows)
+    return dict(
+        device_program_s=device_program_s, traced_wall_s=traced_wall_s,
+        device_busy_ms=device_ms,
+        device_idle_share=1.0 - device_ms / (traced_wall_s * 1e3),
+        top_kernels=[dict(name=k[:80], ms=t, calls=c)
+                     for t, k, c in rows[:12]],
+    )
+
+
+def run_slice(dev) -> tuple[dict, dict]:
+    cfg = ClassTransformerConfig(n_cell_classes=6, dtype="bfloat16")
+    t0 = time.perf_counter()
+    model = ClassposeModel(cfg=cfg, params=structured_params(cfg),
+                           precision="bf16", device=dev)
+    log(f"model built in {time.perf_counter() - t0:.1f} s "
+        f"(depth {cfg.depth}, width {cfg.embed_dim})")
+    tiles = np.random.default_rng(SEED).integers(
+        0, 256, size=(N_TILES, TILE, TILE, 3), dtype=np.uint8)
+    kw = dict(batch_size=32, niter=200)
+
+    model.eval_batch(tiles, **kw)  # warm-up: allocator, cuDNN plans
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = model.eval_batch(tiles, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    log(f"main path launches: {launches}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the main path: "
+                             f"{missing}")
+    counts = [int(m.max()) for m, _ in out]
+    for m, c in out:
+        if m.shape != (TILE, TILE) or m.dtype != np.int32 \
+                or c.shape != m.shape:
+            raise AssertionError(f"bad output {m.shape} {m.dtype}")
+    if not all(900 <= n <= 1100 for n in counts):
+        raise AssertionError(f"instances per tile {counts}, expected ~1024")
+
+    breakdown = profile_slice(model, tiles, kw)
+    log(f"breakdown: {json.dumps(breakdown)}")
+
+    restore = plain_versions()
+    try:
+        t1 = time.perf_counter()
+        ref = model.eval_batch(tiles, **kw)
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t1
+    finally:
+        restore()
+    worst = compare_slices(out, ref)
+    stats = dict(
+        tiles_per_s=N_TILES / wall, wall_s=wall, plain_wall_s=plain_wall,
+        instances=counts, worst_iou_vs_plain=worst,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        breakdown=breakdown,
+    )
+    return launches, stats
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {smi}")
+
+    t0 = time.perf_counter()
+    per_source = _build.build_all()
+    log(f"build {time.perf_counter() - t0:.1f} s: {per_source}")
+    for name in _build.SOURCES:
+        _build.lib(name)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    kernels = []
+    for check in (lambda: check_attention(gen, dev),
+                  lambda: check_sampler(gen, dev),
+                  lambda: check_histogram(gen, dev),
+                  lambda: check_diffusion(dev)):
+        k = check()
+        torch.cuda.synchronize()
+        log(f"{k['name']}: max|Δ| {k['max_abs_err']:.3g}, "
+            f"{k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, library "
+            f"{k['library_ms']}, bound {k['bound_ms']:.4f} by "
+            f"{k['bound_by']})")
+        kernels.append(k)
+
+    launches, stats = run_slice(dev)
+    log(f"slice: {json.dumps(stats)}")
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    order = ["name", "route", "source", "replaces", "launches",
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms"]
+    print(smi)
+    print(json.dumps({"kernels": [{key: k[key] for key in order}
+                                  for k in kernels],
+                      "slice": stats}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
