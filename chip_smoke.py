@@ -7,7 +7,8 @@
 2. builds the port's CUDA kernels from ``classpose_tpu_torch/csrc`` with
    nvcc (one process per source, in parallel) and prints the build time;
 3. holds each kernel against its plain PyTorch version on the card at the
-   shapes the main path gives it (attention: 25 crops × 16 heads × 1024
+   shapes the main paths give it (attention forward: 25 crops × 16 heads
+   × 1024 tokens, bf16; attention backward: 8 crops × 16 heads × 1024
    tokens, bf16; sampler, histogram and diffusion: 8 tiles of 1024²) and
    times kernel, plain version, a one-call PyTorch yardstick where there
    is one, and the least time the card could take (the bound);
@@ -17,7 +18,21 @@
    count reset just before and read just after; checks ~1k instances per
    tile, that every kernel was launched, and that the masks agree with a
    run of the same slice with the plain versions swapped in;
-5. prints one JSON line describing the kernels, then the last line
+5. runs the training slice at full ViT-L width in bf16 (``rdrop`` 0.4,
+   seeded random weights): synthetic disc images through
+   ``process_train_test`` (flow targets by the diffusion kernel) and
+   ``ClassposeTrainingDataset``, then ``train_class_seg`` for 3 epochs of
+   2 steps at batch 8, with every launch count reset just before and
+   read just after; checks the diffusion ran for the targets, finite
+   losses, moved parameters and ``depth`` launches of each attention
+   kernel per step; times one batch of augmentation and one save of the
+   final weights (the trainer's host work), the train step at batch 8
+   (median, imgs/s, peak memory, MFU), and traces one step; then takes
+   one step at batch 2
+   without layer-drop, checks that every attention parameter got a
+   finite non-zero gradient, and compares loss and gradients with the
+   same step with the plain versions swapped in;
+6. prints one JSON line describing the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the exit code is not 0 and the last line is not
@@ -31,6 +46,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -42,9 +58,14 @@ import classpose_tpu_torch.dynamics.masks as port_masks
 import classpose_tpu_torch.nn.vit_sam as port_vit
 from classpose_tpu_torch import _build
 from classpose_tpu_torch.nn.attention import (
+    _fwd_kernel,
     attention_relpos,
+    attention_relpos_bwd,
+    attention_relpos_bwd_plain,
     attention_relpos_plain,
+    attention_relpos_plain_route,
 )
+from classpose_tpu_torch.nn.convert import save_params
 from classpose_tpu_torch.nn.synthetic import PERIOD, RADIUS, structured_params
 from classpose_tpu_torch.nn.vit_sam import ClassTransformerConfig
 from classpose_tpu_torch.ops.diffusion import (
@@ -58,6 +79,13 @@ from classpose_tpu_torch.ops.sample import (
     landing_histogram_plain,
 )
 from classpose_tpu_torch.runner import ClassposeModel
+from classpose_tpu_torch.train.dataset import ClassposeTrainingDataset
+from classpose_tpu_torch.train.train import (
+    make_optimizer,
+    make_train_step,
+    train_class_seg,
+)
+from classpose_tpu_torch.train.train_utils import process_train_test
 
 # published H100 SXM peaks (dense): bf16 tensor cores, fp32 outside them,
 # HBM bandwidth
@@ -67,6 +95,11 @@ PEAK_BYTES = 3.35e12
 
 SEED = 0
 N_TILES, TILE = 8, 1024
+# kernels of the eval_batch path (phase 4); the attention backward runs in
+# training only (phase 5)
+EVAL_KERNELS = ("attention_fwd", "bilinear_sample", "landing_histogram",
+                "masked_diffusion")
+TRAIN_BATCH, TRAIN_IMAGES, TRAIN_SIZE = 8, 16, 512
 
 
 def log(msg: str) -> None:
@@ -145,6 +178,64 @@ def check_attention(gen, dev) -> dict:
             lambda: attention_relpos_plain(qkv, rel, scale, (G, G), n), 3),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, scale=scale)),
+        bound_ms=b, bound_by=by,
+    )
+
+
+def check_attention_bwd(gen, dev) -> dict:
+    B, n, L, hd, G = TRAIN_BATCH, 16, 1024, 64, 32
+    qkv = torch.randn(B, L, 3 * n * hd, generator=gen, device=dev).to(
+        torch.bfloat16)
+    rel = torch.randn(B, L, n, 2 * G, generator=gen, device=dev).to(
+        torch.bfloat16)
+    dout = torch.randn(B, L, n * hd, generator=gen, device=dev).to(
+        torch.bfloat16)
+    scale = hd ** -0.5
+    _, lse, out32 = _fwd_kernel(qkv, rel, scale, (G, G), n, True)
+
+    def kernel():
+        return attention_relpos_bwd(qkv, rel, out32, lse, dout, scale,
+                                    (G, G), n)
+
+    got = kernel()
+    ref = attention_relpos_bwd_plain(qkv, rel, dout, scale, (G, G), n)
+    torch.cuda.synchronize()
+    # bf16 outputs of bf16 products with fp32 sums: the kernel rounds p
+    # and ds to bf16 before the products (as the TPU kernel does), the
+    # plain version keeps them fp32; both round the result to bf16
+    errs = []
+    for a, r in zip(got, ref):
+        a, r = a.float(), r.float()
+        err = (a - r).abs()
+        if not bool((err <= 2e-2 * r.abs().max() + 2e-2 * r.abs()).all()):
+            raise AssertionError(f"attention bwd max|Δ| {float(err.max())} "
+                                 f"of max|ref| {float(r.abs().max())}")
+        errs.append(float(err.max()))
+    # yardstick: SDPA's backward with a materialized bias that requires
+    # grad, with respect to q, k, v and the two bias terms
+    q, k, v = (qkv[..., i * n * hd:(i + 1) * n * hd].reshape(B, L, n, hd)
+               .transpose(1, 2).contiguous().requires_grad_()
+               for i in range(3))
+    rh = rel[..., :G].transpose(1, 2).contiguous().requires_grad_()
+    rw = rel[..., G:].transpose(1, 2).contiguous().requires_grad_()
+    mask = (rh[..., :, None] + rw[..., None, :]).reshape(B, n, L, L)
+    o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
+    do = dout.reshape(B, L, n, hd).transpose(1, 2)
+    # read qkv, rel, dout (bf16), out32, lse (f32); write dqkv, drel (bf16)
+    nbytes = (2 * (qkv.numel() + rel.numel() + dout.numel())
+              + 4 * (out32.numel() + lse.numel())
+              + 2 * (qkv.numel() + rel.numel()))
+    b, by = bound_ms(nbytes, 10.0 * B * n * L * L * hd, PEAK_BF16)
+    return dict(
+        name="attention_bwd", route="cuda",
+        source="classpose_tpu_torch/csrc/attention_bwd.cu",
+        replaces="classpose_tpu/nn/attention.py:540",
+        max_abs_err=max(errs),
+        ms=time_ms(kernel),
+        plain_ms=time_ms(lambda: attention_relpos_bwd_plain(
+            qkv, rel, dout, scale, (G, G), n), 3),
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            o, (q, k, v, rh, rw), do, retain_graph=True)),
         bound_ms=b, bound_by=by,
     )
 
@@ -302,13 +393,14 @@ def compare_slices(run, ref) -> float:
 
 
 def plain_versions():
-    """Swap the plain versions in where the slice calls the kernels."""
+    """Swap the plain versions in where the slices call the kernels (the
+    attention through its differentiable plain route)."""
     saved = (port_masks.bilinear_sample, port_masks.landing_histogram,
              port_flows.masked_diffusion, port_vit.attention_relpos)
     port_masks.bilinear_sample = bilinear_sample_plain
     port_masks.landing_histogram = landing_histogram_plain
     port_flows.masked_diffusion = masked_diffusion_plain
-    port_vit.attention_relpos = attention_relpos_plain
+    port_vit.attention_relpos = attention_relpos_plain_route
 
     def restore():
         (port_masks.bilinear_sample, port_masks.landing_histogram,
@@ -317,28 +409,40 @@ def plain_versions():
     return restore
 
 
-def profile_slice(model, tiles, kw) -> dict:
-    """Where one batch's time goes: the device program's wall (synced)
-    against the whole call's, and the device time by kernel from a
-    torch.profiler trace of one more call."""
+def kernel_class(name: str) -> str:
+    """Coarse class of a device kernel, by its name."""
+    n = name.lower()
+    for cls, marks in (("attention kernels", ("attn_",)),
+                       ("convolution", ("conv", "cudnn", "fprop", "dgrad",
+                                        "wgrad")),
+                       ("matmul", ("nvjet", "gemm", "cutlass", "xmma")),
+                       ("optimizer", ("multi_tensor", "foreach")),
+                       ("reductions", ("reduce", "norm")),
+                       ("memcpy/memset", ("memcpy", "memset")),
+                       ("elementwise", ("elementwise", "functor", "copy"))):
+        if any(m in n for m in marks):
+            return cls
+    return "other"
+
+
+def traced(fn) -> dict:
+    """Run ``fn()`` once under torch.profiler: its wall (synced), the
+    device's busy time and idle share, and the device time by kernel and
+    by class of kernel."""
     from torch.profiler import ProfilerActivity, profile
 
-    x = torch.as_tensor(tiles).to(model.device)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    model._device_program(x, kw["batch_size"], False, kw["niter"], 0.4, 0.0,
-                          0.4)
-    torch.cuda.synchronize()
-    device_program_s = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.eval_batch(tiles, **kw)
+        fn()
         torch.cuda.synchronize()
         traced_wall_s = time.perf_counter() - t0
     rows = []  # device-side kernel and memcpy events only
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # a record_function range (the optimizer's step) shows on the
+        # device timeline too; its kernels are counted on their own
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or getattr(e, "is_user_annotation", False):
             continue
         t = getattr(e, "self_device_time_total", None)
         if t is None:
@@ -347,13 +451,31 @@ def profile_slice(model, tiles, kw) -> dict:
             rows.append((t / 1e3, e.key, e.count))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
+    by_class: dict[str, float] = {}
+    for t, k, _ in rows:
+        by_class[kernel_class(k)] = by_class.get(kernel_class(k), 0.0) + t
     return dict(
-        device_program_s=device_program_s, traced_wall_s=traced_wall_s,
-        device_busy_ms=device_ms,
+        traced_wall_s=traced_wall_s, device_busy_ms=device_ms,
         device_idle_share=1.0 - device_ms / (traced_wall_s * 1e3),
+        by_class_ms=dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
         top_kernels=[dict(name=k[:80], ms=t, calls=c)
                      for t, k, c in rows[:12]],
     )
+
+
+def profile_slice(model, tiles, kw) -> dict:
+    """Where one batch's time goes: the device program's wall (synced)
+    against the whole call's, and the device time by kernel from a
+    torch.profiler trace of one more call."""
+    x = torch.as_tensor(tiles).to(model.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model._device_program(x, kw["batch_size"], False, kw["niter"], 0.4, 0.0,
+                          0.4)
+    torch.cuda.synchronize()
+    device_program_s = time.perf_counter() - t0
+    return dict(device_program_s=device_program_s,
+                **traced(lambda: model.eval_batch(tiles, **kw)))
 
 
 def run_slice(dev) -> tuple[dict, dict]:
@@ -377,7 +499,7 @@ def run_slice(dev) -> tuple[dict, dict]:
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     log(f"main path launches: {launches}")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in EVAL_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
@@ -410,6 +532,206 @@ def run_slice(dev) -> tuple[dict, dict]:
     return launches, stats
 
 
+# ---------------------------------------------------------------- phase 5
+
+def disc_images(rng, n_images: int, size: int, n_discs: int,
+                n_classes: int):
+    """Synthetic training data: ~``n_discs`` non-overlapping discs per
+    image in classes 1..n_classes−1, each class darkening the three
+    channels by its own amounts over a noisy background. Returns images
+    (3, S, S) float32 and labels (2, S, S) [instance, class]."""
+    yy, xx = np.mgrid[:size, :size]
+    shade = rng.uniform(20, 90, size=(n_classes, 3))
+    images, labels = [], []
+    for _ in range(n_images):
+        inst = np.zeros((size, size), np.float32)
+        cls = np.zeros((size, size), np.float32)
+        k = 0
+        for _ in range(n_discs):
+            r = int(rng.integers(8, 15))
+            cy, cx = (int(v) for v in rng.integers(r, size - r, 2))
+            win = (slice(cy - r, cy + r + 1), slice(cx - r, cx + r + 1))
+            m = (((yy[win] - cy) ** 2 + (xx[win] - cx) ** 2 <= r * r)
+                 & (inst[win] == 0))
+            if m.sum() < 20:
+                continue
+            k += 1
+            inst[win][m] = k
+            cls[win][m] = rng.integers(1, n_classes)
+        img = 200 + rng.normal(0, 8, (3, size, size))
+        img -= shade[cls.astype(np.int64)].transpose(2, 0, 1) * (inst > 0)
+        images.append(img.astype(np.float32))
+        labels.append(np.stack([inst, cls]))
+    return images, labels
+
+
+def vit_train_flops_per_image(cfg) -> float:
+    """3 × the forward's matmul FLOPs for one bsize² crop (the MFU
+    convention of tools/bench_train.py, whose count this repeats)."""
+    L = cfg.tokens_hw ** 2
+    E, ps, D = cfg.embed_dim, cfg.ps, cfg.neck_dim
+    per_tok = 3 * E * E * 2 + E * E * 2 + 2 * E * E * cfg.mlp_ratio * 2
+    attn = 2 * L * L * E * 2
+    blocks = cfg.depth * (L * per_tok + attn)
+    patch = L * (3 * ps * ps) * E * 2
+    neck = L * (E * D + 9 * D * D) * 2
+    heads = L * D * (3 + cfg.n_cell_classes) * ps * ps * 2
+    return 3.0 * (blocks + patch + neck + heads)
+
+
+def attention_grads_ok(grads: dict, depth: int) -> int:
+    """Every attention parameter of every block has a finite gradient of
+    non-zero norm (the kernels' backward reached it); returns how many
+    were checked."""
+    keys = [k for k in grads if ".attn." in k]
+    if len(keys) != 6 * depth:
+        raise AssertionError(f"{len(keys)} attention parameters")
+    for k in keys:
+        g = grads[k]
+        if not bool(torch.isfinite(g).all()) or float(g.norm()) == 0.0:
+            raise AssertionError(f"{k}: gradient not finite or zero")
+    return len(keys)
+
+
+def step_grads(net, X, lbl, cw, n_classes):
+    """One train step at learning rate 0 without layer-drop: (total loss,
+    every parameter's gradient); the parameters do not move."""
+    lv = torch.zeros(3, device=X.device)
+    opt = make_optimizer(net, lv, 0.1, None, True)
+    step = make_train_step(net, opt, lv, np.zeros(1), n_classes,
+                           use_uncertainty_weighting=True,
+                           class_weights=cw, rdrop=False)
+    total = float(step(X, lbl)["total"])
+    return total, {k: p.grad.detach().float().clone()
+                   for k, p in net.named_parameters()}
+
+
+def run_training(dev, out_dir: str) -> tuple[dict, dict]:
+    cfg = ClassTransformerConfig(n_cell_classes=6, dtype="bfloat16")
+    rng = np.random.default_rng(SEED)
+    images, labels = disc_images(rng, TRAIN_IMAGES, TRAIN_SIZE, 60,
+                                 cfg.n_cell_classes)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    tr_d, tr_l, tr_diam, *_ = process_train_test(images, labels, device=dev)
+    targets_s = time.perf_counter() - t0
+    target_launches = _build.LAUNCHES["masked_diffusion"]
+    if target_launches == 0 or len(tr_d) != TRAIN_IMAGES:
+        raise AssertionError(f"targets: {len(tr_d)} images, "
+                             f"{target_launches} diffusion launches")
+    ds = ClassposeTrainingDataset(np.stack(tr_d), np.stack(tr_l),
+                                  diameter_array=tr_diam, bsize=cfg.bsize,
+                                  seed=SEED)
+    cw = ds.class_weights
+    model = ClassposeModel(cfg=cfg, precision="bf16", device=dev, seed=SEED)
+    net = model.net
+    watched = {k: p.detach().clone() for k, p in net.named_parameters()
+               if ".attn." in k or k.startswith(("out.", "out_class."))}
+
+    # the trainer: 3 epochs of 2 steps, epoch 0 at lr 0 by the schedule
+    n_epochs, steps = 3, 3 * (TRAIN_IMAGES // TRAIN_BATCH)
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path, train_losses, _ = train_class_seg(
+        model, ds, batch_size=TRAIN_BATCH, n_epochs=n_epochs,
+        learning_rate=1e-4, save_path=out_dir, model_name="smoke",
+        class_weights=cw, use_uncertainty_weighting=True,
+        random_seed=SEED)
+    torch.cuda.synchronize()
+    trainer_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    log(f"training launches: {launches}")
+    for k in ("attention_fwd", "attention_bwd"):
+        if launches[k] != cfg.depth * steps:
+            raise AssertionError(f"{k}: {launches[k]} launches, expected "
+                                 f"{cfg.depth} per step × {steps} steps")
+    if not np.isfinite(train_losses).all():
+        raise AssertionError(f"train losses {train_losses}")
+    params = dict(net.named_parameters())
+    still = [k for k, v in watched.items() if torch.equal(v, params[k])]
+    if still:
+        raise AssertionError(f"{len(still)} parameters did not move: "
+                             f"{still[:4]}")
+    del watched
+
+    # the trainer's host work besides its steps: one batch through the
+    # augmentation, and one save of the final weights
+    t0 = time.perf_counter()
+    items = [ds[i] for i in range(TRAIN_BATCH)]
+    batch_load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    save_params(net.state_dict(), f"{out_dir}/again.npz", cfg)
+    save_npz_s = time.perf_counter() - t0
+
+    # the step alone at batch 8: median wall, peak memory, MFU, a trace
+    X = torch.from_numpy(np.stack([x for x, _ in items])).to(dev)
+    lbl = torch.from_numpy(np.stack([y for _, y in items])).to(dev)
+    lv = torch.zeros(3, device=dev)
+    opt = make_optimizer(net, lv, 0.1, None, True)
+    step = make_train_step(
+        net, opt, lv, np.full(1, 1e-5), cfg.n_cell_classes,
+        use_uncertainty_weighting=True, class_weights=cw, rdrop=True,
+        generator=torch.Generator(device=dev).manual_seed(SEED))
+    step(X, lbl)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    times = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        metrics = step(X, lbl)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_launches = {k: v / len(times) for k, v in _build.LAUNCHES.items()}
+    if not all(np.isfinite(float(v)) for v in metrics.values()):
+        raise AssertionError(f"step metrics {metrics}")
+    step_s = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    mfu = vit_train_flops_per_image(cfg) * TRAIN_BATCH / step_s / PEAK_BF16
+    breakdown = traced(lambda: step(X, lbl))
+    log(f"train step breakdown: {json.dumps(breakdown)}")
+    del opt, step
+
+    # one step at batch 2 without layer-drop (which may drop a block for
+    # every sample), kernels against the plain versions, from the same
+    # state and batch
+    X2, lbl2 = X[:2].contiguous(), lbl[:2].contiguous()
+    total, grads = step_grads(net, X2, lbl2, cw, cfg.n_cell_classes)
+    n_attn = attention_grads_ok(grads, cfg.depth)
+    restore = plain_versions()
+    try:
+        total_ref, grads_ref = step_grads(net, X2, lbl2, cw,
+                                          cfg.n_cell_classes)
+    finally:
+        restore()
+    # bf16 network, attention rounded differently in the two routes
+    if abs(total - total_ref) > 1e-2 * abs(total_ref):
+        raise AssertionError(f"step loss {total} vs plain {total_ref}")
+    cos = {k: float(F.cosine_similarity(grads[k].flatten(),
+                                        grads_ref[k].flatten(), 0))
+           for k in grads}
+    worst = min(cos, key=cos.get)
+    if cos[worst] < 0.99:
+        raise AssertionError(f"gradient of {worst}: cosine {cos[worst]} "
+                             f"to the plain route's")
+    del grads, grads_ref
+    stats = dict(
+        targets_s=targets_s, target_diffusion_launches=target_launches,
+        trainer_s=trainer_s, batch_load_s=batch_load_s,
+        save_npz_s=save_npz_s, train_losses=train_losses.tolist(),
+        final_weights=path.split("/")[-1],
+        attention_params_checked=n_attn,
+        step_batch=TRAIN_BATCH, step_ms_median=step_s * 1e3,
+        step_ms_all=[t * 1e3 for t in times], imgs_per_s=TRAIN_BATCH / step_s,
+        peak_mem_gib=peak, mfu_3x_fwd=mfu, launches_per_step=step_launches,
+        plain_check_loss=[total, total_ref],
+        plain_check_min_cosine=[worst, cos[worst]],
+        breakdown=breakdown,
+    )
+    return launches, stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -429,6 +751,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     kernels = []
     for check in (lambda: check_attention(gen, dev),
+                  lambda: check_attention_bwd(gen, dev),
                   lambda: check_sampler(gen, dev),
                   lambda: check_histogram(gen, dev),
                   lambda: check_diffusion(dev)):
@@ -442,15 +765,21 @@ def main() -> int:
 
     launches, stats = run_slice(dev)
     log(f"slice: {json.dumps(stats)}")
+    with tempfile.TemporaryDirectory() as out_dir:
+        train_launches, train_stats = run_training(dev, out_dir)
+    log(f"training: {json.dumps(train_stats)}")
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        # each kernel's count from the phase whose path runs it: the
+        # eval slice, or training for the attention backward
+        k["launches"] = (launches[k["name"]] if k["name"] in EVAL_KERNELS
+                         else train_launches[k["name"]])
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms"]
     print(smi)
     print(json.dumps({"kernels": [{key: k[key] for key in order}
                                   for k in kernels],
-                      "slice": stats}))
+                      "slice": stats, "training": train_stats}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

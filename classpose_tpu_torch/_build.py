@@ -1,7 +1,8 @@
 """Build and bind the port's hand-written CUDA kernels.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
-``nvcc`` into its own shared library under ``classpose_tpu_torch/_build/``
+``nvcc`` (with the shared ``csrc/*.cuh`` headers, which are part of the
+cache key) into its own shared library under ``classpose_tpu_torch/_build/``
 on first use (one ``nvcc`` per source, all started together), then loaded
 with ``ctypes``. Every pointer and the CUDA stream cross the boundary as
 ``c_void_p``; each C entry point returns ``cudaGetLastError()`` and
@@ -33,6 +34,7 @@ NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 # plain versions bitwise, so no multiply-add contraction there
 SOURCES = {
     "attention": [],
+    "attention_bwd": [],
     "sample": ["-fmad=false"],
     "diffusion": ["-fmad=false"],
 }
@@ -40,6 +42,7 @@ SOURCES = {
 # kernel name -> launch count (see module docstring)
 LAUNCHES = {
     "attention_fwd": 0,
+    "attention_bwd": 0,
     "bilinear_sample": 0,
     "landing_histogram": 0,
     "masked_diffusion": 0,
@@ -53,7 +56,11 @@ I = ctypes.c_int
 
 # C signatures: name -> (library, argtypes)
 _SIGNATURES = {
-    "attn_fwd_bf16": ("attention", [P, P, P, I, I, I, I, I, ctypes.c_float, P]),
+    "attn_fwd_bf16": ("attention",
+                      [P, P, P, P, P, I, I, I, I, I, ctypes.c_float, P]),
+    "attn_bwd_bf16": ("attention_bwd",
+                      [P, P, P, P, P, P, P, P, I, I, I, I, I, ctypes.c_float,
+                       P]),
     "bilinear_sample_f32": ("sample", [P, P, P, P, I, I, I, I, P]),
     "landing_histogram_f32": ("sample", [P, P, P, P, I, I, I, P]),
     "diffusion_pack_nbr": ("diffusion", [P, P, P, P, I, I, I, P]),
@@ -79,7 +86,8 @@ def _cmd(name: str, out: Path) -> list[str]:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     flags = " ".join(_cmd(name, Path("x"))[1:-3]).encode()
     h = hashlib.sha1(src + flags).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{h}.so"

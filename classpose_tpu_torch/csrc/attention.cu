@@ -28,79 +28,30 @@
 // q.k*scale + rel_h[j/W] + rel_w[j%W] with no per-logit bias loads. The
 // one-hot key columns are built in registers. hd = 64 makes scale = 1/8 a
 // power of two, so q*scale is exact in bf16. wgmma and TMA are later work.
+//
+// For training the kernel also writes, for the backward
+// (attention_bwd.cu), each row's log-sum-exp m + log(l) (f32, (B, n, L)),
+// from which it recomputes the normalized probabilities, and the output
+// before its bf16 rounding (f32, (B, L, n*64)), from which it takes
+// delta_i = do_i . o_i. A delta from the bf16 output would carry one
+// rounding error, the same for every key of the row, into every ds_ij,
+// and the bias gradients (partial sums of rows of ds that sum to zero)
+// would lose most of their precision. With null pointers nothing else
+// changes.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "mma.cuh"
 
 namespace {
 
-constexpr int HD = 64;        // head dim (asserted by the wrapper)
-constexpr int BQ = 64;        // query rows per CTA, 16 per warp
-constexpr int BK = 64;        // keys per inner block
-constexpr int NWARP = 4;
-constexpr int KP = HD + 8;    // K/V smem row pitch (bf16): 144 B, no conflicts
-
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t a) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t a) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// one-hot pair for key columns c, c+1 of the bias part of the extended key
-__device__ __forceinline__ uint32_t onehot_pair(int c, int hc, int wc) {
-  uint32_t lo = (c == hc || c == wc) ? 0x3F80u : 0u;          // bf16 1.0
-  uint32_t hi = (c + 1 == hc || c + 1 == wc) ? 0x3F80u : 0u;
-  return lo | (hi << 16);
-}
+using namespace attn;
 
 template <int R>  // R = H + W, a multiple of 16
 __global__ void __launch_bounds__(NWARP * 32)
 attn_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
                 const __nv_bfloat16* __restrict__ rel,
-                __nv_bfloat16* __restrict__ out, int L, int n, int gh,
-                int gw, float scale) {
+                __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                float* __restrict__ out32, int L, int n, int gh, int gw,
+                float scale) {
   constexpr int KX = HD + R;       // extended product depth
   constexpr int QP = KX + 8;       // extended-query smem pitch (bf16)
   constexpr int NKS = KX / 16;     // k-steps of the first product
@@ -265,12 +216,22 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
       *reinterpret_cast<__nv_bfloat162*>(&orow[nt * 8 + 2 * tig]) =
           __floats2bfloat162_rn(o[nt][2 * r2] * inv,
                                 o[nt][2 * r2 + 1] * inv);
+    if (lse != nullptr && tig == 0)
+      lse[((int64_t)b * n + h) * L + row] = m_run[r2] + logf(l_run[r2]);
+    if (out32 != nullptr) {
+      float* frow = out32 + ((int64_t)b * L + row) * n * HD + h * HD;
+#pragma unroll
+      for (int nt = 0; nt < HD / 8; ++nt)
+        *reinterpret_cast<float2*>(&frow[nt * 8 + 2 * tig]) =
+            make_float2(o[nt][2 * r2] * inv, o[nt][2 * r2 + 1] * inv);
+    }
   }
 }
 
 template <int R>
-int launch(const void* qkv, const void* rel, void* out, int B, int L, int n,
-           int gh, int gw, float scale, cudaStream_t stream) {
+int launch(const void* qkv, const void* rel, void* out, void* lse,
+           void* out32, int B, int L, int n, int gh, int gw, float scale,
+           cudaStream_t stream) {
   const size_t smem = (size_t)BQ * (HD + R + 8) * 2 + 4ull * BK * KP * 2;
   cudaFuncSetAttribute(attn_fwd_kernel<R>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -279,22 +240,28 @@ int launch(const void* qkv, const void* rel, void* out, int B, int L, int n,
   attn_fwd_kernel<R><<<grid, NWARP * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(qkv),
       static_cast<const __nv_bfloat16*>(rel),
-      static_cast<__nv_bfloat16*>(out), L, n, gh, gw, scale);
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse),
+      static_cast<float*>(out32), L, n, gh, gw, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // qkv (B, L, 3*n*64), rel (B, L, n, gh+gw), out (B, L, n*64), all bf16;
-// L % 64 == 0 and gh + gw in {16, 32, 64}.
+// lse (B, n, L) and out32 (B, L, n*64) f32, or null; L % 64 == 0 and
+// gh + gw in {16, 32, 64}.
 extern "C" int attn_fwd_bf16(const void* qkv, const void* rel, void* out,
-                             int B, int L, int n, int gh, int gw,
-                             float scale, void* stream) {
+                             void* lse, void* out32, int B, int L, int n,
+                             int gh, int gw, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (gh + gw) {
-    case 16: return launch<16>(qkv, rel, out, B, L, n, gh, gw, scale, s);
-    case 32: return launch<32>(qkv, rel, out, B, L, n, gh, gw, scale, s);
-    case 64: return launch<64>(qkv, rel, out, B, L, n, gh, gw, scale, s);
-    default: return (int)cudaErrorInvalidValue;
+    case 16:
+      return launch<16>(qkv, rel, out, lse, out32, B, L, n, gh, gw, scale, s);
+    case 32:
+      return launch<32>(qkv, rel, out, lse, out32, B, L, n, gh, gw, scale, s);
+    case 64:
+      return launch<64>(qkv, rel, out, lse, out32, B, L, n, gh, gw, scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
 }

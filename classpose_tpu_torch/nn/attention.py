@@ -1,14 +1,21 @@
-"""Attention with the SAM decomposed relative-position bias (CUDA kernel +
-plain PyTorch version).
+"""Attention with the SAM decomposed relative-position bias (CUDA kernels +
+plain PyTorch versions), differentiable.
 
 Counterpart of ``classpose_tpu/nn/attention.py`` ``flash_attention_relpos_blc``
-in its production layout: qkv (B, L, 3·n·hd) exactly as the qkv projection
-emits it, the bias projection rel (B, L, n, H+W) with ``rel[..., :H]`` the
-row term and ``rel[..., H:]`` the column term. The kernel
-(``csrc/attention.cu``) is bf16 only, as the TPU kernel was.
+and its ``custom_vjp`` (``_attn_core``) in the production layout: qkv
+(B, L, 3·n·hd) exactly as the qkv projection emits it, the bias projection
+rel (B, L, n, H+W) with ``rel[..., :H]`` the row term and ``rel[..., H:]``
+the column term. The forward kernel (``csrc/attention.cu``) and the
+backward kernel (``csrc/attention_bwd.cu``) are bf16 only, as the TPU
+kernels were.
 
-A wrapper runs the plain version only for tensors on the CPU. A CUDA
-tensor launches the kernel or raises.
+:func:`attention_relpos` is differentiable through :class:`AttentionRelPos`:
+for a CUDA tensor its forward is the forward kernel (which then also
+writes the per-row log-sum-exp and an f32 copy of its output) and its
+backward the backward kernel; for a CPU tensor the plain forward and
+:func:`attention_relpos_bwd_plain`. Without a gradient to compute it
+calls the forward alone and writes neither. A CUDA tensor launches the
+kernels or raises.
 """
 
 from __future__ import annotations
@@ -43,13 +50,26 @@ def attention_relpos_plain(qkv: torch.Tensor, rel: torch.Tensor,
     return out.transpose(1, 2).reshape(B, L, n * hd)
 
 
-def attention_relpos(qkv: torch.Tensor, rel: torch.Tensor, scale: float,
-                     grid_hw: tuple[int, int], num_heads: int
-                     ) -> torch.Tensor:
-    """softmax(q·kᵀ·scale + rel_h[i, j//W] + rel_w[i, j%W]) @ v per head.
-    qkv (B, L, 3·n·hd), rel (B, L, n, H+W) → (B, L, n·hd)."""
+def attention_relpos_bwd_plain(qkv: torch.Tensor, rel: torch.Tensor,
+                               dout: torch.Tensor, scale: float,
+                               grid_hw: tuple[int, int], num_heads: int
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The vjp of :func:`attention_relpos_plain` in fp32 math (the
+    counterpart of ``_attn_bwd_pallas``): dout (B, L, n·hd) → (dqkv in
+    qkv's layout and dtype, drel in rel's layout and dtype)."""
+    hd = _check(qkv, rel, grid_hw, num_heads)
+    if dout.shape != (*qkv.shape[:2], num_heads * hd):
+        raise ValueError(f"bad shape dout {tuple(dout.shape)}")
+    with torch.enable_grad():
+        a = qkv.detach().float().requires_grad_()
+        r = rel.detach().float().requires_grad_()
+        out = attention_relpos_plain(a, r, scale, grid_hw, num_heads)
+        da, dr = torch.autograd.grad(out, (a, r), dout.float())
+    return da.to(qkv.dtype), dr.to(rel.dtype)
+
+
+def _check(qkv: torch.Tensor, rel: torch.Tensor, grid_hw, n: int) -> int:
     B, L, C3 = qkv.shape
-    n = num_heads
     H, W = grid_hw
     hd = C3 // (3 * n)
     if C3 != 3 * n * hd or L != H * W or rel.shape != (B, L, n, H + W):
@@ -57,10 +77,13 @@ def attention_relpos(qkv: torch.Tensor, rel: torch.Tensor, scale: float,
                          f"rel {tuple(rel.shape)}, grid {grid_hw}, n={n}")
     if rel.device != qkv.device or rel.dtype != qkv.dtype:
         raise ValueError("qkv and rel must share device and dtype")
-    if qkv.device.type == "cpu":
-        return attention_relpos_plain(qkv, rel, scale, grid_hw, n)
-    if qkv.device.type != "cuda":
+    if qkv.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {qkv.device}")
+    return hd
+
+
+def _check_kernel(qkv: torch.Tensor, rel: torch.Tensor, hd: int, L: int,
+                  H: int, W: int) -> None:
     if qkv.dtype != torch.bfloat16:
         raise TypeError(f"kernel takes bf16, got {qkv.dtype}")
     if hd != 64 or L % 64 or H + W not in (16, 32, 64):
@@ -68,14 +91,144 @@ def attention_relpos(qkv: torch.Tensor, rel: torch.Tensor, scale: float,
                          f"64): hd={hd}, L={L}, H+W={H + W}")
     if not (qkv.is_contiguous() and rel.is_contiguous()):
         raise ValueError("qkv and rel must be contiguous")
+
+
+def _fwd_kernel(qkv: torch.Tensor, rel: torch.Tensor, scale: float,
+                grid_hw: tuple[int, int], n: int, for_backward: bool):
+    """Launch the forward kernel → (out, lse, out32): with
+    ``for_backward`` also the per-row log-sum-exp (B, n, L) and the
+    output before its bf16 rounding (B, L, n·hd), both f32, which the
+    backward kernel takes; else those two are None."""
+    B, L, C3 = qkv.shape
+    H, W = grid_hw
+    hd = C3 // (3 * n)
+    _check_kernel(qkv, rel, hd, L, H, W)
     out = torch.empty((B, L, n * hd), dtype=qkv.dtype, device=qkv.device)
+    lse = out32 = None
+    if for_backward:
+        lse = torch.empty((B, n, L), dtype=torch.float32, device=qkv.device)
+        out32 = torch.empty((B, L, n * hd), dtype=torch.float32,
+                            device=qkv.device)
     lib = _build.lib("attention")
     _build.check(
         lib.attn_fwd_bf16(
-            qkv.data_ptr(), rel.data_ptr(), out.data_ptr(), B, L, n, H, W,
+            qkv.data_ptr(), rel.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
+            None if out32 is None else out32.data_ptr(), B, L, n, H, W,
             float(scale), _build.stream_ptr(qkv.device),
         ),
         "attn_fwd_bf16",
     )
     _build.LAUNCHES["attention_fwd"] += 1
-    return out
+    return out, lse, out32
+
+
+def attention_relpos_bwd(qkv: torch.Tensor, rel: torch.Tensor,
+                         out32: torch.Tensor, lse: torch.Tensor,
+                         dout: torch.Tensor, scale: float,
+                         grid_hw: tuple[int, int], num_heads: int
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Backward kernel: the forward's operands, its f32 output and
+    log-sum-exp (:func:`_fwd_kernel` with ``for_backward``) plus the
+    output cotangent → (dqkv, drel) in qkv's and rel's layouts. Its
+    blocking (64-row blocks, one grid row group per key block) needs a
+    square grid of side 8, 16 or 32 with L a multiple of 64, checked
+    here; the TPU backward never checked its head-pair blocking (an odd
+    head count left heads unwritten), the port's blocks are per head."""
+    B, L, C3 = qkv.shape
+    n = num_heads
+    H, W = grid_hw
+    hd = _check(qkv, rel, grid_hw, n)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"the backward kernel runs on CUDA, not {qkv.device}")
+    _check_kernel(qkv, rel, hd, L, H, W)
+    if H != W or W not in (8, 16, 32):
+        raise ValueError(f"backward kernel needs a square grid of side 8, "
+                         f"16 or 32, got {grid_hw}")
+    if out32.shape != (B, L, n * hd) or dout.shape != out32.shape \
+            or lse.shape != (B, n, L):
+        raise ValueError(f"bad shapes out32 {tuple(out32.shape)}, dout "
+                         f"{tuple(dout.shape)}, lse {tuple(lse.shape)}")
+    if out32.dtype != torch.float32 or dout.dtype != qkv.dtype \
+            or lse.dtype != torch.float32:
+        raise TypeError(f"dtypes out32 {out32.dtype}, dout {dout.dtype}, "
+                        f"lse {lse.dtype}")
+    if not all(t.is_contiguous() and t.device == qkv.device
+               for t in (out32, dout, lse)):
+        raise ValueError("out32, dout and lse must be contiguous on qkv's "
+                         "device")
+    dqkv = torch.empty_like(qkv)
+    drel = torch.empty_like(rel)
+    delta = torch.empty((B, n, L), dtype=torch.float32, device=qkv.device)
+    lib = _build.lib("attention_bwd")
+    _build.check(
+        lib.attn_bwd_bf16(
+            qkv.data_ptr(), rel.data_ptr(), out32.data_ptr(),
+            dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(),
+            drel.data_ptr(), B, L, n, H, W, float(scale),
+            _build.stream_ptr(qkv.device),
+        ),
+        "attn_bwd_bf16",
+    )
+    _build.LAUNCHES["attention_bwd"] += 1
+    return dqkv, drel
+
+
+class AttentionRelPos(torch.autograd.Function):
+    """Kernel forward and backward for CUDA tensors; with ``plain`` set
+    (always for CPU tensors) the plain forward and
+    :func:`attention_relpos_bwd_plain` instead, through the same saved
+    tensors and layouts."""
+
+    @staticmethod
+    def forward(ctx, qkv, rel, scale, grid_hw, num_heads, plain):
+        if plain:
+            out = attention_relpos_plain(qkv, rel, scale, grid_hw, num_heads)
+            lse = out32 = None
+        else:
+            out, lse, out32 = _fwd_kernel(qkv, rel, scale, grid_hw,
+                                          num_heads, True)
+        ctx.save_for_backward(qkv, rel, out32, lse)
+        ctx.args = (scale, grid_hw, num_heads, plain)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, rel, out32, lse = ctx.saved_tensors
+        scale, grid_hw, n, plain = ctx.args
+        if plain:
+            dqkv, drel = attention_relpos_bwd_plain(qkv, rel, dout, scale,
+                                                    grid_hw, n)
+        else:
+            dqkv, drel = attention_relpos_bwd(qkv, rel, out32, lse,
+                                              dout.contiguous(), scale,
+                                              grid_hw, n)
+        return dqkv, drel, None, None, None, None
+
+
+def attention_relpos(qkv: torch.Tensor, rel: torch.Tensor, scale: float,
+                     grid_hw: tuple[int, int], num_heads: int
+                     ) -> torch.Tensor:
+    """softmax(q·kᵀ·scale + rel_h[i, j//W] + rel_w[i, j%W]) @ v per head.
+    qkv (B, L, 3·n·hd), rel (B, L, n, H+W) → (B, L, n·hd)."""
+    _check(qkv, rel, grid_hw, num_heads)
+    plain = qkv.device.type == "cpu"
+    if torch.is_grad_enabled() and (qkv.requires_grad or rel.requires_grad):
+        return AttentionRelPos.apply(qkv, rel, scale, tuple(grid_hw),
+                                     num_heads, plain)
+    if plain:
+        return attention_relpos_plain(qkv, rel, scale, grid_hw, num_heads)
+    return _fwd_kernel(qkv, rel, scale, grid_hw, num_heads, False)[0]
+
+
+def attention_relpos_plain_route(qkv: torch.Tensor, rel: torch.Tensor,
+                                 scale: float, grid_hw: tuple[int, int],
+                                 num_heads: int) -> torch.Tensor:
+    """:func:`attention_relpos` with the plain versions on any device (the
+    reference a run on the card is compared with)."""
+    _check(qkv, rel, grid_hw, num_heads)
+    if torch.is_grad_enabled() and (qkv.requires_grad or rel.requires_grad):
+        return AttentionRelPos.apply(qkv, rel, scale, tuple(grid_hw),
+                                     num_heads, True)
+    return attention_relpos_plain(qkv, rel, scale, grid_hw, num_heads)

@@ -14,10 +14,14 @@ port's ``state_dict``:
   PyTorch);
 - LayerNorm ``scale`` → ``weight``; ``blocks_3`` → ``blocks.3``;
 - everything else (biases, ``rel_pos_h/w``, ``pos_embed``) as it is.
+
+:func:`params_to_jax` is its exact inverse and :func:`save_params` writes
+the native ``.npz`` (with ``__meta__``) that the JAX package loads.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 _INDEXED = re.compile(r"^(blocks|encoder_blocks|decoder_blocks)_(\d+)$")
+_INDEXED_TORCH = re.compile(r"^(blocks|encoder_blocks|decoder_blocks)$")
 
 
 def flatten_tree(tree, prefix: str = "") -> dict[str, np.ndarray]:
@@ -88,6 +93,57 @@ def params_from_jax(tree_or_flat) -> dict[str, torch.Tensor]:
         sd[key] = torch.from_numpy(
             np.ascontiguousarray(val, dtype=np.float32))
     return sd
+
+
+def _jax_key_and_value(key: str, v: np.ndarray):
+    parts = key.split(".")
+    joined = []
+    for p in parts:
+        if p.isdigit() and joined and _INDEXED_TORCH.match(joined[-1]):
+            joined[-1] = f"{joined[-1]}_{p}"
+        else:
+            joined.append(p)
+    parts = joined
+    if parts[-1] == "weight":
+        if v.ndim == 1:
+            # flax LayerNorm "scale"; the neck's LayerNorm2d keeps "weight"
+            if not parts[-2].startswith("neck_ln"):
+                parts[-1] = "scale"
+        else:
+            parts[-1] = "kernel"
+            if v.ndim == 2:
+                v = v.T
+            elif v.ndim == 4 and "upconv" in parts:
+                v = np.transpose(v[:, :, ::-1, ::-1], (2, 3, 0, 1))
+            elif v.ndim == 4:
+                v = np.transpose(v, (2, 3, 1, 0))
+    return "/".join(["params", *parts]), v
+
+
+def params_to_jax(sd) -> dict[str, np.ndarray]:
+    """The port's ``state_dict`` → flat ``/``-keyed flax params
+    (``params/...``), fp32 numpy: the exact inverse of
+    :func:`params_from_jax`."""
+    flat = {}
+    for key, val in sd.items():
+        v = val.detach().to("cpu", torch.float32).numpy()
+        path, v = _jax_key_and_value(key, v)
+        flat[path] = np.ascontiguousarray(v)
+    return flat
+
+
+def save_params(sd, path: str, cfg=None) -> None:
+    """Write a port ``state_dict`` as the native ``.npz`` checkpoint; with
+    ``cfg`` (a ``ClassTransformerConfig``) its fields go into ``__meta__``
+    as JSON, as the JAX package's ``save_params`` writes them."""
+    flat = params_to_jax(sd)
+    if cfg is not None:
+        meta = dataclasses.asdict(cfg)
+        for k, v in list(meta.items()):
+            if isinstance(v, tuple):
+                meta[k] = list(v)
+        flat["__meta__"] = np.frombuffer(json.dumps(meta).encode(), np.uint8)
+    np.savez_compressed(path, **flat)
 
 
 def load_into(net: torch.nn.Module, sd: dict[str, torch.Tensor]) -> None:

@@ -1,12 +1,13 @@
 """ClassTransformer: the ViT-L SAM image encoder with flow-field and class
-heads, in PyTorch (counterpart of ``classpose_tpu/nn/vit_sam.py``, eval
-only: there is no layer-drop).
+heads, in PyTorch (counterpart of ``classpose_tpu/nn/vit_sam.py``).
 
 - patch embed: conv ps×ps stride ps on a bsize² crop, plus an absolute
   positional embedding;
 - ``depth`` pre-norm blocks of global attention with the SAM decomposed
   relative-position bias, built in the (B, L, n, H+W) layout the
-  attention kernel takes (the JAX package's "cat" formulation);
+  attention kernel takes (the JAX package's "cat" formulation); in
+  training, a per-sample layer-drop ramping from 0 to ``rdrop`` over
+  depth;
 - neck: 1×1 conv → LayerNorm2d → 3×3 conv → LayerNorm2d;
 - ``out`` head: 1×1 conv to nout·ps² channels and a pixel-shuffle readout;
 - ``out_class`` head (n_cell_classes > 1): 1×1 conv or a UNet.
@@ -14,8 +15,11 @@ only: there is no layer-drop).
 Tokens are NHWC, convolutions run NCHW. Precision follows the JAX
 package: fp32 parameters cast to the compute dtype at use, fp32
 LayerNorm statistics, exact-erf GELU on an fp32 upcast. In bf16 the
-attention goes through the CUDA kernel (``nn/attention.py``); at fp32
-through the plain version, as the JAX package takes XLA there.
+attention goes through the CUDA kernels (``nn/attention.py``, forward and
+backward); at fp32 on the card through the plain version under autograd,
+as the JAX package takes XLA there. On the CPU it always takes
+``attention_relpos``, whose plain route has the kernels' autograd
+plumbing.
 """
 
 from __future__ import annotations
@@ -36,21 +40,22 @@ from classpose_tpu_torch.nn.unet import UNet
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-# fields of the JAX config that checkpoint metadata carries but the port's
-# eval-only network has no use for: layer-drop rate, TPU kernel switch
-JAX_ONLY_FIELDS = ("rdrop", "use_pallas_attention")
+# field of the JAX config that checkpoint metadata carries but the port
+# has no use for: the TPU kernel switch
+JAX_ONLY_FIELDS = ("use_pallas_attention",)
 
 
 @dataclasses.dataclass(frozen=True)
 class ClassTransformerConfig:
     """Architecture hyperparameters (ViT-L SAM defaults used by cellpose);
-    the JAX package's config without its training-only ``rdrop`` and its
-    TPU kernel switch (see ``JAX_ONLY_FIELDS``)."""
+    the JAX package's config without its TPU kernel switch (see
+    ``JAX_ONLY_FIELDS``)."""
 
     backbone: str = "vit_l"
     ps: int = 8
     nout: int = 3
     bsize: int = 256
+    rdrop: float = 0.4  # layer-drop rate of the last block in training
     n_cell_classes: int = 1
     feature_transformation_structure: Sequence[int] | None = None
     embed_dim: int = 1024
@@ -126,7 +131,7 @@ class Attention(nn.Module):
                       dim=1)
         q_tok = qkv[..., :C].reshape(B, L, n, hd)
         rel = torch.einsum("blnc,lkc->blnk", q_tok, T).contiguous()
-        if x.dtype == torch.bfloat16:
+        if x.dtype == torch.bfloat16 or x.device.type == "cpu":
             out = attention_relpos(qkv.contiguous(), rel, scale, (H, W), n)
         else:
             out = attention_relpos_plain(qkv, rel, scale, (H, W), n)
@@ -182,6 +187,7 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
 class ImageEncoderViT(nn.Module):
     def __init__(self, cfg: ClassTransformerConfig):
         super().__init__()
+        self.cfg = cfg
         thw = cfg.tokens_hw
         E, D = cfg.embed_dim, cfg.neck_dim
         self.patch_embed = Conv2d(3, E, cfg.ps, stride=cfg.ps)
@@ -195,12 +201,32 @@ class ImageEncoderViT(nn.Module):
         self.neck_conv2 = Conv2d(D, D, 3, padding=1, bias=False)
         self.neck_ln2 = LayerNorm(D, fast_var=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, 3, h, w) NCHW → (B, thw, thw, neck_dim) NHWC."""
+    def forward(self, x: torch.Tensor, train: bool = False,
+                drop_mask: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """(B, 3, h, w) NCHW → (B, thw, thw, neck_dim) NHWC.
+
+        With ``train`` and ``rdrop > 0``, block i is dropped per sample
+        with probability ``linspace(0, rdrop, depth)[i]``: a (B, depth)
+        ``drop_mask`` (True = drop) or one drawn from ``generator``; with
+        neither, every block runs (as the JAX package without a key)."""
         x = _nhwc(self.patch_embed(x))
         x = x + self.pos_embed.to(x.dtype)
-        for blk in self.blocks:
-            x = blk(x)
+        cfg = self.cfg
+        if train and cfg.rdrop > 0 and (drop_mask is not None
+                                        or generator is not None):
+            if drop_mask is None:
+                gdev = generator.device
+                p = torch.linspace(0.0, cfg.rdrop, cfg.depth, device=gdev)
+                drop_mask = torch.rand((x.shape[0], cfg.depth),
+                                       generator=generator, device=gdev) < p
+            drop = drop_mask.to(device=x.device, dtype=x.dtype)
+            for i, blk in enumerate(self.blocks):
+                m = drop[:, i][:, None, None, None]
+                x = x * m + blk(x) * (1 - m)
+        else:
+            for blk in self.blocks:
+                x = blk(x)
         x = self.neck_ln1(_nhwc(self.neck_conv1(_nchw(x))))
         return self.neck_ln2(_nhwc(self.neck_conv2(_nchw(x))))
 
@@ -225,14 +251,18 @@ class ClassTransformer(nn.Module):
             else:
                 self.out_class = Conv2d(D, nc, 1)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, train: bool = False,
+                drop_mask: torch.Tensor | None = None,
+                generator: torch.Generator | None = None):
+        """``train``/``drop_mask``/``generator``: the layer-drop of
+        :meth:`ImageEncoderViT.forward`."""
         cfg = self.cfg
         dt = cfg.compute_dtype
         if dt == torch.float32:
             # fp32 contract: true fp32 products, no TF32 anywhere
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        feats = _nchw(self.encoder(x.to(dt)))
+        feats = _nchw(self.encoder(x.to(dt), train, drop_mask, generator))
         seg = pixel_shuffle(_nhwc(self.out(feats)), cfg.ps, cfg.nout)
         if cfg.n_cell_classes > 1:
             cls = pixel_shuffle(_nhwc(self.out_class(feats)), cfg.ps,

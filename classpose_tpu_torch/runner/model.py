@@ -68,17 +68,27 @@ class ClassposeModel:
 
     Weights: a native ``.npz`` checkpoint (the JAX package's format),
     ``params`` as a port ``state_dict`` or a flax parameter tree, or
-    neither for a random init from seed 0. ``cfg`` defaults to ViT-L
-    with one class; a checkpoint's metadata replaces it. Runs on ``device``
+    neither for PyTorch's default random init drawn from ``seed``. ``cfg``
+    defaults to ViT-L with ``nclasses`` classes and the class head
+    ``feature_transformation_structure`` (a UNet ladder, or None for a
+    1×1 conv); a checkpoint's metadata replaces it. Runs on ``device``
     (CUDA unless the caller asks for the CPU)."""
 
     def __init__(self, pretrained_model: str | None = None,
+                 nclasses: int | None = None,
+                 feature_transformation_structure=None,
                  precision: str = "fp32",
                  cfg: ClassTransformerConfig | None = None,
-                 params=None, device: str | torch.device = "cuda"):
+                 params=None, device: str | torch.device = "cuda",
+                 seed: int = 0):
         self.precision = precision
         dtype = resolve_precision(precision)
         self.device = torch.device(device)
+        if cfg is None:
+            fts = feature_transformation_structure
+            cfg = ClassTransformerConfig(
+                n_cell_classes=nclasses or 1,
+                feature_transformation_structure=tuple(fts) if fts else None)
         sd = None
         if pretrained_model is not None:
             logger.info("loading model %s", pretrained_model)
@@ -95,17 +105,15 @@ class ClassposeModel:
             sd = (params_from_jax(params)
                   if any(isinstance(v, dict) for v in params.values())
                   else params)
-        if cfg is None:
-            cfg = ClassTransformerConfig()
         self.cfg = ClassTransformerConfig(**{**cfg.__dict__, "dtype": dtype})
         self.nclasses = self.cfg.n_cell_classes
         with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(0)
+            torch.manual_seed(seed)
             self.net = ClassTransformer(self.cfg)
         if sd is not None:
             load_into(self.net, sd)
         else:
-            logger.warning("no weights given: random init from seed 0")
+            logger.warning("no weights given: random init from seed %d", seed)
         self.net.to(self.device).eval()
 
     @torch.no_grad()

@@ -20,7 +20,9 @@ def _forbidden(name: str) -> bool:
 def test_port_modules_import_no_jax():
     mods = [m.name for m in pkgutil.walk_packages(
         classpose_tpu_torch.__path__, "classpose_tpu_torch.")]
-    assert "classpose_tpu_torch.runner.model" in mods
+    assert {"classpose_tpu_torch.runner.model",
+            "classpose_tpu_torch.train.train",
+            "classpose_tpu_torch.entrypoints.run_training"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -48,6 +50,7 @@ def test_kernel_sources_ship_with_the_package():
 
     for name in _build.SOURCES:
         assert (_build.CSRC / f"{name}.cu").is_file()
+    assert (_build.CSRC / "mma.cuh").is_file()
     assert set(_build.LAUNCHES) == {
-        "attention_fwd", "bilinear_sample", "landing_histogram",
-        "masked_diffusion"}
+        "attention_fwd", "attention_bwd", "bilinear_sample",
+        "landing_histogram", "masked_diffusion"}
