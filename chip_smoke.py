@@ -9,15 +9,21 @@
 3. holds each kernel against its plain PyTorch version on the card at the
    shapes the main paths give it (attention forward: 25 crops × 16 heads
    × 1024 tokens, bf16; attention backward: 8 crops × 16 heads × 1024
-   tokens, bf16; sampler, histogram and diffusion: 8 tiles of 1024²) and
-   times kernel, plain version, a one-call PyTorch yardstick where there
-   is one, and the least time the card could take (the bound);
+   tokens, bf16; sampler, histogram and diffusion: 8 tiles of 1024²;
+   LayerNorm: (25, 1024, 1024) bf16 with the fast variance and
+   (25, 32, 32, 256) bf16 two-pass) and times kernel, plain version, a
+   one-call PyTorch yardstick where there is one, and the least time the
+   card could take (the bound); checks that the LayerNorm kernel route
+   raises where a gradient would flow through it;
 4. runs ``ClassposeModel.eval_batch`` at full ViT-L width (24 blocks,
    1024 wide, bf16) with the structured synthetic checkpoint on 8 uint8
    tiles of 1024², ``batch_size=32``, ``niter=200``, with every launch
    count reset just before and read just after; checks ~1k instances per
    tile, that every kernel was launched, and that the masks agree with a
-   run of the same slice with the plain versions swapped in;
+   run of the same slice with the plain versions swapped in; then runs
+   the same batch again with ``CLASSPOSE_LN_PALLAS=1`` (400 LayerNorm
+   launches: 48 block and 2 neck calls per tile's 25-crop chunk) and
+   compares its masks with the first run's;
 5. runs the training slice at full ViT-L width in bf16 (``rdrop`` 0.4,
    seeded random weights): synthetic disc images through
    ``process_train_test`` (flow targets by the diffusion kernel) and
@@ -32,7 +38,17 @@
    without layer-drop, checks that every attention parameter got a
    finite non-zero gradient, and compares loss and gradients with the
    same step with the plain versions swapped in;
-6. prints one JSON line describing the kernels, then the last line
+6. runs the WSI CLI (``entrypoints.predict_wsi.main_with_args``) with
+   ``CLASSPOSE_LN_PALLAS=1`` on a ~6144² synthetic slide at 0.4 µm/px
+   (25 tiles of 1280² read and resized to 1024² at the config's 0.5 µm/px)
+   with a ViT-L bf16 checkpoint whose patch embed and attention are live
+   (``perturbed_structured_params`` with ``attn_ripple``), ``--output_type
+   csv spatialdata``: checks that the outputs parse, that the cell count
+   lies in the design field's range and that all five inference kernels
+   ran; a second run under ``--profile`` gives the device's idle share;
+   a third with the plain versions swapped in must agree (cell counts
+   within 0.5%, ≥ 99% of centroids within 1 px with the same class);
+7. prints one JSON line describing the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the exit code is not 0 and the last line is not
@@ -42,7 +58,10 @@ it fails before printing a result.
 
 from __future__ import annotations
 
+import contextlib
+import csv
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -55,6 +74,7 @@ import torch.nn.functional as F
 
 import classpose_tpu_torch.dynamics.flows as port_flows
 import classpose_tpu_torch.dynamics.masks as port_masks
+import classpose_tpu_torch.nn.layernorm as port_ln
 import classpose_tpu_torch.nn.vit_sam as port_vit
 from classpose_tpu_torch import _build
 from classpose_tpu_torch.nn.attention import (
@@ -65,8 +85,18 @@ from classpose_tpu_torch.nn.attention import (
     attention_relpos_plain,
     attention_relpos_plain_route,
 )
+from classpose_tpu_torch.entrypoints.predict_wsi import main_with_args
+from classpose_tpu_torch.io.array_reader import synthetic_wsi
+from classpose_tpu_torch.io.zarrlite import read_zarr_array
 from classpose_tpu_torch.nn.convert import save_params
-from classpose_tpu_torch.nn.synthetic import PERIOD, RADIUS, structured_params
+from classpose_tpu_torch.nn.layernorm import layernorm, layernorm_cuda, \
+    layernorm_ref
+from classpose_tpu_torch.nn.synthetic import (
+    PERIOD,
+    RADIUS,
+    perturbed_structured_params,
+    structured_params,
+)
 from classpose_tpu_torch.nn.vit_sam import ClassTransformerConfig
 from classpose_tpu_torch.ops.diffusion import (
     masked_diffusion,
@@ -96,9 +126,16 @@ PEAK_BYTES = 3.35e12
 SEED = 0
 N_TILES, TILE = 8, 1024
 # kernels of the eval_batch path (phase 4); the attention backward runs in
-# training only (phase 5)
+# training only (phase 5), the LayerNorm kernel with its switch on (phase 4's
+# second run and the WSI phase)
 EVAL_KERNELS = ("attention_fwd", "bilinear_sample", "landing_histogram",
                 "masked_diffusion")
+WSI_KERNELS = EVAL_KERNELS + ("layernorm",)
+LN_SWITCH = "CLASSPOSE_LN_PALLAS"
+# the WSI slide: 6144² at 0.4 µm/px, read in 1280² tiles with 80 px overlap
+# and resized to 1024² at the config's 0.5 µm/px → a 5×5 grid of tiles
+# covering 4864² model pixels
+WSI_SIZE, WSI_MPP, WSI_MODEL_MPP = 6144, 0.4, 0.5
 TRAIN_BATCH, TRAIN_IMAGES, TRAIN_SIZE = 8, 16, 512
 
 
@@ -106,8 +143,11 @@ def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
-def time_ms(fn, reps: int = 5) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn()`` after a warm-up."""
+def time_ms(fn, reps: int = 5, inner: int = 1) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn()`` after a warm-up,
+    each over ``inner`` calls back to back (per call): for a kernel of
+    tens of µs, ``inner`` > 1 keeps the host's launch latency out of the
+    time."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -115,10 +155,11 @@ def time_ms(fn, reps: int = 5) -> float:
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        fn()
+        for _ in range(inner):
+            fn()
         e1.record()
         e1.synchronize()
-        times.append(e0.elapsed_time(e1))
+        times.append(e0.elapsed_time(e1) / inner)
     return statistics.median(times)
 
 
@@ -127,6 +168,21 @@ def bound_ms(nbytes: float, ops: float, peak_ops: float):
     t_ops = ops / peak_ops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
+
+
+@contextlib.contextmanager
+def ln_switch(on: bool):
+    """``CLASSPOSE_LN_PALLAS`` set to 1 (the LayerNorm kernel) or 0 (its
+    plain version) inside the block, restored after."""
+    saved = os.environ.get(LN_SWITCH)
+    os.environ[LN_SWITCH] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(LN_SWITCH)
+        else:
+            os.environ[LN_SWITCH] = saved
 
 
 def design_labels(dev) -> tuple[torch.Tensor, torch.Tensor]:
@@ -346,6 +402,66 @@ def check_diffusion(dev) -> dict:
     )
 
 
+def check_layernorm(gen, dev) -> dict:
+    """Kernel 6 at the blocks' (25, 1024, 1024) shape with the fast
+    variance (timed, the line's numbers) and the neck's (25, 32, 32, 256)
+    two-pass (checked and timed, in ``neck``), each time per call over 10
+    calls back to back; inputs ``normal·3 + 0.5``
+    as ``tests/test_layernorm.py`` draws them. Tolerance: bf16 outputs of
+    fp32 math summed in another order, |Δ| ≤ 0.06 + 0.02·|ref| (the JAX
+    package's kernel test). Also checks that the kernel route raises
+    where a gradient would flow through it."""
+    errs, times = [], {}
+    for shape, fast in (((25, 1024, 1024), True), ((25, 32, 32, 256), False)):
+        C = shape[-1]
+        x = (torch.randn(shape, generator=gen, device=dev) * 3 + 0.5).to(
+            torch.bfloat16)
+        w = torch.randn(C, generator=gen, device=dev)
+        b = torch.randn(C, generator=gen, device=dev)
+        got = layernorm_cuda(x, w, b, 1e-6, fast)
+        ref = layernorm_ref(x, w, b, 1e-6, fast)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs()
+        if not bool((err <= 0.06 + 0.02 * ref.float().abs()).all()):
+            raise AssertionError(f"layernorm {shape} max|Δ| "
+                                 f"{float(err.max())}")
+        errs.append(float(err.max()))
+        # read x once and write y once (bf16), read the fp32 affine; ~8
+        # fp32 operations per element
+        b_ms, by = bound_ms(2 * 2 * x.numel() + 2 * 4 * C, 8.0 * x.numel(),
+                            PEAK_FP32)
+        wl, bl = w.to(x.dtype), b.to(x.dtype)
+        times[C] = dict(
+            ms=time_ms(lambda: layernorm_cuda(x, w, b, 1e-6, fast),
+                       inner=10),
+            plain_ms=time_ms(lambda: layernorm_ref(x, w, b, 1e-6, fast),
+                             inner=10),
+            library_ms=time_ms(lambda: F.layer_norm(x, (C,), wl, bl, 1e-6),
+                               inner=10),
+            bound_ms=b_ms, bound_by=by, max_abs_err=float(err.max()))
+    with ln_switch(True):
+        xg = torch.ones(4, 1024, device=dev, dtype=torch.bfloat16,
+                        requires_grad=True)
+        try:
+            layernorm(xg, torch.ones(1024, device=dev),
+                      torch.zeros(1024, device=dev))
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+        else:
+            raise AssertionError("LayerNorm kernel route took a tensor "
+                                 "that needs a gradient")
+    blk = times[1024]
+    return dict(
+        name="layernorm", route="cuda",
+        source="classpose_tpu_torch/csrc/layernorm.cu",
+        replaces="classpose_tpu/nn/layernorm.py:109",
+        max_abs_err=max(errs), ms=blk["ms"], plain_ms=blk["plain_ms"],
+        library_ms=blk["library_ms"], bound_ms=blk["bound_ms"],
+        bound_by=blk["bound_by"], neck=times[256],
+    )
+
+
 # ---------------------------------------------------------------- phase 4
 
 def match_masks(ma: np.ndarray, mb: np.ndarray):
@@ -396,15 +512,18 @@ def plain_versions():
     """Swap the plain versions in where the slices call the kernels (the
     attention through its differentiable plain route)."""
     saved = (port_masks.bilinear_sample, port_masks.landing_histogram,
-             port_flows.masked_diffusion, port_vit.attention_relpos)
+             port_flows.masked_diffusion, port_vit.attention_relpos,
+             port_ln.layernorm)
     port_masks.bilinear_sample = bilinear_sample_plain
     port_masks.landing_histogram = landing_histogram_plain
     port_flows.masked_diffusion = masked_diffusion_plain
     port_vit.attention_relpos = attention_relpos_plain_route
+    port_ln.layernorm = layernorm_ref
 
     def restore():
         (port_masks.bilinear_sample, port_masks.landing_histogram,
-         port_flows.masked_diffusion, port_vit.attention_relpos) = saved
+         port_flows.masked_diffusion, port_vit.attention_relpos,
+         port_ln.layernorm) = saved
 
     return restore
 
@@ -489,15 +608,19 @@ def run_slice(dev) -> tuple[dict, dict]:
         0, 256, size=(N_TILES, TILE, TILE, 3), dtype=np.uint8)
     kw = dict(batch_size=32, niter=200)
 
-    model.eval_batch(tiles, **kw)  # warm-up: allocator, cuDNN plans
-    torch.cuda.synchronize()
-    _build.reset_launches()
+    def timed_run(ln_on: bool):
+        with ln_switch(ln_on):
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            res = model.eval_batch(tiles, **kw)
+            torch.cuda.synchronize()
+            return res, time.perf_counter() - t0, dict(_build.LAUNCHES)
+
+    with ln_switch(False):
+        model.eval_batch(tiles, **kw)  # warm-up: allocator, cuDNN plans
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    out = model.eval_batch(tiles, **kw)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(_build.LAUNCHES)
+    out, wall, launches = timed_run(False)
     log(f"main path launches: {launches}")
     missing = [k for k in EVAL_KERNELS if launches[k] == 0]
     if missing:
@@ -523,8 +646,23 @@ def run_slice(dev) -> tuple[dict, dict]:
     finally:
         restore()
     worst = compare_slices(out, ref)
+
+    # the LayerNorm switch, in turns on one card: off (above), on, on, off
+    out_ln, ln_wall, ln_launches = timed_run(True)
+    log(f"LayerNorm kernel launches: {ln_launches}")
+    want = N_TILES * 2 * (cfg.depth + 1)  # 2 per block + 2 neck per tile
+    if ln_launches["layernorm"] != want or launches["layernorm"] != 0:
+        raise AssertionError(f"layernorm launches {ln_launches['layernorm']} "
+                             f"with the switch on (want {want}), "
+                             f"{launches['layernorm']} with it off")
+    ln_worst = compare_slices(out_ln, out)
+    ln_wall2 = timed_run(True)[1]
+    off_wall2 = timed_run(False)[1]
     stats = dict(
         tiles_per_s=N_TILES / wall, wall_s=wall, plain_wall_s=plain_wall,
+        ln_switch_walls_s=dict(off=[wall, off_wall2],
+                               on=[ln_wall, ln_wall2]),
+        ln_launches=ln_launches["layernorm"], worst_iou_ln_vs_off=ln_worst,
         instances=counts, worst_iou_vs_plain=worst,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
         breakdown=breakdown,
@@ -732,6 +870,147 @@ def run_training(dev, out_dir: str) -> tuple[dict, dict]:
     return launches, stats
 
 
+# ---------------------------------------------------------------- phase 6
+
+def read_outputs(out_dir: str, base: str, labels: list[str]):
+    """Parse the CLI's four outputs and check they agree: the contours
+    and centroids GeoJSON, the densities CSV and the zarr store's
+    centroid points. Returns (centroids (n, 2), class names)."""
+    with open(f"{out_dir}/{base}_cell_contours.geojson") as f:
+        contours = json.load(f)
+    with open(f"{out_dir}/{base}_cell_centroids.geojson") as f:
+        cents = json.load(f)
+    n = len(contours["features"])
+    if contours["type"] != "FeatureCollection" or len(cents["features"]) != n:
+        raise AssertionError("contours and centroids disagree")
+    for poly in contours["features"]:
+        ring = poly["geometry"]["coordinates"][0]
+        if poly["geometry"]["type"] != "Polygon" or len(ring) < 5 \
+                or ring[0] != ring[-1]:
+            raise AssertionError(f"bad polygon {poly['id']}")
+    pts = np.array([c["geometry"]["coordinates"] for c in cents["features"]],
+                   np.float64).reshape(n, 2)
+    names = [c["properties"]["classification"]["name"]
+             for c in cents["features"]]
+    with open(f"{out_dir}/{base}_cellular_densities.csv") as f:
+        rows = list(csv.DictReader(f))
+    if [r["cell_class"] for r in rows] != labels \
+            or sum(int(r["count"]) for r in rows) != n:
+        raise AssertionError(f"densities CSV {rows} for {n} cells")
+    zarr = f"{out_dir}/{base}_spatialdata.zarr"
+    zx = read_zarr_array(f"{zarr}/points/cell_centroids/x")
+    zc = read_zarr_array(f"{zarr}/points/cell_centroids/classification")
+    if not np.array_equal(zx, pts[:, 0]) or list(zc) != names:
+        raise AssertionError("zarr centroids disagree with the GeoJSON")
+    return pts, names
+
+
+def device_idle_share(trace_path: str) -> dict:
+    """Device busy time (the union of kernel, memcpy and memset intervals
+    on every stream) against the span of a torch.profiler chrome trace."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    span0 = min(e["ts"] for e in events)
+    span1 = max(e["ts"] + e["dur"] for e in events)
+    busy, end = 0.0, -np.inf
+    for t0, t1 in sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                         if e.get("cat") in ("kernel", "gpu_memcpy",
+                                             "gpu_memset")):
+        if t1 > end:
+            busy += t1 - max(t0, end)
+            end = t1
+    span_ms = (span1 - span0) / 1e3
+    return dict(traced_span_ms=span_ms, device_busy_ms=busy / 1e3,
+                device_idle_share=1.0 - busy / 1e3 / span_ms)
+
+
+def run_wsi(dev, work: str) -> tuple[dict, dict]:
+    """The WSI CLI on a synthetic slide with the LayerNorm switch on (see
+    the module docstring, step 6)."""
+    os.environ["WSI_READER"] = "array"
+    cfg = ClassTransformerConfig(n_cell_classes=6, dtype="bfloat16")
+    labels = [f"class{i}" for i in range(1, cfg.n_cell_classes + 1)]
+    t0 = time.perf_counter()
+    slide, _ = synthetic_wsi(width=WSI_SIZE, height=WSI_SIZE, n_cells=4000,
+                             mpp=WSI_MPP, seed=SEED)
+    np.save(f"{work}/slide.npy", slide._level0)
+    del slide
+    slide_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    save_params(perturbed_structured_params(cfg, ripple=0.5, seed=SEED,
+                                            attn_ripple=0.5),
+                f"{work}/vitl.npz", cfg)
+    ckpt_s = time.perf_counter() - t0
+    with open(f"{work}/config.yaml", "w") as f:
+        f.write(f"path: {work}/vitl.npz\nmpp: {WSI_MODEL_MPP}\n"
+                "cell_types:\n" + "".join(f"- {c}\n" for c in labels))
+
+    def cli(out: str, *extra):
+        argv = ["--model_config", f"{work}/config.yaml",
+                "--slide_path", f"{work}/slide.npy", "--output_folder", out,
+                "--device", "cuda", "--precision", "bf16",
+                "--batch_size", "32", "--tile_size", "1024",
+                "--overlap", "64", "--mpp", str(WSI_MPP),
+                "--output_type", "csv", "spatialdata", *extra]
+        with ln_switch(True):
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            res = main_with_args(argv)[0]
+            torch.cuda.synchronize()
+            return res, time.perf_counter() - t0, dict(_build.LAUNCHES)
+
+    res, wall, launches = cli(f"{work}/out")
+    log(f"WSI launches: {launches}")
+    missing = [k for k in WSI_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the WSI path: "
+                             f"{missing}")
+    pts, names = read_outputs(f"{work}/out", "slide", labels)
+    # the design field: one cell per 32² model pixels over the 5×5 tile
+    # grid's 4864² (tile origins are multiples of the period, so
+    # overlapping tiles find the same cells and dedup keeps one)
+    n_design = (4 * 960 + TILE) ** 2 // PERIOD ** 2
+    if res["n_tiles"] != 25 or not (0.9 * n_design <= len(pts)
+                                    <= 1.05 * n_design):
+        raise AssertionError(f"{res['n_tiles']} tiles, {len(pts)} cells "
+                             f"(design {n_design})")
+
+    traced_res, _, _ = cli(f"{work}/out_traced", "--profile",
+                           f"{work}/trace")
+    idle = device_idle_share(f"{work}/trace/trace.json")
+
+    restore = plain_versions()
+    try:
+        ref, plain_wall, _ = cli(f"{work}/out_plain")
+    finally:
+        restore()
+    ref_pts, ref_names = read_outputs(f"{work}/out_plain", "slide", labels)
+    from scipy.spatial import cKDTree
+
+    dist, idx = cKDTree(ref_pts).query(pts, distance_upper_bound=1.0)
+    hit = np.isfinite(dist)
+    same = np.array([h and names[i] == ref_names[j]
+                     for i, (h, j) in enumerate(zip(hit, idx))])
+    count_diff = abs(len(pts) - len(ref_pts)) / len(ref_pts)
+    if count_diff > 0.005 or same.mean() < 0.99:
+        raise AssertionError(f"WSI vs plain: {len(pts)} vs {len(ref_pts)} "
+                             f"cells, {same.mean():.4f} matched")
+    stats = dict(
+        slide_px=WSI_SIZE, slide_mpp=WSI_MPP, model_mpp=WSI_MODEL_MPP,
+        make_slide_s=slide_s, make_checkpoint_s=ckpt_s,
+        cli_wall_s=wall, pipeline_s=res["seconds"],
+        slide_tiles_per_s=res["n_tiles"] / res["seconds"],
+        n_tiles=res["n_tiles"], n_cells=res["n_cells"], n_design=n_design,
+        stage_seconds=res["stage_seconds"],
+        traced_pipeline_s=traced_res["seconds"], **idle,
+        plain_cli_wall_s=plain_wall, plain_pipeline_s=ref["seconds"],
+        plain_n_cells=ref["n_cells"], matched_share=float(same.mean()),
+    )
+    return launches, stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -754,7 +1033,8 @@ def main() -> int:
                   lambda: check_attention_bwd(gen, dev),
                   lambda: check_sampler(gen, dev),
                   lambda: check_histogram(gen, dev),
-                  lambda: check_diffusion(dev)):
+                  lambda: check_diffusion(dev),
+                  lambda: check_layernorm(gen, dev)):
         k = check()
         torch.cuda.synchronize()
         log(f"{k['name']}: max|Δ| {k['max_abs_err']:.3g}, "
@@ -768,10 +1048,16 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as out_dir:
         train_launches, train_stats = run_training(dev, out_dir)
     log(f"training: {json.dumps(train_stats)}")
+    with tempfile.TemporaryDirectory() as work:
+        wsi_launches, wsi_stats = run_wsi(dev, work)
+    log(f"wsi: {json.dumps(wsi_stats)}")
     for k in kernels:
         # each kernel's count from the phase whose path runs it: the
-        # eval slice, or training for the attention backward
+        # eval slice, training for the attention backward, the WSI path
+        # (its switch on) for the LayerNorm
         k["launches"] = (launches[k["name"]] if k["name"] in EVAL_KERNELS
+                         else wsi_launches[k["name"]]
+                         if k["name"] == "layernorm"
                          else train_launches[k["name"]])
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -779,7 +1065,9 @@ def main() -> int:
     print(smi)
     print(json.dumps({"kernels": [{key: k[key] for key in order}
                                   for k in kernels],
-                      "slice": stats, "training": train_stats}))
+                      "slice": stats, "training": train_stats,
+                      "wsi": wsi_stats,
+                      "layernorm_neck": kernels[-1]["neck"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -11,9 +11,11 @@ with ``ctypes``. Every pointer and the CUDA stream cross the boundary as
 Nothing here runs at import time: the CPU tests import every module of
 the package on a machine without ``nvcc``.
 
-``LAUNCHES`` holds one plain integer per kernel. A wrapper adds one where
-it launches its kernel and nowhere else, so a caller can reset the counts,
-drive a path, and read which kernels it went through.
+``LAUNCHES`` holds one plain integer per kernel. A wrapper adds one
+(:func:`count`, under a lock: the WSI pipeline launches from two
+inference threads) where it launches its kernel and nowhere else, so a
+caller can reset the counts, drive a path, and read which kernels it went
+through.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ SOURCES = {
     "attention_bwd": [],
     "sample": ["-fmad=false"],
     "diffusion": ["-fmad=false"],
+    "layernorm": [],
 }
 
 # kernel name -> launch count (see module docstring)
@@ -46,10 +49,12 @@ LAUNCHES = {
     "bilinear_sample": 0,
     "landing_histogram": 0,
     "masked_diffusion": 0,
+    "layernorm": 0,
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -65,12 +70,20 @@ _SIGNATURES = {
     "landing_histogram_f32": ("sample", [P, P, P, P, I, I, I, P]),
     "diffusion_pack_nbr": ("diffusion", [P, P, P, P, I, I, I, P]),
     "diffusion_step": ("diffusion", [P, P, P, P, P, I, I, I, I, P]),
+    "layernorm_bf16": ("layernorm", [P, P, P, P, I, I, ctypes.c_float, I, P]),
 }
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def count(name: str) -> None:
+    """Add one launch of kernel ``name``."""
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:

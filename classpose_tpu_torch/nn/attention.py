@@ -119,7 +119,7 @@ def _fwd_kernel(qkv: torch.Tensor, rel: torch.Tensor, scale: float,
         ),
         "attn_fwd_bf16",
     )
-    _build.LAUNCHES["attention_fwd"] += 1
+    _build.count("attention_fwd")
     return out, lse, out32
 
 
@@ -171,7 +171,7 @@ def attention_relpos_bwd(qkv: torch.Tensor, rel: torch.Tensor,
         ),
         "attn_bwd_bf16",
     )
-    _build.LAUNCHES["attention_bwd"] += 1
+    _build.count("attention_bwd")
     return dqkv, drel
 
 

@@ -159,3 +159,24 @@ def load_into(net: torch.nn.Module, sd: dict[str, torch.Tensor]) -> None:
             setattr(mod, attr, torch.nn.Parameter(
                 torch.empty_like(val, device=own[key].device)))
     net.load_state_dict(sd, strict=True)
+
+
+def infer_structure(path: str) -> tuple[list[int] | None, int]:
+    """(feature_transformation_structure, n_classes) of a native ``.npz``
+    checkpoint: from its ``__meta__``, or else the class count from the
+    ``out_class`` kernel's width over ps² (a 1×1 class head; a UNet head
+    without ``__meta__`` raises)."""
+    with np.load(path) as z:
+        if "__meta__" in z.files:
+            meta = json.loads(bytes(z["__meta__"]).decode())
+            s = meta.get("feature_transformation_structure")
+            return (list(s) if s else None), int(
+                meta.get("n_cell_classes", 1))
+        if any("out_class/encoder_blocks" in k for k in z.files):
+            raise ValueError(f"{path}: a UNet class head needs the "
+                             "checkpoint's __meta__ (save_params with cfg)")
+        ock = "params/out_class/kernel"
+        if ock not in z.files:
+            return None, 1
+        ps = int(z["params/encoder/patch_embed/kernel"].shape[0])
+        return None, int(z[ock].shape[-1]) // (ps * ps)

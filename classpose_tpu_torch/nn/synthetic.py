@@ -101,3 +101,42 @@ def structured_params(cfg, period: int = PERIOD, radius: float = RADIUS,
         bo.zero_()
         bo[dominant_class * ps * ps:(dominant_class + 1) * ps * ps] = 5.0
     return sd
+
+
+def perturbed_structured_params(cfg, ripple: float = 0.5, seed: int = 0,
+                                attn_ripple: float = 0.0,
+                                **kw) -> dict[str, torch.Tensor]:
+    """Structured weights whose output depends on the input (counterpart
+    of the JAX package's ``perturbed_structured_params``, the same numbers
+    for the same seed): a random patch embed perturbs the token stream, so
+    the decoded field is the designed one plus an input-driven ripple of
+    std ≈ ``ripple`` decoded-field units (flows are ±5, cellprob ±6). The
+    kernel's std is ``ripple / (√C · √(fan_in/3))``, with √C the ``out``
+    kernel's diagonal and ``fan_in = 3·ps²`` taps of percentile-normalized
+    input (E[x²] ≈ 1/3).
+
+    With ``attn_ripple > 0`` (drawn after the patch embed, so the rest is
+    unchanged) every block's attention is live too: ``qkv`` weights of
+    std 1/√E make q, k and v of unit scale from the unit-variance
+    ``norm1`` output, and ``proj`` weights of std ``attn_ripple /
+    (√C·√depth·√E)`` add at most ``attn_ripple`` decoded-field units over
+    all blocks (each block's attention output has rms ≤ 1). The blocks'
+    LayerNorms and attention then reach the masks."""
+    sd = structured_params(cfg, **kw)
+    rng = np.random.default_rng(seed)
+    sqrt_c = float(sd["out.weight"][0, 0, 0, 0])
+    ps, E = cfg.ps, cfg.embed_dim
+    a = ripple / (sqrt_c * np.sqrt(3 * ps * ps / 3.0))
+    k = (rng.normal(size=(ps, ps, 3, E)) * a).astype(np.float32)  # HWIO
+    sd["encoder.patch_embed.weight"] = torch.from_numpy(
+        np.ascontiguousarray(k.transpose(3, 2, 0, 1)))
+    sd["encoder.patch_embed.bias"] = torch.zeros(E)
+    if attn_ripple > 0:
+        s = attn_ripple / (sqrt_c * np.sqrt(cfg.depth) * np.sqrt(E))
+        for i in range(cfg.depth):
+            pre = f"encoder.blocks.{i}.attn."
+            sd[pre + "qkv.weight"] = torch.from_numpy(
+                (rng.normal(size=(3 * E, E)) / np.sqrt(E)).astype(np.float32))
+            sd[pre + "proj.weight"] = torch.from_numpy(
+                (rng.normal(size=(E, E)) * s).astype(np.float32))
+    return sd

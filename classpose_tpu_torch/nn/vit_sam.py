@@ -19,7 +19,9 @@ attention goes through the CUDA kernels (``nn/attention.py``, forward and
 backward); at fp32 on the card through the plain version under autograd,
 as the JAX package takes XLA there. On the CPU it always takes
 ``attention_relpos``, whose plain route has the kernels' autograd
-plumbing.
+plumbing. The blocks' ``norm1``/``norm2`` and the neck's two LayerNorm2d
+take the LayerNorm kernel (``nn/layernorm.py``) in bf16 on the card when
+``CLASSPOSE_LN_PALLAS=1``, and its plain version otherwise.
 """
 
 from __future__ import annotations

@@ -80,7 +80,7 @@ def masked_diffusion(ids: torch.Tensor, center: torch.Tensor,
                                stream),
         "diffusion_pack_nbr",
     )
-    _build.LAUNCHES["masked_diffusion"] += 1
+    _build.count("masked_diffusion")
     nmax = int(niter.max()) if B else 0
     T = torch.zeros((B, H, W), dtype=torch.float32, device=dev)
     if nmax == 0:
@@ -93,6 +93,6 @@ def masked_diffusion(ids: torch.Tensor, center: torch.Tensor,
                                it, stream),
             "diffusion_step",
         )
-        _build.LAUNCHES["masked_diffusion"] += 1
+        _build.count("masked_diffusion")
         T, T2 = T2, T
     return T

@@ -77,7 +77,7 @@ def bilinear_sample(u: torch.Tensor, py: torch.Tensor,
         ),
         "bilinear_sample_f32",
     )
-    _build.LAUNCHES["bilinear_sample"] += 1
+    _build.count("bilinear_sample")
     return out
 
 
@@ -120,5 +120,5 @@ def landing_histogram(fy: torch.Tensor, fx: torch.Tensor,
         ),
         "landing_histogram_f32",
     )
-    _build.LAUNCHES["landing_histogram"] += 1
+    _build.count("landing_histogram")
     return out

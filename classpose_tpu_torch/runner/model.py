@@ -47,6 +47,8 @@ from classpose_tpu_torch.runner.core import chunk_plan, resolve_precision
 
 logger = logging.getLogger(__name__)
 
+FAST_QC_ITEM = 'ROADMAP.md queue 1, "--fast_qc"'
+
 
 def compute_class_masks_from_pixels(masks: np.ndarray, pixel_cls: np.ndarray,
                                     n_classes: int) -> np.ndarray:
@@ -167,10 +169,21 @@ class ClassposeModel:
     def eval_batch(self, tiles, batch_size: int = 8, augment: bool = False,
                    niter: int = 200, flow_threshold: float = 0.4,
                    cellprob_threshold: float = 0.0, min_size: int = 15,
-                   max_size_fraction: float = 0.4
+                   max_size_fraction: float = 0.4, qc_downsample: int = 1,
+                   percentile_subsample: int = 1
                    ) -> list[tuple[np.ndarray, np.ndarray]]:
-        """Segment (B, S, S, 3) tiles (uint8, or float at model MPP).
-        Returns one (masks, class_masks) pair of int32 arrays per tile."""
+        """Segment (B, S, S, 3) tiles (uint8, or float at model MPP; a
+        numpy array or a tensor, which may already be on the device).
+        Returns one (masks, class_masks) pair of int32 arrays per tile.
+
+        ``qc_downsample`` and ``percentile_subsample`` are the JAX
+        signature's ``--fast_qc`` approximations; only 1 (full fidelity)
+        is ported."""
+        if qc_downsample != 1 or percentile_subsample != 1:
+            raise NotImplementedError(
+                f"qc_downsample={qc_downsample}, percentile_subsample="
+                f"{percentile_subsample}: the --fast_qc approximations wait "
+                f"for {FAST_QC_ITEM}")
         x = torch.as_tensor(np.asarray(tiles) if not isinstance(
             tiles, torch.Tensor) else tiles)
         if x.dtype != torch.uint8:

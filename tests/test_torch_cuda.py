@@ -3,6 +3,8 @@ kernel of the port against its plain PyTorch version on the same inputs.
 They skip without a CUDA device; ``chip_smoke.py`` runs the same checks
 at the main path's shapes."""
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +18,11 @@ from classpose_tpu_torch.nn.attention import (
     attention_relpos_bwd_plain,
     attention_relpos_plain,
     attention_relpos_plain_route,
+)
+from classpose_tpu_torch.nn.layernorm import (
+    layernorm,
+    layernorm_cuda,
+    layernorm_ref,
 )
 from classpose_tpu_torch.ops.diffusion import (
     masked_diffusion,
@@ -140,3 +147,86 @@ def test_diffusion_kernel(dev):
     niter = torch.tensor([3, 11, 20], dtype=torch.int32, device=dev)
     assert torch.equal(masked_diffusion(ids, cen, niter),
                        masked_diffusion_plain(ids, cen, niter))
+
+
+@pytest.mark.parametrize("shape,fast_var", [((3, 50, 1024), True),
+                                            ((2, 8, 8, 256), False),
+                                            ((7, 128), True),
+                                            ((5, 384), False),
+                                            ((2, 2048), True)])
+def test_layernorm_kernel(dev, shape, fast_var):
+    """Kernel 6 against its plain version: bf16 outputs of fp32 math
+    summed in another order, |Δ| ≤ 0.06 + 0.02·|ref| (the JAX kernel
+    test's tolerance)."""
+    g = torch.Generator(device="cpu").manual_seed(0)
+    C = shape[-1]
+    x = (torch.randn(shape, generator=g) * 3 + 0.5).to(dev, torch.bfloat16)
+    w, b = (torch.randn(C, generator=g).to(dev) for _ in range(2))
+    before = _build.LAUNCHES["layernorm"]
+    got = layernorm_cuda(x, w, b, 1e-6, fast_var)
+    assert _build.LAUNCHES["layernorm"] == before + 1
+    ref = layernorm_ref(x, w, b, 1e-6, fast_var)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert bool(((got.float() - ref.float()).abs()
+                 <= 0.06 + 0.02 * ref.float().abs()).all())
+
+
+def test_layernorm_switch_on_card(dev, monkeypatch):
+    """With the switch on, a supported CUDA tensor launches the kernel;
+    off, the plain version runs; a tensor that needs a gradient raises on
+    the kernel route instead of returning one without ``grad_fn``."""
+    x = torch.randn(4, 16, 256, device=dev).to(torch.bfloat16)
+    w, b = torch.ones(256, device=dev), torch.zeros(256, device=dev)
+    monkeypatch.setenv("CLASSPOSE_LN_PALLAS", "0")
+    before = _build.LAUNCHES["layernorm"]
+    assert torch.equal(layernorm(x, w, b), layernorm_ref(x, w, b))
+    assert _build.LAUNCHES["layernorm"] == before
+    monkeypatch.setenv("CLASSPOSE_LN_PALLAS", "1")
+    layernorm(x, w, b)
+    assert _build.LAUNCHES["layernorm"] == before + 1
+    with pytest.raises(RuntimeError, match="no backward"):
+        layernorm(x.requires_grad_(), w, b)
+    with torch.no_grad():
+        layernorm(x, w.requires_grad_(), b)
+    assert _build.LAUNCHES["layernorm"] == before + 2
+
+
+def test_wsi_pipeline_on_card_matches_cpu(dev, tmp_path, monkeypatch):
+    """The WSI CLI at a tiny fp32 size on the card (two inference threads
+    on their own streams, pinned uploads) finds the cells the CPU run
+    finds: counts within 0.5%, ≥ 99% of centroids within 1 px."""
+    from scipy.spatial import cKDTree
+
+    from classpose_tpu_torch.entrypoints.predict_wsi import main_with_args
+    from classpose_tpu_torch.io.array_reader import synthetic_wsi
+    from classpose_tpu_torch.nn.convert import save_params
+    from classpose_tpu_torch.nn.synthetic import perturbed_structured_params
+    from classpose_tpu_torch.nn.vit_sam import ClassTransformerConfig
+
+    monkeypatch.setenv("WSI_READER", "array")
+    slide, _ = synthetic_wsi(width=1100, height=900, n_cells=80, seed=4,
+                             mpp=0.4)
+    np.save(tmp_path / "slide.npy", slide._level0)
+    cfg = ClassTransformerConfig(n_cell_classes=4, ps=4, embed_dim=64,
+                                 depth=2, num_heads=4, neck_dim=64, bsize=64)
+    save_params(perturbed_structured_params(cfg, attn_ripple=0.5),
+                str(tmp_path / "m.npz"), cfg)
+    (tmp_path / "c.yaml").write_text(
+        f"path: {tmp_path}/m.npz\nmpp: 0.5\ncell_types: [A, B, C, D]\n")
+    pts = {}
+    for device in ("cpu", "cuda"):
+        res = main_with_args([
+            "--model_config", str(tmp_path / "c.yaml"), "--slide_path",
+            str(tmp_path / "slide.npy"), "--output_folder",
+            str(tmp_path / device), "--device", device, "--precision",
+            "fp32", "--tile_size", "256", "--mpp", "0.4",
+            "--tile_batch", "3"])[0]
+        feats = json.loads((tmp_path / device /
+                            "slide_cell_centroids.geojson").read_text())
+        pts[device] = np.array([f["geometry"]["coordinates"]
+                                for f in feats["features"]])
+        assert len(pts[device]) == res["n_cells"] > 50
+    assert abs(len(pts["cuda"]) - len(pts["cpu"])) <= 0.005 * len(pts["cpu"])
+    dist, _ = cKDTree(pts["cpu"]).query(pts["cuda"],
+                                        distance_upper_bound=1.0)
+    assert np.isfinite(dist).mean() >= 0.99
