@@ -11,10 +11,15 @@
    × 1024 tokens, bf16; attention backward: 8 crops × 16 heads × 1024
    tokens, bf16; sampler, histogram and diffusion: 8 tiles of 1024²;
    LayerNorm: (25, 1024, 1024) bf16 with the fast variance and
-   (25, 32, 32, 256) bf16 two-pass) and times kernel, plain version, a
-   one-call PyTorch yardstick where there is one, and the least time the
-   card could take (the bound); checks that the LayerNorm kernel route
-   raises where a gradient would flow through it;
+   (25, 32, 32, 256) bf16 two-pass; halo-blocked diffusion: 8 tiles of
+   448², the evaluate path's QC, bitwise, plus counts off multiples of k
+   from a nonzero start and one 2048² tile past the residency gate;
+   head-major attention: 8 crops × 16 heads × 1024 tokens in fp32 and
+   bf16) and times kernel, plain version, a one-call PyTorch yardstick
+   where there is one, and the least time the card could take (the
+   bound); checks sampler and histogram also at 8 × 448² and 300 × 500,
+   and that the LayerNorm and head-major attention kernel routes raise
+   where a gradient would flow through them;
 4. runs ``ClassposeModel.eval_batch`` at full ViT-L width (24 blocks,
    1024 wide, bf16) with the structured synthetic checkpoint on 8 uint8
    tiles of 1024², ``batch_size=32``, ``niter=200``, with every launch
@@ -48,7 +53,21 @@
    ran; a second run under ``--profile`` gives the device's idle share;
    a third with the plain versions swapped in must agree (cell counts
    within 0.5%, ≥ 99% of centroids within 1 px with the same class);
-7. prints one JSON line describing the kernels, then the last line
+7. runs the evaluate CLI (``entrypoints.run_inference.main_with_args``)
+   at fp32 on 8 RGB images of 448² (3 × 3 crops each) written as
+   ``images.npy`` with their design-field ``labels.npy``, with the WSI
+   phase's ViT-L checkpoint: checks that ``predictions.npy`` and
+   ``metrics.csv`` parse, that the PQ table is printed, that the
+   head-major attention ran 24 times per crop chunk, that the QC took the
+   halo-blocked diffusion and not kernel 4, and that the sampler and
+   histogram ran; a run with the plain versions swapped in must give the
+   same masks; the metrics CLI (``calculate_metrics.main_with_args``) on
+   the outputs must reproduce the evaluate CLI's numbers; then
+   ``ClassposeModel.eval`` on one 448² image under the profiler, on one
+   256² image (kernel 4, not kernel 7), and ``eval(do_3D=True)`` in bf16
+   on a 16 × 128 × 128 stack (kernel 1), compared with the plain
+   versions;
+8. prints one JSON line describing the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the exit code is not 0 and the last line is not
@@ -60,6 +79,7 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import io
 import json
 import os
 import statistics
@@ -77,6 +97,13 @@ import classpose_tpu_torch.dynamics.masks as port_masks
 import classpose_tpu_torch.nn.layernorm as port_ln
 import classpose_tpu_torch.nn.vit_sam as port_vit
 from classpose_tpu_torch import _build
+from classpose_tpu_torch.entrypoints.calculate_metrics import (
+    main_with_args as metrics_cli,
+)
+from classpose_tpu_torch.entrypoints.predict_wsi import main_with_args
+from classpose_tpu_torch.entrypoints.run_inference import (
+    main_with_args as evaluate_cli,
+)
 from classpose_tpu_torch.nn.attention import (
     _fwd_kernel,
     attention_relpos,
@@ -84,8 +111,9 @@ from classpose_tpu_torch.nn.attention import (
     attention_relpos_bwd_plain,
     attention_relpos_plain,
     attention_relpos_plain_route,
+    flash_attention_relpos,
+    flash_attention_relpos_plain,
 )
-from classpose_tpu_torch.entrypoints.predict_wsi import main_with_args
 from classpose_tpu_torch.io.array_reader import synthetic_wsi
 from classpose_tpu_torch.io.zarrlite import read_zarr_array
 from classpose_tpu_torch.nn.convert import save_params
@@ -99,8 +127,11 @@ from classpose_tpu_torch.nn.synthetic import (
 )
 from classpose_tpu_torch.nn.vit_sam import ClassTransformerConfig
 from classpose_tpu_torch.ops.diffusion import (
+    diffuse_blocked,
+    diffuse_blocked_plain,
     masked_diffusion,
     masked_diffusion_plain,
+    resident_diffusion_supported,
 )
 from classpose_tpu_torch.ops.sample import (
     bilinear_sample,
@@ -108,7 +139,9 @@ from classpose_tpu_torch.ops.sample import (
     landing_histogram,
     landing_histogram_plain,
 )
+from classpose_tpu_torch.ops.tiles import compute_tile_grid
 from classpose_tpu_torch.runner import ClassposeModel
+from classpose_tpu_torch.runner.core import chunk_plan
 from classpose_tpu_torch.train.dataset import ClassposeTrainingDataset
 from classpose_tpu_torch.train.train import (
     make_optimizer,
@@ -137,6 +170,13 @@ LN_SWITCH = "CLASSPOSE_LN_PALLAS"
 # covering 4864² model pixels
 WSI_SIZE, WSI_MPP, WSI_MODEL_MPP = 6144, 0.4, 0.5
 TRAIN_BATCH, TRAIN_IMAGES, TRAIN_SIZE = 8, 16, 512
+# the evaluate phase: 8 RGB images of 448² (3 × 3 crops of 256² each;
+# 448 % 128 != 0, so the QC diffusion takes kernel 7), fp32 as the CLI
+# defaults; its kernels, and those of eval's 3D branch in bf16
+EVAL_IMAGES, EVAL_SIZE, EVAL_BATCH = 8, 448, 8
+EVALUATE_KERNELS = ("flash_attention_relpos", "bilinear_sample",
+                    "landing_histogram", "diffuse_blocked")
+STACK_SHAPE = (16, 128, 128)
 
 
 def log(msg: str) -> None:
@@ -185,19 +225,32 @@ def ln_switch(on: bool):
             os.environ[LN_SWITCH] = saved
 
 
-def design_labels(dev) -> tuple[torch.Tensor, torch.Tensor]:
-    """(B, S, S) instance ids and centre maps of the synthetic design
+def design_labels(dev, B: int = N_TILES, H: int = TILE, W: int = TILE
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, H, W) instance ids and centre maps of the synthetic design
     (period-32 grid of radius-13 cells), the QC diffusion's input."""
-    yy, xx = torch.meshgrid(torch.arange(TILE, device=dev),
-                            torch.arange(TILE, device=dev), indexing="ij")
+    yy, xx = torch.meshgrid(torch.arange(H, device=dev),
+                            torch.arange(W, device=dev), indexing="ij")
     cy = (yy // PERIOD) * PERIOD + PERIOD // 2
     cx = (xx // PERIOD) * PERIOD + PERIOD // 2
     inside = (yy - cy) ** 2 + (xx - cx) ** 2 <= RADIUS ** 2
-    cell = (yy // PERIOD) * (TILE // PERIOD) + xx // PERIOD + 1
+    cell = (yy // PERIOD) * -(-W // PERIOD) + xx // PERIOD + 1
     ids = torch.where(inside, cell, 0).to(torch.int32)
     cen = ((yy == cy) & (xx == cx)).to(torch.float32)
-    return (ids[None].repeat(N_TILES, 1, 1).contiguous(),
-            cen[None].repeat(N_TILES, 1, 1).contiguous())
+    return (ids[None].repeat(B, 1, 1).contiguous(),
+            cen[None].repeat(B, 1, 1).contiguous())
+
+
+def diffusion_ops(ids: torch.Tensor, niter: torch.Tensor) -> float:
+    """Operations a diffusion run needs on this data: per iteration and
+    foreground pixel, two adds per matching 3×3 neighbour (centre
+    included) and one multiply."""
+    ip = F.pad(ids, (1, 1, 1, 1))
+    H, W = ids.shape[1:]
+    match = sum((ip[:, 1 + dy:1 + dy + H, 1 + dx:1 + dx + W] == ids)
+                for dy in (-1, 0, 1) for dx in (-1, 0, 1))
+    per_it = ((2 * match + 1) * (ids > 0)).sum(dim=(1, 2)).double()
+    return float((per_it * niter.double()).sum())
 
 
 # ---------------------------------------------------------------- phase 3
@@ -296,8 +349,8 @@ def check_attention_bwd(gen, dev) -> dict:
     )
 
 
-def positions(gen, dev, spread: float):
-    B, H, W = N_TILES, TILE, TILE
+def positions(gen, dev, spread: float, B: int = N_TILES, H: int = TILE,
+              W: int = TILE):
     gy = torch.arange(H, dtype=torch.float32, device=dev)[None, :, None]
     gx = torch.arange(W, dtype=torch.float32, device=dev)[None, None, :]
     d = lambda: (torch.rand(B, H, W, generator=gen, device=dev) * 2 - 1) \
@@ -381,15 +434,7 @@ def check_diffusion(dev) -> dict:
     ref = masked_diffusion_plain(ids, cen, niter)
     if not torch.equal(got, ref):
         raise AssertionError("diffusion not bitwise equal to plain")
-    # operations this run needs: per iteration and foreground pixel, two
-    # adds per matching 3×3 neighbour (centre included) and one multiply
-    ip = F.pad(ids, (1, 1, 1, 1))
-    H, W = ids.shape[1:]
-    match = sum((ip[:, 1 + dy:1 + dy + H, 1 + dx:1 + dx + W] == ids)
-                for dy in (-1, 0, 1) for dx in (-1, 0, 1))
-    per_it = ((2 * match + 1) * (ids > 0)).sum(dim=(1, 2)).double()
-    ops = float((per_it * niter.double()).sum())
-    b, by = bound_ms(ids.numel() * 12, ops, PEAK_FP32)
+    b, by = bound_ms(ids.numel() * 12, diffusion_ops(ids, niter), PEAK_FP32)
     return dict(
         name="masked_diffusion", route="cuda",
         source="classpose_tpu_torch/csrc/diffusion.cu",
@@ -462,6 +507,151 @@ def check_layernorm(gen, dev) -> dict:
     )
 
 
+def check_sampling_shapes(gen, dev) -> dict:
+    """Kernels 2 and 3 against their plain versions at the evaluate
+    path's 8 × 448² and at an odd 300 × 500: the sampler to 1e-6 (exact
+    at integer positions with C = 1), the histogram bitwise."""
+    out = {}
+    for B, H, W in ((EVAL_IMAGES, EVAL_SIZE, EVAL_SIZE), (1, 300, 500)):
+        u = (torch.randn(B, 2, H, W, generator=gen, device=dev) * 2
+             ).contiguous()
+        py, px = positions(gen, dev, 20.0, B, H, W)
+        err = float((bilinear_sample(u, py, px)
+                     - bilinear_sample_plain(u, py, px)).abs().max())
+        fy, fx = torch.round(py), torch.round(px)
+        lab = torch.randint(0, 5000, (B, 1, H, W), generator=gen,
+                            device=dev).float()
+        fyi = fy.to(torch.int32).contiguous()
+        fxi = fx.to(torch.int32).contiguous()
+        cell = (torch.rand(B, H, W, generator=gen, device=dev) < 0.6).float()
+        if err > 1e-6 or not torch.equal(
+                bilinear_sample(lab, fy, fx),
+                bilinear_sample_plain(lab, fy, fx)) or not torch.equal(
+                landing_histogram(fyi, fxi, cell),
+                landing_histogram_plain(fyi, fxi, cell)):
+            raise AssertionError(f"sampler/histogram at {B}×{H}×{W}: "
+                                 f"max|Δ| {err}")
+        out[f"{B}x{H}x{W}"] = dict(sampler_max_abs_err=err,
+                                   histogram_bitwise=True)
+    return out
+
+
+def check_diffuse_blocked(gen, dev) -> dict:
+    """Kernel 7 against its plain version, bitwise: at the evaluate
+    path's QC shape (8 × 448² of the design field, niters 40/80/120, from
+    zero with k = 1 as the routed QC calls it: timed, the line's
+    numbers); with k = 40, counts that are multiples neither of k nor of
+    the kernel's 8 iterations per launch (and a tile with none), from a
+    nonzero start on raw (non-dense) labels; one 2048² tile past the
+    residency gate. Then kernel 4's 1024² QC inputs through kernel 7, both
+    kernels timed on them."""
+    if resident_diffusion_supported(EVAL_SIZE, EVAL_SIZE) \
+            or resident_diffusion_supported(2048, 2048):
+        raise AssertionError("448² and 2048² should fail the residency gate")
+    ids, cen = design_labels(dev, EVAL_IMAGES, EVAL_SIZE, EVAL_SIZE)
+    niter = torch.tensor([40, 80, 120, 40, 80, 120, 40, 80],
+                         dtype=torch.int32, device=dev)
+    zero = torch.zeros_like(cen)
+    ids2, cen2 = design_labels(dev, 1, 2048, 2048)
+    cases = {
+        "eval_8x448_k1": (zero, ids, cen, niter, 1),
+        "odd_counts_k40_T0_raw_ids": (
+            (torch.rand(ids.shape, generator=gen, device=dev) * 2
+             ).contiguous(), (ids * 977).contiguous(), cen,
+            torch.tensor([13, 50, 0, 41, 79, 7, 120, 1], dtype=torch.int32,
+                         device=dev), 40),
+        "gate_1x2048_k1": (torch.zeros_like(cen2), ids2, cen2,
+                           torch.tensor([120], dtype=torch.int32,
+                                        device=dev), 1),
+    }
+    for name, (T0, i, c, n, k) in cases.items():
+        if not torch.equal(diffuse_blocked(T0, i, c, n, k=k),
+                           diffuse_blocked_plain(T0, i, c, n, k=k)):
+            raise AssertionError(f"diffuse_blocked {name}: not bitwise "
+                                 f"equal to plain")
+    ids4, cen4 = design_labels(dev)
+    n4 = torch.tensor([40, 80, 120, 40, 80, 120, 40, 80], dtype=torch.int32,
+                      device=dev)
+    z4 = torch.zeros_like(cen4)
+    if not torch.equal(diffuse_blocked(z4, ids4, cen4, n4, k=1),
+                       masked_diffusion(ids4, cen4, n4)):
+        raise AssertionError("kernels 7 and 4 differ at 1024²")
+    # read T0, ids, centre, write T (4 B each per pixel)
+    b, by = bound_ms(ids.numel() * 16, diffusion_ops(ids, niter), PEAK_FP32)
+    b4, _ = bound_ms(ids4.numel() * 16, diffusion_ops(ids4, n4), PEAK_FP32)
+    return dict(
+        name="diffuse_blocked", route="cuda",
+        source="classpose_tpu_torch/csrc/diffusion_blocked.cu",
+        replaces="classpose_tpu/ops/diffusion_pallas.py:143",
+        max_abs_err=0.0,
+        ms=time_ms(lambda: diffuse_blocked(zero, ids, cen, niter, k=1)),
+        plain_ms=time_ms(
+            lambda: diffuse_blocked_plain(zero, ids, cen, niter, k=1), 3),
+        library_ms=None, bound_ms=b, bound_by=by,
+        cases=list(cases),
+        at_8x1024=dict(
+            blocked_ms=time_ms(lambda: diffuse_blocked(z4, ids4, cen4, n4,
+                                                       k=1)),
+            masked_diffusion_ms=time_ms(lambda: masked_diffusion(ids4, cen4,
+                                                                 n4)),
+            bound_ms=b4),
+    )
+
+
+def check_flash_attention(gen, dev) -> dict:
+    """Kernel 8 at the evaluate path's shape (8 crops × 16 heads × 1024
+    tokens × 64, rel_h and rel_w (8, 16, 1024, 32)) against its plain
+    version: fp32 (the path's dtype; the line's numbers), true fp32
+    products, |Δ| ≤ 1e-4 + 1e-4·|ref|; bf16 (in ``bf16``) as kernel 1,
+    |Δ| ≤ 1e-2 + 1e-2·|ref|. Yardstick: SDPA with the materialized
+    (B, n, L, L) bias in the same dtype. Also checks that the kernel
+    route raises where a gradient would flow through it."""
+    B, n, L, hd, G = EVAL_BATCH, 16, 1024, 64, 32
+    scale = hd ** -0.5
+    res = {}
+    for dtype, tol, peak in ((torch.float32, 1e-4, PEAK_FP32),
+                             (torch.bfloat16, 1e-2, PEAK_BF16)):
+        q, k, v = (torch.randn(B, n, L, hd, generator=gen, device=dev)
+                   .to(dtype) for _ in range(3))
+        rh, rw = ((2 * torch.randn(B, n, L, G, generator=gen, device=dev))
+                  .to(dtype) for _ in range(2))
+        got = flash_attention_relpos(q, k, v, rh, rw, scale, (G, G))
+        ref = flash_attention_relpos_plain(q, k, v, rh, rw, scale)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs()
+        if got.dtype != dtype or not bool(
+                (err <= tol + tol * ref.float().abs()).all()):
+            raise AssertionError(f"flash_attention_relpos {dtype} max|Δ| "
+                                 f"{float(err.max())}")
+        mask = (rh[..., :, None] + rw[..., None, :]).reshape(B, n, L, L)
+        nbytes = (q.numel() * 4 + rh.numel() * 2) * q.element_size()
+        b, by = bound_ms(nbytes, 4.0 * B * n * L * L * hd, peak)
+        res[dtype] = dict(
+            max_abs_err=float(err.max()),
+            ms=time_ms(lambda: flash_attention_relpos(q, k, v, rh, rw, scale,
+                                                      (G, G))),
+            plain_ms=time_ms(lambda: flash_attention_relpos_plain(
+                q, k, v, rh, rw, scale), 3),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, scale=scale)),
+            bound_ms=b, bound_by=by)
+        del mask
+    qg = torch.zeros(1, 1, 64, 64, device=dev, requires_grad=True)
+    z = torch.zeros(1, 1, 64, 8, device=dev)
+    try:
+        flash_attention_relpos(qg, qg, qg, z, z, 0.125, (8, 8))
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+    else:
+        raise AssertionError("head-major kernel route took a tensor that "
+                             "needs a gradient")
+    return dict(name="flash_attention_relpos", route="cuda",
+                source="classpose_tpu_torch/csrc/attention_hm.cu",
+                replaces="classpose_tpu/nn/attention.py:93",
+                **res[torch.float32], bf16=res[torch.bfloat16])
+
+
 # ---------------------------------------------------------------- phase 4
 
 def match_masks(ma: np.ndarray, mb: np.ndarray):
@@ -512,17 +702,23 @@ def plain_versions():
     """Swap the plain versions in where the slices call the kernels (the
     attention through its differentiable plain route)."""
     saved = (port_masks.bilinear_sample, port_masks.landing_histogram,
-             port_flows.masked_diffusion, port_vit.attention_relpos,
+             port_flows.masked_diffusion, port_flows.diffuse_blocked,
+             port_vit.attention_relpos, port_vit.flash_attention_relpos,
              port_ln.layernorm)
     port_masks.bilinear_sample = bilinear_sample_plain
     port_masks.landing_histogram = landing_histogram_plain
     port_flows.masked_diffusion = masked_diffusion_plain
+    port_flows.diffuse_blocked = diffuse_blocked_plain
     port_vit.attention_relpos = attention_relpos_plain_route
+    port_vit.flash_attention_relpos = (
+        lambda q, k, v, rh, rw, scale, grid_hw:
+        flash_attention_relpos_plain(q, k, v, rh, rw, scale))
     port_ln.layernorm = layernorm_ref
 
     def restore():
         (port_masks.bilinear_sample, port_masks.landing_histogram,
-         port_flows.masked_diffusion, port_vit.attention_relpos,
+         port_flows.masked_diffusion, port_flows.diffuse_blocked,
+         port_vit.attention_relpos, port_vit.flash_attention_relpos,
          port_ln.layernorm) = saved
 
     return restore
@@ -532,6 +728,10 @@ def kernel_class(name: str) -> str:
     """Coarse class of a device kernel, by its name."""
     n = name.lower()
     for cls, marks in (("attention kernels", ("attn_",)),
+                       ("dynamics kernels", ("bilinear_sample",
+                                             "landing_histogram",
+                                             "step_kernel", "pack_kernel",
+                                             "blocked_kernel")),
                        ("convolution", ("conv", "cudnn", "fprop", "dgrad",
                                         "wgrad")),
                        ("matmul", ("nvjet", "gemm", "cutlass", "xmma")),
@@ -1011,6 +1211,182 @@ def run_wsi(dev, work: str) -> tuple[dict, dict]:
     return launches, stats
 
 
+# ---------------------------------------------------------------- phase 7
+
+def design_dataset(rng) -> tuple[np.ndarray, np.ndarray]:
+    """The evaluate phase's dataset: images (N, 3, S, S) float32 in
+    [0, 255] (darker discs on a noisy background) and labels (N, 2, S, S)
+    [instance, class]: the design field's cells (period 32, radius 13,
+    centres at 16 + 32·k, what the structured checkpoint draws) as
+    instances, all of the checkpoint's dominant class 1."""
+    S = EVAL_SIZE
+    yy, xx = np.mgrid[:S, :S]
+    cy = (yy // PERIOD) * PERIOD + PERIOD // 2
+    cx = (xx // PERIOD) * PERIOD + PERIOD // 2
+    inside = (yy - cy) ** 2 + (xx - cx) ** 2 <= RADIUS ** 2
+    inst = np.where(inside, (yy // PERIOD) * (S // PERIOD) + xx // PERIOD
+                    + 1, 0).astype(np.float32)
+    lab = np.stack([inst, (inst > 0).astype(np.float32)])
+    imgs = 200 + rng.normal(0, 8, (EVAL_IMAGES, 3, S, S)) - 60 * inside
+    return (np.clip(imgs, 0, 255).astype(np.float32),
+            np.repeat(lab[None], EVAL_IMAGES, axis=0))
+
+
+def pq_rows_equal(a: list[dict], b: list[dict], keys) -> None:
+    for ra, rb in zip(a, b):
+        for k in keys:
+            if abs(float(ra[k]) - float(rb[k])) > 1e-6:
+                raise AssertionError(f"class {ra['class_id']} {k}: "
+                                     f"{ra[k]} vs {rb[k]}")
+
+
+PQ_KEYS = ("pq", "dq", "sq", "tp", "fp", "fn", "precision", "recall", "f1",
+           "iou_sum")
+
+
+def run_evaluate(dev, work: str) -> tuple[dict, dict]:
+    """The evaluate CLI, the metrics CLI and the per-image API (see the
+    module docstring, step 7), with the WSI phase's checkpoint."""
+    cfg = ClassTransformerConfig(n_cell_classes=6)
+    ckpt = f"{work}/vitl.npz"
+    data = f"{work}/conic"
+    os.makedirs(data)
+    images, labels = design_dataset(np.random.default_rng(SEED))
+    np.save(f"{data}/images.npy", images)
+    np.save(f"{data}/labels.npy", labels)
+    grid = compute_tile_grid(EVAL_SIZE, EVAL_SIZE, cfg.bsize)
+    chunks = chunk_plan(grid.ny * grid.nx, EVAL_BATCH)[0]
+
+    def cli(out: str):
+        argv = ["--data_path", data, "--model_path", ckpt, "--output_dir",
+                out, "--device", "cuda", "--precision", "fp32",
+                "--batch_size", str(EVAL_BATCH)]
+        printed = io.StringIO()
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            res = evaluate_cli(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        preds = np.load(f"{out}/predictions.npy")
+        with open(f"{out}/metrics.csv") as f:
+            rows = list(csv.DictReader(f))
+        if preds.shape != (EVAL_IMAGES, EVAL_SIZE, EVAL_SIZE, 2) \
+                or preds.dtype != np.int32 or "pq" not in printed.getvalue():
+            raise AssertionError(f"evaluate outputs {preds.shape} "
+                                 f"{preds.dtype}")
+        pq_rows_equal(rows, res["metrics"], PQ_KEYS)
+        return res, wall, dict(_build.LAUNCHES), preds, printed.getvalue()
+
+    res, wall, launches, preds, table = cli(f"{work}/eval")
+    log(f"evaluate launches: {launches}\n{table}")
+    want = cfg.depth * chunks * EVAL_IMAGES
+    if launches["flash_attention_relpos"] != want:
+        raise AssertionError(f"head-major attention launches "
+                             f"{launches['flash_attention_relpos']}, want "
+                             f"{want} ({cfg.depth} per crop chunk)")
+    missing = [k for k in EVALUATE_KERNELS if launches[k] == 0]
+    if missing or launches["masked_diffusion"] or launches["attention_fwd"]:
+        raise AssertionError(f"evaluate path launches {launches}")
+    n_design = (EVAL_SIZE // PERIOD) ** 2
+    counts = [int(len(np.unique(p[..., 0])) - 1) for p in preds]
+    cls1 = res["metrics"][0]
+    if not all(0.95 * n_design <= c <= n_design for c in counts) \
+            or cls1["class_id"] != 1 or cls1["pq"] < 0.8:
+        raise AssertionError(f"instances {counts} (design {n_design}), "
+                             f"class 1 {cls1}")
+
+    restore = plain_versions()
+    try:
+        res_plain, plain_wall, _, preds_plain, _ = cli(f"{work}/eval_plain")
+    finally:
+        restore()
+    worst = compare_slices([(p[..., 0], p[..., 1]) for p in preds],
+                           [(p[..., 0], p[..., 1]) for p in preds_plain])
+
+    # the metrics CLI on the evaluate CLI's outputs: the GT's classes are
+    # 1 only, so its table has class 1 where the evaluate CLI's has the
+    # model's six; class 1 must agree
+    np.save(f"{work}/gt.npy",
+            np.stack([labels[:, 0], labels[:, -1]], -1).astype(np.int32))
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rows = metrics_cli(["--gt_path", f"{work}/gt.npy", "--pred_path",
+                            f"{work}/eval/predictions.npy", "--output",
+                            f"{work}/cm/metrics.csv"])
+    metrics_cli_s = time.perf_counter() - t0
+    pq_rows_equal(rows[:1], res["metrics"][:1], PQ_KEYS)
+
+    # the per-image API: one 448² image under the profiler, one 256² image
+    # (aligned: kernel 4, not kernel 7)
+    model = ClassposeModel(pretrained_model=ckpt, nclasses=6,
+                           precision="fp32", device=dev)
+    x = images[0].transpose(1, 2, 0)
+    model.eval(x, batch_size=EVAL_BATCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.eval(x, batch_size=EVAL_BATCH)
+    torch.cuda.synchronize()
+    image_s = time.perf_counter() - t0
+    breakdown = traced(lambda: model.eval(x, batch_size=EVAL_BATCH))
+    log(f"eval breakdown: {json.dumps(breakdown)}")
+    _build.reset_launches()
+    m256 = model.eval(np.ascontiguousarray(x[:256, :256]),
+                      batch_size=EVAL_BATCH)[0]
+    l256 = dict(_build.LAUNCHES)
+    if l256["masked_diffusion"] == 0 or l256["diffuse_blocked"] \
+            or l256["flash_attention_relpos"] != cfg.depth \
+            or len(np.unique(m256)) - 1 < 0.95 * (256 // PERIOD) ** 2:
+        raise AssertionError(f"256² eval: launches {l256}, "
+                             f"{len(np.unique(m256)) - 1} instances")
+    del model
+
+    # eval's 3D branch in bf16 (kernel 1), against the plain versions
+    model3 = ClassposeModel(pretrained_model=ckpt, nclasses=6,
+                            precision="bf16", device=dev)
+    stack = np.random.default_rng(SEED).integers(
+        0, 256, size=STACK_SHAPE + (3,)).astype(np.float32)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    m3, flows3, c3, _ = model3.eval(stack, do_3D=True,
+                                    batch_size=EVAL_BATCH)
+    torch.cuda.synchronize()
+    stack_s = time.perf_counter() - t0
+    l3 = dict(_build.LAUNCHES)
+    restore = plain_versions()
+    try:
+        m3_ref = model3.eval(stack, do_3D=True, batch_size=EVAL_BATCH)[0]
+    finally:
+        restore()
+    n3, n3_ref = int(m3.max()), int(m3_ref.max())
+    fg3 = float(((m3 > 0) == (m3_ref > 0)).mean())
+    if m3.shape != STACK_SHAPE or m3.dtype != np.int32 \
+            or l3["attention_fwd"] == 0 or l3["flash_attention_relpos"] \
+            or not np.isfinite(flows3[1]).all() or n3 == 0 \
+            or abs(n3 - n3_ref) > max(2, 0.05 * n3_ref) or fg3 < 0.98:
+        raise AssertionError(f"3D eval: {m3.shape} {m3.dtype}, launches "
+                             f"{l3}, {n3} vs {n3_ref} instances, fg "
+                             f"agreement {fg3}")
+    del model3
+
+    stats = dict(
+        images=EVAL_IMAGES, size=EVAL_SIZE, crops_per_image=grid.ny * grid.nx,
+        cli_wall_s=wall, inference_s=res["inference_s"],
+        images_per_s=EVAL_IMAGES / res["inference_s"],
+        pq_s=res["metrics_s"], metrics_cli_s=metrics_cli_s,
+        pq_class1=cls1["pq"], instances=counts, n_design=n_design,
+        plain_cli_wall_s=plain_wall,
+        plain_inference_s=res_plain["inference_s"],
+        worst_iou_vs_plain=worst, one_image_eval_s=image_s,
+        eval_breakdown=breakdown, launches_256=l256,
+        stack=dict(shape=STACK_SHAPE, eval_s=stack_s, launches=l3,
+                   instances=n3, plain_instances=n3_ref,
+                   fg_agreement=fg3),
+    )
+    return launches, stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -1034,7 +1410,9 @@ def main() -> int:
                   lambda: check_sampler(gen, dev),
                   lambda: check_histogram(gen, dev),
                   lambda: check_diffusion(dev),
-                  lambda: check_layernorm(gen, dev)):
+                  lambda: check_layernorm(gen, dev),
+                  lambda: check_diffuse_blocked(gen, dev),
+                  lambda: check_flash_attention(gen, dev)):
         k = check()
         torch.cuda.synchronize()
         log(f"{k['name']}: max|Δ| {k['max_abs_err']:.3g}, "
@@ -1042,6 +1420,8 @@ def main() -> int:
             f"{k['library_ms']}, bound {k['bound_ms']:.4f} by "
             f"{k['bound_by']})")
         kernels.append(k)
+    sampling_shapes = check_sampling_shapes(gen, dev)
+    log(f"sampler/histogram at other shapes: {sampling_shapes}")
 
     launches, stats = run_slice(dev)
     log(f"slice: {json.dumps(stats)}")
@@ -1050,24 +1430,38 @@ def main() -> int:
     log(f"training: {json.dumps(train_stats)}")
     with tempfile.TemporaryDirectory() as work:
         wsi_launches, wsi_stats = run_wsi(dev, work)
-    log(f"wsi: {json.dumps(wsi_stats)}")
+        log(f"wsi: {json.dumps(wsi_stats)}")
+        ev_launches, ev_stats = run_evaluate(dev, work)
+    log(f"evaluate: {json.dumps(ev_stats)}")
     for k in kernels:
         # each kernel's count from the phase whose path runs it: the
         # eval slice, training for the attention backward, the WSI path
-        # (its switch on) for the LayerNorm
-        k["launches"] = (launches[k["name"]] if k["name"] in EVAL_KERNELS
-                         else wsi_launches[k["name"]]
-                         if k["name"] == "layernorm"
-                         else train_launches[k["name"]])
+        # (its switch on) for the LayerNorm, the evaluate CLI for the
+        # head-major attention and the halo-blocked diffusion
+        name = k["name"]
+        k["launches"] = (launches[name] if name in EVAL_KERNELS
+                         else wsi_launches[name] if name == "layernorm"
+                         else ev_launches[name]
+                         if name in ("flash_attention_relpos",
+                                     "diffuse_blocked")
+                         else train_launches[name])
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms"]
+    by_name = {k["name"]: k for k in kernels}
     print(smi)
     print(json.dumps({"kernels": [{key: k[key] for key in order}
                                   for k in kernels],
                       "slice": stats, "training": train_stats,
-                      "wsi": wsi_stats,
-                      "layernorm_neck": kernels[-1]["neck"]}))
+                      "wsi": wsi_stats, "evaluate": ev_stats,
+                      "layernorm_neck": by_name["layernorm"]["neck"],
+                      "diffuse_blocked_cases": by_name["diffuse_blocked"][
+                          "cases"],
+                      "diffusion_at_8x1024": by_name["diffuse_blocked"][
+                          "at_8x1024"],
+                      "flash_attention_relpos_bf16": by_name[
+                          "flash_attention_relpos"]["bf16"],
+                      "sampling_shapes": sampling_shapes}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

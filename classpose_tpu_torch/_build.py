@@ -32,13 +32,15 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 
-# per-source extra flags: the sampler and the diffusion must match their
-# plain versions bitwise, so no multiply-add contraction there
+# per-source extra flags: the sampler and the two diffusions must match
+# their plain versions bitwise, so no multiply-add contraction there
 SOURCES = {
     "attention": [],
     "attention_bwd": [],
     "sample": ["-fmad=false"],
     "diffusion": ["-fmad=false"],
+    "diffusion_blocked": ["-fmad=false"],
+    "attention_hm": [],
     "layernorm": [],
 }
 
@@ -50,6 +52,8 @@ LAUNCHES = {
     "landing_histogram": 0,
     "masked_diffusion": 0,
     "layernorm": 0,
+    "diffuse_blocked": 0,
+    "flash_attention_relpos": 0,
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -71,6 +75,13 @@ _SIGNATURES = {
     "diffusion_pack_nbr": ("diffusion", [P, P, P, P, I, I, I, P]),
     "diffusion_step": ("diffusion", [P, P, P, P, P, I, I, I, I, P]),
     "layernorm_bf16": ("layernorm", [P, P, P, P, I, I, ctypes.c_float, I, P]),
+    "diffusion_blocked_round": ("diffusion_blocked",
+                                [P, P, P, P, P, I, I, I, I, P]),
+    "diffusion_blocked_depth": ("diffusion_blocked", []),
+    "attn_hm_f32": ("attention_hm",
+                    [P, P, P, P, P, P, I, I, I, I, I, ctypes.c_float, P]),
+    "attn_hm_bf16": ("attention_hm",
+                     [P, P, P, P, P, P, I, I, I, I, I, ctypes.c_float, P]),
 }
 
 

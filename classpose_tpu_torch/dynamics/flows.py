@@ -6,8 +6,11 @@ the training targets (counterpart of ``classpose_tpu/dynamics/flows.py``
 Heat diffusion from each instance's centre (the in-mask pixel nearest its
 centroid), restricted to same-instance 3×3 neighbours, then the
 normalized central-difference gradient of log1p(T). The diffusion runs
-through ``ops/diffusion.py``: the CUDA kernel for tensors on the card,
-the plain version on the CPU.
+through ``ops/diffusion.py``: a CUDA kernel for tensors on the card, its
+plain version on the CPU. Geometries that pass the JAX package's
+residency gate take ``masked_diffusion`` (kernel 4), all others
+``diffuse_blocked`` (kernel 7) from zero with ``k = 1``; both give the
+same bits.
 """
 
 from __future__ import annotations
@@ -17,7 +20,11 @@ import torch
 import torch.nn.functional as F
 from scipy import ndimage
 
-from classpose_tpu_torch.ops.diffusion import masked_diffusion
+from classpose_tpu_torch.ops.diffusion import (
+    diffuse_blocked,
+    masked_diffusion,
+    resident_diffusion_supported,
+)
 
 
 def _diffuse_dyn(masks: torch.Tensor, center_map: torch.Tensor, niter
@@ -35,7 +42,11 @@ def _diffuse_dyn(masks: torch.Tensor, center_map: torch.Tensor, niter
         n = n.expand(B) if n.numel() == 1 else n
     else:
         n = torch.full((B,), int(niter), dtype=torch.int32, device=ids.device)
-    T = masked_diffusion(ids.contiguous(), cen.contiguous(), n.contiguous())
+    ids, cen, n = ids.contiguous(), cen.contiguous(), n.contiguous()
+    if resident_diffusion_supported(*ids.shape[1:]):
+        T = masked_diffusion(ids, cen, n)
+    else:
+        T = diffuse_blocked(torch.zeros_like(cen), ids, cen, n, k=1)
     return T[0] if single else T
 
 

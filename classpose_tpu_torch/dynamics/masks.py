@@ -17,6 +17,12 @@
    (mean squared error > ``flow_threshold``);
 4. on the host, ``densify_labels`` and ``fill_holes_and_remove_small_masks``.
 
+The per-image API (``ClassposeModel.eval``) runs ``compute_masks``:
+``follow_flows`` and ``get_masks_from_positions`` (the batched functions
+at B = 1) on the device, then on the host the densify, the max-size
+filter and the flow-error QC of ``flow_errors``, whose recomputation
+(``masks_to_flows``) runs on the device.
+
 Not ported, because they exist only to avoid TPU weaknesses: the one-hot
 fused QC with its instance-count and window redo paths, the MXU seed
 cumsum, the gather-free shift sampler and the displacement-bound guard.
@@ -28,7 +34,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from classpose_tpu_torch.dynamics.flows import _diffuse_dyn, grad_from_T
+from classpose_tpu_torch.dynamics.flows import (
+    _bucket,
+    _diffuse_dyn,
+    _max_instance_extent,
+    grad_from_T,
+    masks_to_flows,
+)
 from classpose_tpu_torch.ops.sample import bilinear_sample, landing_histogram
 
 STEP_CAP = 2.0  # max px per Euler step (binds only for |dP| > 10)
@@ -247,3 +259,90 @@ def fill_holes_and_remove_small_masks(masks: np.ndarray, min_size: int = 15
         out[sl][ndimage.binary_fill_holes(crop)] = new_id
         new_id += 1
     return out
+
+
+# ------------------------------------------------------------ per image
+
+def follow_flows(dP: torch.Tensor, iscell: torch.Tensor, niter: int = 200
+                 ) -> torch.Tensor:
+    """dP (2, H, W), iscell (H, W) → final positions (2, H, W) f32: the
+    batched function at B = 1."""
+    return follow_flows_batched(dP[None], iscell[None], niter=niter)[0]
+
+
+def get_masks_from_positions(p: torch.Tensor, iscell: torch.Tensor,
+                             n_expand: int = 5, seed_min_count: float = 10.0,
+                             basin_min_count: float = 2.0,
+                             return_seeds: bool = False):
+    """(2, H, W) positions, (H, W) foreground → (H, W) int32 labels (dense
+    seed ranks with gaps); the batched function at B = 1."""
+    out = get_masks_from_positions_batched(
+        p[None], iscell[None], n_expand=n_expand,
+        seed_min_count=seed_min_count, basin_min_count=basin_min_count,
+        return_seeds=return_seeds)
+    if return_seeds:
+        return out[0][0], out[1][0]
+    return out[0]
+
+
+def flow_errors(masks, dP, max_id: int | None = None,
+                niter: int | None = None, device="cuda") -> np.ndarray:
+    """Per-instance mean squared error between the flows recomputed from
+    ``masks`` (on ``device``) and the predicted ``dP``/5 (cellpose
+    ``remove_bad_flow_masks``); (nmax+1,) float32. ``niter=None`` takes
+    the horizon from the largest instance extent,
+    ``bucket(min(max(2·ext, 40), 400), 40)``."""
+    masks_np = np.asarray(masks)
+    if niter is None:
+        niter = _bucket(
+            min(max(2 * _max_instance_extent(masks_np), 40), 400), 40)
+    mu = masks_to_flows(masks_np, niter=niter, device=device).cpu().numpy()
+    err_map = ((mu - np.asarray(dP) / 5.0) ** 2).sum(axis=0)
+    ids = masks_np.ravel().astype(np.int64)
+    fg = ids > 0
+    nmax = int(masks_np.max()) if max_id is None else max_id
+    n = np.bincount(ids[fg], minlength=nmax + 1)
+    s = np.bincount(ids[fg], weights=err_map.ravel()[fg],
+                    minlength=nmax + 1)
+    return (s / np.maximum(n, 1)).astype(np.float32)
+
+
+def compute_masks(dP, cellprob, niter: int = 200,
+                  cellprob_threshold: float = 0.0,
+                  flow_threshold: float = 0.4, min_size: int = 15,
+                  max_size_fraction: float = 0.4, qc_niter: int | None = None,
+                  qc_downsample: int = 1, device="cuda") -> np.ndarray:
+    """Mask recovery for one (2, H, W) flow field and (H, W) cellprob
+    (numpy or tensors) → (H, W) int32. ``qc_downsample = d > 1`` runs the
+    flow QC on every d-th pixel (an approximation the JAX signature
+    offers); ``qc_niter`` fixes its horizon."""
+    dP = torch.as_tensor(dP, dtype=torch.float32, device=device)
+    cellprob = torch.as_tensor(cellprob, dtype=torch.float32, device=device)
+    iscell = cellprob > cellprob_threshold
+    if not bool(iscell.any()):
+        return np.zeros(tuple(cellprob.shape), np.int32)
+    p = follow_flows(dP.contiguous(), iscell, niter=niter)
+    masks = densify_labels(get_masks_from_positions(p, iscell).cpu().numpy())
+    nmax = int(masks.max())
+    if nmax == 0:
+        return masks
+    # max-size filter (cellpose get_masks tail)
+    counts = np.bincount(masks.ravel(), minlength=nmax + 1)
+    H, W = masks.shape
+    too_big = counts > max_size_fraction * H * W
+    too_big[0] = False
+    if too_big.any():
+        masks[too_big[masks]] = 0
+        masks = densify_labels(masks)
+        nmax = int(masks.max())
+        if nmax == 0:
+            return masks
+    if flow_threshold is not None and flow_threshold > 0:
+        d = max(1, int(qc_downsample))
+        errs = flow_errors(masks[::d, ::d], dP.cpu().numpy()[:, ::d, ::d],
+                           max_id=nmax, niter=qc_niter, device=device)
+        bad = errs > flow_threshold
+        bad[0] = False
+        if bad.any():
+            masks[bad[masks]] = 0
+    return fill_holes_and_remove_small_masks(masks, min_size=min_size)

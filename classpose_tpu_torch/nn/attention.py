@@ -16,6 +16,12 @@ backward the backward kernel; for a CPU tensor the plain forward and
 :func:`attention_relpos_bwd_plain`. Without a gradient to compute it
 calls the forward alone and writes neither. A CUDA tensor launches the
 kernels or raises.
+
+:func:`flash_attention_relpos` is the counterpart of the head-major
+``flash_attention_relpos`` (q, k, v (B, n, L, hd), rel_h (B, n, L, H),
+rel_w (B, n, L, W)), the layout of the JAX Attention's fp32 branch; its
+kernel (``csrc/attention_hm.cu``, kernel 8) takes fp32 and bf16 and, like
+the TPU kernel, has no backward.
 """
 
 from __future__ import annotations
@@ -232,3 +238,85 @@ def attention_relpos_plain_route(qkv: torch.Tensor, rel: torch.Tensor,
         return AttentionRelPos.apply(qkv, rel, scale, tuple(grid_hw),
                                      num_heads, True)
     return attention_relpos_plain(qkv, rel, scale, grid_hw, num_heads)
+
+
+# ------------------------------------------------------- head-major (kernel 8)
+
+def flash_attention_relpos_plain(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, rel_h: torch.Tensor,
+                                 rel_w: torch.Tensor, scale: float
+                                 ) -> torch.Tensor:
+    """``attention_reference``: fp32 logits and softmax, probabilities cast
+    to v's dtype, fp32-accumulated AV product; (B, n, L, hd) in q's
+    dtype."""
+    B, n, L, _ = q.shape
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    bias = (rel_h.float()[..., :, None]
+            + rel_w.float()[..., None, :]).reshape(B, n, L, L)
+    p = torch.softmax(s + bias, dim=-1)
+    return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
+
+
+def _check_hm(q, k, v, rel_h, rel_w, grid_hw) -> None:
+    B, n, L, hd = q.shape
+    H, W = grid_hw
+    if k.shape != q.shape or v.shape != q.shape or L != H * W \
+            or rel_h.shape != (B, n, L, H) or rel_w.shape != (B, n, L, W):
+        raise ValueError(
+            f"bad shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+            f"{tuple(v.shape)}, rel_h {tuple(rel_h.shape)}, rel_w "
+            f"{tuple(rel_w.shape)}, grid {grid_hw}")
+    ts = (q, k, v, rel_h, rel_w)
+    if any(t.device != q.device or t.dtype != q.dtype for t in ts):
+        raise ValueError("q, k, v, rel_h and rel_w must share device and "
+                         "dtype")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {q.device}")
+
+
+def _hm_kernel(q, k, v, rel_h, rel_w, scale: float, grid_hw) -> torch.Tensor:
+    B, n, L, hd = q.shape
+    H, W = grid_hw
+    if q.dtype == torch.float32:
+        fn, ok = "attn_hm_f32", H + W <= 128
+    elif q.dtype == torch.bfloat16:
+        fn, ok = "attn_hm_bf16", (H % 8 == 0 and W % 8 == 0
+                                  and H + W in (16, 32, 64))
+    else:
+        raise TypeError(f"kernel takes fp32 or bf16, got {q.dtype}")
+    if hd != 64 or L % 64 or not ok:
+        raise ValueError(f"kernel needs hd=64, L%64==0 and a supported grid "
+                         f"({q.dtype}): hd={hd}, L={L}, grid={grid_hw}")
+    if not all(t.is_contiguous() for t in (q, k, v, rel_h, rel_w)):
+        raise ValueError("q, k, v, rel_h and rel_w must be contiguous")
+    out = torch.empty_like(q)
+    lib = _build.lib("attention_hm")
+    _build.check(
+        getattr(lib, fn)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         rel_h.data_ptr(), rel_w.data_ptr(), out.data_ptr(),
+                         B, L, n, H, W, float(scale),
+                         _build.stream_ptr(q.device)),
+        fn,
+    )
+    _build.count("flash_attention_relpos")
+    return out
+
+
+def flash_attention_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           rel_h: torch.Tensor, rel_w: torch.Tensor,
+                           scale: float, grid_hw: tuple[int, int] = (32, 32)
+                           ) -> torch.Tensor:
+    """softmax(q·kᵀ·scale + rel_h[i, j//W] + rel_w[i, j%W]) @ v per head.
+    q/k/v (B, n, L, hd), rel_h (B, n, L, H), rel_w (B, n, L, W) with
+    L = H·W → (B, n, L, hd) in q's dtype. On the card: fp32 or bf16,
+    hd = 64, and no gradient (the kernel has no backward, as the TPU
+    kernel had none)."""
+    _check_hm(q, k, v, rel_h, rel_w, grid_hw)
+    if q.device.type == "cpu":
+        return flash_attention_relpos_plain(q, k, v, rel_h, rel_w, scale)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, rel_h, rel_w)):
+        raise RuntimeError("flash_attention_relpos has no backward: its "
+                           "kernel route takes no tensor that needs a "
+                           "gradient")
+    return _hm_kernel(q, k, v, rel_h, rel_w, scale, tuple(grid_hw))

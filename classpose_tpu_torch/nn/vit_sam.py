@@ -15,11 +15,13 @@ heads, in PyTorch (counterpart of ``classpose_tpu/nn/vit_sam.py``).
 Tokens are NHWC, convolutions run NCHW. Precision follows the JAX
 package: fp32 parameters cast to the compute dtype at use, fp32
 LayerNorm statistics, exact-erf GELU on an fp32 upcast. In bf16 the
-attention goes through the CUDA kernels (``nn/attention.py``, forward and
-backward); at fp32 on the card through the plain version under autograd,
-as the JAX package takes XLA there. On the CPU it always takes
-``attention_relpos``, whose plain route has the kernels' autograd
-plumbing. The blocks' ``norm1``/``norm2`` and the neck's two LayerNorm2d
+attention goes through the token-major CUDA kernels (``nn/attention.py``
+``attention_relpos``, forward and backward). At fp32 without a gradient
+(inference) it follows the JAX package's fp32 branch: head-major q, k, v,
+``rel_h``/``rel_w`` from two einsums, then ``flash_attention_relpos``
+(kernel 8 on the card, its plain version on the CPU). At fp32 with a
+gradient it takes the plain version under autograd (``attention_relpos``
+on the CPU, whose plain route has the kernels' autograd plumbing). The blocks' ``norm1``/``norm2`` and the neck's two LayerNorm2d
 take the LayerNorm kernel (``nn/layernorm.py``) in bf16 on the card when
 ``CLASSPOSE_LN_PALLAS=1``, and its plain version otherwise.
 """
@@ -35,6 +37,7 @@ from torch import nn
 from classpose_tpu_torch.nn.attention import (
     attention_relpos,
     attention_relpos_plain,
+    flash_attention_relpos,
 )
 from classpose_tpu_torch.nn.layernorm import LayerNorm
 from classpose_tpu_torch.nn.layers import Conv2d, Linear
@@ -128,6 +131,17 @@ class Attention(nn.Module):
         qkv = self.qkv(x).reshape(B, L, 3 * C)
         Rh = get_rel_pos(H, H, self.rel_pos_h).to(x.dtype)  # (H, H, hd)
         Rw = get_rel_pos(W, W, self.rel_pos_w).to(x.dtype)  # (W, W, hd)
+        if x.dtype == torch.float32 and not torch.is_grad_enabled():
+            # the JAX fp32 branch: head-major q, k, v and two einsums
+            q, k, v = qkv.reshape(B, L, 3, n, hd).permute(2, 0, 3, 1, 4)
+            q_hw = q.reshape(B, n, H, W, hd)
+            rel_h = torch.einsum("bnhwc,hkc->bnhwk", q_hw, Rh)
+            rel_w = torch.einsum("bnhwc,wkc->bnhwk", q_hw, Rw)
+            out = flash_attention_relpos(
+                q.contiguous(), k.contiguous(), v.contiguous(),
+                rel_h.reshape(B, n, L, H).contiguous(),
+                rel_w.reshape(B, n, L, W).contiguous(), scale, (H, W))
+            return self.proj(out.transpose(1, 2).reshape(B, H, W, C))
         # per-token table [Rh[i // W] | Rw[i % W]]: (L, H+W, hd)
         T = torch.cat([Rh.repeat_interleave(W, dim=0), Rw.repeat(H, 1, 1)],
                       dim=1)

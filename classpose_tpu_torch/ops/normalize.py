@@ -6,8 +6,8 @@ sharpen/smooth difference-of-gaussians options.
 ``integral_stats`` takes the exact path for images whose values are
 integers in [0, 255] (uint8 sources): the percentiles are read off a
 256-bin cumulative histogram, with the same linear interpolation as a
-sorted percentile. Tiled normalization (``tile_norm_blocksize``) is not
-ported yet: it is off on the default path.
+sorted percentile. ``tile_norm_blocksize > 0`` normalizes with smoothed
+blockwise percentiles (``_tile_normalize``).
 """
 
 from __future__ import annotations
@@ -15,8 +15,11 @@ from __future__ import annotations
 import math
 from typing import Any
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from classpose_tpu_torch.ops.resize import resize
 
 NORMALIZE_DEFAULT: dict[str, Any] = {
     "lowhigh": None,
@@ -105,10 +108,10 @@ def normalize_img(
         low, high = lowhigh
         img = (img - low) / max(high - low, 1e-6)
         return 1.0 - img if invert else img
-    if tile_norm_blocksize and tile_norm_blocksize > 0:
-        raise NotImplementedError("tiled normalization is not ported yet")
-
     perc_low, perc_high = (1.0, 99.0) if percentile is None else percentile
+    if tile_norm_blocksize and tile_norm_blocksize > 0:
+        return _tile_normalize(img, ax, perc_low, perc_high,
+                               int(tile_norm_blocksize), invert)
     if integral_stats:
         x01, x99 = _integral_percentile(img, (perc_low, perc_high), ax)
     else:
@@ -128,3 +131,83 @@ def normalize_img(
     scale = torch.clamp(x99 - x01, min=1e-3)
     out = (img - x01) / scale
     return 1.0 - out if invert else out
+
+
+TILE_NORM_OVERLAP = 0.1  # cellpose tile_overlap for normalization blocks
+TILE_NORM_SMOOTH_SIGMA = 1.0  # gaussian sigma over the block-stat grid
+_SMOOTH_TRUNCATE = 4.0  # scipy.ndimage.gaussian_filter default
+
+
+def tile_grid_starts(L: int, blocksize: int,
+                     overlap: float = TILE_NORM_OVERLAP) -> np.ndarray:
+    """Overlapping block starts: ``ceil((1+2·overlap)·L/bs)`` blocks spread
+    by linspace (cellpose ``normalize99_tile``'s grid)."""
+    if L <= blocksize:
+        return np.zeros(1, int)
+    n = int(np.ceil((1.0 + 2.0 * overlap) * L / blocksize))
+    return np.linspace(0, L - blocksize, n).astype(int)
+
+
+def _smooth_grid(g: torch.Tensor, sigma: float) -> torch.Tensor:
+    """Gaussian smoothing of the (B, ny, nx, C) block-stat grid over the
+    grid axes with scipy ``gaussian_filter(mode="reflect")`` semantics
+    (truncate 4σ, edge sample repeated)."""
+    radius = int(_SMOOTH_TRUNCATE * sigma + 0.5)
+    if radius < 1:
+        return g
+    x = torch.arange(-radius, radius + 1, dtype=torch.float32,
+                     device=g.device)
+    k = torch.exp(-0.5 * (x / sigma) ** 2)
+    k = k / k.sum()
+
+    def conv_axis(a, axis):
+        n = a.shape[axis]
+        if n == 1:
+            return a
+        a = a.movedim(axis, -1)
+        ap, pad = a, radius
+        while pad > 0:  # symmetric padding wider than the axis: chained
+            p = min(pad, ap.shape[-1] - 1) if ap.shape[-1] > 1 else pad
+            ap = torch.cat([ap[..., :p].flip(-1), ap,
+                            ap[..., ap.shape[-1] - p:].flip(-1)], dim=-1)
+            pad -= p
+        out = torch.zeros_like(a)
+        for i in range(2 * radius + 1):
+            out = out + k[i] * ap[..., i:i + n]
+        return out.movedim(-1, axis)
+
+    return conv_axis(conv_axis(g, 1), 2)
+
+
+def _tile_normalize(img: torch.Tensor, ax: int, perc_low: float,
+                    perc_high: float, blocksize: int, invert: bool
+                    ) -> torch.Tensor:
+    """Smoothed blockwise percentile normalization (counterpart of the JAX
+    ``_tile_normalize``): per-block, per-channel percentiles on the
+    overlapping grid, gaussian smoothing (σ = 1 grid cell) of the two stat
+    grids, linear (half-pixel) upsampling to full resolution, then
+    ``(x − low) / max(high − low, 1e-3)``."""
+    x = img.movedim(ax, -1)
+    *lead, Ly, Lx, C = x.shape
+    x2 = x.reshape(-1, Ly, Lx, C)
+    blocksize = min(blocksize, Ly, Lx)
+    ys = tile_grid_starts(Ly, blocksize)
+    xs = tile_grid_starts(Lx, blocksize)
+    q = torch.tensor([perc_low / 100.0, perc_high / 100.0],
+                     dtype=torch.float32, device=img.device)
+    stats = torch.stack([
+        torch.stack([
+            torch.quantile(
+                x2[:, y0:y0 + blocksize, x0:x0 + blocksize].reshape(
+                    x2.shape[0], -1, C), q, dim=1)
+            for x0 in (int(v) for v in xs)], dim=2)
+        for y0 in (int(v) for v in ys)], dim=2)  # (2, B, ny, nx, C)
+    lows = _smooth_grid(stats[0], TILE_NORM_SMOOTH_SIGMA)
+    highs = _smooth_grid(stats[1], TILE_NORM_SMOOTH_SIGMA)
+    full = (x2.shape[0], Ly, Lx, C)
+    low_full = resize(lows, full)
+    high_full = resize(highs, full)
+    out = (x2 - low_full) / torch.clamp(high_full - low_full, min=1e-3)
+    if invert:
+        out = 1.0 - out
+    return out.reshape(*lead, Ly, Lx, C).movedim(-1, ax)

@@ -18,6 +18,8 @@ from classpose_tpu_torch.nn.attention import (
     attention_relpos_bwd_plain,
     attention_relpos_plain,
     attention_relpos_plain_route,
+    flash_attention_relpos,
+    flash_attention_relpos_plain,
 )
 from classpose_tpu_torch.nn.layernorm import (
     layernorm,
@@ -25,6 +27,8 @@ from classpose_tpu_torch.nn.layernorm import (
     layernorm_ref,
 )
 from classpose_tpu_torch.ops.diffusion import (
+    diffuse_blocked,
+    diffuse_blocked_plain,
     masked_diffusion,
     masked_diffusion_plain,
 )
@@ -149,6 +153,52 @@ def test_diffusion_kernel(dev):
                        masked_diffusion_plain(ids, cen, niter))
 
 
+@pytest.mark.parametrize("shape,k", [((3, 48, 80), 1), ((2, 130, 70), 40),
+                                     ((1, 200, 333), 8)])
+def test_diffuse_blocked_kernel(dev, shape, k):
+    """Kernel 7 against its plain version, bitwise: a nonzero T0, raw
+    labels, counts that are not multiples of k or of the kernel's 8
+    iterations per launch, a tile with no iteration, ragged 64² blocks."""
+    rng = np.random.default_rng(1)
+    ids = torch.from_numpy(
+        (rng.integers(0, 5, size=shape) * 977).astype(np.int32)).to(dev)
+    cen = torch.from_numpy(
+        (rng.uniform(size=shape) < 0.05).astype(np.float32)).to(dev)
+    T0 = torch.from_numpy(rng.uniform(0, 2, size=shape).astype(
+        np.float32)).to(dev)
+    niters = torch.from_numpy(
+        np.array([50, 0, 13][:shape[0]], np.int32)).to(dev)
+    before = _build.LAUNCHES["diffuse_blocked"]
+    got = diffuse_blocked(T0, ids, cen, niters, k=k)
+    assert _build.LAUNCHES["diffuse_blocked"] > before
+    assert torch.equal(got, diffuse_blocked_plain(T0, ids, cen, niters, k=k))
+
+
+@pytest.mark.parametrize("dtype,G", [(torch.float32, 8), (torch.float32, 16),
+                                     (torch.bfloat16, 8),
+                                     (torch.bfloat16, 32)])
+def test_flash_attention_relpos_kernel(dev, dtype, G):
+    """Kernel 8 against its plain version: fp32 products on the CUDA
+    cores, sums in another order, |Δ| ≤ 1e-4 + 1e-4·|ref|; bf16 as kernel
+    1, 2e-2; its route raises where a gradient would flow."""
+    g = torch.Generator(device="cpu").manual_seed(G)
+    B, n, hd, L = 2, 3, 64, G * G
+    q, k, v = (torch.randn(B, n, L, hd, generator=g).to(dev, dtype)
+               for _ in range(3))
+    rh, rw = ((2 * torch.randn(B, n, L, G, generator=g)).to(dev, dtype)
+              for _ in range(2))
+    before = _build.LAUNCHES["flash_attention_relpos"]
+    got = flash_attention_relpos(q, k, v, rh, rw, hd ** -0.5, (G, G))
+    assert _build.LAUNCHES["flash_attention_relpos"] == before + 1
+    ref = flash_attention_relpos_plain(q, k, v, rh, rw, hd ** -0.5)
+    assert got.dtype == dtype
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention_relpos(q.requires_grad_(), k, v, rh, rw, 0.125,
+                               (G, G))
+
+
 @pytest.mark.parametrize("shape,fast_var", [((3, 50, 1024), True),
                                             ((2, 8, 8, 256), False),
                                             ((7, 128), True),
@@ -207,8 +257,9 @@ def test_wsi_pipeline_on_card_matches_cpu(dev, tmp_path, monkeypatch):
     slide, _ = synthetic_wsi(width=1100, height=900, n_cells=80, seed=4,
                              mpp=0.4)
     np.save(tmp_path / "slide.npy", slide._level0)
-    cfg = ClassTransformerConfig(n_cell_classes=4, ps=4, embed_dim=64,
-                                 depth=2, num_heads=4, neck_dim=64, bsize=64)
+    # head width 64: at fp32 the card's attention is kernel 8
+    cfg = ClassTransformerConfig(n_cell_classes=4, ps=4, embed_dim=128,
+                                 depth=2, num_heads=2, neck_dim=64, bsize=64)
     save_params(perturbed_structured_params(cfg, attn_ripple=0.5),
                 str(tmp_path / "m.npz"), cfg)
     (tmp_path / "c.yaml").write_text(

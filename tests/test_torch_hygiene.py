@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``classpose_tpu_torch`` and not
 ``chip_smoke.py`` imports JAX, flax or the JAX package, nor a host
-library the card's machine lacks (cv2, PIL, pandas, yaml, pydantic,
-matplotlib, requests, shapely, openslide); its kernel and native sources
+library the card's machine lacks (cv2, PIL, pandas, sklearn, yaml,
+pydantic, matplotlib, requests, shapely, openslide); its kernel and native sources
 ship with the package."""
 
 import ast
@@ -14,8 +14,8 @@ import classpose_tpu_torch
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "classpose_tpu")
-HOST_LIBS = ("cv2", "PIL", "pandas", "yaml", "pydantic", "matplotlib",
-             "requests", "shapely", "openslide")
+HOST_LIBS = ("cv2", "PIL", "pandas", "sklearn", "yaml", "pydantic",
+             "matplotlib", "requests", "shapely", "openslide")
 
 
 def _forbidden(name: str, names=FORBIDDEN) -> bool:
@@ -82,11 +82,36 @@ def test_kernel_sources_ship_with_the_package():
     for name in _build.SOURCES:
         assert (_build.CSRC / f"{name}.cu").is_file()
     assert (_build.CSRC / "mma.cuh").is_file()
+    assert (_build.CSRC / "attn_fwd.cuh").is_file()
     assert (_build.CSRC / "layernorm.cu").is_file()
     assert "layernorm" in _build.SOURCES
     assert set(_build.LAUNCHES) == {
         "attention_fwd", "attention_bwd", "bilinear_sample",
-        "landing_histogram", "masked_diffusion", "layernorm"}
+        "landing_histogram", "masked_diffusion", "layernorm",
+        "diffuse_blocked", "flash_attention_relpos"}
+
+
+def test_kernel_signatures_match_the_sources():
+    """Every ctypes binding names an ``extern "C"`` function of its source
+    with as many parameters, pointers where the C side takes pointers;
+    a binding that disagrees would fail only on the card."""
+    import ctypes
+    import re
+
+    from classpose_tpu_torch import _build
+
+    decls = {}
+    for name in _build.SOURCES:
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        for fn, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src):
+            decls[fn] = (name, [p.strip() for p in params.split(",")
+                                if p.strip() and p.strip() != "void"])
+    for fn, (owner, argtypes) in _build._SIGNATURES.items():
+        assert decls[fn][0] == owner, fn
+        params = decls[fn][1]
+        assert len(params) == len(argtypes), fn
+        for p, t in zip(params, argtypes):
+            assert ("*" in p) == (t is ctypes.c_void_p), (fn, p)
 
 
 def test_native_source_ships_with_the_package():
