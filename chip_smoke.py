@@ -16,10 +16,13 @@
    from a nonzero start and one 2048² tile past the residency gate;
    head-major attention: 8 crops × 16 heads × 1024 tokens in fp32 and
    bf16) and times kernel, plain version, a one-call PyTorch yardstick
-   where there is one, and the least time the card could take (the
-   bound); checks sampler and histogram also at 8 × 448² and 300 × 500,
-   and that the LayerNorm and head-major attention kernel routes raise
-   where a gradient would flow through them;
+   where there is one (for the attention forwards the fastest SDPA
+   backend that takes a float mask, named, with its spread) and the
+   least time the card could take (the bound); checks kernel 1's
+   log-sum-exp and fp32 output at 8 × 16 × 1024, sampler and histogram
+   also at 8 × 448² and 300 × 500, and that the LayerNorm and head-major
+   attention kernel routes raise where a gradient would flow through
+   them;
 4. runs ``ClassposeModel.eval_batch`` at full ViT-L width (24 blocks,
    1024 wide, bf16) with the structured synthetic checkpoint on 8 uint8
    tiles of 1024², ``batch_size=32``, ``niter=200``, with every launch
@@ -183,10 +186,10 @@ def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
-def time_ms(fn, reps: int = 5, inner: int = 1) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn()`` after a warm-up,
-    each over ``inner`` calls back to back (per call): for a kernel of
-    tens of µs, ``inner`` > 1 keeps the host's launch latency out of the
+def time_runs(fn, reps: int = 5, inner: int = 1) -> list[float]:
+    """``reps`` CUDA-event timings (ms per call) of ``fn()`` after a
+    warm-up, each over ``inner`` calls back to back: for a kernel of tens
+    of µs, ``inner`` > 1 keeps the host's launch latency out of the
     time."""
     fn()
     torch.cuda.synchronize()
@@ -200,7 +203,51 @@ def time_ms(fn, reps: int = 5, inner: int = 1) -> float:
         e1.record()
         e1.synchronize()
         times.append(e0.elapsed_time(e1) / inner)
-    return statistics.median(times)
+    return times
+
+
+def time_ms(fn, reps: int = 5, inner: int = 1) -> float:
+    """Median of :func:`time_runs`."""
+    return statistics.median(time_runs(fn, reps, inner))
+
+
+# SDPA backends that take a float mask (FlashAttention's does not)
+SDPA_BACKENDS = ("EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH")
+
+
+def sdpa_yardstick(q, k, v, mask, scale, reps: int = 15,
+                   inner: int = 3) -> dict:
+    """The attention kernels' one-call yardstick: SDPA with the
+    materialized float bias, timed under each backend that accepts it
+    (one refusing raises and is left out); the fastest backend's median,
+    its name and its spread (min, max over ``reps``), and every accepted
+    backend's median."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def call():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                              scale=scale)
+
+    runs = {}
+    for name in SDPA_BACKENDS:
+        with sdpa_kernel(getattr(SDPBackend, name)):
+            try:
+                call()
+                torch.cuda.synchronize()
+            except RuntimeError:
+                continue
+            runs[name] = time_runs(call, reps, inner)
+    best = min(runs, key=lambda n: statistics.median(runs[n]))
+    return dict(library_ms=statistics.median(runs[best]),
+                library_backend=best,
+                library_spread=[min(runs[best]), max(runs[best])],
+                library_backends={n: statistics.median(r)
+                                  for n, r in runs.items()})
+
+
+def attention_rates(ms: float, flops: float, bound: float) -> dict:
+    """Achieved TFLOP/s at the standard count and share of the bound."""
+    return dict(tflops=flops / ms / 1e9, bound_share=bound / ms)
 
 
 def bound_ms(nbytes: float, ops: float, peak_ops: float):
@@ -256,6 +303,12 @@ def diffusion_ops(ids: torch.Tensor, niter: torch.Tensor) -> float:
 # ---------------------------------------------------------------- phase 3
 
 def check_attention(gen, dev) -> dict:
+    """Kernel 1 at the inference shape (25 crops × 16 heads × 1024 × 64)
+    against its plain version, |Δ| ≤ 1e-2 + 1e-2·|ref|; at the training
+    shape (8 crops) its row log-sum-exp against the plain fp32 logits'
+    (|Δ| ≤ 1e-3 + 1e-4·|lse|) and its fp32 output against the plain fp32
+    softmax product (1e-2 + 1e-2·|ref|). Yardstick: the fastest SDPA
+    backend that takes the materialized float bias."""
     B, n, L, hd, G = 25, 16, 1024, 64, 32
     qkv = torch.randn(B, L, 3 * n * hd, generator=gen, device=dev).to(
         torch.bfloat16)
@@ -271,24 +324,56 @@ def check_attention(gen, dev) -> dict:
     tol = 1e-2 + 1e-2 * ref.float().abs()
     if not bool((err <= tol).all()):
         raise AssertionError(f"attention max|Δ| {float(err.max())}")
+    stats = check_attention_stats(qkv[:TRAIN_BATCH], rel[:TRAIN_BATCH],
+                                  scale, G, n)
     q, k, v = (qkv[..., i * n * hd:(i + 1) * n * hd].reshape(B, L, n, hd)
                .transpose(1, 2).contiguous() for i in range(3))
     mask = (rel[..., :G].transpose(1, 2)[..., :, None]
             + rel[..., G:].transpose(1, 2)[..., None, :]).reshape(B, n, L, L)
     nbytes = (qkv.numel() + rel.numel() + got.numel()) * 2
-    b, by = bound_ms(nbytes, 4.0 * B * n * L * L * hd, PEAK_BF16)
-    return dict(
+    flops = 4.0 * B * n * L * L * hd
+    b, by = bound_ms(nbytes, flops, PEAK_BF16)
+    ms = time_ms(lambda: attention_relpos(qkv, rel, scale, (G, G), n), 10,
+                 5)
+    res = dict(
         name="attention_fwd", route="cuda",
         source="classpose_tpu_torch/csrc/attention.cu",
         replaces="classpose_tpu/nn/attention.py:404",
-        max_abs_err=float(err.max()),
-        ms=time_ms(lambda: attention_relpos(qkv, rel, scale, (G, G), n)),
+        max_abs_err=float(err.max()), ms=ms,
         plain_ms=time_ms(
             lambda: attention_relpos_plain(qkv, rel, scale, (G, G), n), 3),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, scale=scale)),
-        bound_ms=b, bound_by=by,
-    )
+        bound_ms=b, bound_by=by, **attention_rates(ms, flops, b), **stats,
+        **sdpa_yardstick(q, k, v, mask, scale))
+    del mask
+    return res
+
+
+def check_attention_stats(qkv, rel, scale, G, n) -> dict:
+    """The forward's statistics for the backward at the training shape:
+    natural-log lse and the fp32 output, against the plain fp32 logits
+    and softmax product; their max |Δ|."""
+    B, L, _ = qkv.shape
+    hd = qkv.shape[-1] // (3 * n)
+    out, lse, out32 = _fwd_kernel(qkv, rel, scale, (G, G), n, True)
+    q, k, v = (qkv[..., i * n * hd:(i + 1) * n * hd].float()
+               .reshape(B, L, n, hd).transpose(1, 2) for i in range(3))
+    s = q @ k.transpose(-1, -2) * scale + (
+        rel[..., :G].float().transpose(1, 2)[..., :, None]
+        + rel[..., G:].float().transpose(1, 2)[..., None, :]
+    ).reshape(B, n, L, L)
+    lse_ref = torch.logsumexp(s, -1)
+    o_ref = (torch.softmax(s, -1) @ v).transpose(1, 2).reshape(B, L, n * hd)
+    del s
+    lse_err = (lse - lse_ref).abs()
+    o_err = (out32 - o_ref).abs()
+    if not bool((lse_err <= 1e-3 + 1e-4 * lse_ref.abs()).all()):
+        raise AssertionError(f"attention lse max|Δ| {float(lse_err.max())}")
+    if not bool((o_err <= 1e-2 + 1e-2 * o_ref.abs()).all()):
+        raise AssertionError(f"attention out32 max|Δ| {float(o_err.max())}")
+    if not torch.equal(out32.bfloat16(), out):
+        raise AssertionError("attention out32 does not round to out")
+    return dict(lse_max_abs_err=float(lse_err.max()),
+                out32_max_abs_err=float(o_err.max()))
 
 
 def check_attention_bwd(gen, dev) -> dict:
@@ -626,15 +711,15 @@ def check_flash_attention(gen, dev) -> dict:
         mask = (rh[..., :, None] + rw[..., None, :]).reshape(B, n, L, L)
         nbytes = (q.numel() * 4 + rh.numel() * 2) * q.element_size()
         b, by = bound_ms(nbytes, 4.0 * B * n * L * L * hd, peak)
+        flops = 4.0 * B * n * L * L * hd
+        ms = time_ms(lambda: flash_attention_relpos(q, k, v, rh, rw, scale,
+                                                    (G, G)), 10, 5)
         res[dtype] = dict(
-            max_abs_err=float(err.max()),
-            ms=time_ms(lambda: flash_attention_relpos(q, k, v, rh, rw, scale,
-                                                      (G, G))),
+            max_abs_err=float(err.max()), ms=ms,
             plain_ms=time_ms(lambda: flash_attention_relpos_plain(
                 q, k, v, rh, rw, scale), 3),
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, scale=scale)),
-            bound_ms=b, bound_by=by)
+            bound_ms=b, bound_by=by, **attention_rates(ms, flops, b),
+            **sdpa_yardstick(q, k, v, mask, scale))
         del mask
     qg = torch.zeros(1, 1, 64, 64, device=dev, requires_grad=True)
     z = torch.zeros(1, 1, 64, 8, device=dev)
@@ -1461,6 +1546,11 @@ def main() -> int:
                           "at_8x1024"],
                       "flash_attention_relpos_bf16": by_name[
                           "flash_attention_relpos"]["bf16"],
+                      "attention_detail": {
+                          name: {key: v for key, v in by_name[name].items()
+                                 if key not in order and key != "bf16"}
+                          for name in ("attention_fwd",
+                                       "flash_attention_relpos")},
                       "sampling_shapes": sampling_shapes}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

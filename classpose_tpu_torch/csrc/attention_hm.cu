@@ -8,9 +8,10 @@
 // L = H*W: the layout of the fp32 branch of the JAX Attention, which the
 // per-image API runs at the CLI's default precision.
 //
-// bf16 (attn_hm_bf16): the tensor-core kernel of attn_fwd.cuh (kernel 1's,
-// documented there) over a head-major layout; the bias row is read from the
-// two separate tensors.
+// bf16 (attn_hm_bf16): the Hopper kernel of attn_fwd.cuh (kernel 1's,
+// documented there) over a head-major layout: one TMA map per q, k and v,
+// (B*n, L, 64) as planes of rows, and the bias rows read from the two
+// separate tensors.
 //
 // fp32 (attn_hm_f32): true fp32 products on the CUDA cores, no TF32 (the
 // port's fp32 contract). What bounds it on an H100: operations. Each
@@ -35,27 +36,23 @@
 namespace head_major {
 
 struct HeadMajor {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
   const __nv_bfloat16* rh;  // (B, n, L, gh)
   const __nv_bfloat16* rw;  // (B, n, L, gw)
-  __nv_bfloat16* out;
-  float* lse;    // unused: no backward
-  float* out32;  // unused
+  __nv_bfloat16* out;       // (B, n, L, 64)
+  float* lse;               // unused: no backward
+  float* out32;             // unused
   int n, L, gh, gw;
 
-  __device__ const __nv_bfloat16* row(int which, int b, int h, int r) const {
-    const __nv_bfloat16* t = which == 0 ? q : which == 1 ? k : v;
-    return t + (((int64_t)b * n + h) * L + r) * attn::HD;
+  __device__ int tma_x(int, int) const { return 0; }
+  __device__ int tma_z(int b, int h) const { return b * n + h; }
+  __device__ const __nv_bfloat16* rh_row(int b, int h, int r) const {
+    return rh + (((int64_t)b * n + h) * L + r) * gh;
   }
-  // 8 bias values from column c of [rel_h | rel_w]; gh, gw multiples of 8
-  __device__ const __nv_bfloat16* rel8(int b, int h, int r, int c) const {
-    const int64_t tok = ((int64_t)b * n + h) * L + r;
-    return c < gh ? rh + tok * gh + c : rw + tok * gw + (c - gh);
+  __device__ const __nv_bfloat16* rw_row(int b, int h, int r) const {
+    return rw + (((int64_t)b * n + h) * L + r) * gw;
   }
   __device__ __nv_bfloat16* orow(int b, int h, int r) const {
-    return out + (((int64_t)b * n + h) * L + r) * attn::HD;
+    return out + (((int64_t)b * n + h) * L + r) * attn::fwd::HD;
   }
 };
 
@@ -220,19 +217,23 @@ extern "C" int attn_hm_f32(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// the same operands in bf16; L % 64 == 0, gh and gw multiples of 8 and
-// gh + gw in {16, 32, 64}
+// the same operands in bf16, 16-byte aligned; L = gh * gw with gh and gw
+// multiples of 8, L % 64 == 0
 extern "C" int attn_hm_bf16(const void* q, const void* k, const void* v,
                             const void* rh, const void* rw, void* out, int B,
                             int L, int n, int gh, int gw, float scale,
                             void* stream) {
+  using namespace attn::fwd;
+  CUtensorMap maps[3];
+  const void* src[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i)
+    if (!sm90::make_map_3d(&maps[i], src[i], HD, L, (uint64_t)B * n, HD * 2,
+                           (uint64_t)L * HD * 2, HD, BQ))
+      return (int)cudaErrorInvalidValue;
   const head_major::HeadMajor lay{
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
       static_cast<const __nv_bfloat16*>(rh),
       static_cast<const __nv_bfloat16*>(rw),
       static_cast<__nv_bfloat16*>(out), nullptr, nullptr, n, L, gh, gw};
-  return attn::dispatch_fwd(lay, B, L, n, gh, gw, scale,
-                            static_cast<cudaStream_t>(stream));
+  return dispatch(maps[0], maps[1], maps[2], lay, B, L, n, gh, gw, scale,
+                  static_cast<cudaStream_t>(stream));
 }

@@ -1,256 +1,510 @@
 // bf16 attention forward with the SAM decomposed relative-position bias,
-// shared by the token-major kernel (attention.cu, kernel 1) and the
-// head-major one (attention_hm.cu, kernel 8). A layout type says where a
-// (batch, head, token) row of q, k, v, the output and the bias lives:
-//   const __nv_bfloat16* row(int which, int b, int h, int r)  q/k/v: 0/1/2
-//   const __nv_bfloat16* rel8(int b, int h, int r, int c)     8 bias values
-//                                                             from column c
-//   __nv_bfloat16* orow(int b, int h, int r)
-//   float* lse / out32                                        or null
-// and everything else is the same kernel:
-//   out = softmax_j(q_i . k_j * scale + rel_h[i, j/W] + rel_w[i, j%W]) @ v.
+// for Hopper (sm_90a), shared by the token-major kernel (attention.cu,
+// kernel 1) and the head-major one (attention_hm.cu, kernel 8's bf16
+// variant):
+//   out = softmax_j(q_i . k_j * scale + rel_h[i, j/W] + rel_w[i, j%W]) @ v,
+// bf16 in and out, fp32 accumulation. A layout type says where the bias
+// rows and the output of a (batch, head, token) live and how the three
+// TMA maps of q, k and v are addressed:
+//   int tma_x(int which, int h), tma_z(int b, int h)   box coordinates
+//   const __nv_bfloat16* rh_row(b, h, r), rw_row(b, h, r)
+//   __nv_bfloat16* orow(b, h, r)
+//   float* lse / out32                                 or null
 //
-// What bounds it on an H100: the two products. At the main path's shapes
+// What bounds it on an H100: operations. At the main path's shapes
 // (L = 1024, hd = 64) each (batch, head) does 2*2*L^2*hd = 268 MFLOP
-// against ~0.5 MB of operands, far above the card's ~295 FLOP/byte ridge,
-// so it is compute-bound (989 TFLOP/s dense bf16).
+// against ~0.5 MB of operands, far above the card's ~295 FLOP/byte ridge.
+// Two units share the bound: the tensor cores (989 TFLOP/s dense bf16,
+// 256 FLOP per logit at hd = 64) and the special-function units that
+// take the exponentials (16 per clock per SM, about the same time per
+// logit). So the products run on wgmma and the softmax of one key block
+// runs while the tensor cores work on another.
 //
-// Design: one CTA of four warps per (64-query block, head, batch); each
-// warp owns 16 query rows and loops over 64-key blocks with an online
-// softmax (running max and sum in fp32), FlashAttention-2 style: both
-// products run on the tensor cores through mma.sync m16n8k16 (bf16 in,
-// fp32 accumulate), the scores and the output accumulator stay in
-// registers, and the probabilities feed the second product straight from
-// the first product's accumulator layout. K/V blocks are double-buffered
-// in shared memory with cp.async.
-//
-// The bias is folded into the first product the way the TPU kernel's
-// production variant does (CLASSPOSE_ATTN_V2): the query row is extended
-// to [q*scale | rel_h | rel_w] and the key row to [k | onehot(j/W) |
-// onehot(j%W)], so one product of depth hd + H + W yields
-// q.k*scale + rel_h[j/W] + rel_w[j%W] with no per-logit bias loads. The
-// one-hot key columns are built in registers. hd = 64 makes scale = 1/8 a
-// power of two, so q*scale is exact in bf16. wgmma and TMA are later work.
+// Design (FlashAttention-3's forward). Persistent CTAs, one per SM (or
+// one per tile if there are fewer), each of three warpgroups, walk the
+// (128-query block, head, batch) tiles, query block fastest so the CTAs
+// working at once share their heads' k and v in L2:
+//   - warpgroup 0 is the producer: it gives up its registers (setmaxnreg)
+//     and one thread issues TMA loads: each tile's q block into one of two
+//     buffers, then the k and v blocks of 128 keys into a ring of STAGES
+//     stages that runs on across tiles, each with a "full" mbarrier
+//     (bytes arrived) and an "empty" one (all consumer warps done with
+//     it). TMA writes the tiles with the 128-byte swizzle that wgmma reads
+//     without bank conflicts;
+//   - warpgroups 1 and 2 are consumers of 64 query rows each. Per key
+//     block: S = q . k^T by wgmma m64n128k16 with both operands in shared
+//     memory; the logits in the exp2 domain
+//       t = s * scale*log2(e) + (rel_h[i, j/W] + rel_w[i, j%W]) * log2(e)
+//     with the bias added per logit in fp32 (never folded into the
+//     product: that would add a third to the tensor-core work); an online
+//     softmax (running max and sum in fp32); then O += P . v by wgmma
+//     m64n64k16 with P straight from the S accumulator's registers
+//     (its layout is the A fragment's) and v read MN-major from shared
+//     memory (the transpose flag). Each warp prefetches the next tile's
+//     bias rows with cp.async while it works on the current one.
+//   - Overlap: block k's S product is issued before block k-1's P . v,
+//     and the softmax of block k runs while P . v is still on the tensor
+//     cores; on top of that the two consumer warpgroups take turns at
+//     issuing their products (ping-pong on two named barriers), so one
+//     warpgroup's exponentials run while the other's products do.
+// The bias: a thread's accumulator covers two query rows and, in each
+// 8-key tile, two keys 2*(lane%4) + {0, 1}. With W a multiple of 8 a tile
+// has one j/W and eight consecutive j%W. For W in {8, 16, 32} (every
+// square grid the port runs) the W-columns a thread ever touches
+// (W/8 * 2 per row) sit in registers for the whole sweep and rel_h is
+// read from shared memory once per W keys; other W (non-square grids) read
+// both from shared memory. Rows past L are computed on TMA's zero fill
+// (with row L-1's bias) and not written; keys past L (L % 128 != 0) are
+// masked to -inf.
 //
 // For training the token-major kernel also writes, for the backward
-// (attention_bwd.cu), each row's log-sum-exp m + log(l) (f32, (B, n, L)),
-// from which it recomputes the normalized probabilities, and the output
-// before its bf16 rounding (f32, (B, L, n*64)), from which it takes
-// delta_i = do_i . o_i. A delta from the bf16 output would carry one
-// rounding error, the same for every key of the row, into every ds_ij,
-// and the bias gradients (partial sums of rows of ds that sum to zero)
-// would lose most of their precision. With null pointers nothing else
-// changes.
+// (attention_bwd.cu), each row's natural-log log-sum-exp
+// (m + log2(l)) * ln(2) (f32, (B, n, L)) and the output before its bf16
+// rounding (f32, (B, L, n*64)). With null pointers nothing else changes.
 #pragma once
 
-#include "mma.cuh"
+#include <algorithm>
+
+#include "sm90.cuh"
 
 namespace attn {
+namespace fwd {
 
-template <int R, class Layout>  // R = H + W, a multiple of 16
-__global__ void __launch_bounds__(NWARP * 32)
-attn_fwd_kernel(Layout lay, int L, int gh, int gw, float scale) {
-  constexpr int KX = HD + R;       // extended product depth
-  constexpr int QP = KX + 8;       // extended-query smem pitch (bf16)
-  constexpr int NKS = KX / 16;     // k-steps of the first product
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);  // BQ x QP
-  __nv_bfloat16* sK = sQ + BQ * QP;                             // 2 x BK x KP
-  __nv_bfloat16* sV = sK + 2 * BK * KP;                         // 2 x BK x KP
+constexpr int HD = 64;        // head dim (asserted by the wrappers)
+constexpr int BQ = 128;       // query rows per CTA
+constexpr int BK = 128;       // keys per block
+constexpr int STAGES = 3;     // k/v ring depth
+constexpr int THREADS = 384;  // producer warpgroup + two consumers
+constexpr int CWARPS = 8;     // consumer warps
+constexpr int NT = BK / 8;    // 8-key tiles of a block
+constexpr uint32_t Q_BYTES = BQ * HD * 2;
+constexpr uint32_t TILE_BYTES = BK * HD * 2;
+constexpr int OFF_K = 2 * Q_BYTES;  // q is double-buffered
+constexpr int OFF_V = OFF_K + STAGES * TILE_BYTES;
+constexpr int OFF_BAR = OFF_V + STAGES * TILE_BYTES;
+constexpr int OFF_BIAS = OFF_BAR + 128;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+static_assert(BQ == BK, "q and k/v share one TMA box");
+static_assert((4 + 3 * STAGES) * 8 <= 128, "barriers fit their slot");
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane >> 2;     // accumulator row group
-  const int tig = lane & 3;    // thread in group
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  auto load_kv = [&](int stage, int k0) {
-    for (int idx = tid; idx < BK * HD / 8; idx += NWARP * 32) {
-      const int r = idx / (HD / 8), c = (idx % (HD / 8)) * 8;
-      cp_async16(saddr(&sK[(stage * BK + r) * KP + c]),
-                 lay.row(1, b, h, k0 + r) + c);
-      cp_async16(saddr(&sV[(stage * BK + r) * KP + c]),
-                 lay.row(2, b, h, k0 + r) + c);
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// per consumer warp: its 16 bias rows in fp32 (pitches gh + 1, gw + 1)
+// and two bf16 staging buffers of 16 x (gh + gw) that the next tile's rows
+// are prefetched into
+__host__ __device__ inline int warp_bias_bytes(int gh, int gw) {
+  return 16 * (gh + gw + 2) * 4 + 2 * 16 * (gh + gw) * 2;
+}
+
+// bytes of dynamic shared memory: 1 KB of alignment slack, two q buffers,
+// the k/v ring, the barriers and the consumer warps' bias rows
+inline size_t smem_bytes(int gh, int gw) {
+  return 1024 + OFF_BIAS + (size_t)CWARPS * warp_bias_bytes(gh, gw);
+}
+
+// the logits of a 64 x BK block, in place: t = s * sl + bias * log2(e),
+// keys past L masked to -inf. rh (rw) are this thread's warp's 16 bias rows
+// (pitch gh + 1, gw + 1), pre-scaled; rwr holds the rel_w columns this
+// thread touches when W = WS is static.
+template <int WS>
+__device__ __forceinline__ void logits(float (&s)[4 * NT], int k0, int L,
+                                       float sl, const float* rh,
+                                       const float* rw, int gh, int gw,
+                                       const float (&rwr)[2][WS ? WS / 8 : 1]
+                                                          [2],
+                                       int g8, int q4) {
+  if constexpr (WS > 0) {
+    constexpr int U = WS / 8;  // 8-key tiles per grid row
+    const int hb = k0 / WS;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float* rhi = rh + (g8 + 8 * i) * (gh + 1);
+      float rhv = 0.f;
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        if (t % U == 0) rhv = rhi[min(hb + t / U, gh - 1)];
+        s[4 * t + 2 * i] = fmaf(s[4 * t + 2 * i], sl, rhv + rwr[i][t % U][0]);
+        s[4 * t + 2 * i + 1] =
+            fmaf(s[4 * t + 2 * i + 1], sl, rhv + rwr[i][t % U][1]);
+      }
     }
-    cp_commit();
-  };
-
-  const int nblk = L / BK;
-  load_kv(0, 0);
-
-  // extended queries [q*scale | rel] for this CTA's 64 rows
-  for (int idx = tid; idx < BQ * HD / 8; idx += NWARP * 32) {
-    const int r = idx / (HD / 8), c = (idx % (HD / 8)) * 8;
-    uint4 raw = *reinterpret_cast<const uint4*>(lay.row(0, b, h, q0 + r) + c);
-    __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&raw);
-    for (int e = 0; e < 4; ++e) {
-      float2 f = __bfloat1622float2(p[e]);
-      p[e] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+  } else {
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const int jb = min(k0 + 8 * t, L - 8);
+      const int hi = jb / gw;
+      const int wo = jb - hi * gw + 2 * q4;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float rhv = rh[(g8 + 8 * i) * (gh + 1) + hi];
+        const float* rwi = rw + (g8 + 8 * i) * (gw + 1) + wo;
+        s[4 * t + 2 * i] = fmaf(s[4 * t + 2 * i], sl, rhv + rwi[0]);
+        s[4 * t + 2 * i + 1] = fmaf(s[4 * t + 2 * i + 1], sl, rhv + rwi[1]);
+      }
     }
-    *reinterpret_cast<uint4*>(&sQ[r * QP + c]) = raw;
   }
-  for (int idx = tid; idx < BQ * R / 8; idx += NWARP * 32) {
-    const int r = idx / (R / 8), c = (idx % (R / 8)) * 8;
-    *reinterpret_cast<uint4*>(&sQ[r * QP + HD + c]) =
-        *reinterpret_cast<const uint4*>(lay.rel8(b, h, q0 + r, c));
+  if (k0 + BK > L) {
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (k0 + 8 * t + 2 * q4 + (e & 1) >= L) s[4 * t + e] = -INFINITY;
+  }
+}
+
+template <int WS, class Layout>
+__global__ void __launch_bounds__(THREADS, 1)
+attn_fwd_kernel(const __grid_constant__ CUtensorMap tmq,
+                const __grid_constant__ CUtensorMap tmk,
+                const __grid_constant__ CUtensorMap tmv, const Layout lay,
+                int B, int L, int gh, int gw, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem + OFF_K);
+  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(smem + OFF_V);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + OFF_BAR);  // [2]
+  uint64_t* q_empty = q_full + 2;                                   // [2]
+  uint64_t* k_full = q_empty + 2;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* empty = v_full + STAGES;
+  float* bias = reinterpret_cast<float*>(smem + OFF_BIAS);
+
+  const int n = lay.n;
+  const int nqb = (L + BQ - 1) / BQ;
+  const int ntiles = nqb * n * B;
+  const int nblk = (L + BK - 1) / BK;
+  // the warp index through a shuffle: provably uniform across the warp,
+  // so ptxas sees no divergence in the role and turn branches
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      sm90::mbar_init(&q_full[i], 1);
+      sm90::mbar_init(&q_empty[i], CWARPS);
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&k_full[s], 1);
+      sm90::mbar_init(&v_full[s], 1);
+      sm90::mbar_init(&empty[s], CWARPS);
+    }
+    sm90::fence_barrier_init();
   }
   __syncthreads();
 
-  uint32_t qa[NKS][4];
-  {
-    const int row = warp * 16 + (lane % 8) + ((lane / 8) & 1) * 8;
-    const int col = (lane / 16) * 8;
-#pragma unroll
-    for (int ks = 0; ks < NKS; ++ks)
-      ldsm_x4(qa[ks], saddr(&sQ[row * QP + ks * 16 + col]));
-  }
-
-  float o[HD / 8][4];
-#pragma unroll
-  for (int i = 0; i < HD / 8; ++i)
-    o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};
-
-  for (int kb = 0; kb < nblk; ++kb) {
-    const int stage = kb & 1;
-    if (kb + 1 < nblk) {
-      load_kv(stage ^ 1, (kb + 1) * BK);
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    const int k0 = kb * BK;
-    const __nv_bfloat16* Ks = sK + stage * BK * KP;
-    const __nv_bfloat16* Vs = sV + stage * BK * KP;
-
-    // S = [q*scale | rel] . [k | onehot_h | onehot_w]^T, 16 x 64 per warp
-    float s[BK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < HD / 32; ++kk) {
-        uint32_t bk[4];
-        ldsm_x4(bk, saddr(&Ks[(nt * 8 + lane % 8) * KP + kk * 32 +
-                              (lane / 8) * 8]));
-        mma16816(s[nt], qa[2 * kk], bk[0], bk[1]);
-        mma16816(s[nt], qa[2 * kk + 1], bk[2], bk[3]);
-      }
-      const int key = k0 + nt * 8 + g;
-      const int hc = key / gw;
-      const int wc = gh + key % gw;
-#pragma unroll
-      for (int ks = 0; ks < R / 16; ++ks) {
-        const int c = ks * 16 + 2 * tig;
-        mma16816(s[nt], qa[HD / 16 + ks], onehot_pair(c, hc, wc),
-                 onehot_pair(c + 8, hc, wc));
+  // tiles (query block, head, batch), query block fastest: the CTAs
+  // working at once share their heads' k and v in L2
+  if (warp < 4) {
+    // ---------------------------------------------------------- producer
+    sm90::regs_dec<40>();
+    if (warp == 0 && lane == 0) {
+      int it = 0;  // k/v blocks issued, over all tiles: the ring position
+      for (int tile = blockIdx.x, tc = 0; tile < ntiles;
+           tile += gridDim.x, ++tc) {
+        const int h = (tile / nqb) % n, b = tile / (nqb * n);
+        const int z = lay.tma_z(b, h);
+        const int qi = tc & 1;
+        sm90::mbar_wait(&q_empty[qi], ((tc >> 1) & 1) ^ 1);
+        sm90::mbar_expect_tx(&q_full[qi], Q_BYTES);
+        sm90::tma_load_3d(sQ + qi * BQ * HD, &tmq, &q_full[qi],
+                          lay.tma_x(0, h), (tile % nqb) * BQ, z);
+        for (int kb = 0; kb < nblk; ++kb, ++it) {
+          const int s = it % STAGES;
+          sm90::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          sm90::mbar_expect_tx(&k_full[s], TILE_BYTES);
+          sm90::tma_load_3d(sK + s * BK * HD, &tmk, &k_full[s],
+                            lay.tma_x(1, h), kb * BK, z);
+          sm90::mbar_expect_tx(&v_full[s], TILE_BYTES);
+          sm90::tma_load_3d(sV + s * BK * HD, &tmv, &v_full[s],
+                            lay.tma_x(2, h), kb * BK, z);
+        }
       }
     }
-
-    // online softmax: rows g (values 0, 1) and g + 8 (values 2, 3)
-#pragma unroll
-    for (int r2 = 0; r2 < 2; ++r2) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt)
-        mx = fmaxf(mx, fmaxf(s[nt][2 * r2], s[nt][2 * r2 + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_run[r2], mx);
-      const float alpha = __expf(m_run[r2] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) {
-        s[nt][2 * r2] = __expf(s[nt][2 * r2] - m_new);
-        s[nt][2 * r2 + 1] = __expf(s[nt][2 * r2 + 1] - m_new);
-        sum += s[nt][2 * r2] + s[nt][2 * r2 + 1];
+  } else {
+    // --------------------------------------------------------- consumers
+    sm90::regs_inc<232>();
+    const int cw = warp - 4;  // consumer warp 0..7
+    const int wg = cw / 4;    // consumer warpgroup 0..1: rows 64*wg..
+    const int g8 = lane / 4, q4 = lane % 4;
+    float* rh = reinterpret_cast<float*>(
+        reinterpret_cast<unsigned char*>(bias) +
+        cw * warp_bias_bytes(gh, gw));  // this warp's 16 rows
+    float* rw = rh + 16 * (gh + 1);
+    __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(rw + 16 * (gw + 1));
+    const int R = gh + gw;
+    // prefetch the raw bias rows of this warp for `tile` into staging
+    // buffer `buf` (16-byte copies; rows past L repeat row L-1)
+    auto prefetch_bias = [&](int tile, int buf) {
+      if (tile < ntiles) {
+        const int h = (tile / nqb) % n, b = tile / (nqb * n);
+        const int wrow = (tile % nqb) * BQ + wg * 64 + (cw % 4) * 16;
+        __nv_bfloat16* dst = stage + buf * 16 * R;
+        for (int idx = lane; idx < 16 * (R / 8); idx += 32) {
+          const int r = idx / (R / 8), c = (idx - r * (R / 8)) * 8;
+          const int row = min(wrow + r, L - 1);
+          sm90::cp_async16(dst + r * R + c,
+                           c < gh ? lay.rh_row(b, h, row) + c
+                                  : lay.rw_row(b, h, row) + (c - gh));
+        }
       }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      l_run[r2] = l_run[r2] * alpha + sum;
-      m_run[r2] = m_new;
+      sm90::cp_async_commit();
+    };
+    const float sl = scale * LOG2E;
+    float s[4 * NT];
+    float o[HD / 2];
+    uint32_t p[BK / 16][4];
+    float rwr[2][WS ? WS / 8 : 1][2];
+    float m[2], l[2];
 #pragma unroll
-      for (int nt = 0; nt < HD / 8; ++nt) {
-        o[nt][2 * r2] *= alpha;
-        o[nt][2 * r2 + 1] *= alpha;
-      }
-    }
+    for (int e = 0; e < 4 * NT; ++e) s[e] = 0.f;
 
-    // O += P V: the score accumulators of two key tiles form one A operand
+    // S = q . k^T for the block in stage st (16 columns = 32 B per step)
+    auto issue_s = [&](uint64_t dq, int st) {
+      const uint64_t dk = sm90::desc_sw128(sK + st * BK * HD);
 #pragma unroll
-    for (int kt = 0; kt < BK / 16; ++kt) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kt][0], s[2 * kt][1]),
-          pack_bf16(s[2 * kt][2], s[2 * kt][3]),
-          pack_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1]),
-          pack_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3])};
+      for (int kk = 0; kk < HD / 16; ++kk)
+        sm90::wgmma_ss_n128(s, dq + 2 * kk, dk + 2 * kk, kk);
+      sm90::wg_commit();
+    };
+    // O += P . v for the block in stage st (16 keys = 2 KB per step)
+    auto issue_pv = [&](int st) {
+      const uint64_t dv = sm90::desc_sw128(sV + st * BK * HD);
 #pragma unroll
-      for (int nt2 = 0; nt2 < HD / 16; ++nt2) {
-        uint32_t bv[4];
-        ldsm_x4_t(bv, saddr(&Vs[(kt * 16 + lane % 8 + ((lane / 8) & 1) * 8) *
-                                    KP + nt2 * 16 + (lane / 16) * 8]));
-        mma16816(o[2 * nt2], pa, bv[0], bv[1]);
-        mma16816(o[2 * nt2 + 1], pa, bv[2], bv[3]);
+      for (int kt = 0; kt < BK / 16; ++kt)
+        sm90::wgmma_rs_n64_t(o, p[kt], dv + kt * (16 * HD * 2 >> 4));
+      sm90::wg_commit();
+    };
+    // online softmax of block kb's logits in s → p in s, returns the
+    // rescale factors of the running output
+    auto softmax = [&](int kb, float (&alpha)[2]) {
+      logits<WS>(s, kb * BK, L, sl, rh, rw, gh, gw, rwr, g8, q4);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mx = m[i];
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+          mx = fmaxf(mx, fmaxf(s[4 * t + 2 * i], s[4 * t + 2 * i + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        alpha[i] = ex2(m[i] - mx);
+        m[i] = mx;
+        float sum = 0.f;
+#pragma unroll
+        for (int t = 0; t < NT; ++t) {
+          s[4 * t + 2 * i] = ex2(s[4 * t + 2 * i] - mx);
+          s[4 * t + 2 * i + 1] = ex2(s[4 * t + 2 * i + 1] - mx);
+          sum += s[4 * t + 2 * i] + s[4 * t + 2 * i + 1];
+        }
+        l[i] = l[i] * alpha[i] + sum;  // this thread's columns only
       }
-    }
-    __syncthreads();  // this stage is refilled two blocks from now
-  }
+    };
+    // two 8-key tiles of S form one 16-key A fragment of P
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int kt = 0; kt < BK / 16; ++kt) {
+        p[kt][0] = pack_bf16(s[8 * kt], s[8 * kt + 1]);
+        p[kt][1] = pack_bf16(s[8 * kt + 2], s[8 * kt + 3]);
+        p[kt][2] = pack_bf16(s[8 * kt + 4], s[8 * kt + 5]);
+        p[kt][3] = pack_bf16(s[8 * kt + 6], s[8 * kt + 7]);
+      }
+      sm90::reg_fence(p);
+    };
+
+    // the two consumer warpgroups take turns at issuing their products
+    // (named barriers 1 and 2), so one's softmax runs while the other's
+    // products are on the tensor cores; warpgroup 0 goes first
+    auto my_turn = [&]() { sm90::bar_sync(1 + wg, 256); };
+    auto pass_turn = [&]() { sm90::bar_arrive(2 - wg, 256); };
+    if (wg == 1) pass_turn();
+
+    int it = 0;  // k/v blocks consumed, over all tiles
+    prefetch_bias(blockIdx.x, 0);
+    for (int tile = blockIdx.x, tc = 0; tile < ntiles;
+         tile += gridDim.x, ++tc) {
+      const int h = (tile / nqb) % n, b = tile / (nqb * n);
+      const int wrow = (tile % nqb) * BQ + wg * 64 + (cw % 4) * 16;
+
+      // this warp's 16 bias rows, log2(e)-scaled, from the staging buffer
+      // prefetched during the previous tile; then the next tile's
+      sm90::cp_async_wait_all();
+      __syncwarp();
+      const __nv_bfloat16* src = stage + (tc & 1) * 16 * R;
+      for (int idx = lane; idx < 16 * gh; idx += 32) {
+        const int r = idx / gh, c = idx - r * gh;
+        rh[r * (gh + 1) + c] = __bfloat162float(src[r * R + c]) * LOG2E;
+      }
+      if constexpr (WS == 0) {
+        for (int idx = lane; idx < 16 * gw; idx += 32) {
+          const int r = idx / gw, c = idx - r * gw;
+          rw[r * (gw + 1) + c] =
+              __bfloat162float(src[r * R + gh + c]) * LOG2E;
+        }
+        rwr[0][0][0] = rwr[0][0][1] = rwr[1][0][0] = rwr[1][0][1] = 0.f;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+#pragma unroll
+          for (int u = 0; u < WS / 8; ++u) {
+            const float2 f = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(
+                    src + (g8 + 8 * i) * R + gh + 8 * u + 2 * q4));
+            rwr[i][u][0] = f.x * LOG2E;
+            rwr[i][u][1] = f.y * LOG2E;
+          }
+        }
+      }
+      __syncwarp();
+      prefetch_bias(tile + gridDim.x, (tc + 1) & 1);
+#pragma unroll
+      for (int e = 0; e < HD / 2; ++e) o[e] = 0.f;
+      m[0] = m[1] = -INFINITY;
+      l[0] = l[1] = 0.f;
+
+      const int qi = tc & 1;
+      const uint64_t dq = sm90::desc_sw128(sQ + (qi * BQ + wg * 64) * HD);
+      sm90::mbar_wait(&q_full[qi], (tc >> 1) & 1);
+
+      // block 0: nothing of this tile is in flight yet
+      int st = it % STAGES;
+      sm90::mbar_wait(&k_full[st], (it / STAGES) & 1);
+      sm90::reg_fence(s);
+      my_turn();
+      sm90::wg_fence();
+      issue_s(dq, st);
+      pass_turn();
+      sm90::wg_wait<0>();
+      sm90::reg_fence(s);
+      {
+        float alpha[2];
+        softmax(0, alpha);
+      }
+      pack_p();
+
+      // block kb's S runs before block kb-1's P . v; kb's softmax overlaps
+      // the latter
+      for (int kb = 1; kb < nblk; ++kb) {
+        const int prev = st;
+        const int prev_it = it++;
+        st = it % STAGES;
+        sm90::mbar_wait(&k_full[st], (it / STAGES) & 1);
+        sm90::reg_fence(s);
+        sm90::reg_fence(o);
+        my_turn();
+        sm90::wg_fence();
+        issue_s(dq, st);
+        sm90::mbar_wait(&v_full[prev], (prev_it / STAGES) & 1);
+        issue_pv(prev);
+        pass_turn();
+        sm90::wg_wait<1>();
+        sm90::reg_fence(s);
+        float alpha[2];
+        softmax(kb, alpha);
+        sm90::wg_wait<0>();
+        sm90::reg_fence(o);
+        if (lane == 0) sm90::mbar_arrive(&empty[prev]);
+#pragma unroll
+        for (int t = 0; t < HD / 8; ++t) {
+          o[4 * t] *= alpha[0];
+          o[4 * t + 1] *= alpha[0];
+          o[4 * t + 2] *= alpha[1];
+          o[4 * t + 3] *= alpha[1];
+        }
+        pack_p();
+      }
+      sm90::mbar_wait(&v_full[st], (it / STAGES) & 1);
+      sm90::reg_fence(o);
+      my_turn();
+      sm90::wg_fence();
+      issue_pv(st);
+      pass_turn();
+      sm90::wg_wait<0>();
+      sm90::reg_fence(o);
+      if (lane == 0) {
+        sm90::mbar_arrive(&empty[st]);
+        sm90::mbar_arrive(&q_empty[qi]);
+      }
+      ++it;
 
 #pragma unroll
-  for (int r2 = 0; r2 < 2; ++r2) {
-    const float inv = 1.f / l_run[r2];
-    const int row = q0 + warp * 16 + g + 8 * r2;
-    __nv_bfloat16* orow = lay.orow(b, h, row);
+      for (int i = 0; i < 2; ++i) {
+        float lt = l[i];
+        lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+        lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+        const float inv = 1.f / lt;
+        const int row = wrow + g8 + 8 * i;
+        if (row >= L) continue;
+        __nv_bfloat16* orow = lay.orow(b, h, row);
 #pragma unroll
-    for (int nt = 0; nt < HD / 8; ++nt)
-      *reinterpret_cast<__nv_bfloat162*>(&orow[nt * 8 + 2 * tig]) =
-          __floats2bfloat162_rn(o[nt][2 * r2] * inv,
-                                o[nt][2 * r2 + 1] * inv);
-    if (lay.lse != nullptr && tig == 0)
-      lay.lse[((int64_t)b * lay.n + h) * L + row] =
-          m_run[r2] + logf(l_run[r2]);
-    if (lay.out32 != nullptr) {
-      float* frow = lay.out32 + ((int64_t)b * L + row) * lay.n * HD + h * HD;
+        for (int t = 0; t < HD / 8; ++t)
+          *reinterpret_cast<__nv_bfloat162*>(&orow[8 * t + 2 * q4]) =
+              __floats2bfloat162_rn(o[4 * t + 2 * i] * inv,
+                                    o[4 * t + 2 * i + 1] * inv);
+        if (lay.lse != nullptr && q4 == 0)
+          lay.lse[((int64_t)b * n + h) * L + row] = (m[i] + log2f(lt)) * LN2;
+        if (lay.out32 != nullptr) {
+          float* frow = lay.out32 + ((int64_t)b * L + row) * n * HD + h * HD;
 #pragma unroll
-      for (int nt = 0; nt < HD / 8; ++nt)
-        *reinterpret_cast<float2*>(&frow[nt * 8 + 2 * tig]) =
-            make_float2(o[nt][2 * r2] * inv, o[nt][2 * r2 + 1] * inv);
+          for (int t = 0; t < HD / 8; ++t)
+            *reinterpret_cast<float2*>(&frow[8 * t + 2 * q4]) = make_float2(
+                o[4 * t + 2 * i] * inv, o[4 * t + 2 * i + 1] * inv);
+        }
+      }
     }
   }
 }
 
-// launch on a (L/64, n, B) grid; R = gh + gw in {16, 32, 64}
-template <int R, class Layout>
-int launch_fwd(const Layout& lay, int B, int L, int n, int gh, int gw,
-               float scale, cudaStream_t stream) {
-  const size_t smem = (size_t)BQ * (HD + R + 8) * 2 + 4ull * BK * KP * 2;
-  cudaFuncSetAttribute(attn_fwd_kernel<R, Layout>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  dim3 grid(L / BQ, n, B);
-  attn_fwd_kernel<R, Layout>
-      <<<grid, NWARP * 32, smem, stream>>>(lay, L, gh, gw, scale);
+template <int WS, class Layout>
+int launch(const CUtensorMap& tq, const CUtensorMap& tk,
+           const CUtensorMap& tv, const Layout& lay, int B, int L, int n,
+           int gh, int gw, float scale, cudaStream_t stream) {
+  const size_t smem = smem_bytes(gh, gw);
+  cudaError_t e = cudaFuncSetAttribute(
+      attn_fwd_kernel<WS, Layout>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int dev = 0, sms = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const long tiles = (long)((L + BQ - 1) / BQ) * n * B;
+  attn_fwd_kernel<WS, Layout>
+      <<<(unsigned)std::min<long>(tiles, sms), THREADS, smem, stream>>>(
+          tq, tk, tv, lay, B, L, gh, gw, scale);
   return (int)cudaGetLastError();
 }
 
+// one persistent CTA per SM (or per tile, if fewer) walks the
+// (ceil(L/128), n, B) tiles; gh, gw multiples of 8 with
+// gh * gw = L (every grid with L % 64 == 0 and gh + gw in {16, 32, 64})
 template <class Layout>
-int dispatch_fwd(const Layout& lay, int B, int L, int n, int gh, int gw,
-                 float scale, cudaStream_t stream) {
-  switch (gh + gw) {
+int dispatch(const CUtensorMap& tq, const CUtensorMap& tk,
+             const CUtensorMap& tv, const Layout& lay, int B, int L, int n,
+             int gh, int gw, float scale, cudaStream_t stream) {
+  if (gh % 8 || gw % 8 || gh * gw != L || L % 64)
+    return (int)cudaErrorInvalidValue;
+  switch (gw) {
+    case 8:
+      return launch<8>(tq, tk, tv, lay, B, L, n, gh, gw, scale, stream);
     case 16:
-      return launch_fwd<16>(lay, B, L, n, gh, gw, scale, stream);
+      return launch<16>(tq, tk, tv, lay, B, L, n, gh, gw, scale, stream);
     case 32:
-      return launch_fwd<32>(lay, B, L, n, gh, gw, scale, stream);
-    case 64:
-      return launch_fwd<64>(lay, B, L, n, gh, gw, scale, stream);
+      return launch<32>(tq, tk, tv, lay, B, L, n, gh, gw, scale, stream);
     default:
-      return (int)cudaErrorInvalidValue;
+      return launch<0>(tq, tk, tv, lay, B, L, n, gh, gw, scale, stream);
   }
 }
 
+}  // namespace fwd
 }  // namespace attn

@@ -1,4 +1,5 @@
-// Warp-level tensor-core helpers shared by the attention kernels:
+// Warp-level tensor-core helpers of the attention backward (attention_bwd.cu;
+// the forward's Hopper body has its own, sm90.cuh):
 // ldmatrix loads, the m16n8k16 bf16 mma.sync with fp32 accumulators,
 // cp.async copies, bf16 packing and the one-hot bias columns.
 #pragma once

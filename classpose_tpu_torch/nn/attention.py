@@ -97,6 +97,8 @@ def _check_kernel(qkv: torch.Tensor, rel: torch.Tensor, hd: int, L: int,
                          f"64): hd={hd}, L={L}, H+W={H + W}")
     if not (qkv.is_contiguous() and rel.is_contiguous()):
         raise ValueError("qkv and rel must be contiguous")
+    if qkv.data_ptr() % 16 or rel.data_ptr() % 16:
+        raise ValueError("kernel needs 16-byte aligned qkv and rel")
 
 
 def _fwd_kernel(qkv: torch.Tensor, rel: torch.Tensor, scale: float,
@@ -289,6 +291,9 @@ def _hm_kernel(q, k, v, rel_h, rel_w, scale: float, grid_hw) -> torch.Tensor:
                          f"({q.dtype}): hd={hd}, L={L}, grid={grid_hw}")
     if not all(t.is_contiguous() for t in (q, k, v, rel_h, rel_w)):
         raise ValueError("q, k, v, rel_h and rel_w must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v, rel_h, rel_w)):
+        raise ValueError("kernel needs 16-byte aligned q, k, v, rel_h and "
+                         "rel_w")
     out = torch.empty_like(q)
     lib = _build.lib("attention_hm")
     _build.check(

@@ -49,18 +49,44 @@ def dev():
     return torch.device("cuda")
 
 
-def test_attention_kernel(dev):
-    g = torch.Generator(device="cpu").manual_seed(0)
-    B, n, H, W, hd = 2, 4, 16, 16, 64
-    qkv = torch.randn(B, H * W, 3 * n * hd, generator=g).to(dev, torch.bfloat16)
-    rel = (2 * torch.randn(B, H * W, n, H + W, generator=g)).to(
+@pytest.mark.parametrize("B,n,H,W", [(1, 2, 8, 8), (2, 4, 16, 16),
+                                     (2, 3, 32, 32), (1, 16, 32, 32),
+                                     (2, 2, 8, 24), (1, 3, 24, 8),
+                                     (40, 4, 8, 8), (12, 6, 8, 24)])
+def test_attention_kernel(dev, B, n, H, W):
+    """Kernel 1 against its plain version: bf16 output, |Δ| ≤ 2e-2 +
+    2e-2·|ref|; its row log-sum-exp against the plain fp32 logits'
+    (|Δ| ≤ 1e-3 + 1e-4·|lse|) and its fp32 output against the plain fp32
+    softmax product (1e-2 + 1e-2·|ref|: p is rounded to bf16 before the
+    product). L = 64 (one key block, masked past L), an odd head count,
+    one wave short of the card's 132 SMs (1 × 16 heads × 1024 / 128), two
+    non-square grids (W = 24 reads rel_w from shared memory), and more
+    tiles than SMs at L = 64 and L = 192 (a CTA takes several tiles, its
+    k/v ring and q buffers running on across them)."""
+    g = torch.Generator(device="cpu").manual_seed(B * 100 + H + W)
+    hd, L = 64, H * W
+    scale = hd ** -0.5
+    qkv = torch.randn(B, L, 3 * n * hd, generator=g).to(dev, torch.bfloat16)
+    rel = (2 * torch.randn(B, L, n, H + W, generator=g)).to(
         dev, torch.bfloat16)
     before = _build.LAUNCHES["attention_fwd"]
-    got = attention_relpos(qkv, rel, hd ** -0.5, (H, W), n)
+    got = attention_relpos(qkv, rel, scale, (H, W), n)
     assert _build.LAUNCHES["attention_fwd"] == before + 1
-    ref = attention_relpos_plain(qkv, rel, hd ** -0.5, (H, W), n)
+    ref = attention_relpos_plain(qkv, rel, scale, (H, W), n)
     torch.testing.assert_close(got.float(), ref.float(), atol=2e-2,
                                rtol=2e-2)
+    out, lse, out32 = _fwd_kernel(qkv, rel, scale, (H, W), n, True)
+    assert torch.equal(out, got)
+    q, k, v = (qkv[..., i * n * hd:(i + 1) * n * hd].float()
+               .reshape(B, L, n, hd).transpose(1, 2) for i in range(3))
+    bias = (rel[..., :H].float().transpose(1, 2)[..., :, None]
+            + rel[..., H:].float().transpose(1, 2)[..., None, :]
+            ).reshape(B, n, L, L)
+    s = q @ k.transpose(-1, -2) * scale + bias
+    lse_ref = torch.logsumexp(s, -1)
+    assert bool(((lse - lse_ref).abs() <= 1e-3 + 1e-4 * lse_ref.abs()).all())
+    o_ref = (torch.softmax(s, -1) @ v).transpose(1, 2).reshape(B, L, n * hd)
+    assert bool(((out32 - o_ref).abs() <= 1e-2 + 1e-2 * o_ref.abs()).all())
 
 
 @pytest.mark.parametrize("B,n,G", [(1, 2, 8), (2, 4, 16), (1, 2, 32)])
@@ -176,7 +202,8 @@ def test_diffuse_blocked_kernel(dev, shape, k):
 
 @pytest.mark.parametrize("dtype,G", [(torch.float32, 8), (torch.float32, 16),
                                      (torch.bfloat16, 8),
-                                     (torch.bfloat16, 32)])
+                                     (torch.bfloat16, 32),
+                                     (torch.bfloat16, 16)])
 def test_flash_attention_relpos_kernel(dev, dtype, G):
     """Kernel 8 against its plain version: fp32 products on the CUDA
     cores, sums in another order, |Δ| ≤ 1e-4 + 1e-4·|ref|; bf16 as kernel
