@@ -20,9 +20,12 @@
    backend that takes a float mask, named, with its spread) and the
    least time the card could take (the bound); checks kernel 1's
    log-sum-exp and fp32 output at 8 × 16 × 1024, sampler and histogram
-   also at 8 × 448² and 300 × 500, and that the LayerNorm and head-major
+   also at 8 × 448², 300 × 500 and widths off a multiple of 4 (2 × 130 ×
+   70, 1 × 257 × 1023), and that the LayerNorm and head-major
    attention kernel routes raise where a gradient would flow through
-   them;
+   them; then the attention kernels on the token grids of other crop
+   sizes (28 × 28, 64 × 64 and 12 × 20: kernels 1 and 8 in fp32 and
+   bf16, kernel 5 on the squares), each against its plain version;
 4. runs ``ClassposeModel.eval_batch`` at full ViT-L width (24 blocks,
    1024 wide, bf16) with the structured synthetic checkpoint on 8 uint8
    tiles of 1024², ``batch_size=32``, ``niter=200``, with every launch
@@ -45,7 +48,8 @@
    one step at batch 2
    without layer-drop, checks that every attention parameter got a
    finite non-zero gradient, and compares loss and gradients with the
-   same step with the plain versions swapped in;
+   same step with the plain versions swapped in; then the same check for
+   one step at batch 8 of 224² crops (28 × 28 tokens);
 6. runs the WSI CLI (``entrypoints.predict_wsi.main_with_args``) with
    ``CLASSPOSE_LN_PALLAS=1`` on a ~6144² synthetic slide at 0.4 µm/px
    (25 tiles of 1280² read and resized to 1024² at the config's 0.5 µm/px)
@@ -69,8 +73,15 @@
    ``ClassposeModel.eval`` on one 448² image under the profiler, on one
    256² image (kernel 4, not kernel 7), and ``eval(do_3D=True)`` in bf16
    on a 16 × 128 × 128 stack (kernel 1), compared with the plain
-   versions;
-8. prints one JSON line describing the kernels, then the last line
+   versions; then ``eval`` with a ViT-L at bsize 224 (28 × 28 tokens) on
+   one 480² image in fp32 and bf16, against the plain versions;
+8. under ``--ab`` only, the A/B of ``ab_attention.py``: kernels 1, 8
+   (fp32 and bf16), 5 and 2 at the main paths' shapes, the bodies of
+   commit ``AB_PARENT`` (``_archive/<AB_PARENT>``, or ``git archive`` of
+   it; raises when neither gives them) and the package's timed in turns
+   in this process. It is not part of the default run because a checkout
+   need not hold the repository's history;
+9. prints one JSON line describing the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the exit code is not 0 and the last line is not
@@ -80,6 +91,7 @@ it fails before printing a result.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import csv
 import io
@@ -95,6 +107,20 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ab_attention import (
+    BUILD,
+    PEAK_BF16,
+    PEAK_FP32,
+    bound_ms,
+    grid_sample_yardstick,
+    parent_sources,
+    positions,
+    run_ab,
+    sdpa_yardstick,
+    spread,
+    time_ms,
+    time_runs,
+)
 import classpose_tpu_torch.dynamics.flows as port_flows
 import classpose_tpu_torch.dynamics.masks as port_masks
 import classpose_tpu_torch.nn.layernorm as port_ln
@@ -153,12 +179,6 @@ from classpose_tpu_torch.train.train import (
 )
 from classpose_tpu_torch.train.train_utils import process_train_test
 
-# published H100 SXM peaks (dense): bf16 tensor cores, fp32 outside them,
-# HBM bandwidth
-PEAK_BF16 = 989e12
-PEAK_FP32 = 67e12
-PEAK_BYTES = 3.35e12
-
 SEED = 0
 N_TILES, TILE = 8, 1024
 # kernels of the eval_batch path (phase 4); the attention backward runs in
@@ -180,81 +200,24 @@ EVAL_IMAGES, EVAL_SIZE, EVAL_BATCH = 8, 448, 8
 EVALUATE_KERNELS = ("flash_attention_relpos", "bilinear_sample",
                     "landing_histogram", "diffuse_blocked")
 STACK_SHAPE = (16, 128, 128)
+# fault 3: token grids off the 32 x 32 of bsize 256 (bsize 224 and 512 at
+# patch 8, and a non-square one), and the end-to-end checks at bsize 224
+# (28 x 28 tokens, L = 784): eval on one image of 480², whose 3 x 3 crop
+# origins (0, 128, 256) fall on the design field's period, and a train step
+FAULT3_GRIDS = ((28, 28), (64, 64), (12, 20))
+FAULT3_BSIZE, FAULT3_SIZE = 224, 480
+# the commit whose kernel bodies the A/B phase (``--ab``) holds the
+# working tree's against
+AB_PARENT = "9e00d5f"
 
 
 def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
-def time_runs(fn, reps: int = 5, inner: int = 1) -> list[float]:
-    """``reps`` CUDA-event timings (ms per call) of ``fn()`` after a
-    warm-up, each over ``inner`` calls back to back: for a kernel of tens
-    of µs, ``inner`` > 1 keeps the host's launch latency out of the
-    time."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(inner):
-            fn()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1) / inner)
-    return times
-
-
-def time_ms(fn, reps: int = 5, inner: int = 1) -> float:
-    """Median of :func:`time_runs`."""
-    return statistics.median(time_runs(fn, reps, inner))
-
-
-# SDPA backends that take a float mask (FlashAttention's does not)
-SDPA_BACKENDS = ("EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH")
-
-
-def sdpa_yardstick(q, k, v, mask, scale, reps: int = 15,
-                   inner: int = 3) -> dict:
-    """The attention kernels' one-call yardstick: SDPA with the
-    materialized float bias, timed under each backend that accepts it
-    (one refusing raises and is left out); the fastest backend's median,
-    its name and its spread (min, max over ``reps``), and every accepted
-    backend's median."""
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-
-    def call():
-        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                              scale=scale)
-
-    runs = {}
-    for name in SDPA_BACKENDS:
-        with sdpa_kernel(getattr(SDPBackend, name)):
-            try:
-                call()
-                torch.cuda.synchronize()
-            except RuntimeError:
-                continue
-            runs[name] = time_runs(call, reps, inner)
-    best = min(runs, key=lambda n: statistics.median(runs[n]))
-    return dict(library_ms=statistics.median(runs[best]),
-                library_backend=best,
-                library_spread=[min(runs[best]), max(runs[best])],
-                library_backends={n: statistics.median(r)
-                                  for n, r in runs.items()})
-
-
 def attention_rates(ms: float, flops: float, bound: float) -> dict:
     """Achieved TFLOP/s at the standard count and share of the bound."""
     return dict(tflops=flops / ms / 1e9, bound_share=bound / ms)
-
-
-def bound_ms(nbytes: float, ops: float, peak_ops: float):
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = ops / peak_ops * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
-                                 "operations")
 
 
 @contextlib.contextmanager
@@ -434,21 +397,10 @@ def check_attention_bwd(gen, dev) -> dict:
     )
 
 
-def positions(gen, dev, spread: float, B: int = N_TILES, H: int = TILE,
-              W: int = TILE):
-    gy = torch.arange(H, dtype=torch.float32, device=dev)[None, :, None]
-    gx = torch.arange(W, dtype=torch.float32, device=dev)[None, None, :]
-    d = lambda: (torch.rand(B, H, W, generator=gen, device=dev) * 2 - 1) \
-        * spread  # noqa: E731
-    py = torch.clamp(gy + d(), 0, H - 1).contiguous()
-    px = torch.clamp(gx + d(), 0, W - 1).contiguous()
-    return py, px
-
-
 def check_sampler(gen, dev) -> dict:
     B, C, H, W = N_TILES, 2, TILE, TILE
     u = (torch.randn(B, C, H, W, generator=gen, device=dev) * 2).contiguous()
-    py, px = positions(gen, dev, 20.0)
+    py, px = positions(gen, dev, 20.0, N_TILES, TILE, TILE)
     got = bilinear_sample(u, py, px)
     ref = bilinear_sample_plain(u, py, px)
     err2 = float((got - ref).abs().max())
@@ -464,29 +416,26 @@ def check_sampler(gen, dev) -> dict:
     if not torch.equal(g1.reshape(B, 1, -1), exact) or not torch.equal(
             g1, bilinear_sample_plain(lab, fy, fx)):
         raise AssertionError("sampler C=1 at integer positions not exact")
-    # yardstick: grid_sample computes the same bilinear function for
-    # in-image positions (align_corners=True)
-    grid = torch.stack([px / (W - 1) * 2 - 1, py / (H - 1) * 2 - 1], -1)
     npx = B * H * W
     b, by = bound_ms(npx * (2 * C * 4 + 2 * 4), npx * (6 * C + 4),
                      PEAK_FP32)
+    # kernel and yardstick (grid_sample) alike: 15 timings of 3 calls,
+    # with the spread
     return dict(
         name="bilinear_sample", route="cuda",
         source="classpose_tpu_torch/csrc/sample.cu",
         replaces="classpose_tpu/ops/sample_pallas.py:297",
         max_abs_err=err2,
-        ms=time_ms(lambda: bilinear_sample(u, py, px)),
+        **spread("", time_runs(lambda: bilinear_sample(u, py, px), 15, 3)),
         plain_ms=time_ms(lambda: bilinear_sample_plain(u, py, px)),
-        library_ms=time_ms(lambda: F.grid_sample(
-            u, grid, mode="bilinear", padding_mode="border",
-            align_corners=True)),
+        **grid_sample_yardstick(u, py, px),
         bound_ms=b, bound_by=by,
     )
 
 
 def check_histogram(gen, dev) -> dict:
     B, H, W = N_TILES, TILE, TILE
-    py, px = positions(gen, dev, 8.0)
+    py, px = positions(gen, dev, 8.0, N_TILES, TILE, TILE)
     fy = torch.round(py).to(torch.int32).contiguous()
     fx = torch.round(px).to(torch.int32).contiguous()
     cell = (torch.rand(B, H, W, generator=gen, device=dev) < 0.6).float()
@@ -594,24 +543,26 @@ def check_layernorm(gen, dev) -> dict:
 
 def check_sampling_shapes(gen, dev) -> dict:
     """Kernels 2 and 3 against their plain versions at the evaluate
-    path's 8 × 448² and at an odd 300 × 500: the sampler to 1e-6 (exact
-    at integer positions with C = 1), the histogram bitwise."""
+    path's 8 × 448², at an odd 300 × 500 and at widths off a multiple of 4
+    (the sampler's scalar path): the sampler to 1e-6 at C = 2, bitwise at
+    integer positions with C = 1 and C = 2, the histogram bitwise."""
     out = {}
-    for B, H, W in ((EVAL_IMAGES, EVAL_SIZE, EVAL_SIZE), (1, 300, 500)):
+    for B, H, W in ((EVAL_IMAGES, EVAL_SIZE, EVAL_SIZE), (1, 300, 500),
+                    (2, 130, 70), (1, 257, 1023)):
         u = (torch.randn(B, 2, H, W, generator=gen, device=dev) * 2
              ).contiguous()
         py, px = positions(gen, dev, 20.0, B, H, W)
         err = float((bilinear_sample(u, py, px)
                      - bilinear_sample_plain(u, py, px)).abs().max())
         fy, fx = torch.round(py), torch.round(px)
-        lab = torch.randint(0, 5000, (B, 1, H, W), generator=gen,
+        lab = torch.randint(0, 5000, (B, 2, H, W), generator=gen,
                             device=dev).float()
         fyi = fy.to(torch.int32).contiguous()
         fxi = fx.to(torch.int32).contiguous()
         cell = (torch.rand(B, H, W, generator=gen, device=dev) < 0.6).float()
-        if err > 1e-6 or not torch.equal(
-                bilinear_sample(lab, fy, fx),
-                bilinear_sample_plain(lab, fy, fx)) or not torch.equal(
+        if err > 1e-6 or not all(torch.equal(
+                bilinear_sample(x, fy, fx), bilinear_sample_plain(x, fy, fx))
+                for x in (lab[:, :1].contiguous(), lab)) or not torch.equal(
                 landing_histogram(fyi, fxi, cell),
                 landing_histogram_plain(fyi, fxi, cell)):
             raise AssertionError(f"sampler/histogram at {B}×{H}×{W}: "
@@ -735,6 +686,68 @@ def check_flash_attention(gen, dev) -> dict:
                 source="classpose_tpu_torch/csrc/attention_hm.cu",
                 replaces="classpose_tpu/nn/attention.py:93",
                 **res[torch.float32], bf16=res[torch.bfloat16])
+
+
+def check_fault3_grids(gen, dev) -> dict:
+    """Fault 3: the attention kernels at the grids of ``FAULT3_GRIDS``
+    (2 crops × 16 heads) against their plain versions at the tolerances of
+    the main-path checks: kernel 1 (bf16, 1e-2 + 1e-2·|ref|), kernel 8 in
+    fp32 (1e-4 + 1e-4·|ref|) and bf16 (1e-2 + 1e-2·|ref|), and on the
+    square grids kernel 5 (2e-2·max|ref| + 2e-2·|ref|); each kernel's time
+    (CUDA events, 5 × 3 calls)."""
+    B, n, hd = 2, 16, 64
+    scale = hd ** -0.5
+    out = {}
+
+    def held(got, ref, tol, what):
+        err = (got.float() - ref.float()).abs()
+        if not bool((err <= tol(ref.float())).all()):
+            raise AssertionError(f"{what}: max|Δ| {float(err.max())}")
+        return float(err.max())
+
+    for H, W in FAULT3_GRIDS:
+        L = H * W
+        res = {}
+        qkv = torch.randn(B, L, 3 * n * hd, generator=gen, device=dev).to(
+            torch.bfloat16)
+        rel = (2 * torch.randn(B, L, n, H + W, generator=gen, device=dev)
+               ).to(torch.bfloat16)
+        fwd = lambda: attention_relpos(qkv, rel, scale, (H, W), n)  # noqa
+        res["attention_fwd"] = dict(
+            max_abs_err=held(fwd(), attention_relpos_plain(
+                qkv, rel, scale, (H, W), n), lambda r: 1e-2 + 1e-2 * r.abs(),
+                f"kernel 1 at {H}×{W}"),
+            ms=time_ms(fwd, 5, 3))
+        if H == W:
+            dout = torch.randn(B, L, n * hd, generator=gen, device=dev).to(
+                torch.bfloat16)
+            _, lse, out32 = _fwd_kernel(qkv, rel, scale, (H, W), n, True)
+            bwd = lambda: attention_relpos_bwd(  # noqa: E731
+                qkv, rel, out32, lse, dout, scale, (H, W), n)
+            ref = attention_relpos_bwd_plain(qkv, rel, dout, scale, (H, W), n)
+            res["attention_bwd"] = dict(
+                max_abs_err=max(held(a, r, lambda x: 2e-2 * x.abs().max()
+                                     + 2e-2 * x.abs(), f"kernel 5 at {H}×{W}")
+                                for a, r in zip(bwd(), ref)),
+                ms=time_ms(bwd, 5, 3))
+            del ref
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+            q, k, v = (torch.randn(B, n, L, hd, generator=gen, device=dev)
+                       .to(dtype) for _ in range(3))
+            rh = (2 * torch.randn(B, n, L, H, generator=gen, device=dev)
+                  ).to(dtype)
+            rw = (2 * torch.randn(B, n, L, W, generator=gen, device=dev)
+                  ).to(dtype)
+            hm = lambda: flash_attention_relpos(  # noqa: E731
+                q, k, v, rh, rw, scale, (H, W))
+            res[f"flash_attention_relpos_{str(dtype)[6:]}"] = dict(
+                max_abs_err=held(hm(), flash_attention_relpos_plain(
+                    q, k, v, rh, rw, scale), lambda r: tol + tol * r.abs(),
+                    f"kernel 8 {dtype} at {H}×{W}"),
+                ms=time_ms(hm, 5, 3))
+        torch.cuda.synchronize()
+        out[f"{H}x{W}"] = res
+    return out
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1139,6 +1152,8 @@ def run_training(dev, out_dir: str) -> tuple[dict, dict]:
         raise AssertionError(f"gradient of {worst}: cosine {cos[worst]} "
                              f"to the plain route's")
     del grads, grads_ref
+    fault3 = fault3_train_step(dev, tr_d, tr_l, tr_diam)
+    log(f"fault 3 train step: {json.dumps(fault3)}")
     stats = dict(
         targets_s=targets_s, target_diffusion_launches=target_launches,
         trainer_s=trainer_s, batch_load_s=batch_load_s,
@@ -1150,9 +1165,56 @@ def run_training(dev, out_dir: str) -> tuple[dict, dict]:
         peak_mem_gib=peak, mfu_3x_fwd=mfu, launches_per_step=step_launches,
         plain_check_loss=[total, total_ref],
         plain_check_min_cosine=[worst, cos[worst]],
-        breakdown=breakdown,
+        breakdown=breakdown, fault3_step=fault3,
     )
     return launches, stats
+
+
+def fault3_train_step(dev, tr_d, tr_l, tr_diam) -> dict:
+    """Fault 3 in training: one bf16 step at batch 8 of 224² crops (28 × 28
+    tokens, L = 784) of the training phase's images, full ViT-L width,
+    seeded random weights, without layer-drop; one launch of each
+    attention kernel per block; loss within 1e-2 relative and every
+    parameter's gradient at cosine ≥ 0.99 against the same step with the
+    plain versions swapped in."""
+    cfg = ClassTransformerConfig(n_cell_classes=6, dtype="bfloat16",
+                                 bsize=FAULT3_BSIZE)
+    ds = ClassposeTrainingDataset(np.stack(tr_d), np.stack(tr_l),
+                                  diameter_array=tr_diam, bsize=cfg.bsize,
+                                  seed=SEED)
+    items = [ds[i] for i in range(TRAIN_BATCH)]
+    X = torch.from_numpy(np.stack([x for x, _ in items])).to(dev)
+    lbl = torch.from_numpy(np.stack([y for _, y in items])).to(dev)
+    net = ClassposeModel(cfg=cfg, precision="bf16", device=dev,
+                         seed=SEED).net
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    total, grads = step_grads(net, X, lbl, ds.class_weights,
+                              cfg.n_cell_classes)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    if any(launches[k] != cfg.depth for k in ("attention_fwd",
+                                              "attention_bwd")):
+        raise AssertionError(f"224² step launches {launches}")
+    restore = plain_versions()
+    try:
+        total_ref, grads_ref = step_grads(net, X, lbl, ds.class_weights,
+                                          cfg.n_cell_classes)
+    finally:
+        restore()
+    if abs(total - total_ref) > 1e-2 * abs(total_ref):
+        raise AssertionError(f"224² step loss {total} vs plain {total_ref}")
+    cos = {k: float(F.cosine_similarity(grads[k].flatten(),
+                                        grads_ref[k].flatten(), 0))
+           for k in grads}
+    worst = min(cos, key=cos.get)
+    if cos[worst] < 0.99:
+        raise AssertionError(f"224² step gradient of {worst}: cosine "
+                             f"{cos[worst]}")
+    return dict(crop=cfg.bsize, tokens=cfg.tokens_hw, batch=TRAIN_BATCH,
+                launches={k: launches[k] for k in ("attention_fwd",
+                                                   "attention_bwd")},
+                loss=[total, total_ref], min_cosine=[worst, cos[worst]])
 
 
 # ---------------------------------------------------------------- phase 6
@@ -1472,7 +1534,78 @@ def run_evaluate(dev, work: str) -> tuple[dict, dict]:
     return launches, stats
 
 
+def run_fault3_eval(dev) -> dict:
+    """Fault 3 at inference: a full-width ViT-L at bsize 224 (28 × 28
+    tokens) with a live structured checkpoint
+    (``perturbed_structured_params``, attention ripple 0.5), ``eval`` on
+    one design-field image of 480² (3 × 3 crops, 2 chunks of 8) in fp32
+    (kernel 8) and bf16 (kernel 1), each on the kernel route and with the
+    plain versions swapped in: one launch per block and crop chunk; masks
+    compared as masks (equal counts, worst IoU ≥ 0.95, equal classes) and
+    the network's flows and cell probability (the blended output) within
+    1e-3·max|ref| at fp32 and 5e-2·max|ref| at bf16."""
+    cfg = ClassTransformerConfig(n_cell_classes=6, bsize=FAULT3_BSIZE)
+    params = perturbed_structured_params(cfg, ripple=0.5, seed=SEED,
+                                         attn_ripple=0.5)
+    S = FAULT3_SIZE
+    yy, xx = np.mgrid[:S, :S]
+    inside = ((yy % PERIOD - PERIOD // 2) ** 2
+              + (xx % PERIOD - PERIOD // 2) ** 2 <= RADIUS ** 2)
+    x = np.clip(200 + np.random.default_rng(SEED).normal(0, 8, (S, S, 3))
+                - 60 * inside[..., None], 0, 255).astype(np.float32)
+    grid = compute_tile_grid(S, S, cfg.bsize)
+    chunks = chunk_plan(grid.ny * grid.nx, EVAL_BATCH)[0]
+    out = {}
+    for precision, kernel, tol in (("fp32", "flash_attention_relpos", 1e-3),
+                                   ("bf16", "attention_fwd", 5e-2)):
+        model = ClassposeModel(cfg=cfg, params=params, precision=precision,
+                               device=dev)
+        model.eval(x, batch_size=EVAL_BATCH)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        m, flows, c, _ = model.eval(x, batch_size=EVAL_BATCH)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        if launches[kernel] != cfg.depth * chunks:
+            raise AssertionError(f"bsize 224 {precision} eval: {launches}, "
+                                 f"want {cfg.depth * chunks} of {kernel}")
+        restore = plain_versions()
+        try:
+            m_ref, flows_ref, c_ref, _ = model.eval(x, batch_size=EVAL_BATCH)
+        finally:
+            restore()
+        worst = compare_slices([(m, c)], [(m_ref, c_ref)])
+        rel_err = {}
+        for name, i in (("flows", 1), ("cellprob", 2)):
+            a, r = np.asarray(flows[i], np.float64), np.asarray(
+                flows_ref[i], np.float64)
+            if a.shape != r.shape or not np.isfinite(a).all():
+                raise AssertionError(f"bsize 224 {precision} {name}")
+            rel_err[name] = float(np.abs(a - r).max() / np.abs(r).max())
+            if rel_err[name] > tol:
+                raise AssertionError(f"bsize 224 {precision} {name}: "
+                                     f"max|Δ|/max|ref| {rel_err[name]}")
+        n_design = (S // PERIOD) ** 2
+        if not 0.95 * n_design <= int(m.max()) <= n_design:
+            raise AssertionError(f"bsize 224 {precision}: {m.max()} cells "
+                                 f"(design {n_design})")
+        out[precision] = dict(eval_s=wall, kernel_launches=launches[kernel],
+                              instances=int(m.max()), n_design=n_design,
+                              worst_iou_vs_plain=worst,
+                              rel_err_vs_plain=rel_err)
+        del model
+    return dict(bsize=cfg.bsize, tokens=cfg.tokens_hw, image=S,
+                crops=grid.ny * grid.nx, chunks=chunks, **out)
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--ab", action="store_true",
+                    help=f"also A/B the kernels against the bodies of "
+                    f"{AB_PARENT} (phase 8)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
     dev = torch.device("cuda")
@@ -1507,6 +1640,8 @@ def main() -> int:
         kernels.append(k)
     sampling_shapes = check_sampling_shapes(gen, dev)
     log(f"sampler/histogram at other shapes: {sampling_shapes}")
+    fault3_grids = check_fault3_grids(gen, dev)
+    log(f"fault 3 grids: {json.dumps(fault3_grids)}")
 
     launches, stats = run_slice(dev)
     log(f"slice: {json.dumps(stats)}")
@@ -1518,6 +1653,13 @@ def main() -> int:
         log(f"wsi: {json.dumps(wsi_stats)}")
         ev_launches, ev_stats = run_evaluate(dev, work)
     log(f"evaluate: {json.dumps(ev_stats)}")
+    fault3_eval = run_fault3_eval(dev)
+    log(f"fault 3 eval: {json.dumps(fault3_eval)}")
+    ab = None
+    if args.ab:
+        ab = dict(old=AB_PARENT, **run_ab(
+            parent_sources(AB_PARENT), BUILD / "ab_ptxas.txt"))
+        log(f"A/B: {json.dumps(ab)}")
     for k in kernels:
         # each kernel's count from the phase whose path runs it: the
         # eval slice, training for the attention backward, the WSI path
@@ -1551,7 +1693,13 @@ def main() -> int:
                                  if key not in order and key != "bf16"}
                           for name in ("attention_fwd",
                                        "flash_attention_relpos")},
-                      "sampling_shapes": sampling_shapes}))
+                      "sampling_shapes": sampling_shapes,
+                      "bilinear_sample_spread": by_name["bilinear_sample"][
+                          "spread"],
+                      "bilinear_sample_library_spread": by_name[
+                          "bilinear_sample"]["library_spread"],
+                      "fault3_grids": fault3_grids,
+                      "fault3_eval": fault3_eval, "ab": ab}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

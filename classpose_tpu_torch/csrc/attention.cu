@@ -39,13 +39,15 @@ struct TokenMajor {
   __device__ __nv_bfloat16* orow(int b, int h, int r) const {
     return out + ((int64_t)b * L + r) * n * HD + h * HD;
   }
+  // a row of rel is gh+gw contiguous elements: 16-byte copies need R % 8
+  __device__ bool bias_vec16() const { return R % 8 == 0; }
 };
 
 }  // namespace token_major
 
 // qkv (B, L, 3*n*64), rel (B, L, n, gh+gw), out (B, L, n*64), all bf16;
-// lse (B, n, L) and out32 (B, L, n*64) f32, or null; L = gh * gw with gh
-// and gw multiples of 8, L % 64 == 0; qkv 16-byte aligned.
+// lse (B, n, L) and out32 (B, L, n*64) f32, or null; L = gh * gw with
+// gh + gw <= 128; qkv and rel 16-byte aligned.
 extern "C" int attn_fwd_bf16(const void* qkv, const void* rel, void* out,
                              void* lse, void* out32, int B, int L, int n,
                              int gh, int gw, float scale, void* stream) {

@@ -48,12 +48,19 @@
 //     issuing their products (ping-pong on two named barriers), so one
 //     warpgroup's exponentials run while the other's products do.
 // The bias: a thread's accumulator covers two query rows and, in each
-// 8-key tile, two keys 2*(lane%4) + {0, 1}. With W a multiple of 8 a tile
-// has one j/W and eight consecutive j%W. For W in {8, 16, 32} (every
-// square grid the port runs) the W-columns a thread ever touches
-// (W/8 * 2 per row) sit in registers for the whole sweep and rel_h is
-// read from shared memory once per W keys; other W (non-square grids) read
-// both from shared memory. Rows past L are computed on TMA's zero fill
+// 8-key tile, two keys 2*(lane%4) + {0, 1}. Every grid with H + W <= 128
+// is taken (any L, any W); two instantiations:
+//   - W in {8, 16, 32} with H a multiple of 8 and H + W <= 64 (every square
+//     crop grid up to 32 x 32, bsize 256 at patch 8): a tile has one j/W
+//     and eight consecutive j%W, the W-columns a thread ever touches
+//     (W/8 * 2 per row) sit in registers for the whole sweep and rel_h is
+//     read from fp32 shared memory once per W keys;
+//   - any other grid (28 x 28, 64 x 64, 12 x 20, ...): a per-CTA table in
+//     shared memory gives each key j its two offsets, j/W and H + j%W, into
+//     a bias row, and each logit reads its two terms from the bf16 rows
+//     the warp prefetched (the fp32 copy would not fit at H + W = 128).
+// Bias rows are prefetched by 16-byte cp.async where their pitch allows
+// it, else by plain loads. Rows past L are computed on TMA's zero fill
 // (with row L-1's bias) and not written; keys past L (L % 128 != 0) are
 // masked to -inf.
 //
@@ -99,27 +106,50 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// per consumer warp: its 16 bias rows in fp32 (pitches gh + 1, gw + 1)
-// and two bf16 staging buffers of 16 x (gh + gw) that the next tile's rows
-// are prefetched into
-__host__ __device__ inline int warp_bias_bytes(int gh, int gw) {
-  return 16 * (gh + gw + 2) * 4 + 2 * 16 * (gh + gw) * 2;
+// pitch (bf16) of a staged bias row: gh + gw; with WS = 0, whose logits
+// read the rows in place, gh + gw rounded up to 8 mod 16, so the 8 rows a
+// warp reads at once start on 8 different groups of 4 banks
+__host__ __device__ inline int stage_pitch(int ws, int gh, int gw) {
+  const int r8 = (gh + gw + 7) / 8 * 8;
+  return ws ? gh + gw : r8 % 16 ? r8 : r8 + 8;
+}
+
+// per consumer warp: with WS > 0 its 16 bias rows in fp32 (pitches
+// gh + 1, gw + 1); always two bf16 staging buffers of 16 rows that the
+// next tile's rows are prefetched into (with WS = 0 the logits read them
+// in place)
+__host__ __device__ inline int warp_bias_bytes(int ws, int gh, int gw) {
+  return (ws ? 16 * (gh + gw + 2) * 4 : 0) +
+         2 * 16 * stage_pitch(ws, gh, gw) * 2;
+}
+
+// bytes of the WS = 0 key table: one uint16 per key of every key block
+__host__ __device__ inline int key_table_bytes(int ws, int L) {
+  return ws ? 0 : (L + BK - 1) / BK * BK * 2;
 }
 
 // bytes of dynamic shared memory: 1 KB of alignment slack, two q buffers,
-// the k/v ring, the barriers and the consumer warps' bias rows
-inline size_t smem_bytes(int gh, int gw) {
-  return 1024 + OFF_BIAS + (size_t)CWARPS * warp_bias_bytes(gh, gw);
+// the k/v ring, the barriers, the key table and the consumer warps' bias
+// rows
+inline size_t smem_bytes(int ws, int gh, int gw, int L) {
+  return 1024 + OFF_BIAS + key_table_bytes(ws, L) +
+         (size_t)CWARPS * warp_bias_bytes(ws, gh, gw);
 }
 
+// the largest dynamic shared memory a block may have (sm_90)
+constexpr size_t SMEM_MAX = 232448;
+
 // the logits of a 64 x BK block, in place: t = s * sl + bias * log2(e),
-// keys past L masked to -inf. rh (rw) are this thread's warp's 16 bias rows
-// (pitch gh + 1, gw + 1), pre-scaled; rwr holds the rel_w columns this
-// thread touches when W = WS is static.
+// keys past L masked to -inf. With WS > 0: rh is this thread's warp's 16
+// fp32 bias rows of rel_h (pitch gh + 1), pre-scaled, and rwr the rel_w
+// columns this thread touches. With WS = 0: stg is the warp's 16 raw bf16
+// bias rows (pitch stage_pitch) and kidx the key table (low byte j/W,
+// high byte gh + j%W).
 template <int WS>
 __device__ __forceinline__ void logits(float (&s)[4 * NT], int k0, int L,
                                        float sl, const float* rh,
-                                       const float* rw, int gh, int gw,
+                                       const __nv_bfloat16* stg,
+                                       const uint32_t* kidx, int gh, int gw,
                                        const float (&rwr)[2][WS ? WS / 8 : 1]
                                                           [2],
                                        int g8, int q4) {
@@ -139,17 +169,20 @@ __device__ __forceinline__ void logits(float (&s)[4 * NT], int k0, int L,
       }
     }
   } else {
+    const int RS = stage_pitch(WS, gh, gw);
 #pragma unroll
     for (int t = 0; t < NT; ++t) {
-      const int jb = min(k0 + 8 * t, L - 8);
-      const int hi = jb / gw;
-      const int wo = jb - hi * gw + 2 * q4;
+      // keys k0 + 8t + 2*q4 + {0, 1}: one 32-bit word of the table
+      const uint32_t e = kidx[(k0 + 8 * t) / 2 + q4];
+      const int h0 = e & 0xff, w0 = (e >> 8) & 0xff;
+      const int h1 = (e >> 16) & 0xff, w1 = e >> 24;
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        const float rhv = rh[(g8 + 8 * i) * (gh + 1) + hi];
-        const float* rwi = rw + (g8 + 8 * i) * (gw + 1) + wo;
-        s[4 * t + 2 * i] = fmaf(s[4 * t + 2 * i], sl, rhv + rwi[0]);
-        s[4 * t + 2 * i + 1] = fmaf(s[4 * t + 2 * i + 1], sl, rhv + rwi[1]);
+        const __nv_bfloat16* br = stg + (g8 + 8 * i) * RS;
+        const float b0 = __bfloat162float(br[h0]) + __bfloat162float(br[w0]);
+        const float b1 = __bfloat162float(br[h1]) + __bfloat162float(br[w1]);
+        s[4 * t + 2 * i] = fmaf(s[4 * t + 2 * i], sl, b0 * LOG2E);
+        s[4 * t + 2 * i + 1] = fmaf(s[4 * t + 2 * i + 1], sl, b1 * LOG2E);
       }
     }
   }
@@ -189,6 +222,17 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tmq,
   // so ptxas sees no divergence in the role and turn branches
   const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
   const int lane = threadIdx.x % 32;
+  const int R = gh + gw;
+
+  // WS = 0: the key table, (j/W) | (gh + j%W) << 8 per key of every key
+  // block (keys past L take key L-1's), written by all threads once
+  uint16_t* ktab = reinterpret_cast<uint16_t*>(smem + OFF_BIAS);
+  if constexpr (WS == 0) {
+    for (int j = threadIdx.x; j < nblk * BK; j += THREADS) {
+      const int jc = min(j, L - 1), hj = jc / gw;
+      ktab[j] = (uint16_t)(hj | (gh + jc - hj * gw) << 8);
+    }
+  }
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < 2; ++i) {
@@ -238,25 +282,39 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tmq,
     const int cw = warp - 4;  // consumer warp 0..7
     const int wg = cw / 4;    // consumer warpgroup 0..1: rows 64*wg..
     const int g8 = lane / 4, q4 = lane % 4;
+    // this warp's 16 fp32 rows (WS > 0) and its staging buffers
     float* rh = reinterpret_cast<float*>(
-        reinterpret_cast<unsigned char*>(bias) +
-        cw * warp_bias_bytes(gh, gw));  // this warp's 16 rows
+        reinterpret_cast<unsigned char*>(bias) + key_table_bytes(WS, L) +
+        cw * warp_bias_bytes(WS, gh, gw));
     float* rw = rh + 16 * (gh + 1);
-    __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(rw + 16 * (gw + 1));
-    const int R = gh + gw;
+    __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(
+        WS ? rw + 16 * (gw + 1) : rh);
+    const uint32_t* kidx = reinterpret_cast<const uint32_t*>(ktab);
+    const int RS = stage_pitch(WS, gh, gw);
+    const bool vec = lay.bias_vec16();
     // prefetch the raw bias rows of this warp for `tile` into staging
-    // buffer `buf` (16-byte copies; rows past L repeat row L-1)
+    // buffer `buf` (16-byte copies where the rows' pitch allows, else plain
+    // loads; rows past L repeat row L-1)
     auto prefetch_bias = [&](int tile, int buf) {
       if (tile < ntiles) {
         const int h = (tile / nqb) % n, b = tile / (nqb * n);
         const int wrow = (tile % nqb) * BQ + wg * 64 + (cw % 4) * 16;
-        __nv_bfloat16* dst = stage + buf * 16 * R;
-        for (int idx = lane; idx < 16 * (R / 8); idx += 32) {
-          const int r = idx / (R / 8), c = (idx - r * (R / 8)) * 8;
-          const int row = min(wrow + r, L - 1);
-          sm90::cp_async16(dst + r * R + c,
-                           c < gh ? lay.rh_row(b, h, row) + c
-                                  : lay.rw_row(b, h, row) + (c - gh));
+        __nv_bfloat16* dst = stage + buf * 16 * RS;
+        if (vec) {
+          for (int idx = lane; idx < 16 * (R / 8); idx += 32) {
+            const int r = idx / (R / 8), c = (idx - r * (R / 8)) * 8;
+            const int row = min(wrow + r, L - 1);
+            sm90::cp_async16(dst + r * RS + c,
+                             c < gh ? lay.rh_row(b, h, row) + c
+                                    : lay.rw_row(b, h, row) + (c - gh));
+          }
+        } else {
+          for (int idx = lane; idx < 16 * R; idx += 32) {
+            const int r = idx / R, c = idx - r * R;
+            const int row = min(wrow + r, L - 1);
+            dst[r * RS + c] = c < gh ? lay.rh_row(b, h, row)[c]
+                                     : lay.rw_row(b, h, row)[c - gh];
+          }
         }
       }
       sm90::cp_async_commit();
@@ -288,8 +346,9 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tmq,
     };
     // online softmax of block kb's logits in s → p in s, returns the
     // rescale factors of the running output
+    const __nv_bfloat16* stg = stage;  // this tile's raw rows (WS = 0)
     auto softmax = [&](int kb, float (&alpha)[2]) {
-      logits<WS>(s, kb * BK, L, sl, rh, rw, gh, gw, rwr, g8, q4);
+      logits<WS>(s, kb * BK, L, sl, rh, stg, kidx, gh, gw, rwr, g8, q4);
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         float mx = m[i];
@@ -338,21 +397,17 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tmq,
 
       // this warp's 16 bias rows, log2(e)-scaled, from the staging buffer
       // prefetched during the previous tile; then the next tile's
-      sm90::cp_async_wait_all();
+      sm90::cp_async_wait<0>();
       __syncwarp();
-      const __nv_bfloat16* src = stage + (tc & 1) * 16 * R;
-      for (int idx = lane; idx < 16 * gh; idx += 32) {
-        const int r = idx / gh, c = idx - r * gh;
-        rh[r * (gh + 1) + c] = __bfloat162float(src[r * R + c]) * LOG2E;
-      }
+      const __nv_bfloat16* src = stage + (tc & 1) * 16 * RS;
       if constexpr (WS == 0) {
-        for (int idx = lane; idx < 16 * gw; idx += 32) {
-          const int r = idx / gw, c = idx - r * gw;
-          rw[r * (gw + 1) + c] =
-              __bfloat162float(src[r * R + gh + c]) * LOG2E;
-        }
+        stg = src;  // read in place by the logits
         rwr[0][0][0] = rwr[0][0][1] = rwr[1][0][0] = rwr[1][0][1] = 0.f;
       } else {
+        for (int idx = lane; idx < 16 * gh; idx += 32) {
+          const int r = idx / gh, c = idx - r * gh;
+          rh[r * (gh + 1) + c] = __bfloat162float(src[r * R + c]) * LOG2E;
+        }
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
 #pragma unroll
@@ -469,7 +524,8 @@ template <int WS, class Layout>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk,
            const CUtensorMap& tv, const Layout& lay, int B, int L, int n,
            int gh, int gw, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(gh, gw);
+  const size_t smem = smem_bytes(WS, gh, gw, L);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       attn_fwd_kernel<WS, Layout>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -486,14 +542,16 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk,
 }
 
 // one persistent CTA per SM (or per tile, if fewer) walks the
-// (ceil(L/128), n, B) tiles; gh, gw multiples of 8 with
-// gh * gw = L (every grid with L % 64 == 0 and gh + gw in {16, 32, 64})
+// (ceil(L/128), n, B) tiles; every grid with gh * gw = L and gh + gw <= 128
+// (the wrappers' _fwd_supported)
 template <class Layout>
 int dispatch(const CUtensorMap& tq, const CUtensorMap& tk,
              const CUtensorMap& tv, const Layout& lay, int B, int L, int n,
              int gh, int gw, float scale, cudaStream_t stream) {
-  if (gh % 8 || gw % 8 || gh * gw != L || L % 64)
+  if (gh < 1 || gw < 1 || gh * gw != L || gh + gw > 128)
     return (int)cudaErrorInvalidValue;
+  if (gh % 8 || gh + gw > 64)
+    return launch<0>(tq, tk, tv, lay, B, L, n, gh, gw, scale, stream);
   switch (gw) {
     case 8:
       return launch<8>(tq, tk, tv, lay, B, L, n, gh, gw, scale, stream);

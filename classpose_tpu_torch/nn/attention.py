@@ -88,13 +88,25 @@ def _check(qkv: torch.Tensor, rel: torch.Tensor, grid_hw, n: int) -> int:
     return hd
 
 
+# the kernels' tile loops: head width 64 and a rel row of at most 128
+# columns (H + W), which sizes their shared memory
+MAX_REL = 128
+
+
+def _grid_supported(hd: int, H: int, W: int) -> bool:
+    """Whether the attention kernels (1, 5 and 8) take a (H, W) token grid
+    of head width ``hd``; which dtypes each takes is checked where it is
+    launched (kernels 1 and 5 bf16, kernel 8 fp32 or bf16)."""
+    return hd == 64 and H >= 1 and W >= 1 and H + W <= MAX_REL
+
+
 def _check_kernel(qkv: torch.Tensor, rel: torch.Tensor, hd: int, L: int,
                   H: int, W: int) -> None:
     if qkv.dtype != torch.bfloat16:
         raise TypeError(f"kernel takes bf16, got {qkv.dtype}")
-    if hd != 64 or L % 64 or H + W not in (16, 32, 64):
-        raise ValueError(f"kernel needs hd=64, L%64==0, H+W in (16, 32, "
-                         f"64): hd={hd}, L={L}, H+W={H + W}")
+    if not _grid_supported(hd, H, W):
+        raise ValueError(f"kernel needs hd=64 and H+W <= {MAX_REL}: "
+                         f"hd={hd}, grid=({H}, {W})")
     if not (qkv.is_contiguous() and rel.is_contiguous()):
         raise ValueError("qkv and rel must be contiguous")
     if qkv.data_ptr() % 16 or rel.data_ptr() % 16:
@@ -138,11 +150,10 @@ def attention_relpos_bwd(qkv: torch.Tensor, rel: torch.Tensor,
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """Backward kernel: the forward's operands, its f32 output and
     log-sum-exp (:func:`_fwd_kernel` with ``for_backward``) plus the
-    output cotangent → (dqkv, drel) in qkv's and rel's layouts. Its
-    blocking (64-row blocks, one grid row group per key block) needs a
-    square grid of side 8, 16 or 32 with L a multiple of 64, checked
-    here; the TPU backward never checked its head-pair blocking (an odd
-    head count left heads unwritten), the port's blocks are per head."""
+    output cotangent → (dqkv, drel) in qkv's and rel's layouts. It takes
+    every grid with H + W <= 128 (:func:`_grid_supported`), checked here;
+    the TPU backward never checked its head-pair blocking (an odd head
+    count left heads unwritten), the port's blocks are per head."""
     B, L, C3 = qkv.shape
     n = num_heads
     H, W = grid_hw
@@ -150,9 +161,6 @@ def attention_relpos_bwd(qkv: torch.Tensor, rel: torch.Tensor,
     if qkv.device.type != "cuda":
         raise ValueError(f"the backward kernel runs on CUDA, not {qkv.device}")
     _check_kernel(qkv, rel, hd, L, H, W)
-    if H != W or W not in (8, 16, 32):
-        raise ValueError(f"backward kernel needs a square grid of side 8, "
-                         f"16 or 32, got {grid_hw}")
     if out32.shape != (B, L, n * hd) or dout.shape != out32.shape \
             or lse.shape != (B, n, L):
         raise ValueError(f"bad shapes out32 {tuple(out32.shape)}, dout "
@@ -279,16 +287,12 @@ def _check_hm(q, k, v, rel_h, rel_w, grid_hw) -> None:
 def _hm_kernel(q, k, v, rel_h, rel_w, scale: float, grid_hw) -> torch.Tensor:
     B, n, L, hd = q.shape
     H, W = grid_hw
-    if q.dtype == torch.float32:
-        fn, ok = "attn_hm_f32", H + W <= 128
-    elif q.dtype == torch.bfloat16:
-        fn, ok = "attn_hm_bf16", (H % 8 == 0 and W % 8 == 0
-                                  and H + W in (16, 32, 64))
-    else:
+    if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"kernel takes fp32 or bf16, got {q.dtype}")
-    if hd != 64 or L % 64 or not ok:
-        raise ValueError(f"kernel needs hd=64, L%64==0 and a supported grid "
-                         f"({q.dtype}): hd={hd}, L={L}, grid={grid_hw}")
+    fn = "attn_hm_f32" if q.dtype == torch.float32 else "attn_hm_bf16"
+    if not _grid_supported(hd, H, W):
+        raise ValueError(f"kernel needs hd=64 and H+W <= {MAX_REL} "
+                         f"({q.dtype}): hd={hd}, grid={grid_hw}")
     if not all(t.is_contiguous() for t in (q, k, v, rel_h, rel_w)):
         raise ValueError("q, k, v, rel_h and rel_w must be contiguous")
     if any(t.data_ptr() % 16 for t in (q, k, v, rel_h, rel_w)):

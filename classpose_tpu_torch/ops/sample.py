@@ -68,6 +68,9 @@ def bilinear_sample(u: torch.Tensor, py: torch.Tensor,
     if u.device.type == "cpu":
         return bilinear_sample_plain(u, py, px)
     _require_cuda(u)
+    if H * W >= 2 ** 31 or B > 65535:
+        raise ValueError(f"kernel takes H·W < 2^31 and B ≤ 65535, got "
+                         f"{tuple(u.shape)}")
     out = torch.empty_like(u)
     lib = _build.lib("sample")
     _build.check(

@@ -156,12 +156,13 @@ def test_hopper_arithmetic_matches_pallas_interpret(G, variant):
 
 
 @pytest.mark.parametrize("H,W", [(8, 8), (16, 16), (32, 32), (8, 24),
-                                 (24, 8)])
+                                 (24, 8), (12, 20), (28, 28)])
 def test_hopper_arithmetic_matches_plain(H, W):
     """The emulated Hopper forward against ``attention_relpos_plain`` (out:
     4e-3 + 4e-3·|ref|, as above) and its natural-log lse against the
     plain fp32 logits' ``torch.logsumexp`` (1e-4 + 1e-5·|lse|: fp32 sums
-    in another order), on square and non-square grids."""
+    in another order), on square and non-square grids, with L % 128 != 0
+    (12 x 20, 28 x 28: keys past L masked in the last block)."""
     B, n = 2, 3
     qkv, rel = (torch.from_numpy(a) for a in _bf16_inputs(H + W, B, n, H,
                                                           W))

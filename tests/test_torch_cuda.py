@@ -52,7 +52,9 @@ def dev():
 @pytest.mark.parametrize("B,n,H,W", [(1, 2, 8, 8), (2, 4, 16, 16),
                                      (2, 3, 32, 32), (1, 16, 32, 32),
                                      (2, 2, 8, 24), (1, 3, 24, 8),
-                                     (40, 4, 8, 8), (12, 6, 8, 24)])
+                                     (40, 4, 8, 8), (12, 6, 8, 24),
+                                     (2, 2, 28, 28), (1, 2, 64, 64),
+                                     (2, 3, 12, 20)])
 def test_attention_kernel(dev, B, n, H, W):
     """Kernel 1 against its plain version: bf16 output, |Δ| ≤ 2e-2 +
     2e-2·|ref|; its row log-sum-exp against the plain fp32 logits'
@@ -62,7 +64,9 @@ def test_attention_kernel(dev, B, n, H, W):
     one wave short of the card's 132 SMs (1 × 16 heads × 1024 / 128), two
     non-square grids (W = 24 reads rel_w from shared memory), and more
     tiles than SMs at L = 64 and L = 192 (a CTA takes several tiles, its
-    k/v ring and q buffers running on across them)."""
+    k/v ring and q buffers running on across them); the grids of bsize
+    224 and 512 at patch 8 (28 x 28, L % 128 != 0; 64 x 64, H + W = 128)
+    and 12 x 20 take the per-key table of the generic instantiation."""
     g = torch.Generator(device="cpu").manual_seed(B * 100 + H + W)
     hd, L = 64, H * W
     scale = hd ** -0.5
@@ -89,29 +93,34 @@ def test_attention_kernel(dev, B, n, H, W):
     assert bool(((out32 - o_ref).abs() <= 1e-2 + 1e-2 * o_ref.abs()).all())
 
 
-@pytest.mark.parametrize("B,n,G", [(1, 2, 8), (2, 4, 16), (1, 2, 32)])
+@pytest.mark.parametrize("B,n,G", [(1, 2, 8), (2, 4, 16), (1, 2, 32),
+                                   (2, 2, 28), (1, 2, 64), (2, 3, (12, 20))])
 def test_attention_bwd_kernel(dev, B, n, G):
     """Kernel 5 against the plain vjp: bf16 outputs of bf16 products with
     fp32 sums (p and ds rounded to bf16 before their products, as on the
     TPU), so |Δ| ≤ 2e-2·max|ref| + 2e-2·|ref|; the forward's output is
     the same bit for bit with and without the backward's statistics, and
-    its f32 copy rounds to it."""
-    g = torch.Generator(device="cpu").manual_seed(B * 100 + G)
-    hd, L = 64, G * G
+    its f32 copy rounds to it. Squares of side 8 to 64 (64: the register
+    reduction at H + W = 128), 28 (bsize 224: L % 64 != 0, the generic
+    instantiation) and a non-square 12 x 20."""
+    H, W = (G, G) if isinstance(G, int) else G
+    seed = G if H == W else H + W
+    g = torch.Generator(device="cpu").manual_seed(B * 100 + seed)
+    hd, L = 64, H * W
     qkv = torch.randn(B, L, 3 * n * hd, generator=g).to(dev, torch.bfloat16)
-    rel = torch.randn(B, L, n, 2 * G, generator=g).to(dev, torch.bfloat16)
+    rel = torch.randn(B, L, n, H + W, generator=g).to(dev, torch.bfloat16)
     dout = torch.randn(B, L, n * hd, generator=g).to(dev, torch.bfloat16)
     scale = hd ** -0.5
-    out, lse, out32 = _fwd_kernel(qkv, rel, scale, (G, G), n, True)
-    assert torch.equal(out, _fwd_kernel(qkv, rel, scale, (G, G), n,
+    out, lse, out32 = _fwd_kernel(qkv, rel, scale, (H, W), n, True)
+    assert torch.equal(out, _fwd_kernel(qkv, rel, scale, (H, W), n,
                                         False)[0])
     assert torch.equal(out32.bfloat16(), out)
     before = _build.LAUNCHES["attention_bwd"]
-    got = attention_relpos_bwd(qkv, rel, out32, lse, dout, scale, (G, G), n)
+    got = attention_relpos_bwd(qkv, rel, out32, lse, dout, scale, (H, W), n)
     assert _build.LAUNCHES["attention_bwd"] == before + 1
-    again = attention_relpos_bwd(qkv, rel, out32, lse, dout, scale, (G, G),
+    again = attention_relpos_bwd(qkv, rel, out32, lse, dout, scale, (H, W),
                                  n)
-    ref = attention_relpos_bwd_plain(qkv, rel, dout, scale, (G, G), n)
+    ref = attention_relpos_bwd_plain(qkv, rel, dout, scale, (H, W), n)
     for a, a2, r in zip(got, again, ref):
         assert torch.equal(a, a2)  # no atomics: deterministic
         a, r = a.float(), r.float()
@@ -150,9 +159,17 @@ def test_block_bf16_gradients_on_card(dev, monkeypatch):
         assert float(torch.nn.functional.cosine_similarity(a, r, 0)) >= 0.99
 
 
-def test_sampler_and_histogram_kernels(dev):
-    rng = np.random.default_rng(0)
-    B, C, H, W = 2, 2, 64, 96
+@pytest.mark.parametrize("B,C,H,W", [(2, 2, 64, 96), (2, 2, 130, 70),
+                                     (2, 1, 130, 70), (1, 2, 257, 1023),
+                                     (1, 1, 257, 1023)])
+def test_sampler_and_histogram_kernels(dev, B, C, H, W):
+    """Kernels 2 and 3 against their plain versions, bitwise (the sampler
+    built without contraction): W % 4 == 0 (float4 path) and not (scalar
+    tail), C = 1 and 2; at integer positions the sampler is the exact
+    gather of the label lookup."""
+    # the original case (2, 2, 64, 96) keeps its seed
+    rng = np.random.default_rng(0 if (B, C, H, W) == (2, 2, 64, 96)
+                                else H + W + C)
     u = torch.from_numpy(rng.normal(size=(B, C, H, W)).astype(np.float32))
     gy = torch.arange(H, dtype=torch.float32)[:, None].expand(B, H, W)
     gx = torch.arange(W, dtype=torch.float32)[None, :].expand(B, H, W)
@@ -162,6 +179,14 @@ def test_sampler_and_histogram_kernels(dev):
         rng.uniform(-9, 9, (B, H, W)).astype(np.float32)), 0, W - 1)
     args = [t.contiguous().to(dev) for t in (u, py, px)]
     assert torch.equal(bilinear_sample(*args), bilinear_sample_plain(*args))
+    lab = torch.from_numpy(rng.integers(0, 5000, (B, C, H, W)).astype(
+        np.float32)).to(dev)
+    iy, ix = torch.round(args[1]), torch.round(args[2])
+    got = bilinear_sample(lab, iy, ix)
+    exact = torch.gather(lab.reshape(B, C, -1), 2, (iy * W + ix).long()
+                         .reshape(B, 1, -1).expand(B, C, H * W))
+    assert torch.equal(got.reshape(B, C, -1), exact)
+    assert torch.equal(got, bilinear_sample_plain(lab, iy, ix))
     fy, fx = torch.round(args[1]).int(), torch.round(args[2]).int()
     cell = (torch.rand(B, H, W) < 0.7).float().to(dev)
     assert torch.equal(landing_histogram(fy, fx, cell),
@@ -203,19 +228,26 @@ def test_diffuse_blocked_kernel(dev, shape, k):
 @pytest.mark.parametrize("dtype,G", [(torch.float32, 8), (torch.float32, 16),
                                      (torch.bfloat16, 8),
                                      (torch.bfloat16, 32),
-                                     (torch.bfloat16, 16)])
+                                     (torch.bfloat16, 16),
+                                     (torch.float32, 28), (torch.float32, 64),
+                                     (torch.float32, (12, 20)),
+                                     (torch.bfloat16, 28),
+                                     (torch.bfloat16, 64),
+                                     (torch.bfloat16, (12, 20))])
 def test_flash_attention_relpos_kernel(dev, dtype, G):
     """Kernel 8 against its plain version: fp32 products on the CUDA
     cores, sums in another order, |Δ| ≤ 1e-4 + 1e-4·|ref|; bf16 as kernel
-    1, 2e-2; its route raises where a gradient would flow."""
-    g = torch.Generator(device="cpu").manual_seed(G)
-    B, n, hd, L = 2, 3, 64, G * G
+    1, 2e-2; its route raises where a gradient would flow. Grids down to
+    one key block, L % 128 != 0 (28 x 28, 12 x 20), H + W = 128."""
+    H, W = (G, G) if isinstance(G, int) else G
+    g = torch.Generator(device="cpu").manual_seed(G if H == W else H * W)
+    B, n, hd, L = 2, 3, 64, H * W
     q, k, v = (torch.randn(B, n, L, hd, generator=g).to(dev, dtype)
                for _ in range(3))
-    rh, rw = ((2 * torch.randn(B, n, L, G, generator=g)).to(dev, dtype)
-              for _ in range(2))
+    rh = (2 * torch.randn(B, n, L, H, generator=g)).to(dev, dtype)
+    rw = (2 * torch.randn(B, n, L, W, generator=g)).to(dev, dtype)
     before = _build.LAUNCHES["flash_attention_relpos"]
-    got = flash_attention_relpos(q, k, v, rh, rw, hd ** -0.5, (G, G))
+    got = flash_attention_relpos(q, k, v, rh, rw, hd ** -0.5, (H, W))
     assert _build.LAUNCHES["flash_attention_relpos"] == before + 1
     ref = flash_attention_relpos_plain(q, k, v, rh, rw, hd ** -0.5)
     assert got.dtype == dtype
@@ -223,7 +255,7 @@ def test_flash_attention_relpos_kernel(dev, dtype, G):
     torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
     with pytest.raises(RuntimeError, match="no backward"):
         flash_attention_relpos(q.requires_grad_(), k, v, rh, rw, 0.125,
-                               (G, G))
+                               (H, W))
 
 
 @pytest.mark.parametrize("shape,fast_var", [((3, 50, 1024), True),

@@ -1,8 +1,8 @@
-"""The port stands alone: no module of ``classpose_tpu_torch`` and not
-``chip_smoke.py`` imports JAX, flax or the JAX package, nor a host
-library the card's machine lacks (cv2, PIL, pandas, sklearn, yaml,
-pydantic, matplotlib, requests, shapely, openslide); its kernel and native sources
-ship with the package."""
+"""The port stands alone: no module of ``classpose_tpu_torch``, not
+``chip_smoke.py`` and not ``ab_attention.py`` (which it imports) imports
+JAX, flax or the JAX package, nor a host library the card's machine lacks
+(cv2, PIL, pandas, sklearn, yaml, pydantic, matplotlib, requests, shapely,
+openslide); its kernel and native sources ship with the package."""
 
 import ast
 import pkgutil
@@ -72,6 +72,9 @@ def test_chip_smoke_imports_no_jax():
     names = _imported_names(ROOT / "chip_smoke.py")
     assert "classpose_tpu_torch.runner" in names
     assert "classpose_tpu_torch.entrypoints.predict_wsi" in names
+    # and the A/B module it takes its timing helpers from
+    assert "ab_attention" in names
+    names += _imported_names(ROOT / "ab_attention.py")
     assert not [n for n in names if _forbidden(n)]
     assert not [n for n in names if _forbidden(n, HOST_LIBS)]
 
