@@ -3,30 +3,35 @@
 one process on one card.
 
     python3 ab_attention.py --rev <rev>       # or --old <csrc directory>
-    python3 ab_attention.py --bwd-instantiations
 
 With ``--rev`` the previous sources are ``_archive/<rev>`` (git-ignored;
 unpacked there with ``git archive`` when missing, see
 :func:`parent_sources`). Builds ``attention.cu`` (kernel 1, token-major),
 ``attention_hm.cu`` (kernel 8: its bf16 variant shares kernel 1's body,
-its fp32 body is its own), ``attention_bwd.cu`` (kernel 5) and
-``sample.cu`` (kernel 2) from the old directory and from the package's
-``csrc`` with the package's nvcc flags plus ``-Xptxas -v`` (registers,
-shared memory and spills of every instantiation go to the file ``--log``
-names). Both are held against the plain versions, then timed in turns
-(old, new, new, old; each pass the median of CUDA-event timings over
-back-to-back launches) at the main paths' shapes: kernel 1 at 25 crops ×
-16 heads × 1024 tokens × 64 (one inference layer, the 32 × 32 grid) and
-1 × 16 × 1024 × 64 (one chunk of eval's 3D branch: fewer tiles than
-SMs); kernel 8 in bf16 and in fp32 at 8 × 16 × 1024 × 64 (one evaluate
-layer); kernel 5 at 8 × 16 × 1024 × 64 (one train-step layer); kernel 2
-at 8 × 2 × 1024² (one follow-flows pass). Beside them the one-call
-yardsticks (for the attention forwards the fastest SDPA backend that
-takes the float mask; for kernel 2 ``grid_sample``), each with its
-spread, achieved TFLOP/s where it applies and the share of the bound.
-``--bwd-instantiations`` instead times kernel 5's square-grid register
-paths against its generic instantiation (:func:`run_bwd_instantiations`).
-Prints the card's name and power limit, then one JSON line.
+its fp32 body is its own), ``attention_bwd.cu`` (kernel 5), ``sample.cu``
+(kernel 2) and ``diffusion.cu`` (kernel 4) from the old directory and
+from the package's ``csrc`` with the package's nvcc flags plus ``-Xptxas
+-v`` (registers, shared memory and spills of every instantiation go to
+the file ``--log`` names). Both are held against the plain versions, then
+timed in turns (old, new, new, old; each pass the median of CUDA-event
+timings over back-to-back launches) at the main paths' shapes: kernel 1
+at 25 crops × 16 heads × 1024 tokens × 64 (one inference layer, the
+32 × 32 grid) and 1 × 16 × 1024 × 64 (one chunk of eval's 3D branch:
+fewer tiles than SMs); kernel 8 in bf16 and in fp32 at 8 × 16 × 1024 × 64
+(one evaluate layer); kernel 5 at 8 × 16 × 1024 × 64 (one train-step
+layer) and 2 × 16 × 784 × 64 (28 × 28 tokens, bsize 224); kernel 2 at
+8 × 2 × 1024² (one follow-flows pass); kernel 4 on 8 tiles of 1024² of
+the design field with counts 40/80/120 (one QC call: whichever entry
+points each library has, the per-iteration stencil or the blocked
+rounds), with kernel 7 (the package's) timed on the same inputs. Beside
+them the one-call yardsticks (for the attention forwards the fastest
+SDPA backend that takes the float mask; for kernel 2 ``grid_sample``),
+each with its spread, achieved TFLOP/s where it applies and the share of
+the bound. Prints the card's name and power limit, then one JSON line.
+
+``--grids`` A/Bs the attention kernels instead at the grids where they
+pick a body by the grid's shape (:func:`run_grids`), with ``--old`` a copy
+of ``csrc`` whose branch to one body is taken out.
 
 The timing helpers and yardsticks here are also ``chip_smoke.py``'s,
 which runs :func:`run_ab` under ``--ab``. The old sources are a
@@ -53,6 +58,10 @@ from classpose_tpu_torch.nn.attention import (
     attention_relpos_plain,
     flash_attention_relpos_plain,
 )
+from classpose_tpu_torch.ops.diffusion import (
+    diffuse_blocked,
+    masked_diffusion_plain,
+)
 from classpose_tpu_torch.ops.sample import bilinear_sample_plain
 
 # published H100 SXM peaks (dense): bf16 tensor cores, fp32 outside them,
@@ -64,7 +73,13 @@ PEAK_BYTES = 3.35e12
 BUILD = Path("_archive") / "ab_build"  # git-ignored
 
 
-SOURCES = ("attention", "attention_hm", "attention_bwd", "sample")
+SOURCES = ("attention", "attention_hm", "attention_bwd", "sample",
+           "diffusion")
+P, I = ctypes.c_void_p, ctypes.c_int
+# entry points of earlier bodies that the package no longer has: kernel 4's
+# one-launch-per-iteration stencil (before its blocked rounds)
+OLD_SIGNATURES = {"diffusion_step": ("diffusion",
+                                     [P, P, P, P, P, I, I, I, I, P])}
 
 
 def time_runs(fn, reps: int = 5, inner: int = 1) -> list[float]:
@@ -184,8 +199,9 @@ def build(csrc: Path, tag: str, log_path: Path, sources=SOURCES,
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc {tag} {name}:\n{log}")
             lib = ctypes.CDLL(str(out))
-            for fn, (owner, argtypes) in _build._SIGNATURES.items():
-                if owner == name:
+            for fn, (owner, argtypes) in {**_build._SIGNATURES,
+                                          **OLD_SIGNATURES}.items():
+                if owner == name and hasattr(lib, fn):
                     getattr(lib, fn).argtypes = argtypes
                     getattr(lib, fn).restype = ctypes.c_int
             libs[name] = lib
@@ -377,6 +393,94 @@ def ab_backward(libs, gen, dev, B, n, G, scale) -> dict:
     return res
 
 
+def design_labels(dev, B: int, H: int, W: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, H, W) instance ids and centre maps of the synthetic design
+    (``nn/synthetic.py``: a period-32 grid of radius-13 cells, one centre
+    pixel each), the QC diffusion's input."""
+    from classpose_tpu_torch.nn.synthetic import PERIOD, RADIUS
+
+    yy, xx = torch.meshgrid(torch.arange(H, device=dev),
+                            torch.arange(W, device=dev), indexing="ij")
+    cy = (yy // PERIOD) * PERIOD + PERIOD // 2
+    cx = (xx // PERIOD) * PERIOD + PERIOD // 2
+    inside = (yy - cy) ** 2 + (xx - cx) ** 2 <= RADIUS ** 2
+    cell = (yy // PERIOD) * -(-W // PERIOD) + xx // PERIOD + 1
+    ids = torch.where(inside, cell, 0).to(torch.int32)
+    cen = ((yy == cy) & (xx == cx)).to(torch.float32)
+    return (ids[None].repeat(B, 1, 1).contiguous(),
+            cen[None].repeat(B, 1, 1).contiguous())
+
+
+def diffusion_ops(ids: torch.Tensor, niter: torch.Tensor) -> float:
+    """Operations a diffusion run needs on this data: per iteration and
+    foreground pixel, two adds per matching 3×3 neighbour (centre
+    included) and one multiply."""
+    ip = F.pad(ids, (1, 1, 1, 1))
+    H, W = ids.shape[1:]
+    match = sum((ip[:, 1 + dy:1 + dy + H, 1 + dx:1 + dx + W] == ids)
+                for dy in (-1, 0, 1) for dx in (-1, 0, 1))
+    per_it = ((2 * match + 1) * (ids > 0)).sum(dim=(1, 2)).double()
+    return float((per_it * niter.double()).sum())
+
+
+def diffuse(lib, ids, cen, niter, nmax, cenm, mask, bufs) -> torch.Tensor:
+    """Kernel 4 through ``lib``'s entry points: pack once, then the
+    blocked rounds (``diffusion_resident_round``) or, in a library of the
+    body before them, one stencil launch per iteration
+    (``diffusion_step``), up to ``nmax`` = max(niter); ``cenm``, ``mask``
+    and the two ``bufs`` are scratch of ids' shape."""
+    B, H, W = ids.shape
+    stream = _build.stream_ptr(ids.device)
+    _build.check(lib.diffusion_pack_nbr(
+        ids.data_ptr(), cen.data_ptr(), cenm.data_ptr(), mask.data_ptr(), B,
+        H, W, stream), "diffusion_pack_nbr")
+    T, T2 = bufs
+    T.zero_()
+    rounds = hasattr(lib, "diffusion_resident_round")
+    step = lib.diffusion_resident_depth() if rounds else 1
+    for s0 in range(0, nmax, step):
+        fn = lib.diffusion_resident_round if rounds else lib.diffusion_step
+        _build.check(fn(T.data_ptr(), T2.data_ptr(), cenm.data_ptr(),
+                        mask.data_ptr(), niter.data_ptr(), B, H, W, s0,
+                        stream), "diffusion round")
+        T, T2 = T2, T
+    return T
+
+
+def ab_diffusion(libs, dev) -> dict:
+    """Kernel 4, old and new, on one QC call's inputs (8 tiles of 1024²
+    of the design field, counts 40/80/120) against the plain version
+    (bitwise), timed in turns, with each library's launches per call and
+    kernel 7 (the package's ``diffuse_blocked`` at k = 1, bitwise equal
+    to kernel 4) timed on the same inputs beside them."""
+    ids, cen = design_labels(dev, 8, 1024, 1024)
+    niter = torch.tensor([40, 80, 120, 40, 80, 120, 40, 80],
+                         dtype=torch.int32, device=dev)
+    ref = masked_diffusion_plain(ids, cen, niter)
+    nmax = int(niter.max())
+    scratch = {t: (nmax, torch.empty_like(cen),
+                   torch.empty(ids.shape, dtype=torch.int16, device=dev),
+                   (torch.empty_like(cen), torch.empty_like(cen)))
+               for t in libs}
+    launches = {}
+    for tag, lib in libs.items():
+        lib = lib["diffusion"]
+        if not torch.equal(diffuse(lib, ids, cen, niter, *scratch[tag]), ref):
+            raise AssertionError(f"kernel 4 {tag}: not bitwise equal")
+        launches[tag] = 1 + (-(-nmax // lib.diffusion_resident_depth())
+                             if hasattr(lib, "diffusion_resident_round")
+                             else nmax)
+    b, _ = bound_ms(ids.numel() * 12, diffusion_ops(ids, niter), PEAK_FP32)
+    res = ab({t: (lambda t=t: diffuse(libs[t]["diffusion"], ids, cen, niter,
+                                      *scratch[t])) for t in libs}, 0.0, b)
+    zero = torch.zeros_like(cen)
+    res.update(bound_ms=b, launches=launches,
+               **spread("kernel7_", time_runs(lambda: diffuse_blocked(
+                   zero, ids, cen, niter, k=1), 5, 3)))
+    return res
+
+
 def run_ab(old: Path, log: Path) -> dict:
     """Build the old and the package's sources and A/B them at every
     shape of the module docstring; returns the results by shape."""
@@ -400,30 +504,46 @@ def run_ab(old: Path, log: Path) -> dict:
             libs, gen, dev, dtype, 8, 16, G, scale)
     result["attention_bwd_8x16x1024"] = ab_backward(libs, gen, dev, 8, 16, G,
                                                     scale)
+    # kernel 5 at bsize 224's 28 x 28 tokens, two crops x 16 heads
+    result["attention_bwd_2x16x784"] = ab_backward(libs, gen, dev, 2, 16, 28,
+                                                   scale)
     result["bilinear_sample_8x2x1024x1024"] = ab_sampler(libs, gen, dev, 8,
                                                          2, 1024)
+    result["masked_diffusion_8x1024x1024"] = ab_diffusion(libs, dev)
     return result
 
 
-def run_bwd_instantiations(log: Path) -> dict:
-    """Kernel 5's register reduction of the bias gradients (squares of side
-    8, 16, 32, 64) against its generic instantiation (any grid) on the same
-    grids: the package's ``attention_bwd.cu`` built with
-    ``ATTN_BWD_GENERIC_ONLY`` as "old" and as it is as "new", timed in
-    turns at one train-step layer (8 crops × 16 heads) of bsize 64, 128
-    and 256, and at 2 × 16 × 64² for bsize 512 (two crops: the plain
-    vjp's L × L intermediates)."""
+def run_grids(old: Path, log: Path) -> dict:
+    """Build the old and the package's attention sources and A/B them at
+    the grids that decide between a special body and the general one:
+    kernel 5 at 8 × 16 heads on the square grids of side 32, 16 and 8
+    (register dq bodies at 32 and 16, the one-hot body at 8), kernels 1
+    and 8 bf16 at 2 × 16 on 28² and 64² (the generic body's bias
+    buffering), kernel 8 fp32 at 8 × 16 on 32² and 2 × 16 on 64² (whole
+    bias rows; per-key-block staging past H + W = 128). Which body each
+    side runs is its copy's choice: hold a copy with the branch to one
+    body taken out against the package."""
     dev = torch.device("cuda")
     log.parent.mkdir(parents=True, exist_ok=True)
     log.write_text("")
-    libs = {"old": build(_build.CSRC, "generic", log, ("attention_bwd",),
-                         ("ATTN_BWD_GENERIC_ONLY",)),
-            "new": build(_build.CSRC, "new", log, ("attention_bwd",))}
+    sources = ("attention", "attention_hm", "attention_bwd")
+    libs = {"old": build(old, "old", log, sources),
+            "new": build(_build.CSRC, "new", log, sources)}
     gen = torch.Generator(device=dev).manual_seed(0)
     scale = 64 ** -0.5
-    return {f"attention_bwd_{B}x16x{G * G}": ab_backward(libs, gen, dev, B,
-                                                         16, G, scale)
-            for B, G in ((8, 8), (8, 16), (8, 32), (2, 64))}
+    result = {}
+    for G in (32, 16, 8):
+        result[f"attention_bwd_8x16x{G}x{G}"] = ab_backward(
+            libs, gen, dev, 8, 16, G, scale)
+    for G in (28, 64):
+        result[f"attention_fwd_2x16x{G}x{G}"] = ab_token_major(
+            libs, gen, dev, 2, 16, G, scale)
+        result[f"flash_attention_relpos_bf16_2x16x{G}x{G}"] = ab_head_major(
+            libs, gen, dev, torch.bfloat16, 2, 16, G, scale)
+    for B, G in ((8, 32), (2, 64)):
+        result[f"flash_attention_relpos_f32_{B}x16x{G}x{G}"] = ab_head_major(
+            libs, gen, dev, torch.float32, B, 16, G, scale)
+    return result
 
 
 def parent_sources(rev: str) -> Path:
@@ -456,9 +576,10 @@ def main() -> int:
                       help="csrc directory of the previous version")
     what.add_argument("--rev", help="git revision of the previous version "
                       "(see parent_sources)")
-    what.add_argument("--bwd-instantiations", action="store_true",
-                      help="kernel 5's register reduction against its "
-                      "generic instantiation (run_bwd_instantiations)")
+    ap.add_argument("--grids", action="store_true",
+                    help="A/B at the grids where a kernel picks its body "
+                    "by the grid's shape (run_grids), in place of the main "
+                    "shapes")
     ap.add_argument("--log", type=Path,
                     default=BUILD / "ab_attention_ptxas.txt",
                     help="file for nvcc's and ptxas's output")
@@ -469,10 +590,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
-    if args.bwd_instantiations:
-        result = run_bwd_instantiations(args.log)
-    else:
-        result = run_ab(args.old or parent_sources(args.rev), args.log)
+    result = (run_grids if args.grids else run_ab)(
+        args.old or parent_sources(args.rev), args.log)
     print(smi)
     print(json.dumps(result))
     return 0

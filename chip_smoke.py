@@ -11,7 +11,9 @@
    × 1024 tokens, bf16; attention backward: 8 crops × 16 heads × 1024
    tokens, bf16; sampler, histogram and diffusion: 8 tiles of 1024²;
    LayerNorm: (25, 1024, 1024) bf16 with the fast variance and
-   (25, 32, 32, 256) bf16 two-pass; halo-blocked diffusion: 8 tiles of
+   (25, 32, 32, 256) bf16 two-pass; kernel 4 also on a 512² training
+   target at 1200 iterations, with its launches per call; halo-blocked
+   diffusion: 8 tiles of
    448², the evaluate path's QC, bitwise, plus counts off multiples of k
    from a nonzero start and one 2048² tile past the residency gate;
    head-major attention: 8 crops × 16 heads × 1024 tokens in fp32 and
@@ -24,8 +26,8 @@
    70, 1 × 257 × 1023), and that the LayerNorm and head-major
    attention kernel routes raise where a gradient would flow through
    them; then the attention kernels on the token grids of other crop
-   sizes (28 × 28, 64 × 64 and 12 × 20: kernels 1 and 8 in fp32 and
-   bf16, kernel 5 on the squares), each against its plain version;
+   sizes (28 × 28, 64 × 64, 12 × 20, 8 × 128 and 128 × 128: kernels 1, 8
+   in fp32 and bf16, and 5), each against its plain version;
 4. runs ``ClassposeModel.eval_batch`` at full ViT-L width (24 blocks,
    1024 wide, bf16) with the structured synthetic checkpoint on 8 uint8
    tiles of 1024², ``batch_size=32``, ``niter=200``, with every launch
@@ -74,9 +76,12 @@
    256² image (kernel 4, not kernel 7), and ``eval(do_3D=True)`` in bf16
    on a 16 × 128 × 128 stack (kernel 1), compared with the plain
    versions; then ``eval`` with a ViT-L at bsize 224 (28 × 28 tokens) on
-   one 480² image in fp32 and bf16, against the plain versions;
+   one 480² image in fp32 and bf16, against the plain versions, and with
+   a ViT-L at bsize 1024 (128 × 128 tokens, L = 16384) on one 1024² image
+   in fp32 and bf16 against the plain versions run one head at a time,
+   and one kernel-route train step at batch 1 of a 1024² crop;
 8. under ``--ab`` only, the A/B of ``ab_attention.py``: kernels 1, 8
-   (fp32 and bf16), 5 and 2 at the main paths' shapes, the bodies of
+   (fp32 and bf16), 5, 2 and 4 at the main paths' shapes, the bodies of
    commit ``AB_PARENT`` (``_archive/<AB_PARENT>``, or ``git archive`` of
    it; raises when neither gives them) and the package's timed in turns
    in this process. It is not part of the default run because a checkout
@@ -112,6 +117,8 @@ from ab_attention import (
     PEAK_BF16,
     PEAK_FP32,
     bound_ms,
+    design_labels,
+    diffusion_ops,
     grid_sample_yardstick,
     parent_sources,
     positions,
@@ -204,11 +211,14 @@ STACK_SHAPE = (16, 128, 128)
 # patch 8, and a non-square one), and the end-to-end checks at bsize 224
 # (28 x 28 tokens, L = 784): eval on one image of 480², whose 3 x 3 crop
 # origins (0, 128, 256) fall on the design field's period, and a train step
-FAULT3_GRIDS = ((28, 28), (64, 64), (12, 20))
+FAULT3_GRIDS = ((28, 28), (64, 64), (12, 20), (8, 128), (128, 128))
 FAULT3_BSIZE, FAULT3_SIZE = 224, 480
+# the largest crop the kernels take (H + W = 256): bsize 1024 at patch 8,
+# 128 x 128 tokens (L = 16384), one WSI tile; eval on one 1024² image
+BIG_BSIZE, BIG_SIZE = 1024, 1024
 # the commit whose kernel bodies the A/B phase (``--ab``) holds the
 # working tree's against
-AB_PARENT = "9e00d5f"
+AB_PARENT = "2ecf118"
 
 
 def log(msg: str) -> None:
@@ -233,34 +243,6 @@ def ln_switch(on: bool):
             os.environ.pop(LN_SWITCH)
         else:
             os.environ[LN_SWITCH] = saved
-
-
-def design_labels(dev, B: int = N_TILES, H: int = TILE, W: int = TILE
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(B, H, W) instance ids and centre maps of the synthetic design
-    (period-32 grid of radius-13 cells), the QC diffusion's input."""
-    yy, xx = torch.meshgrid(torch.arange(H, device=dev),
-                            torch.arange(W, device=dev), indexing="ij")
-    cy = (yy // PERIOD) * PERIOD + PERIOD // 2
-    cx = (xx // PERIOD) * PERIOD + PERIOD // 2
-    inside = (yy - cy) ** 2 + (xx - cx) ** 2 <= RADIUS ** 2
-    cell = (yy // PERIOD) * -(-W // PERIOD) + xx // PERIOD + 1
-    ids = torch.where(inside, cell, 0).to(torch.int32)
-    cen = ((yy == cy) & (xx == cx)).to(torch.float32)
-    return (ids[None].repeat(B, 1, 1).contiguous(),
-            cen[None].repeat(B, 1, 1).contiguous())
-
-
-def diffusion_ops(ids: torch.Tensor, niter: torch.Tensor) -> float:
-    """Operations a diffusion run needs on this data: per iteration and
-    foreground pixel, two adds per matching 3×3 neighbour (centre
-    included) and one multiply."""
-    ip = F.pad(ids, (1, 1, 1, 1))
-    H, W = ids.shape[1:]
-    match = sum((ip[:, 1 + dy:1 + dy + H, 1 + dx:1 + dx + W] == ids)
-                for dy in (-1, 0, 1) for dx in (-1, 0, 1))
-    per_it = ((2 * match + 1) * (ids > 0)).sum(dim=(1, 2)).double()
-    return float((per_it * niter.double()).sum())
 
 
 # ---------------------------------------------------------------- phase 3
@@ -460,15 +442,35 @@ def check_histogram(gen, dev) -> dict:
     )
 
 
+def launches_of(name: str, fn):
+    """``fn()`` and the launches of kernel ``name`` it made."""
+    before = _build.LAUNCHES[name]
+    out = fn()
+    return out, _build.LAUNCHES[name] - before
+
+
 def check_diffusion(dev) -> dict:
-    ids, cen = design_labels(dev)
+    """Kernel 4 against its plain version, bitwise: the QC call of one
+    8-tile batch (8 × 1024² of the design field, counts 40/80/120: the
+    line's numbers, with its launches per call) and one training target
+    (a 512² image at 1200 iterations, ``dynamics/flows.py``'s count for
+    targets: its time and launches in ``target_512``)."""
+    ids, cen = design_labels(dev, N_TILES, TILE, TILE)
     niter = torch.tensor([40, 80, 120, 40, 80, 120, 40, 80],
                          dtype=torch.int32, device=dev)
-    got = masked_diffusion(ids, cen, niter)
+    got, per_call = launches_of(
+        "masked_diffusion", lambda: masked_diffusion(ids, cen, niter))
     ref = masked_diffusion_plain(ids, cen, niter)
     if not torch.equal(got, ref):
         raise AssertionError("diffusion not bitwise equal to plain")
+    i1, c1 = design_labels(dev, 1, TRAIN_SIZE, TRAIN_SIZE)
+    n1 = torch.tensor([1200], dtype=torch.int32, device=dev)
+    t1, per_target = launches_of(
+        "masked_diffusion", lambda: masked_diffusion(i1, c1, n1))
+    if not torch.equal(t1, masked_diffusion_plain(i1, c1, n1)):
+        raise AssertionError("diffusion at 512²/1200 not bitwise equal")
     b, by = bound_ms(ids.numel() * 12, diffusion_ops(ids, niter), PEAK_FP32)
+    b1, _ = bound_ms(i1.numel() * 12, diffusion_ops(i1, n1), PEAK_FP32)
     return dict(
         name="masked_diffusion", route="cuda",
         source="classpose_tpu_torch/csrc/diffusion.cu",
@@ -477,7 +479,9 @@ def check_diffusion(dev) -> dict:
         ms=time_ms(lambda: masked_diffusion(ids, cen, niter)),
         plain_ms=time_ms(lambda: masked_diffusion_plain(ids, cen, niter), 3),
         library_ms=None,
-        bound_ms=b, bound_by=by,
+        bound_ms=b, bound_by=by, launches_per_call=per_call,
+        target_512=dict(niter=1200, launches=per_target, bound_ms=b1,
+                        ms=time_ms(lambda: masked_diffusion(i1, c1, n1), 3)),
     )
 
 
@@ -605,7 +609,7 @@ def check_diffuse_blocked(gen, dev) -> dict:
                            diffuse_blocked_plain(T0, i, c, n, k=k)):
             raise AssertionError(f"diffuse_blocked {name}: not bitwise "
                                  f"equal to plain")
-    ids4, cen4 = design_labels(dev)
+    ids4, cen4 = design_labels(dev, N_TILES, TILE, TILE)
     n4 = torch.tensor([40, 80, 120, 40, 80, 120, 40, 80], dtype=torch.int32,
                       device=dev)
     z4 = torch.zeros_like(cen4)
@@ -690,12 +694,13 @@ def check_flash_attention(gen, dev) -> dict:
 
 def check_fault3_grids(gen, dev) -> dict:
     """Fault 3: the attention kernels at the grids of ``FAULT3_GRIDS``
-    (2 crops × 16 heads) against their plain versions at the tolerances of
-    the main-path checks: kernel 1 (bf16, 1e-2 + 1e-2·|ref|), kernel 8 in
-    fp32 (1e-4 + 1e-4·|ref|) and bf16 (1e-2 + 1e-2·|ref|), and on the
-    square grids kernel 5 (2e-2·max|ref| + 2e-2·|ref|); each kernel's time
-    (CUDA events, 5 × 3 calls)."""
-    B, n, hd = 2, 16, 64
+    (2 crops × 16 heads; at 128 × 128, L = 16384, 1 crop × 2 heads: the
+    plain versions' (B, n, L, L) fp32 intermediates) against their plain
+    versions at the tolerances of the main-path checks: kernel 1 (bf16,
+    1e-2 + 1e-2·|ref|), kernel 8 in fp32 (1e-4 + 1e-4·|ref|) and bf16
+    (1e-2 + 1e-2·|ref|), kernel 5 (2e-2·max|ref| + 2e-2·|ref|); each
+    kernel's time (CUDA events, 5 × 3 calls) and the shape it ran at."""
+    hd = 64
     scale = hd ** -0.5
     out = {}
 
@@ -707,7 +712,8 @@ def check_fault3_grids(gen, dev) -> dict:
 
     for H, W in FAULT3_GRIDS:
         L = H * W
-        res = {}
+        B, n = (2, 16) if L <= 4096 else (1, 2)
+        res = dict(crops=B, heads=n)
         qkv = torch.randn(B, L, 3 * n * hd, generator=gen, device=dev).to(
             torch.bfloat16)
         rel = (2 * torch.randn(B, L, n, H + W, generator=gen, device=dev)
@@ -718,19 +724,18 @@ def check_fault3_grids(gen, dev) -> dict:
                 qkv, rel, scale, (H, W), n), lambda r: 1e-2 + 1e-2 * r.abs(),
                 f"kernel 1 at {H}×{W}"),
             ms=time_ms(fwd, 5, 3))
-        if H == W:
-            dout = torch.randn(B, L, n * hd, generator=gen, device=dev).to(
-                torch.bfloat16)
-            _, lse, out32 = _fwd_kernel(qkv, rel, scale, (H, W), n, True)
-            bwd = lambda: attention_relpos_bwd(  # noqa: E731
-                qkv, rel, out32, lse, dout, scale, (H, W), n)
-            ref = attention_relpos_bwd_plain(qkv, rel, dout, scale, (H, W), n)
-            res["attention_bwd"] = dict(
-                max_abs_err=max(held(a, r, lambda x: 2e-2 * x.abs().max()
-                                     + 2e-2 * x.abs(), f"kernel 5 at {H}×{W}")
-                                for a, r in zip(bwd(), ref)),
-                ms=time_ms(bwd, 5, 3))
-            del ref
+        dout = torch.randn(B, L, n * hd, generator=gen, device=dev).to(
+            torch.bfloat16)
+        _, lse, out32 = _fwd_kernel(qkv, rel, scale, (H, W), n, True)
+        bwd = lambda: attention_relpos_bwd(  # noqa: E731
+            qkv, rel, out32, lse, dout, scale, (H, W), n)
+        ref = attention_relpos_bwd_plain(qkv, rel, dout, scale, (H, W), n)
+        res["attention_bwd"] = dict(
+            max_abs_err=max(held(a, r, lambda x: 2e-2 * x.abs().max()
+                                 + 2e-2 * x.abs(), f"kernel 5 at {H}×{W}")
+                            for a, r in zip(bwd(), ref)),
+            ms=time_ms(bwd, 5, 3))
+        del ref
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
             q, k, v = (torch.randn(B, n, L, hd, generator=gen, device=dev)
                        .to(dtype) for _ in range(3))
@@ -796,9 +801,31 @@ def compare_slices(run, ref) -> float:
     return worst
 
 
-def plain_versions():
+def attention_by_head(qkv, rel, scale, grid_hw, num_heads):
+    """The plain token-major route one head at a time (the same math per
+    head): at L = 16384 a head's (L, L) fp32 logits alone take 1 GiB."""
+    hd = qkv.shape[-1] // (3 * num_heads)
+    outs = []
+    for h in range(num_heads):
+        cols = torch.cat([qkv[..., (i * num_heads + h) * hd:
+                              (i * num_heads + h + 1) * hd]
+                          for i in range(3)], -1).contiguous()
+        outs.append(attention_relpos_plain_route(
+            cols, rel[:, :, h:h + 1].contiguous(), scale, grid_hw, 1))
+    return torch.cat(outs, -1)
+
+
+def flash_attention_by_head(q, k, v, rh, rw, scale, grid_hw):
+    """The plain head-major version one head at a time."""
+    return torch.cat([flash_attention_relpos_plain(
+        q[:, h:h + 1], k[:, h:h + 1], v[:, h:h + 1], rh[:, h:h + 1],
+        rw[:, h:h + 1], scale) for h in range(q.shape[1])], 1)
+
+
+def plain_versions(by_head: bool = False):
     """Swap the plain versions in where the slices call the kernels (the
-    attention through its differentiable plain route)."""
+    attention through its differentiable plain route; with ``by_head``,
+    inference only, one head at a time)."""
     saved = (port_masks.bilinear_sample, port_masks.landing_histogram,
              port_flows.masked_diffusion, port_flows.diffuse_blocked,
              port_vit.attention_relpos, port_vit.flash_attention_relpos,
@@ -807,8 +834,10 @@ def plain_versions():
     port_masks.landing_histogram = landing_histogram_plain
     port_flows.masked_diffusion = masked_diffusion_plain
     port_flows.diffuse_blocked = diffuse_blocked_plain
-    port_vit.attention_relpos = attention_relpos_plain_route
+    port_vit.attention_relpos = (attention_by_head if by_head
+                                 else attention_relpos_plain_route)
     port_vit.flash_attention_relpos = (
+        flash_attention_by_head if by_head else
         lambda q, k, v, rh, rw, scale, grid_hw:
         flash_attention_relpos_plain(q, k, v, rh, rw, scale))
     port_ln.layernorm = layernorm_ref
@@ -1534,20 +1563,23 @@ def run_evaluate(dev, work: str) -> tuple[dict, dict]:
     return launches, stats
 
 
-def run_fault3_eval(dev) -> dict:
-    """Fault 3 at inference: a full-width ViT-L at bsize 224 (28 × 28
-    tokens) with a live structured checkpoint
-    (``perturbed_structured_params``, attention ripple 0.5), ``eval`` on
-    one design-field image of 480² (3 × 3 crops, 2 chunks of 8) in fp32
-    (kernel 8) and bf16 (kernel 1), each on the kernel route and with the
-    plain versions swapped in: one launch per block and crop chunk; masks
+def run_fault3_eval(dev, bsize: int = FAULT3_BSIZE,
+                    S: int = FAULT3_SIZE) -> dict:
+    """Fault 3 at inference: a full-width ViT-L whose config has crops of
+    ``bsize`` (224: 28 × 28 tokens; 1024: 128 × 128, L = 16384) with a
+    live structured checkpoint (``perturbed_structured_params``, attention
+    ripple 0.5), ``eval`` on one design-field image of S² (480²: 3 × 3
+    crops, 2 chunks of 8; 1024²: one crop) in fp32 (kernel 8) and bf16
+    (kernel 1), each on the kernel route and with the plain versions
+    swapped in (one head at a time past L = 4096: the plain attention's
+    (L, L) fp32 intermediates): one launch per block and crop chunk; masks
     compared as masks (equal counts, worst IoU ≥ 0.95, equal classes) and
     the network's flows and cell probability (the blended output) within
     1e-3·max|ref| at fp32 and 5e-2·max|ref| at bf16."""
-    cfg = ClassTransformerConfig(n_cell_classes=6, bsize=FAULT3_BSIZE)
+    cfg = ClassTransformerConfig(n_cell_classes=6, bsize=bsize)
     params = perturbed_structured_params(cfg, ripple=0.5, seed=SEED,
                                          attn_ripple=0.5)
-    S = FAULT3_SIZE
+    by_head = cfg.tokens_hw ** 2 > 4096
     yy, xx = np.mgrid[:S, :S]
     inside = ((yy % PERIOD - PERIOD // 2) ** 2
               + (xx % PERIOD - PERIOD // 2) ** 2 <= RADIUS ** 2)
@@ -1569,9 +1601,10 @@ def run_fault3_eval(dev) -> dict:
         wall = time.perf_counter() - t0
         launches = dict(_build.LAUNCHES)
         if launches[kernel] != cfg.depth * chunks:
-            raise AssertionError(f"bsize 224 {precision} eval: {launches}, "
-                                 f"want {cfg.depth * chunks} of {kernel}")
-        restore = plain_versions()
+            raise AssertionError(f"bsize {bsize} {precision} eval: "
+                                 f"{launches}, want {cfg.depth * chunks} of "
+                                 f"{kernel}")
+        restore = plain_versions(by_head)
         try:
             m_ref, flows_ref, c_ref, _ = model.eval(x, batch_size=EVAL_BATCH)
         finally:
@@ -1582,22 +1615,65 @@ def run_fault3_eval(dev) -> dict:
             a, r = np.asarray(flows[i], np.float64), np.asarray(
                 flows_ref[i], np.float64)
             if a.shape != r.shape or not np.isfinite(a).all():
-                raise AssertionError(f"bsize 224 {precision} {name}")
+                raise AssertionError(f"bsize {bsize} {precision} {name}")
             rel_err[name] = float(np.abs(a - r).max() / np.abs(r).max())
             if rel_err[name] > tol:
-                raise AssertionError(f"bsize 224 {precision} {name}: "
+                raise AssertionError(f"bsize {bsize} {precision} {name}: "
                                      f"max|Δ|/max|ref| {rel_err[name]}")
         n_design = (S // PERIOD) ** 2
         if not 0.95 * n_design <= int(m.max()) <= n_design:
-            raise AssertionError(f"bsize 224 {precision}: {m.max()} cells "
-                                 f"(design {n_design})")
+            raise AssertionError(f"bsize {bsize} {precision}: {m.max()} "
+                                 f"cells (design {n_design})")
         out[precision] = dict(eval_s=wall, kernel_launches=launches[kernel],
                               instances=int(m.max()), n_design=n_design,
                               worst_iou_vs_plain=worst,
                               rel_err_vs_plain=rel_err)
         del model
     return dict(bsize=cfg.bsize, tokens=cfg.tokens_hw, image=S,
-                crops=grid.ny * grid.nx, chunks=chunks, **out)
+                crops=grid.ny * grid.nx, chunks=chunks,
+                plain_by_head=by_head, **out)
+
+
+def big_crop_train_step(dev) -> dict:
+    """Fault 3 at the largest crop: one bf16 train step on the kernel
+    route at batch 1 of a 1024² crop (128 × 128 tokens, L = 16384) of one
+    1024² disc image (~240 discs, flow targets by kernel 4), full ViT-L
+    width and depth, seeded random weights, without layer-drop: a finite
+    loss, finite gradients and ``depth`` launches each of kernels 1 and 5.
+    Cut: no plain step beside it (the plain vjp keeps several (L, L) fp32
+    tensors per head and block, ~1 GiB each); kernel 5's arithmetic at
+    128 × 128 is held against the plain vjp in ``check_fault3_grids``."""
+    cfg = ClassTransformerConfig(n_cell_classes=6, dtype="bfloat16",
+                                 bsize=BIG_BSIZE)
+    rng = np.random.default_rng(SEED)
+    images, labels = disc_images(rng, 1, BIG_SIZE, 240, cfg.n_cell_classes)
+    tr_d, tr_l, tr_diam, *_ = process_train_test(images, labels, device=dev)
+    ds = ClassposeTrainingDataset(np.stack(tr_d), np.stack(tr_l),
+                                  diameter_array=tr_diam, bsize=cfg.bsize,
+                                  seed=SEED)
+    x, y = ds[0]
+    X = torch.from_numpy(x[None]).to(dev)
+    lbl = torch.from_numpy(y[None]).to(dev)
+    net = ClassposeModel(cfg=cfg, precision="bf16", device=dev,
+                         seed=SEED).net
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    total, grads = step_grads(net, X, lbl, ds.class_weights,
+                              cfg.n_cell_classes)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: _build.LAUNCHES[k] for k in ("attention_fwd",
+                                                "attention_bwd")}
+    if any(v != cfg.depth for v in launches.values()):
+        raise AssertionError(f"bsize {BIG_BSIZE} step launches {launches}")
+    if not np.isfinite(total) or not all(bool(torch.isfinite(g).all())
+                                         for g in grads.values()):
+        raise AssertionError(f"bsize {BIG_BSIZE} step: loss {total}")
+    return dict(crop=cfg.bsize, tokens=cfg.tokens_hw, batch=1, loss=total,
+                launches=launches, step_s=wall,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
 
 
 def main() -> int:
@@ -1655,6 +1731,10 @@ def main() -> int:
     log(f"evaluate: {json.dumps(ev_stats)}")
     fault3_eval = run_fault3_eval(dev)
     log(f"fault 3 eval: {json.dumps(fault3_eval)}")
+    big_eval = run_fault3_eval(dev, BIG_BSIZE, BIG_SIZE)
+    log(f"bsize {BIG_BSIZE} eval: {json.dumps(big_eval)}")
+    big_step = big_crop_train_step(dev)
+    log(f"bsize {BIG_BSIZE} train step: {json.dumps(big_step)}")
     ab = None
     if args.ab:
         ab = dict(old=AB_PARENT, **run_ab(
@@ -1699,7 +1779,12 @@ def main() -> int:
                       "bilinear_sample_library_spread": by_name[
                           "bilinear_sample"]["library_spread"],
                       "fault3_grids": fault3_grids,
-                      "fault3_eval": fault3_eval, "ab": ab}))
+                      "fault3_eval": fault3_eval,
+                      "bsize1024": dict(eval=big_eval, train_step=big_step),
+                      "diffusion_detail": {
+                          k: by_name["masked_diffusion"][k]
+                          for k in ("launches_per_call", "target_512")},
+                      "ab": ab}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

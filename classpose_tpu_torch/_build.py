@@ -73,7 +73,9 @@ _SIGNATURES = {
     "bilinear_sample_f32": ("sample", [P, P, P, P, I, I, I, I, P]),
     "landing_histogram_f32": ("sample", [P, P, P, P, I, I, I, P]),
     "diffusion_pack_nbr": ("diffusion", [P, P, P, P, I, I, I, P]),
-    "diffusion_step": ("diffusion", [P, P, P, P, P, I, I, I, I, P]),
+    "diffusion_resident_round": ("diffusion",
+                                 [P, P, P, P, P, I, I, I, I, P]),
+    "diffusion_resident_depth": ("diffusion", []),
     "layernorm_bf16": ("layernorm", [P, P, P, P, I, I, ctypes.c_float, I, P]),
     "diffusion_blocked_round": ("diffusion_blocked",
                                 [P, P, P, P, P, I, I, I, I, P]),

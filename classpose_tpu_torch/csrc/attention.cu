@@ -47,7 +47,7 @@ struct TokenMajor {
 
 // qkv (B, L, 3*n*64), rel (B, L, n, gh+gw), out (B, L, n*64), all bf16;
 // lse (B, n, L) and out32 (B, L, n*64) f32, or null; L = gh * gw with
-// gh + gw <= 128; qkv and rel 16-byte aligned.
+// gh + gw <= MAX_REL (256); qkv and rel 16-byte aligned.
 extern "C" int attn_fwd_bf16(const void* qkv, const void* rel, void* out,
                              void* lse, void* out32, int B, int L, int n,
                              int gh, int gw, float scale, void* stream) {

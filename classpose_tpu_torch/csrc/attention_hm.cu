@@ -42,7 +42,15 @@
 //   - keys past L (L % 128 != 0) read row L-1 and are masked to -inf; rows
 //     past L are computed on row L-1 and not written.
 // Shared memory: q, k, v 32 KB each, p 64 KB, the bias rows 128 x at most
-// H+W+4 fp32 (64 KB at 64 x 64): 231,424 bytes at most, one CTA per SM.
+// 132 fp32 (66 KB): 231,424 bytes at most, one CTA per SM. Whole bias
+// rows fit up to H + W = 128 (64 x 64). Past that (up to H + W = 256,
+// e.g. 128 x 128 or 2 x 254) the kernel stages, for each key block, only
+// the bias entries that block touches: rel_h columns j/W of its keys
+// (at most ceil(127/W) + 1) and rel_w columns j%W (all W of them, loaded
+// once, for W <= 128; else the block's 128 in key order), at most 132 a
+// row whatever H + W is. They are copied by 4-byte cp.async during the
+// previous block's P.V and S (the buffer is free once the softmax is
+// done) and scaled by log2(e) where they are read.
 
 #include "attn_fwd.cuh"
 
@@ -85,11 +93,21 @@ __device__ __forceinline__ int swz(int r, int d) {
 }
 
 // the bias rows in shared memory: rel_h at column 0, rel_w from column
-// bias_rw_col, both 16-byte aligned; at most 132 floats a row for
-// H + W <= 128
-__host__ __device__ inline int bias_rw_col(int gh) { return (gh + 3) / 4 * 4; }
-__host__ __device__ inline int bias_pitch(int gh, int gw) {
-  return bias_rw_col(gh) + (gw + 3) / 4 * 4;
+// bias_rw_col, both 16-byte aligned. Whole rows (STAGED false): gh and gw
+// columns, at most BP_MAX floats a row for H + W <= 128. A key block's
+// entries (STAGED true): at most ceil(127/gw) + 1 rel_h columns and
+// min(gw, BK) rel_w columns, at most BP_MAX for any grid.
+constexpr int BP_MAX = 132;
+__host__ __device__ inline int staged_h(int gh, int gw) {
+  const int nh = (BK - 1 + gw - 1) / gw + 1;
+  return nh < gh ? nh : gh;
+}
+__host__ __device__ inline int bias_rw_col(int gh, int gw, bool staged) {
+  return ((staged ? staged_h(gh, gw) : gh) + 3) / 4 * 4;
+}
+__host__ __device__ inline int bias_pitch(int gh, int gw, bool staged) {
+  const int cw = staged && gw > BK ? BK : gw;
+  return bias_rw_col(gh, gw, staged) + (cw + 3) / 4 * 4;
 }
 
 __device__ __forceinline__ void fma4(float (&acc)[8], float a,
@@ -100,6 +118,7 @@ __device__ __forceinline__ void fma4(float (&acc)[8], float a,
                   : e == 2 ? b[c].z : b[c].w, acc[c]);
 }
 
+template <bool STAGED>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_hm_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ rh,
@@ -110,9 +129,10 @@ attn_hm_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* sK = sQ + BQ * HD;    // [BK][HD], swizzled
   float* sV = sK + BK * HD;    // [BK][HD]
   float* sP = sV + BK * HD;    // [BQ][BK], swizzled
-  // [BQ][BP]: rel_h at 0, rel_w at GHP (16-byte aligned), times log2(e)
+  // [BQ][BP]: rel_h at 0, rel_w at GHP (16-byte aligned); times log2(e)
+  // with whole rows, raw when staged per key block
   float* sB = sP + BQ * BK;
-  const int GHP = bias_rw_col(gh), BP = bias_pitch(gh, gw);
+  const int GHP = bias_rw_col(gh, gw, STAGED), BP = bias_pitch(gh, gw, STAGED);
 
   const int q0 = blockIdx.x * BQ;
   const int64_t bh = (int64_t)blockIdx.z * n + blockIdx.y;
@@ -133,19 +153,52 @@ attn_hm_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        src + (int64_t)min(r0 + r, L - 1) * HD + lc);
     }
   };
+  // STAGED: rel_w is loaded once when every key block touches all of its
+  // columns (gw <= BK), else staged per block with rel_h
+  const bool wstatic = gw <= BK;
+  // STAGED: the entries key block k0 touches, raw, by 4-byte cp.async in
+  // the caller's group; rel_h columns from k0/gw (clamped to the grid)
+  auto stage_bias = [&](int k0) {
+    const int hlo = min(k0 / gw, gh - 1);
+    const int nh = (min(k0 + BK, L) - 1) / gw - hlo + 1;
+    for (int idx = tid; idx < BQ * nh; idx += THREADS) {
+      const int r = idx / nh, c = idx - r * nh;
+      sm90::cp_async4(sB + r * BP + c,
+                      rh + (bh * L + min(q0 + r, L - 1)) * gh + hlo + c);
+    }
+    if (!wstatic) {
+      const int w0 = k0 % gw;
+      for (int idx = tid; idx < BQ * BK; idx += THREADS) {
+        const int r = idx / BK, u = idx - r * BK;
+        const int w = w0 + u < gw ? w0 + u : w0 + u - gw;
+        sm90::cp_async4(sB + r * BP + GHP + u,
+                        rw + (bh * L + min(q0 + r, L - 1)) * gw + w);
+      }
+    }
+  };
   load_tile(sQ, q + bh * L * HD, q0, true);
   load_tile(sK, kb, 0, true);
+  if constexpr (STAGED) stage_bias(0);
   sm90::cp_async_commit();
   load_tile(sV, vb, 0, false);
   sm90::cp_async_commit();
-  for (int idx = tid; idx < BQ * gh; idx += THREADS) {
-    const int r = idx / gh, c = idx - r * gh;
-    sB[r * BP + c] = rh[(bh * L + min(q0 + r, L - 1)) * gh + c] * LOG2E;
-  }
-  for (int idx = tid; idx < BQ * gw; idx += THREADS) {
-    const int r = idx / gw, c = idx - r * gw;
-    sB[r * BP + GHP + c] =
-        rw[(bh * L + min(q0 + r, L - 1)) * gw + c] * LOG2E;
+  if constexpr (STAGED) {
+    if (wstatic) {
+      for (int idx = tid; idx < BQ * gw; idx += THREADS) {
+        const int r = idx / gw, c = idx - r * gw;
+        sB[r * BP + GHP + c] = rw[(bh * L + min(q0 + r, L - 1)) * gw + c];
+      }
+    }
+  } else {
+    for (int idx = tid; idx < BQ * gh; idx += THREADS) {
+      const int r = idx / gh, c = idx - r * gh;
+      sB[r * BP + c] = rh[(bh * L + min(q0 + r, L - 1)) * gh + c] * LOG2E;
+    }
+    for (int idx = tid; idx < BQ * gw; idx += THREADS) {
+      const int r = idx / gw, c = idx - r * gw;
+      sB[r * BP + GHP + c] =
+          rw[(bh * L + min(q0 + r, L - 1)) * gw + c] * LOG2E;
+    }
   }
   // W % 8 == 0 (every square grid of the main paths): a thread's 8 keys
   // of a block lie in one grid row and 8 consecutive columns, so its bias
@@ -199,16 +252,19 @@ attn_hm_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     sm90::cp_async_commit();
 
     // bias offsets of this thread's 8 keys into a bias row: j/W (clamped
-    // for keys past L, which are masked) and GHP + j%W
+    // for keys past L, which are masked) and GHP + j%W; staged, j/W from
+    // the block's first row and, with gw > BK, the key's place in the
+    // block in place of j%W
     const int j0 = k0 + tx * 8;
     const int h0 = j0 / gw, w0 = j0 - h0 * gw;
+    const int hlo = STAGED ? min(k0 / gw, gh - 1) : 0;
     int oh[8], ow[8];
     {
       int hj = h0, wj = w0;
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
-        oh[c] = min(hj, gh - 1);
-        ow[c] = GHP + wj;
+        oh[c] = min(hj, gh - 1) - hlo;
+        ow[c] = GHP + (STAGED && !wstatic ? tx * 8 + c : wj);
         if (++wj == gw) {
           wj = 0;
           ++hj;
@@ -240,7 +296,7 @@ attn_hm_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float mx = m[a];
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
-        float t = fmaf(s[a][c], sl, bias[c]);
+        float t = fmaf(s[a][c], sl, STAGED ? bias[c] * LOG2E : bias[c]);
         if (ragged && k0 + tx * 8 + c >= L) t = -INFINITY;
         s[a][c] = t;
         mx = fmaxf(mx, t);
@@ -267,6 +323,11 @@ attn_hm_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     sm90::cp_async_wait<1>();  // this block's v
     __syncthreads();           // and every row of p
+    // the bias entries are read: stage the next block's
+    if constexpr (STAGED) {
+      if (kbi + 1 < nblk) stage_bias(k0 + BK);
+      sm90::cp_async_commit();
+    }
 
     // O += P . v over this thread's half of the keys, 8 rows x 8
     // features; the second half starts 16 keys in, so the two halves read
@@ -348,24 +409,21 @@ attn_hm_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 }  // namespace head_major
 
-// q, k, v, out (B, n, L, 64) f32, 16-byte aligned; rel_h (B, n, L, gh),
-// rel_w (B, n, L, gw) f32; L = gh * gw, gh + gw <= 128.
-extern "C" int attn_hm_f32(const void* q, const void* k, const void* v,
-                           const void* rh, const void* rw, void* out, int B,
-                           int L, int n, int gh, int gw, float scale,
-                           void* stream) {
-  using namespace head_major;
-  if (gh < 1 || gw < 1 || gh * gw != L || gh + gw > 128)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = ((size_t)BQ * HD + 2 * (size_t)BK * HD +
-                       (size_t)BQ * BK + (size_t)BQ * bias_pitch(gh, gw)) *
-                      4;
+namespace head_major {
+
+template <bool STAGED>
+int launch_f32(const void* q, const void* k, const void* v, const void* rh,
+               const void* rw, void* out, int B, int L, int n, int gh,
+               int gw, float scale, cudaStream_t stream) {
+  const size_t smem =
+      ((size_t)BQ * HD + 2 * (size_t)BK * HD + (size_t)BQ * BK +
+       (size_t)BQ * bias_pitch(gh, gw, STAGED)) * 4;
   cudaError_t e = cudaFuncSetAttribute(
-      attn_hm_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attn_hm_f32_kernel<STAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((L + BQ - 1) / BQ, n, B);
-  attn_hm_f32_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+  attn_hm_f32_kernel<STAGED><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(rh),
       static_cast<const float*>(rw), static_cast<float*>(out), n, L, gh, gw,
@@ -373,8 +431,26 @@ extern "C" int attn_hm_f32(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+}  // namespace head_major
+
+// q, k, v, out (B, n, L, 64) f32, 16-byte aligned; rel_h (B, n, L, gh),
+// rel_w (B, n, L, gw) f32; L = gh * gw, gh + gw <= MAX_REL (256). Whole
+// bias rows where they fit (gh + gw <= 128), else staged per key block.
+extern "C" int attn_hm_f32(const void* q, const void* k, const void* v,
+                           const void* rh, const void* rw, void* out, int B,
+                           int L, int n, int gh, int gw, float scale,
+                           void* stream) {
+  using namespace head_major;
+  if (gh < 1 || gw < 1 || gh * gw != L || gh + gw > attn::fwd::MAX_REL)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bias_pitch(gh, gw, false) <= BP_MAX)
+    return launch_f32<false>(q, k, v, rh, rw, out, B, L, n, gh, gw, scale, s);
+  return launch_f32<true>(q, k, v, rh, rw, out, B, L, n, gh, gw, scale, s);
+}
+
 // the same operands in bf16, 16-byte aligned; L = gh * gw with
-// gh + gw <= 128
+// gh + gw <= MAX_REL
 extern "C" int attn_hm_bf16(const void* q, const void* k, const void* v,
                             const void* rh, const void* rw, void* out, int B,
                             int L, int n, int gh, int gw, float scale,

@@ -48,19 +48,25 @@
 //     issuing their products (ping-pong on two named barriers), so one
 //     warpgroup's exponentials run while the other's products do.
 // The bias: a thread's accumulator covers two query rows and, in each
-// 8-key tile, two keys 2*(lane%4) + {0, 1}. Every grid with H + W <= 128
-// is taken (any L, any W); two instantiations:
+// 8-key tile, two keys 2*(lane%4) + {0, 1}. Every grid with H + W <= 256
+// (MAX_REL) is taken (any L, any W); two instantiations:
 //   - W in {8, 16, 32} with H a multiple of 8 and H + W <= 64 (every square
 //     crop grid up to 32 x 32, bsize 256 at patch 8): a tile has one j/W
 //     and eight consecutive j%W, the W-columns a thread ever touches
 //     (W/8 * 2 per row) sit in registers for the whole sweep and rel_h is
 //     read from fp32 shared memory once per W keys;
-//   - any other grid (28 x 28, 64 x 64, 12 x 20, ...): a per-CTA table in
-//     shared memory gives each key j its two offsets, j/W and H + j%W, into
-//     a bias row, and each logit reads its two terms from the bf16 rows
-//     the warp prefetched (the fp32 copy would not fit at H + W = 128).
-// Bias rows are prefetched by 16-byte cp.async where their pitch allows
-// it, else by plain loads. Rows past L are computed on TMA's zero fill
+//   - any other grid (28 x 28, 64 x 64, 128 x 128, 12 x 20, 2 x 254, ...):
+//     each logit reads its two terms, at j/W and H + j%W, from the bf16
+//     rows the warp staged, the two offsets of a thread's keys stepped by
+//     8 keys a tile from one division per key block (no per-key table, so
+//     shared memory does not grow with L). A warp's 16 rows of H + W bf16
+//     are staged at the start of each tile into one buffer (199,808
+//     bytes of shared memory at H + W = 256): measured at 28 x 28 and
+//     64 x 64, double-buffering them (the next tile's prefetched, which
+//     fits up to H + W = 184) was no faster (ab_attention.py --grids).
+// The register bodies double-buffer their bias rows. Bias rows are
+// copied by 16-byte cp.async where their pitch allows it, else by plain
+// loads. Rows past L are computed on TMA's zero fill
 // (with row L-1's bias) and not written; keys past L (L % 128 != 0) are
 // masked to -inf.
 //
@@ -78,6 +84,7 @@ namespace attn {
 namespace fwd {
 
 constexpr int HD = 64;        // head dim (asserted by the wrappers)
+constexpr int MAX_REL = 256;  // the largest H + W (nn/attention.py MAX_REL)
 constexpr int BQ = 128;       // query rows per CTA
 constexpr int BK = 128;       // keys per block
 constexpr int STAGES = 3;     // k/v ring depth
@@ -115,25 +122,19 @@ __host__ __device__ inline int stage_pitch(int ws, int gh, int gw) {
 }
 
 // per consumer warp: with WS > 0 its 16 bias rows in fp32 (pitches
-// gh + 1, gw + 1); always two bf16 staging buffers of 16 rows that the
-// next tile's rows are prefetched into (with WS = 0 the logits read them
-// in place)
+// gh + 1, gw + 1) and two bf16 staging buffers of 16 rows (the next
+// tile's rows are prefetched into the other one); with WS = 0 one staging
+// buffer, whose rows the logits read in place
+__host__ __device__ inline int bias_buffers(int ws) { return ws ? 2 : 1; }
 __host__ __device__ inline int warp_bias_bytes(int ws, int gh, int gw) {
   return (ws ? 16 * (gh + gw + 2) * 4 : 0) +
-         2 * 16 * stage_pitch(ws, gh, gw) * 2;
-}
-
-// bytes of the WS = 0 key table: one uint16 per key of every key block
-__host__ __device__ inline int key_table_bytes(int ws, int L) {
-  return ws ? 0 : (L + BK - 1) / BK * BK * 2;
+         bias_buffers(ws) * 16 * stage_pitch(ws, gh, gw) * 2;
 }
 
 // bytes of dynamic shared memory: 1 KB of alignment slack, two q buffers,
-// the k/v ring, the barriers, the key table and the consumer warps' bias
-// rows
-inline size_t smem_bytes(int ws, int gh, int gw, int L) {
-  return 1024 + OFF_BIAS + key_table_bytes(ws, L) +
-         (size_t)CWARPS * warp_bias_bytes(ws, gh, gw);
+// the k/v ring, the barriers and the consumer warps' bias rows
+inline size_t smem_bytes(int ws, int gh, int gw) {
+  return 1024 + OFF_BIAS + (size_t)CWARPS * warp_bias_bytes(ws, gh, gw);
 }
 
 // the largest dynamic shared memory a block may have (sm_90)
@@ -143,13 +144,12 @@ constexpr size_t SMEM_MAX = 232448;
 // keys past L masked to -inf. With WS > 0: rh is this thread's warp's 16
 // fp32 bias rows of rel_h (pitch gh + 1), pre-scaled, and rwr the rel_w
 // columns this thread touches. With WS = 0: stg is the warp's 16 raw bf16
-// bias rows (pitch stage_pitch) and kidx the key table (low byte j/W,
-// high byte gh + j%W).
+// bias rows (pitch stage_pitch); d8h and d8w are 8 / gw and 8 % gw.
 template <int WS>
 __device__ __forceinline__ void logits(float (&s)[4 * NT], int k0, int L,
                                        float sl, const float* rh,
-                                       const __nv_bfloat16* stg,
-                                       const uint32_t* kidx, int gh, int gw,
+                                       const __nv_bfloat16* stg, int gh,
+                                       int gw, int d8h, int d8w,
                                        const float (&rwr)[2][WS ? WS / 8 : 1]
                                                           [2],
                                        int g8, int q4) {
@@ -170,12 +170,22 @@ __device__ __forceinline__ void logits(float (&s)[4 * NT], int k0, int L,
     }
   } else {
     const int RS = stage_pitch(WS, gh, gw);
+    // keys k0 + 8t + 2*q4 + {0, 1}: grid row and column of the first, from
+    // one division here and a step of 8 keys a tile (rows past the grid,
+    // keys past L, are clamped: they are masked below)
+    int ha = (k0 + 2 * q4) / gw;
+    int wa = k0 + 2 * q4 - ha * gw;
 #pragma unroll
     for (int t = 0; t < NT; ++t) {
-      // keys k0 + 8t + 2*q4 + {0, 1}: one 32-bit word of the table
-      const uint32_t e = kidx[(k0 + 8 * t) / 2 + q4];
-      const int h0 = e & 0xff, w0 = (e >> 8) & 0xff;
-      const int h1 = (e >> 16) & 0xff, w1 = e >> 24;
+      const bool wrap = wa + 1 == gw;
+      const int h0 = min(ha, gh - 1), w0 = gh + wa;
+      const int h1 = min(ha + wrap, gh - 1), w1 = wrap ? gh : w0 + 1;
+      wa += d8w;
+      ha += d8h;
+      if (wa >= gw) {
+        wa -= gw;
+        ++ha;
+      }
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const __nv_bfloat16* br = stg + (g8 + 8 * i) * RS;
@@ -223,16 +233,6 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tmq,
   const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
   const int lane = threadIdx.x % 32;
   const int R = gh + gw;
-
-  // WS = 0: the key table, (j/W) | (gh + j%W) << 8 per key of every key
-  // block (keys past L take key L-1's), written by all threads once
-  uint16_t* ktab = reinterpret_cast<uint16_t*>(smem + OFF_BIAS);
-  if constexpr (WS == 0) {
-    for (int j = threadIdx.x; j < nblk * BK; j += THREADS) {
-      const int jc = min(j, L - 1), hj = jc / gw;
-      ktab[j] = (uint16_t)(hj | (gh + jc - hj * gw) << 8);
-    }
-  }
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < 2; ++i) {
@@ -284,12 +284,12 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tmq,
     const int g8 = lane / 4, q4 = lane % 4;
     // this warp's 16 fp32 rows (WS > 0) and its staging buffers
     float* rh = reinterpret_cast<float*>(
-        reinterpret_cast<unsigned char*>(bias) + key_table_bytes(WS, L) +
+        reinterpret_cast<unsigned char*>(bias) +
         cw * warp_bias_bytes(WS, gh, gw));
     float* rw = rh + 16 * (gh + 1);
     __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(
         WS ? rw + 16 * (gw + 1) : rh);
-    const uint32_t* kidx = reinterpret_cast<const uint32_t*>(ktab);
+    const int d8h = 8 / gw, d8w = 8 - d8h * gw;
     const int RS = stage_pitch(WS, gh, gw);
     const bool vec = lay.bias_vec16();
     // prefetch the raw bias rows of this warp for `tile` into staging
@@ -348,7 +348,7 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tmq,
     // rescale factors of the running output
     const __nv_bfloat16* stg = stage;  // this tile's raw rows (WS = 0)
     auto softmax = [&](int kb, float (&alpha)[2]) {
-      logits<WS>(s, kb * BK, L, sl, rh, stg, kidx, gh, gw, rwr, g8, q4);
+      logits<WS>(s, kb * BK, L, sl, rh, stg, gh, gw, d8h, d8w, rwr, g8, q4);
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         float mx = m[i];
@@ -389,17 +389,22 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tmq,
     if (wg == 1) pass_turn();
 
     int it = 0;  // k/v blocks consumed, over all tiles
-    prefetch_bias(blockIdx.x, 0);
+    if constexpr (WS > 0) prefetch_bias(blockIdx.x, 0);
     for (int tile = blockIdx.x, tc = 0; tile < ntiles;
          tile += gridDim.x, ++tc) {
       const int h = (tile / nqb) % n, b = tile / (nqb * n);
       const int wrow = (tile % nqb) * BQ + wg * 64 + (cw % 4) * 16;
 
       // this warp's 16 bias rows, log2(e)-scaled, from the staging buffer
-      // prefetched during the previous tile; then the next tile's
+      // prefetched during the previous tile (WS > 0; then the next tile's)
+      // or staged now, once the warp is done with the previous tile's
+      if constexpr (WS == 0) {
+        __syncwarp();
+        prefetch_bias(tile, 0);
+      }
       sm90::cp_async_wait<0>();
       __syncwarp();
-      const __nv_bfloat16* src = stage + (tc & 1) * 16 * RS;
+      const __nv_bfloat16* src = stage + (WS > 0 ? tc & 1 : 0) * 16 * RS;
       if constexpr (WS == 0) {
         stg = src;  // read in place by the logits
         rwr[0][0][0] = rwr[0][0][1] = rwr[1][0][0] = rwr[1][0][1] = 0.f;
@@ -421,7 +426,7 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tmq,
         }
       }
       __syncwarp();
-      prefetch_bias(tile + gridDim.x, (tc + 1) & 1);
+      if constexpr (WS > 0) prefetch_bias(tile + gridDim.x, (tc + 1) & 1);
 #pragma unroll
       for (int e = 0; e < HD / 2; ++e) o[e] = 0.f;
       m[0] = m[1] = -INFINITY;
@@ -524,7 +529,7 @@ template <int WS, class Layout>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk,
            const CUtensorMap& tv, const Layout& lay, int B, int L, int n,
            int gh, int gw, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(WS, gh, gw, L);
+  const size_t smem = smem_bytes(WS, gh, gw);
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       attn_fwd_kernel<WS, Layout>,
@@ -542,26 +547,29 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk,
 }
 
 // one persistent CTA per SM (or per tile, if fewer) walks the
-// (ceil(L/128), n, B) tiles; every grid with gh * gw = L and gh + gw <= 128
-// (the wrappers' _fwd_supported)
+// (ceil(L/128), n, B) tiles; every grid with gh * gw = L and
+// gh + gw <= MAX_REL (the wrappers' _grid_supported)
 template <class Layout>
 int dispatch(const CUtensorMap& tq, const CUtensorMap& tk,
              const CUtensorMap& tv, const Layout& lay, int B, int L, int n,
              int gh, int gw, float scale, cudaStream_t stream) {
-  if (gh < 1 || gw < 1 || gh * gw != L || gh + gw > 128)
+  if (gh < 1 || gw < 1 || gh * gw != L || gh + gw > MAX_REL)
     return (int)cudaErrorInvalidValue;
-  if (gh % 8 || gh + gw > 64)
-    return launch<0>(tq, tk, tv, lay, B, L, n, gh, gw, scale, stream);
-  switch (gw) {
-    case 8:
-      return launch<8>(tq, tk, tv, lay, B, L, n, gh, gw, scale, stream);
-    case 16:
-      return launch<16>(tq, tk, tv, lay, B, L, n, gh, gw, scale, stream);
-    case 32:
-      return launch<32>(tq, tk, tv, lay, B, L, n, gh, gw, scale, stream);
-    default:
-      return launch<0>(tq, tk, tv, lay, B, L, n, gh, gw, scale, stream);
+  if (gh % 8 == 0 && gh + gw <= 64) {
+    switch (gw) {
+      case 8:
+        return launch<8>(tq, tk, tv, lay, B, L, n, gh, gw, scale, stream);
+      case 16:
+        return launch<16>(tq, tk, tv, lay, B, L, n, gh, gw, scale,
+                             stream);
+      case 32:
+        return launch<32>(tq, tk, tv, lay, B, L, n, gh, gw, scale,
+                             stream);
+      default:
+        break;
+    }
   }
+  return launch<0>(tq, tk, tv, lay, B, L, n, gh, gw, scale, stream);
 }
 
 }  // namespace fwd

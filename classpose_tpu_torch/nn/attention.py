@@ -88,9 +88,10 @@ def _check(qkv: torch.Tensor, rel: torch.Tensor, grid_hw, n: int) -> int:
     return hd
 
 
-# the kernels' tile loops: head width 64 and a rel row of at most 128
-# columns (H + W), which sizes their shared memory
-MAX_REL = 128
+# the kernels' tile loops: head width 64 and a rel row of at most 256
+# columns (H + W): every square crop grid up to 128 x 128 (bsize 1024 at
+# patch 8, the WSI CLI's tile); the C entry points repeat the limit
+MAX_REL = 256
 
 
 def _grid_supported(hd: int, H: int, W: int) -> bool:
@@ -151,7 +152,7 @@ def attention_relpos_bwd(qkv: torch.Tensor, rel: torch.Tensor,
     """Backward kernel: the forward's operands, its f32 output and
     log-sum-exp (:func:`_fwd_kernel` with ``for_backward``) plus the
     output cotangent → (dqkv, drel) in qkv's and rel's layouts. It takes
-    every grid with H + W <= 128 (:func:`_grid_supported`), checked here;
+    every grid with H + W <= 256 (:func:`_grid_supported`), checked here;
     the TPU backward never checked its head-pair blocking (an odd head
     count left heads unwritten), the port's blocks are per head."""
     B, L, C3 = qkv.shape

@@ -6,8 +6,9 @@ Two counterparts of ``classpose_tpu/ops/diffusion_pallas.py``:
 - :func:`masked_diffusion` (kernel 4, ``csrc/diffusion.cu``):
   ``diffuse_resident_pallas`` as the fused QC uses it, a batch of tiles
   from zero, each with its own iteration count. It packs the
-  loop-invariant neighbour matches once, then launches one stencil per
-  iteration up to the batch's largest count.
+  loop-invariant neighbour matches once, then each launch runs up to 16
+  iterations of a 128² window (96² interior, 16-pixel halo) in shared
+  memory, up to the batch's largest count.
 - :func:`diffuse_blocked` (kernel 7, ``csrc/diffusion_blocked.cu``):
   ``diffuse_pallas``, the same stencil from a start field ``T0``, with
   each tile's count rounded up to a multiple of ``k``. One launch runs
@@ -122,15 +123,16 @@ def masked_diffusion(ids: torch.Tensor, center: torch.Tensor,
     _build.count("masked_diffusion")
     nmax = int(niter.max()) if B else 0
     T = torch.zeros((B, H, W), dtype=torch.float32, device=dev)
-    if nmax == 0:
+    if nmax <= 0:
         return T
+    depth = lib.diffusion_resident_depth()
     T2 = torch.empty_like(T)
-    for it in range(nmax):
+    for s0 in range(0, nmax, depth):
         _build.check(
-            lib.diffusion_step(T.data_ptr(), T2.data_ptr(), cenm.data_ptr(),
-                               mask.data_ptr(), niter.data_ptr(), B, H, W,
-                               it, stream),
-            "diffusion_step",
+            lib.diffusion_resident_round(
+                T.data_ptr(), T2.data_ptr(), cenm.data_ptr(),
+                mask.data_ptr(), niter.data_ptr(), B, H, W, s0, stream),
+            "diffusion_resident_round",
         )
         _build.count("masked_diffusion")
         T, T2 = T2, T

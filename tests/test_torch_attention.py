@@ -156,7 +156,8 @@ def test_hopper_arithmetic_matches_pallas_interpret(G, variant):
 
 
 @pytest.mark.parametrize("H,W", [(8, 8), (16, 16), (32, 32), (8, 24),
-                                 (24, 8), (12, 20), (28, 28)])
+                                 (24, 8), (12, 20), (28, 28), (8, 128),
+                                 (2, 254)])
 def test_hopper_arithmetic_matches_plain(H, W):
     """The emulated Hopper forward against ``attention_relpos_plain`` (out:
     4e-3 + 4e-3·|ref|, as above) and its natural-log lse against the
@@ -178,6 +179,29 @@ def test_hopper_arithmetic_matches_plain(H, W):
         + rel[..., H:].transpose(1, 2)[..., None, :]).reshape(B, n, L, L)
     lse_ref = torch.logsumexp(s, -1)
     assert bool(((lse - lse_ref).abs() <= 1e-4 + 1e-5 * lse_ref.abs()).all())
+
+
+@pytest.mark.parametrize("H,W", [(8, 128), (2, 254)])
+def test_plain_matches_reference_past_128(H, W):
+    """Grids past H + W = 128, which the kernels take since the rest of
+    fault 3 (8 x 128; 2 x 254 at the limit H + W = 256): the plain
+    token-major forward against the JAX package's ``attention_reference``
+    on the same operands, at fp32 to 1e-5."""
+    rng = np.random.default_rng(H + W)
+    L = H * W
+    qkv = rng.normal(size=(1, L, 3 * n * hd)).astype(np.float32)
+    rel = (rng.normal(size=(1, L, n, H + W)) * 2).astype(np.float32)
+    q, k, v = (
+        jnp.swapaxes(jnp.asarray(qkv[..., i * n * hd:(i + 1) * n * hd])
+                     .reshape(1, L, n, hd), 1, 2)
+        for i in range(3))
+    rh = jnp.swapaxes(jnp.asarray(rel[..., :H]), 1, 2)
+    rw = jnp.swapaxes(jnp.asarray(rel[..., H:]), 1, 2)
+    ref = np.asarray(attention_reference(q, k, v, rh, rw, hd ** -0.5),
+                     np.float32).transpose(0, 2, 1, 3).reshape(1, L, n * hd)
+    got = attention_relpos(torch.from_numpy(qkv), torch.from_numpy(rel),
+                           hd ** -0.5, (H, W), n).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=1e-5)
 
 
 def test_kernel_routes_reject_unaligned_operands():

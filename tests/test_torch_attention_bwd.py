@@ -129,3 +129,113 @@ def test_block_gradients_match_jax():
     for k in ("attn.qkv.weight", "norm1.weight", "attn.rel_pos_h",
               "attn.rel_pos_w"):
         assert float(got[k].abs().max()) > 0, k
+
+
+@pytest.mark.parametrize("GH,GW", [(8, 128), (2, 254)])
+def test_plain_bwd_matches_jax_past_128(GH, GW):
+    """Grids past H + W = 128 (8 x 128; 2 x 254 at the limit H + W = 256),
+    which kernel 5 takes since the rest of fault 3: the plain backward
+    against the vjp of the JAX package's XLA reference (``_attn_core_ref``,
+    its backward route off the TPU) to the tolerance of the test above."""
+    from classpose_tpu.nn.attention import _attn_core_ref
+
+    rng = np.random.default_rng(GH + GW)
+    Lg, nb = GH * GW, 2
+    qkv = (rng.normal(size=(1, Lg, 3 * nb * hd)) * 0.3).astype(np.float32)
+    rel = (rng.normal(size=(1, Lg, nb, GH + GW)) * 0.3).astype(np.float32)
+    wout = rng.normal(size=(1, Lg, nb * hd)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, r: _attn_core_ref(a, r, SCALE, (GH, GW), nb),
+                     jnp.asarray(qkv), jnp.asarray(rel))
+    gq_ref, gr_ref = (np.asarray(g) for g in vjp(jnp.asarray(wout)))
+    gq, gr = attention_relpos_bwd_plain(
+        *(torch.from_numpy(t) for t in (qkv, rel, wout)), SCALE, (GH, GW),
+        nb)
+    np.testing.assert_allclose(gq.numpy(), gq_ref, rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(gr.numpy(), gr_ref, rtol=2e-4, atol=2e-5)
+
+
+def _hopper_bwd_emulation(qkv, rel, dout, scale, grid_hw, nh,
+                          drel_from="hilo"):
+    """What ``csrc/attention_bwd.cu`` computes, in fp32 torch with its
+    roundings: p = exp2(s·scale·log2e + bias·log2e − lse·log2e) from the
+    forward's lse; ds = p·(dp − delta) in fp32, delta from the fp32
+    output; p rounded to bf16 for dv, ds for dq and dk; the bias
+    gradients summed per 64-key block, fp32, then added block by block,
+    from ``drel_from``: ds split into bf16 hi + lo against 0/1 columns
+    (``"hilo"``, any grid), the fp32 ds itself (``"fp32"``, the square
+    grids of side 16 and 32), or the bf16 ds alone (``"hi"``, a
+    rounding the kernel does not use). Returns (dqkv, drel) in fp32."""
+    B, L, C3 = qkv.shape
+    H, W = grid_hw
+    bf = lambda x: x.bfloat16().float()  # noqa: E731
+    q, k, v = (qkv[..., i * nh * hd:(i + 1) * nh * hd].reshape(
+        B, L, nh, hd).transpose(1, 2) for i in range(3))
+    do = dout.reshape(B, L, nh, hd).transpose(1, 2)
+    bias = (rel[..., :H].transpose(1, 2)[..., :, None]
+            + rel[..., H:].transpose(1, 2)[..., None, :]).reshape(B, nh, L, L)
+    s = q @ k.transpose(-1, -2)
+    t = s * scale + bias
+    lse = torch.logsumexp(t, -1, keepdim=True)
+    o = torch.softmax(t, -1) @ v
+    delta = (do * o).sum(-1, keepdim=True)
+    p = torch.exp2(s * (scale * LOG2E) + bias * LOG2E - lse * LOG2E)
+    ds = p * (do @ v.transpose(-1, -2) - delta)
+    dv = bf(p).transpose(-1, -2) @ do
+    dq = bf(ds) @ k * scale
+    dk = bf(ds).transpose(-1, -2) @ q * scale
+    hi = bf(ds)
+    parts = {"hilo": (hi, bf(ds - hi)), "fp32": (ds,),
+             "hi": (hi,)}[drel_from]
+    j = torch.arange(L)
+    drel = torch.zeros(B, nh, L, H + W)
+    for k0 in range(0, L, 64):
+        blk = torch.zeros(B, nh, L, H + W)
+        for part in parts:
+            x = part[..., k0:k0 + 64]
+            blk.index_add_(3, j[k0:k0 + 64] // W, x)
+            blk.index_add_(3, H + j[k0:k0 + 64] % W, x)
+        drel = drel + blk
+    dqkv = torch.cat([g.transpose(1, 2).reshape(B, L, nh * hd)
+                      for g in (dq, dk, dv)], -1)
+    return dqkv, drel.transpose(1, 2)
+
+
+LOG2E = 1.4426950408889634
+
+
+@pytest.mark.parametrize("GH,GW", [(8, 8), (32, 32), (28, 28), (12, 20),
+                                   (8, 128)])
+def test_hopper_bwd_arithmetic_matches_plain(GH, GW):
+    """Kernel 5's arithmetic (``_hopper_bwd_emulation``) against the plain
+    backward on bf16-representable operands: the bias gradients from the
+    hi + lo split of ds to 2e-5·max|ref| + 1e-4·|ref| (fp32 sums in
+    another order), a bound the bf16 ds alone misses (the check that the
+    split carries the precision the contract asks for; the square grid of
+    side 32 sums the fp32 ds itself); dq, dk, dv to 2e-2·max|ref| +
+    2e-2·|ref|, the card tests' tolerance for the bf16 rounding of p and
+    ds."""
+    rng = np.random.default_rng(GH * GW)
+    Lg, nb = GH * GW, 2
+    qkv, rel, dout = (
+        torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+        .bfloat16().float()
+        for shape in ((1, Lg, 3 * nb * hd), (1, Lg, nb, GH + GW),
+                      (1, Lg, nb * hd)))
+    rel = rel * 2
+    dq_ref, dr_ref = attention_relpos_bwd_plain(qkv, rel, dout, SCALE,
+                                                (GH, GW), nb)
+    mode = "fp32" if GH == GW and GW in (16, 32) else "hilo"
+    got_q, got_r = _hopper_bwd_emulation(qkv, rel, dout, SCALE, (GH, GW),
+                                         nb, mode)
+    err_q = (got_q - dq_ref).abs()
+    assert bool((err_q <= 2e-2 * dq_ref.abs().max()
+                 + 2e-2 * dq_ref.abs()).all()), float(err_q.max())
+
+    def within(drel):
+        err = (drel - dr_ref).abs()
+        return bool((err <= 2e-5 * dr_ref.abs().max()
+                     + 1e-4 * dr_ref.abs()).all())
+
+    assert within(got_r)
+    assert not within(_hopper_bwd_emulation(qkv, rel, dout, SCALE, (GH, GW),
+                                            nb, "hi")[1])

@@ -82,24 +82,32 @@ def test_bad_shapes_raise():
         flash_attention_relpos(q, k.double(), v, rh, rw, 0.125, (H, W))
 
 
-@pytest.mark.parametrize("dim,heads,grid,dtype", [
-    pytest.param(128, 2, 8, "float32", id="128-2-8"),
-    pytest.param(64, 4, 6, "float32", id="64-4-6"),
+@pytest.mark.parametrize("dim,heads,grid,dtype,tol", [
+    pytest.param(128, 2, 8, "float32", 1e-5, id="128-2-8"),
+    pytest.param(64, 4, 6, "float32", 1e-5, id="64-4-6"),
     # crop grids the kernels take since fault 3: bsize 224 at patch 8
     # (L = 784, L % 64 != 0) and a non-square one
-    pytest.param(64, 2, (28, 28), "float32", id="64-2-28x28"),
-    pytest.param(64, 2, (12, 20), "float32", id="64-2-12x20"),
-    pytest.param(64, 2, (28, 28), "bfloat16", id="64-2-28x28-bf16"),
-    pytest.param(64, 2, (12, 20), "bfloat16", id="64-2-12x20-bf16"),
+    pytest.param(64, 2, (28, 28), "float32", 1e-5, id="64-2-28x28"),
+    pytest.param(64, 2, (12, 20), "float32", 1e-5, id="64-2-12x20"),
+    pytest.param(64, 2, (28, 28), "bfloat16", 1e-5, id="64-2-28x28-bf16"),
+    pytest.param(64, 2, (12, 20), "bfloat16", 1e-5, id="64-2-12x20-bf16"),
+    # past H + W = 128, at the kernels' head width 64: a non-square grid
+    # of 8 x 128 (L = 1024) and 2 x 254 (H + W = 256, the limit); fp32
+    # sums over 1024 and 508 keys, each side in its own order: 5e-5
+    pytest.param(128, 2, (8, 128), "float32", 5e-5, id="128-2-8x128"),
+    pytest.param(128, 2, (2, 254), "float32", 5e-5, id="128-2-2x254"),
+    pytest.param(128, 2, (8, 128), "bfloat16", 1e-5, id="128-2-8x128-bf16"),
+    pytest.param(128, 2, (2, 254), "bfloat16", 1e-5, id="128-2-2x254-bf16"),
 ])
 def test_fp32_attention_matches_flax_fp32_branch(dim, heads, grid, dtype,
-                                                 monkeypatch):
+                                                 tol, monkeypatch):
     """Same weights (random, rel-pos tables included) and input: the
     port's Attention under ``no_grad`` takes the head-major route through
     ``flash_attention_relpos`` at fp32 and the token-major route through
     ``attention_relpos`` at bf16; the flax module takes its fp32 XLA
-    branch. fp32 to 1e-5; bf16 (weights and input on the bf16 grid, the
-    port rounding qkv, the bias, p and the outputs to bf16) to
+    branch. fp32 to ``tol`` (1e-5 up to L = 784); bf16 (weights and
+    input on the bf16 grid, the port rounding qkv, the bias, p and the
+    outputs to bf16) to
     2e-2·max|ref| + 2e-2·|ref|. The flax bf16 branch is no reference
     here: it rounds the L x L logits to bf16 as well, and was 0.19 off
     the port's bf16 output at 28 x 28."""
@@ -148,7 +156,7 @@ def test_fp32_attention_matches_flax_fp32_branch(dim, heads, grid, dtype,
         assert (err <= 2e-2 * np.abs(ref).max() + 2e-2 * np.abs(ref)).all(), \
             (err.max(), np.abs(ref).max())
         return
-    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(got, ref, atol=tol, rtol=tol)
     # with a gradient the plain route under autograd gives the same
     with_grad = att(xt)
     assert calls == [1] and with_grad.grad_fn is not None
@@ -158,13 +166,17 @@ def test_fp32_attention_matches_flax_fp32_branch(dim, heads, grid, dtype,
 
 @pytest.mark.parametrize("H,W,ok", [
     (28, 28, True), (64, 64, True), (12, 20, True), (32, 32, True),
-    (8, 8, True), (1, 127, True), (64, 65, False), (100, 40, False)])
+    (8, 8, True), (1, 127, True), (64, 65, True), (100, 40, True),
+    (128, 128, True), (8, 128, True), (2, 254, True), (1, 255, True),
+    (128, 129, False), (1, 256, False), (200, 57, False)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_gates(H, W, ok, dtype):
     """The kernels' gates as pure predicates, checked without a build:
-    every grid with H + W <= 128 at head width 64; and the routes raise
-    ``ValueError`` outside them before anything is built (the bf16-only
-    routes ``TypeError`` for fp32)."""
+    every grid with H + W <= 256 at head width 64 (every square crop grid
+    up to 128 x 128, bsize 1024 at patch 8); and the routes raise
+    ``ValueError`` outside them (H + W = 257, or a head width other than
+    64) before anything is built (the bf16-only routes ``TypeError`` for
+    fp32)."""
     from classpose_tpu_torch.nn.attention import (
         _check_kernel, _grid_supported, _hm_kernel)
 
@@ -174,6 +186,10 @@ def test_kernel_gates(H, W, ok, dtype):
     for hd in (32, 128):
         assert not _grid_supported(hd, H, W)
     L = H * W
+    q32 = torch.zeros(1, 1, L, 32, dtype=dt)
+    with pytest.raises(ValueError, match="hd=64"):
+        _hm_kernel(q32, q32, q32, torch.zeros(1, 1, L, H, dtype=dt),
+                   torch.zeros(1, 1, L, W, dtype=dt), 0.125, (H, W))
     qkv = torch.zeros(1, L, 3 * 64, dtype=dt)
     rel = torch.zeros(1, L, 1, H + W, dtype=dt)
     if not bf16:
@@ -182,9 +198,9 @@ def test_kernel_gates(H, W, ok, dtype):
     if ok:
         return
     q = torch.zeros(1, 1, L, 64, dtype=dt)
-    with pytest.raises(ValueError, match="H\\+W <= 128"):
+    with pytest.raises(ValueError, match="H\\+W <= 256"):
         _hm_kernel(q, q, q, torch.zeros(1, 1, L, H, dtype=dt),
                    torch.zeros(1, 1, L, W, dtype=dt), 0.125, (H, W))
     if bf16:
-        with pytest.raises(ValueError, match="H\\+W <= 128"):
+        with pytest.raises(ValueError, match="H\\+W <= 256"):
             _check_kernel(qkv, rel, 64, L, H, W)

@@ -54,7 +54,8 @@ def dev():
                                      (2, 2, 8, 24), (1, 3, 24, 8),
                                      (40, 4, 8, 8), (12, 6, 8, 24),
                                      (2, 2, 28, 28), (1, 2, 64, 64),
-                                     (2, 3, 12, 20)])
+                                     (2, 3, 12, 20), (2, 2, 8, 128),
+                                     (2, 2, 2, 254), (1, 2, 128, 128)])
 def test_attention_kernel(dev, B, n, H, W):
     """Kernel 1 against its plain version: bf16 output, |Δ| ≤ 2e-2 +
     2e-2·|ref|; its row log-sum-exp against the plain fp32 logits'
@@ -66,7 +67,9 @@ def test_attention_kernel(dev, B, n, H, W):
     tiles than SMs at L = 64 and L = 192 (a CTA takes several tiles, its
     k/v ring and q buffers running on across them); the grids of bsize
     224 and 512 at patch 8 (28 x 28, L % 128 != 0; 64 x 64, H + W = 128)
-    and 12 x 20 take the per-key table of the generic instantiation."""
+    and 12 x 20 take the generic instantiation; past H + W = 128 (8 x 128,
+    2 x 254, and 128 x 128 of bsize 1024) it stages each tile's bias rows
+    in one buffer."""
     g = torch.Generator(device="cpu").manual_seed(B * 100 + H + W)
     hd, L = 64, H * W
     scale = hd ** -0.5
@@ -94,7 +97,9 @@ def test_attention_kernel(dev, B, n, H, W):
 
 
 @pytest.mark.parametrize("B,n,G", [(1, 2, 8), (2, 4, 16), (1, 2, 32),
-                                   (2, 2, 28), (1, 2, 64), (2, 3, (12, 20))])
+                                   (2, 2, 28), (1, 2, 64), (2, 3, (12, 20)),
+                                   (2, 2, (8, 128)), (1, 2, (2, 254)),
+                                   (1, 1, 128)])
 def test_attention_bwd_kernel(dev, B, n, G):
     """Kernel 5 against the plain vjp: bf16 outputs of bf16 products with
     fp32 sums (p and ds rounded to bf16 before their products, as on the
@@ -102,7 +107,8 @@ def test_attention_bwd_kernel(dev, B, n, G):
     the same bit for bit with and without the backward's statistics, and
     its f32 copy rounds to it. Squares of side 8 to 64 (64: the register
     reduction at H + W = 128), 28 (bsize 224: L % 64 != 0, the generic
-    instantiation) and a non-square 12 x 20."""
+    instantiation), a non-square 12 x 20, and past H + W = 128: 8 x 128,
+    2 x 254 and 128 x 128 (bsize 1024)."""
     H, W = (G, G) if isinstance(G, int) else G
     seed = G if H == W else H + W
     g = torch.Generator(device="cpu").manual_seed(B * 100 + seed)
@@ -204,6 +210,49 @@ def test_diffusion_kernel(dev):
                        masked_diffusion_plain(ids, cen, niter))
 
 
+def _design_field(B, H, W):
+    """(B, H, W) ids and centres of the synthetic design (period-32 grid
+    of radius-13 discs, one centre pixel each), the QC's input."""
+    yy, xx = np.mgrid[:H, :W]
+    cy, cx = yy // 32 * 32 + 16, xx // 32 * 32 + 16
+    inside = (yy - cy) ** 2 + (xx - cx) ** 2 <= 13 ** 2
+    ids = np.where(inside, yy // 32 * -(-W // 32) + xx // 32 + 1, 0)
+    cen = ((yy == cy) & (xx == cx)).astype(np.float32)
+    return (np.repeat(ids[None].astype(np.int32), B, 0),
+            np.repeat(cen[None], B, 0))
+
+
+@pytest.mark.parametrize("name,shape,counts", [
+    ("qc_8x1024", (8, 1024, 1024), [40, 80, 120, 40, 80, 120, 40, 80]),
+    ("counts_0_1_13_1200", (4, 256, 256), [0, 1, 13, 1200]),
+    ("counts_off_16", (4, 256, 384), [15, 17, 31, 50]),
+    ("smallest_8x128", (3, 8, 128), [7, 16, 33]),
+    ("target_512_1200", (1, 512, 512), [1200]),
+])
+def test_masked_diffusion_resident_kernel(dev, name, shape, counts):
+    """Kernel 4 against its plain version, bitwise, at the geometries its
+    route takes (H % 8 == 0, W % 128 == 0): the QC's 8 × 1024² with
+    counts 40/80/120; counts 0, 1, 13 and 1200 and counts that are not
+    multiples of the 16 iterations a launch runs; the smallest aligned
+    tile (8 × 128, one window); one 512² training target at 1200. Random
+    labels stand beside the design field in the small cases. One pack
+    launch and ceil(max count / 16) stencil launches per call."""
+    B, H, W = shape
+    ids, cen = _design_field(B, H, W)
+    if H * W <= 256 * 384:
+        rng = np.random.default_rng(B + H + W)
+        ids[1:] = rng.integers(0, 4, size=(B - 1, H, W))
+        cen[1:] = rng.uniform(size=(B - 1, H, W)) < 0.05
+    ids_t = torch.from_numpy(ids).to(dev)
+    cen_t = torch.from_numpy(cen).to(dev)
+    niter = torch.tensor(counts, dtype=torch.int32, device=dev)
+    before = _build.LAUNCHES["masked_diffusion"]
+    got = masked_diffusion(ids_t, cen_t, niter)
+    assert _build.LAUNCHES["masked_diffusion"] - before == \
+        1 + -(-max(counts) // 16)
+    assert torch.equal(got, masked_diffusion_plain(ids_t, cen_t, niter))
+
+
 @pytest.mark.parametrize("shape,k", [((3, 48, 80), 1), ((2, 130, 70), 40),
                                      ((1, 200, 333), 8)])
 def test_diffuse_blocked_kernel(dev, shape, k):
@@ -233,17 +282,28 @@ def test_diffuse_blocked_kernel(dev, shape, k):
                                      (torch.float32, (12, 20)),
                                      (torch.bfloat16, 28),
                                      (torch.bfloat16, 64),
-                                     (torch.bfloat16, (12, 20))])
+                                     (torch.bfloat16, (12, 20)),
+                                     (torch.float32, (8, 128)),
+                                     (torch.float32, (2, 254)),
+                                     (torch.float32, 128),
+                                     (torch.bfloat16, (8, 128)),
+                                     (torch.bfloat16, (2, 254)),
+                                     (torch.bfloat16, 128)])
 def test_flash_attention_relpos_kernel(dev, dtype, G):
     """Kernel 8 against its plain version: fp32 products on the CUDA
     cores, sums in another order, |Δ| ≤ 1e-4 + 1e-4·|ref|; bf16 as kernel
     1, 2e-2; its route raises where a gradient would flow. Grids down to
-    one key block, L % 128 != 0 (28 x 28, 12 x 20), H + W = 128."""
+    one key block, L % 128 != 0 (28 x 28, 12 x 20), H + W = 128, and past
+    it (8 x 128, 2 x 254, 128 x 128: the fp32 body stages each key
+    block's bias entries)."""
     H, W = (G, G) if isinstance(G, int) else G
     g = torch.Generator(device="cpu").manual_seed(G if H == W else H * W)
     B, n, hd, L = 2, 3, 64, H * W
     q, k, v = (torch.randn(B, n, L, hd, generator=g).to(dev, dtype)
                for _ in range(3))
+    if L > 4096:  # the plain version's (B, n, L, L) intermediates
+        B, n = 1, 2
+        q, k, v = (t[:B, :n].contiguous() for t in (q, k, v))
     rh = (2 * torch.randn(B, n, L, H, generator=g)).to(dev, dtype)
     rw = (2 * torch.randn(B, n, L, W, generator=g)).to(dev, dtype)
     before = _build.LAUNCHES["flash_attention_relpos"]
@@ -256,6 +316,30 @@ def test_flash_attention_relpos_kernel(dev, dtype, G):
     with pytest.raises(RuntimeError, match="no backward"):
         flash_attention_relpos(q.requires_grad_(), k, v, rh, rw, 0.125,
                                (H, W))
+
+
+def test_attention_kernels_refuse_past_the_limit(dev):
+    """A grid with H + W = 257 (one past MAX_REL) raises ``ValueError`` on
+    every attention kernel route, before any launch."""
+    H, W, n = 1, 256, 1
+    L = H * W
+    qkv = torch.zeros(1, L, 3 * n * 64, device=dev, dtype=torch.bfloat16)
+    rel = torch.zeros(1, L, n, H + W, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="H\\+W <= 256"):
+        attention_relpos(qkv, rel, 0.125, (H, W), n)
+    lse = torch.zeros(1, n, L, device=dev)
+    out32 = torch.zeros(1, L, n * 64, device=dev)
+    dout = torch.zeros(1, L, n * 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="H\\+W <= 256"):
+        attention_relpos_bwd(qkv, rel, out32, lse, dout, 0.125, (H, W), n)
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.zeros(1, n, L, 64, device=dev, dtype=dtype)
+        with pytest.raises(ValueError, match="H\\+W <= 256"):
+            flash_attention_relpos(q, q, q,
+                                   torch.zeros(1, n, L, H, device=dev,
+                                               dtype=dtype),
+                                   torch.zeros(1, n, L, W, device=dev,
+                                               dtype=dtype), 0.125, (H, W))
 
 
 @pytest.mark.parametrize("shape,fast_var", [((3, 50, 1024), True),

@@ -82,9 +82,15 @@ def test_chip_smoke_imports_no_jax():
 def test_kernel_sources_ship_with_the_package():
     from classpose_tpu_torch import _build
 
+    import re
+
     for name in _build.SOURCES:
         assert (_build.CSRC / f"{name}.cu").is_file()
-    assert (_build.CSRC / "mma.cuh").is_file()
+    # every header a kernel source includes from csrc ships beside it
+    for src in _build.CSRC.glob("*.cu*"):
+        for header in re.findall(r'#include "([^"]+)"', src.read_text()):
+            assert (_build.CSRC / header).is_file(), (src.name, header)
+    assert (_build.CSRC / "sm90.cuh").is_file()
     assert (_build.CSRC / "attn_fwd.cuh").is_file()
     assert (_build.CSRC / "layernorm.cu").is_file()
     assert "layernorm" in _build.SOURCES
