@@ -3,13 +3,15 @@
 one process on one card.
 
     python3 ab_attention.py --rev <rev>       # or --old <csrc directory>
+    python3 ab_attention.py --windows         # the diffusion's windows
 
 With ``--rev`` the previous sources are ``_archive/<rev>`` (git-ignored;
 unpacked there with ``git archive`` when missing, see
 :func:`parent_sources`). Builds ``attention.cu`` (kernel 1, token-major),
 ``attention_hm.cu`` (kernel 8: its bf16 variant shares kernel 1's body,
 its fp32 body is its own), ``attention_bwd.cu`` (kernel 5), ``sample.cu``
-(kernel 2) and ``diffusion.cu`` (kernel 4) from the old directory and
+(kernels 2 and 3) and ``diffusion.cu`` (kernels 4 and 7; an old version's
+``diffusion_blocked.cu`` for its kernel 7) from the old directory and
 from the package's ``csrc`` with the package's nvcc flags plus ``-Xptxas
 -v`` (registers, shared memory and spills of every instantiation go to
 the file ``--log`` names). Both are held against the plain versions, then
@@ -20,18 +22,26 @@ at 25 crops × 16 heads × 1024 tokens × 64 (one inference layer, the
 fewer tiles than SMs); kernel 8 in bf16 and in fp32 at 8 × 16 × 1024 × 64
 (one evaluate layer); kernel 5 at 8 × 16 × 1024 × 64 (one train-step
 layer) and 2 × 16 × 784 × 64 (28 × 28 tokens, bsize 224); kernel 2 at
-8 × 2 × 1024² (one follow-flows pass); kernel 4 on 8 tiles of 1024² of
-the design field with counts 40/80/120 (one QC call: whichever entry
-points each library has, the per-iteration stencil or the blocked
-rounds), with kernel 7 (the package's) timed on the same inputs. Beside
-them the one-call yardsticks (for the attention forwards the fastest
-SDPA backend that takes the float mask; for kernel 2 ``grid_sample``),
-each with its spread, achieved TFLOP/s where it applies and the share of
-the bound. Prints the card's name and power limit, then one JSON line.
+8 × 2 × 1024² (one follow-flows pass); kernel 3 at 8 × 1024² on a
+uniform input (each pixel lands within ±8 px of itself) and a converged
+one (every foreground pixel of the design field on its cell's centre),
+and on a masks-path call's own input when the caller passes one; kernel
+4 on 8 tiles of 1024² of the design field with counts 40/80/120 (one QC
+call); kernel 7 at :data:`KERNEL7_SHAPES` (the evaluate QC of one 448²
+image at niter 80, a 500² target at 100, 8 × 448² at 40/80/120, a 2048²
+target at 120, 8 × 1024² at 40/80/120), each with its launches per call.
+Entry points an old version has and the package does not are bound from
+``OLD_SIGNATURES``. Beside them the one-call yardsticks (for the
+attention forwards the fastest SDPA backend that takes the float mask;
+for kernel 2 ``grid_sample``, for kernel 3 ``bincount``), each with its
+spread, achieved TFLOP/s where it applies and the share of the bound.
+Prints the card's name and power limit, then one JSON line.
 
 ``--grids`` A/Bs the attention kernels instead at the grids where they
 pick a body by the grid's shape (:func:`run_grids`), with ``--old`` a copy
-of ``csrc`` whose branch to one body is taken out.
+of ``csrc`` whose branch to one body is taken out. ``--windows`` times
+the windows of ``diffusion.cu`` against each other at kernel 7's shapes
+(:func:`run_windows`): which one ``ops/diffusion.py`` should pick there.
 
 The timing helpers and yardsticks here are also ``chip_smoke.py``'s,
 which runs :func:`run_ab` under ``--ab``. The old sources are a
@@ -43,6 +53,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -59,10 +70,17 @@ from classpose_tpu_torch.nn.attention import (
     flash_attention_relpos_plain,
 )
 from classpose_tpu_torch.ops.diffusion import (
-    diffuse_blocked,
+    WINDOW_WIDTH,
+    WINDOWS,
+    diffuse_blocked_plain,
+    diffusion_plan,
     masked_diffusion_plain,
+    run_kernel,
 )
-from classpose_tpu_torch.ops.sample import bilinear_sample_plain
+from classpose_tpu_torch.ops.sample import (
+    bilinear_sample_plain,
+    landing_histogram_plain,
+)
 
 # published H100 SXM peaks (dense): bf16 tensor cores, fp32 outside them,
 # HBM bandwidth
@@ -75,11 +93,21 @@ BUILD = Path("_archive") / "ab_build"  # git-ignored
 
 SOURCES = ("attention", "attention_hm", "attention_bwd", "sample",
            "diffusion")
+# sources an earlier version has and the package does not, with the
+# package source whose flags build them: kernel 7's own stencil (before
+# it shared kernel 4's body)
+OLD_SOURCES = {"diffusion_blocked": "diffusion"}
 P, I = ctypes.c_void_p, ctypes.c_int
-# entry points of earlier bodies that the package no longer has: kernel 4's
-# one-launch-per-iteration stencil (before its blocked rounds)
-OLD_SIGNATURES = {"diffusion_step": ("diffusion",
-                                     [P, P, P, P, P, I, I, I, I, P])}
+# entry points of earlier bodies that the package no longer has: kernel
+# 4's rounds driven from the host, kernel 7's halo-blocked rounds
+OLD_SIGNATURES = {
+    "diffusion_resident_round": ("diffusion",
+                                 [P, P, P, P, P, I, I, I, I, P]),
+    "diffusion_resident_depth": ("diffusion", []),
+    "diffusion_blocked_round": ("diffusion_blocked",
+                                [P, P, P, P, P, I, I, I, I, P]),
+    "diffusion_blocked_depth": ("diffusion_blocked", []),
+}
 
 
 def time_runs(fn, reps: int = 5, inner: int = 1) -> list[float]:
@@ -185,8 +213,10 @@ def build(csrc: Path, tag: str, log_path: Path, sources=SOURCES,
     BUILD.mkdir(parents=True, exist_ok=True)
     libs, procs = {}, {}
     for name in sources:
+        if not (csrc / f"{name}.cu").exists():
+            continue  # a source of another version
         out = BUILD / f"lib{name}_{tag}.so"
-        cmd = _build._cmd(name, out)
+        cmd = _build._cmd(OLD_SOURCES.get(name, name), out)
         cmd[-1] = str(csrc / f"{name}.cu")
         cmd[1:1] = ["-Xptxas=-v"] + [f"-D{d}" for d in defines]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -424,12 +454,56 @@ def diffusion_ops(ids: torch.Tensor, niter: torch.Tensor) -> float:
     return float((per_it * niter.double()).sum())
 
 
-def diffuse(lib, ids, cen, niter, nmax, cenm, mask, bufs) -> torch.Tensor:
-    """Kernel 4 through ``lib``'s entry points: pack once, then the
-    blocked rounds (``diffusion_resident_round``) or, in a library of the
-    body before them, one stencil launch per iteration
-    (``diffusion_step``), up to ``nmax`` = max(niter); ``cenm``, ``mask``
-    and the two ``bufs`` are scratch of ids' shape."""
+# kernel 7's shapes: (name, B, side or (H, W), counts), the design field
+# from zero at k = 1 as the routed QC and targets call it. The evaluate
+# QC of one 448² image (niter 80 from its cells' extent), an unaligned
+# training target, eight evaluate images at once, a target past the
+# residency gate, and kernel 4's QC inputs (8 tiles of 1024²)
+QC_COUNTS = [40, 80, 120, 40, 80, 120, 40, 80]
+KERNEL7_SHAPES = (
+    ("eval_1x448_80", 1, (448, 448), [80]),
+    ("target_1x500_100", 1, (500, 500), [100]),
+    ("qc_8x448", 8, (448, 448), QC_COUNTS),
+    ("gate_1x2048_120", 1, (2048, 2048), [120]),
+    ("qc_8x1024", 8, (1024, 1024), QC_COUNTS),
+)
+# and kernel 4's training target, for the choice of window
+WINDOW_SHAPES = KERNEL7_SHAPES + (("target_1x512_1200", 1, (512, 512),
+                                   [1200]),)
+
+
+def kernel7_inputs(dev, B, hw, counts):
+    """Design-field ids and centres, a zero start and the counts of one
+    :data:`KERNEL7_SHAPES` entry, with the largest count."""
+    ids, cen = design_labels(dev, B, *hw)
+    n = torch.tensor(counts, dtype=torch.int32, device=dev)
+    return ids, cen, torch.zeros_like(cen), n, max(counts)
+
+
+def blocked_rounds(lib, T0, ids, cen, n_eff, nmax, bufs) -> torch.Tensor:
+    """Kernel 7 through an earlier library's halo-blocked rounds
+    (``diffusion_blocked_round``), as its wrapper drove them, with the
+    count given from the host; ``bufs`` two scratch planes."""
+    B, H, W = ids.shape
+    stream = _build.stream_ptr(ids.device)
+    depth = lib.diffusion_blocked_depth()
+    src = T0
+    for r in range(-(-nmax // depth)):
+        dst = bufs[r % 2]
+        _build.check(lib.diffusion_blocked_round(
+            src.data_ptr(), dst.data_ptr(), ids.data_ptr(), cen.data_ptr(),
+            n_eff.data_ptr(), B, H, W, r * depth, stream),
+            "diffusion_blocked_round")
+        src = dst
+    return src
+
+
+def resident_rounds(lib, ids, cen, niter, nmax, cenm, mask, bufs
+                    ) -> torch.Tensor:
+    """Kernel 4 through an earlier library's entry points: pack once, then
+    the blocked rounds (``diffusion_resident_round``) from the host, up to
+    ``nmax`` = max(niter); ``cenm``, ``mask`` and the two ``bufs`` are
+    scratch of ids' shape."""
     B, H, W = ids.shape
     stream = _build.stream_ptr(ids.device)
     _build.check(lib.diffusion_pack_nbr(
@@ -437,57 +511,185 @@ def diffuse(lib, ids, cen, niter, nmax, cenm, mask, bufs) -> torch.Tensor:
         H, W, stream), "diffusion_pack_nbr")
     T, T2 = bufs
     T.zero_()
-    rounds = hasattr(lib, "diffusion_resident_round")
-    step = lib.diffusion_resident_depth() if rounds else 1
-    for s0 in range(0, nmax, step):
-        fn = lib.diffusion_resident_round if rounds else lib.diffusion_step
-        _build.check(fn(T.data_ptr(), T2.data_ptr(), cenm.data_ptr(),
-                        mask.data_ptr(), niter.data_ptr(), B, H, W, s0,
-                        stream), "diffusion round")
+    for s0 in range(0, nmax, lib.diffusion_resident_depth()):
+        _build.check(lib.diffusion_resident_round(
+            T.data_ptr(), T2.data_ptr(), cenm.data_ptr(), mask.data_ptr(),
+            niter.data_ptr(), B, H, W, s0, stream), "diffusion round")
         T, T2 = T2, T
     return T
 
 
 def ab_diffusion(libs, dev) -> dict:
-    """Kernel 4, old and new, on one QC call's inputs (8 tiles of 1024²
-    of the design field, counts 40/80/120) against the plain version
-    (bitwise), timed in turns, with each library's launches per call and
-    kernel 7 (the package's ``diffuse_blocked`` at k = 1, bitwise equal
-    to kernel 4) timed on the same inputs beside them."""
-    ids, cen = design_labels(dev, 8, 1024, 1024)
-    niter = torch.tensor([40, 80, 120, 40, 80, 120, 40, 80],
-                         dtype=torch.int32, device=dev)
+    """Kernel 4, old and new (through whichever entry points each library
+    has), on one QC call's inputs (8 tiles of 1024² of the design field,
+    counts 40/80/120) against the plain version (bitwise), timed in
+    turns, with each version's launches per call."""
+    ids, cen, _, niter, nmax = kernel7_inputs(dev, 8, (1024, 1024),
+                                              QC_COUNTS)
     ref = masked_diffusion_plain(ids, cen, niter)
-    nmax = int(niter.max())
-    scratch = {t: (nmax, torch.empty_like(cen),
-                   torch.empty(ids.shape, dtype=torch.int16, device=dev),
-                   (torch.empty_like(cen), torch.empty_like(cen)))
-               for t in libs}
-    launches = {}
-    for tag, lib in libs.items():
-        lib = lib["diffusion"]
-        if not torch.equal(diffuse(lib, ids, cen, niter, *scratch[tag]), ref):
+    scratch = (torch.empty_like(cen),
+               torch.empty(ids.shape, dtype=torch.int16, device=dev),
+               (torch.empty_like(cen), torch.empty_like(cen)))
+    calls, launches = {}, {}
+    for tag in libs:
+        lib = libs[tag]["diffusion"]
+        if hasattr(lib, "diffusion_rounds"):
+            calls[tag] = (lambda lib=lib: run_kernel(lib, ids, cen, niter,
+                                                     nmax, None)[0])
+            launches[tag] = run_kernel(lib, ids, cen, niter, nmax, None)[1]
+        else:
+            calls[tag] = (lambda lib=lib: resident_rounds(
+                lib, ids, cen, niter, nmax, *scratch))
+            launches[tag] = 1 + -(-nmax // lib.diffusion_resident_depth())
+    for tag, call in calls.items():
+        if not torch.equal(call(), ref):
             raise AssertionError(f"kernel 4 {tag}: not bitwise equal")
-        launches[tag] = 1 + (-(-nmax // lib.diffusion_resident_depth())
-                             if hasattr(lib, "diffusion_resident_round")
-                             else nmax)
     b, _ = bound_ms(ids.numel() * 12, diffusion_ops(ids, niter), PEAK_FP32)
-    res = ab({t: (lambda t=t: diffuse(libs[t]["diffusion"], ids, cen, niter,
-                                      *scratch[t])) for t in libs}, 0.0, b)
-    zero = torch.zeros_like(cen)
-    res.update(bound_ms=b, launches=launches,
-               **spread("kernel7_", time_runs(lambda: diffuse_blocked(
-                   zero, ids, cen, niter, k=1), 5, 3)))
+    res = ab(calls, 0.0, b)
+    res.update(bound_ms=b, launches=launches)
     return res
 
 
-def run_ab(old: Path, log: Path) -> dict:
-    """Build the old and the package's sources and A/B them at every
-    shape of the module docstring; returns the results by shape."""
+def ab_blocked(libs, dev) -> dict:
+    """Kernel 7, old (its own halo-blocked stencil where the old version
+    has one) and new (kernel 4's body in the window :func:`diffusion_plan`
+    picks), at every :data:`KERNEL7_SHAPES` entry against the plain
+    version (bitwise), timed in turns with the launches per call of each;
+    both get the count from the host."""
+    res = {}
+    for name, B, hw, counts in KERNEL7_SHAPES:
+        ids, cen, zero, n, nmax = kernel7_inputs(dev, B, hw, counts)
+        ref = diffuse_blocked_plain(zero, ids, cen, n, k=1)
+        bufs = (torch.empty_like(cen), torch.empty_like(cen))
+        calls, launches = {}, {}
+        for tag in libs:
+            lib = libs[tag].get("diffusion_blocked")
+            if lib is not None:
+                calls[tag] = (lambda lib=lib: blocked_rounds(
+                    lib, zero, ids, cen, n, nmax, bufs))
+                launches[tag] = -(-nmax // lib.diffusion_blocked_depth())
+            else:
+                lib = libs[tag]["diffusion"]
+                calls[tag] = (lambda lib=lib: run_kernel(lib, ids, cen, n,
+                                                         nmax, zero)[0])
+                launches[tag] = run_kernel(lib, ids, cen, n, nmax, zero)[1]
+        for tag, call in calls.items():
+            if not torch.equal(call(), ref):
+                raise AssertionError(f"kernel 7 {tag} at {name}: not "
+                                     f"bitwise equal")
+        plan = diffusion_plan(B, *hw, nmax)
+        b, _ = bound_ms(ids.numel() * 12, diffusion_ops(ids, n), PEAK_FP32)
+        res[name] = ab(calls, 0.0, b)
+        res[name].update(bound_ms=b, window=WINDOWS[plan.window],
+                         launches=launches)
+    return res
+
+
+def run_windows(log: Path) -> dict:
+    """Every window ``csrc/diffusion.cu`` offers, timed in turns (each
+    window, then the same in reverse order) at every
+    :data:`WINDOW_SHAPES` entry, each checked bitwise against the plain
+    version first: whether the window :func:`diffusion_plan` picks for a
+    shape is the fastest there."""
     dev = torch.device("cuda")
     log.parent.mkdir(parents=True, exist_ok=True)
     log.write_text("")
-    libs = {"old": build(old, "old", log),
+    lib = build(_build.CSRC, "new", log, ("diffusion",))["diffusion"]
+    res = {}
+    for name, B, hw, counts in WINDOW_SHAPES:
+        ids, cen, zero, n, nmax = kernel7_inputs(dev, B, hw, counts)
+        ref = diffuse_blocked_plain(zero, ids, cen, n, k=1)
+        calls = {w: (lambda w=w: run_kernel(lib, ids, cen, n, nmax, zero,
+                                            w)[0])
+                 for w in range(len(WINDOWS))}
+        passes = {w: [] for w in calls}
+        for w, call in calls.items():
+            if not torch.equal(call(), ref):
+                raise AssertionError(f"window {WINDOWS[w]} at {name}: not "
+                                     f"bitwise equal")
+        for w in list(calls) + list(calls)[::-1]:
+            passes[w].append(statistics.median(time_runs(calls[w], 10, 10)))
+        plans = {w: diffusion_plan(B, *hw, nmax, w) for w in calls}
+        res[name] = dict(
+            plan=WINDOWS[diffusion_plan(B, *hw, nmax).window],
+            windows={f"{WINDOWS[w][0]}x{WINDOW_WIDTH}/{WINDOWS[w][1]}": dict(
+                ms=statistics.median(p), passes=p,
+                ctas=math.prod(plans[w].grid), launches=plans[w].launches,
+                overlap=plans[w].overlap)
+                for w, p in passes.items()})
+    return res
+
+
+def uniform_landing(gen, dev, B, H, W):
+    """Landing positions of kernel 3's uniform input: each pixel's own
+    moved by up to ±8 px (rounded, clamped), cell 1 on ~60% of pixels."""
+    py, px = positions(gen, dev, 8.0, B, H, W)
+    return (torch.round(py).to(torch.int32).contiguous(),
+            torch.round(px).to(torch.int32).contiguous(),
+            (torch.rand(B, H, W, generator=gen, device=dev) < 0.6).float())
+
+
+def converged_landing(dev, B, H, W):
+    """Kernel 3's converged input, where the flow steps leave the masks
+    path: every foreground pixel of the design field lands on its cell's
+    centre (clamped into the image) with cell = 1, background pixels stay
+    where they are with cell = 0."""
+    from classpose_tpu_torch.nn.synthetic import PERIOD
+
+    ids, _ = design_labels(dev, B, H, W)
+    yy, xx = torch.meshgrid(torch.arange(H, device=dev),
+                            torch.arange(W, device=dev), indexing="ij")
+    cy = torch.clamp(yy // PERIOD * PERIOD + PERIOD // 2, max=H - 1)
+    cx = torch.clamp(xx // PERIOD * PERIOD + PERIOD // 2, max=W - 1)
+    fg = ids > 0
+    return (torch.where(fg, cy, yy).to(torch.int32).contiguous(),
+            torch.where(fg, cx, xx).to(torch.int32).contiguous(),
+            fg.float().contiguous())
+
+
+def histogram(lib, fy, fx, cell, out):
+    B, H, W = fy.shape
+    _build.check(lib.landing_histogram_f32(
+        fy.data_ptr(), fx.data_ptr(), cell.data_ptr(), out.data_ptr(), B, H,
+        W, _build.stream_ptr(fy.device)), "landing_histogram_f32")
+
+
+def bincount_yardstick(fy, fx, cell, reps: int = 15, inner: int = 3) -> dict:
+    """Kernel 3's one-call yardstick: ``bincount`` of the flat bins with
+    the cells as weights; its median and spread as ``library_*``."""
+    B, H, W = fy.shape
+    flat = (torch.arange(B, device=fy.device)[:, None, None] * H * W
+            + fy.long() * W + fx.long()).reshape(-1)
+    w = cell.reshape(-1)
+    return spread("library_", time_runs(lambda: torch.bincount(
+        flat, weights=w, minlength=B * H * W), reps, inner))
+
+
+def ab_histogram(libs, fy, fx, cell) -> dict:
+    """Kernel 3, old and new, on one input against the plain version
+    (bitwise), timed in turns beside ``bincount``."""
+    ref = landing_histogram_plain(fy, fx, cell)
+    outs = {t: torch.empty_like(cell) for t in libs}
+    for tag, lib in libs.items():
+        histogram(lib["sample"], fy, fx, cell, outs[tag])
+        if not torch.equal(outs[tag], ref):
+            raise AssertionError(f"kernel 3 {tag}: not bitwise equal")
+    b, _ = bound_ms(fy.numel() * 16, float(cell.sum()), PEAK_FP32)
+    res = ab({t: (lambda t=t: histogram(libs[t]["sample"], fy, fx, cell,
+                                        outs[t])) for t in libs}, 0.0, b)
+    res.update(bound_ms=b, **bincount_yardstick(fy, fx, cell))
+    return res
+
+
+def run_ab(old: Path, log: Path, path_landing=None) -> dict:
+    """Build the old and the package's sources and A/B them at every
+    shape of the module docstring (kernel 3 also on ``path_landing``, the
+    (fy, fx, cell) of a masks-path call, when given); returns the results
+    by shape."""
+    dev = torch.device("cuda")
+    log.parent.mkdir(parents=True, exist_ok=True)
+    log.write_text("")
+    libs = {"old": build(old, "old", log, SOURCES + tuple(OLD_SOURCES)),
             "new": build(_build.CSRC, "new", log)}
     gen = torch.Generator(device=dev).manual_seed(0)
     G, scale = 32, 64 ** -0.5
@@ -509,7 +711,16 @@ def run_ab(old: Path, log: Path) -> dict:
                                                    scale)
     result["bilinear_sample_8x2x1024x1024"] = ab_sampler(libs, gen, dev, 8,
                                                          2, 1024)
+    # kernel 3 at 8 x 1024², on the uniform and the converged input, and
+    # on the masks path's own input where the caller captured one
+    inputs = dict(uniform=uniform_landing(gen, dev, 8, 1024, 1024),
+                  converged=converged_landing(dev, 8, 1024, 1024))
+    if path_landing is not None:
+        inputs["path"] = path_landing
+    for tag, args in inputs.items():
+        result[f"landing_histogram_{tag}"] = ab_histogram(libs, *args)
     result["masked_diffusion_8x1024x1024"] = ab_diffusion(libs, dev)
+    result["diffuse_blocked"] = ab_blocked(libs, dev)
     return result
 
 
@@ -571,7 +782,7 @@ def parent_sources(rev: str) -> Path:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    what = ap.add_mutually_exclusive_group(required=True)
+    what = ap.add_mutually_exclusive_group()
     what.add_argument("--old", type=Path,
                       help="csrc directory of the previous version")
     what.add_argument("--rev", help="git revision of the previous version "
@@ -580,6 +791,10 @@ def main() -> int:
                     help="A/B at the grids where a kernel picks its body "
                     "by the grid's shape (run_grids), in place of the main "
                     "shapes")
+    ap.add_argument("--windows", action="store_true",
+                    help="time the diffusion's windows against each other "
+                    "at kernel 7's shapes (run_windows), in place of the "
+                    "A/B; needs no previous version")
     ap.add_argument("--log", type=Path,
                     default=BUILD / "ab_attention_ptxas.txt",
                     help="file for nvcc's and ptxas's output")
@@ -590,8 +805,13 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
-    result = (run_grids if args.grids else run_ab)(
-        args.old or parent_sources(args.rev), args.log)
+    if args.windows:
+        result = run_windows(args.log)
+    elif args.old or args.rev:
+        result = (run_grids if args.grids else run_ab)(
+            args.old or parent_sources(args.rev), args.log)
+    else:
+        ap.error("one of --old, --rev or --windows is needed")
     print(smi)
     print(json.dumps(result))
     return 0

@@ -9,13 +9,20 @@
 3. holds each kernel against its plain PyTorch version on the card at the
    shapes the main paths give it (attention forward: 25 crops × 16 heads
    × 1024 tokens, bf16; attention backward: 8 crops × 16 heads × 1024
-   tokens, bf16; sampler, histogram and diffusion: 8 tiles of 1024²;
-   LayerNorm: (25, 1024, 1024) bf16 with the fast variance and
-   (25, 32, 32, 256) bf16 two-pass; kernel 4 also on a 512² training
-   target at 1200 iterations, with its launches per call; halo-blocked
-   diffusion: 8 tiles of
-   448², the evaluate path's QC, bitwise, plus counts off multiples of k
-   from a nonzero start and one 2048² tile past the residency gate;
+   tokens, bf16; sampler and diffusion: 8 tiles of 1024²; histogram: 8
+   tiles of 1024² on a uniform input (pixels land within ±8 px of
+   themselves) and a converged one (every foreground pixel of the design
+   field on its cell's centre, the line's numbers), and on the eval_batch
+   path's own input from step 4's warm-up; LayerNorm: (25, 1024, 1024)
+   bf16 with the fast variance and (25, 32, 32, 256) bf16 two-pass;
+   kernel 4 also on a 512² training target at 1200 iterations, with its
+   launches per call; kernel 7 (the diffusion from a start field, on
+   kernel 4's body), bitwise, timed with its launches per call at the
+   evaluate QC of one 448² image at niter 80 (the line's numbers, with
+   the wall of one call given an int count, which reads nothing back), a
+   500² target at 100, 8 × 448² at 40/80/120, a 2048² target at 120 and
+   8 × 1024² at 40/80/120 (beside kernel 4), plus counts off multiples
+   of k from a nonzero start on raw labels;
    head-major attention: 8 crops × 16 heads × 1024 tokens in fp32 and
    bf16) and times kernel, plain version, a one-call PyTorch yardstick
    where there is one (for the attention forwards the fastest SDPA
@@ -81,7 +88,8 @@
    in fp32 and bf16 against the plain versions run one head at a time,
    and one kernel-route train step at batch 1 of a 1024² crop;
 8. under ``--ab`` only, the A/B of ``ab_attention.py``: kernels 1, 8
-   (fp32 and bf16), 5, 2 and 4 at the main paths' shapes, the bodies of
+   (fp32 and bf16), 5, 2, 3 (also on step 4's input), 4 and 7 at the
+   main paths' shapes, the bodies of
    commit ``AB_PARENT`` (``_archive/<AB_PARENT>``, or ``git archive`` of
    it; raises when neither gives them) and the package's timed in turns
    in this process. It is not part of the default run because a checkout
@@ -114,12 +122,16 @@ import torch.nn.functional as F
 
 from ab_attention import (
     BUILD,
+    KERNEL7_SHAPES,
     PEAK_BF16,
     PEAK_FP32,
+    bincount_yardstick,
     bound_ms,
+    converged_landing,
     design_labels,
     diffusion_ops,
     grid_sample_yardstick,
+    kernel7_inputs,
     parent_sources,
     positions,
     run_ab,
@@ -127,6 +139,7 @@ from ab_attention import (
     spread,
     time_ms,
     time_runs,
+    uniform_landing,
 )
 import classpose_tpu_torch.dynamics.flows as port_flows
 import classpose_tpu_torch.dynamics.masks as port_masks
@@ -163,8 +176,12 @@ from classpose_tpu_torch.nn.synthetic import (
 )
 from classpose_tpu_torch.nn.vit_sam import ClassTransformerConfig
 from classpose_tpu_torch.ops.diffusion import (
+    WINDOWS,
     diffuse_blocked,
     diffuse_blocked_plain,
+    diffuse_counts,
+    diffuse_counts_plain,
+    diffusion_plan,
     masked_diffusion,
     masked_diffusion_plain,
     resident_diffusion_supported,
@@ -218,7 +235,7 @@ FAULT3_BSIZE, FAULT3_SIZE = 224, 480
 BIG_BSIZE, BIG_SIZE = 1024, 1024
 # the commit whose kernel bodies the A/B phase (``--ab``) holds the
 # working tree's against
-AB_PARENT = "2ecf118"
+AB_PARENT = "5846458"
 
 
 def log(msg: str) -> None:
@@ -415,30 +432,45 @@ def check_sampler(gen, dev) -> dict:
     )
 
 
-def check_histogram(gen, dev) -> dict:
-    B, H, W = N_TILES, TILE, TILE
-    py, px = positions(gen, dev, 8.0, N_TILES, TILE, TILE)
-    fy = torch.round(py).to(torch.int32).contiguous()
-    fx = torch.round(px).to(torch.int32).contiguous()
-    cell = (torch.rand(B, H, W, generator=gen, device=dev) < 0.6).float()
+def histogram_timing(fy, fx, cell) -> dict:
+    """Kernel 3 on one input against its plain version (bitwise), timed
+    (15 timings of 3 calls, with the spread) beside ``bincount``, with
+    what the input holds: its counted pixels, the bins they land on and
+    the most pixels on one bin."""
     got = landing_histogram(fy, fx, cell)
     ref = landing_histogram_plain(fy, fx, cell)
     if not torch.equal(got, ref):
         raise AssertionError("histogram not exact")
-    flat = (torch.arange(B, device=dev)[:, None, None] * H * W
-            + fy.long() * W + fx.long()).reshape(-1)
-    w = cell.reshape(-1)
-    b, by = bound_ms(B * H * W * 16, float(cell.sum()), PEAK_FP32)
+    # read fy, fx, cell once and write the bins once; one add per counted
+    # pixel
+    b, by = bound_ms(fy.numel() * 16, float(cell.sum()), PEAK_FP32)
+    return dict(
+        max_abs_err=float((got - ref).abs().max()),
+        **spread("", time_runs(lambda: landing_histogram(fy, fx, cell), 15,
+                               3)),
+        plain_ms=time_ms(lambda: landing_histogram_plain(fy, fx, cell)),
+        **bincount_yardstick(fy, fx, cell),
+        bound_ms=b, bound_by=by, counted=float(cell.sum()),
+        bins=int((ref > 0).sum()), most_on_one_bin=float(ref.max()))
+
+
+def check_histogram(gen, dev) -> dict:
+    """Kernel 3 at 8 × 1024² on two inputs: uniform (each pixel lands
+    within ±8 px of itself) and converged (every foreground pixel of the
+    design field on its cell's centre, as the masks path's flow steps
+    leave them: the line's numbers); see :func:`histogram_timing`."""
+    inputs = dict(uniform=uniform_landing(gen, dev, N_TILES, TILE, TILE),
+                  converged=converged_landing(dev, N_TILES, TILE, TILE))
+    res = {name: histogram_timing(*args) for name, args in inputs.items()}
+    line = res["converged"]
     return dict(
         name="landing_histogram", route="cuda",
         source="classpose_tpu_torch/csrc/sample.cu",
         replaces="classpose_tpu/ops/sample_pallas.py:496",
-        max_abs_err=float((got - ref).abs().max()),
-        ms=time_ms(lambda: landing_histogram(fy, fx, cell)),
-        plain_ms=time_ms(lambda: landing_histogram_plain(fy, fx, cell)),
-        library_ms=time_ms(lambda: torch.bincount(
-            flat, weights=w, minlength=B * H * W)),
-        bound_ms=b, bound_by=by,
+        max_abs_err=max(r["max_abs_err"] for r in res.values()),
+        **{k: line[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                "bound_by")},
+        inputs=res,
     )
 
 
@@ -576,65 +608,95 @@ def check_sampling_shapes(gen, dev) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def no_device_sync():
+    """Inside the block, an operation that makes the host wait for the
+    device (a count read back with ``.max()``/``int()``) raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
 def check_diffuse_blocked(gen, dev) -> dict:
-    """Kernel 7 against its plain version, bitwise: at the evaluate
-    path's QC shape (8 × 448² of the design field, niters 40/80/120, from
-    zero with k = 1 as the routed QC calls it: timed, the line's
-    numbers); with k = 40, counts that are multiples neither of k nor of
-    the kernel's 8 iterations per launch (and a tile with none), from a
-    nonzero start on raw (non-dense) labels; one 2048² tile past the
-    residency gate. Then kernel 4's 1024² QC inputs through kernel 7, both
-    kernels timed on them."""
-    if resident_diffusion_supported(EVAL_SIZE, EVAL_SIZE) \
-            or resident_diffusion_supported(2048, 2048):
-        raise AssertionError("448² and 2048² should fail the residency gate")
-    ids, cen = design_labels(dev, EVAL_IMAGES, EVAL_SIZE, EVAL_SIZE)
-    niter = torch.tensor([40, 80, 120, 40, 80, 120, 40, 80],
-                         dtype=torch.int32, device=dev)
-    zero = torch.zeros_like(cen)
-    ids2, cen2 = design_labels(dev, 1, 2048, 2048)
-    cases = {
-        "eval_8x448_k1": (zero, ids, cen, niter, 1),
-        "odd_counts_k40_T0_raw_ids": (
-            (torch.rand(ids.shape, generator=gen, device=dev) * 2
-             ).contiguous(), (ids * 977).contiguous(), cen,
-            torch.tensor([13, 50, 0, 41, 79, 7, 120, 1], dtype=torch.int32,
-                         device=dev), 40),
-        "gate_1x2048_k1": (torch.zeros_like(cen2), ids2, cen2,
-                           torch.tensor([120], dtype=torch.int32,
-                                        device=dev), 1),
-    }
-    for name, (T0, i, c, n, k) in cases.items():
-        if not torch.equal(diffuse_blocked(T0, i, c, n, k=k),
-                           diffuse_blocked_plain(T0, i, c, n, k=k)):
+    """Kernel 7 against its plain version, bitwise, at every shape of
+    ``KERNEL7_SHAPES`` (the design field from zero with k = 1, as the
+    routed QC and the targets call it), each timed (5 timings of 3 calls
+    with the count given from the host, with the spread) with its
+    launches per call (checked against ``diffusion_plan``) and its
+    window; then from a nonzero start on raw (non-dense) labels with
+    k = 40 and counts that are multiples neither of k nor of the
+    iterations per launch (and a tile with none). At the evaluate call
+    (1 × 448², niter 80: the line's numbers) also the device's busy time
+    per call from a trace, and the wall of one ``_diffuse_dyn`` call,
+    synced, with an int count (under :func:`no_device_sync`: nothing is
+    read back) and with a tensor count (read back)."""
+    for hw in ((448, 448), (500, 500), (2048, 2048)):
+        if resident_diffusion_supported(*hw):
+            raise AssertionError(f"{hw} should fail the residency gate")
+    shapes = {}
+    for name, B, hw, counts in KERNEL7_SHAPES:
+        ids, cen, zero, n, nmax = kernel7_inputs(dev, B, hw, counts)
+        got, per_call = launches_of(
+            "diffuse_blocked", lambda: diffuse_blocked(zero, ids, cen, n, k=1))
+        if not torch.equal(got, diffuse_blocked_plain(zero, ids, cen, n,
+                                                      k=1)):
             raise AssertionError(f"diffuse_blocked {name}: not bitwise "
                                  f"equal to plain")
-    ids4, cen4 = design_labels(dev, N_TILES, TILE, TILE)
-    n4 = torch.tensor([40, 80, 120, 40, 80, 120, 40, 80], dtype=torch.int32,
-                      device=dev)
-    z4 = torch.zeros_like(cen4)
-    if not torch.equal(diffuse_blocked(z4, ids4, cen4, n4, k=1),
-                       masked_diffusion(ids4, cen4, n4)):
-        raise AssertionError("kernels 7 and 4 differ at 1024²")
-    # read T0, ids, centre, write T (4 B each per pixel)
-    b, by = bound_ms(ids.numel() * 16, diffusion_ops(ids, niter), PEAK_FP32)
-    b4, _ = bound_ms(ids4.numel() * 16, diffusion_ops(ids4, n4), PEAK_FP32)
+        plan = diffusion_plan(B, *hw, nmax)
+        if per_call != plan.launches:
+            raise AssertionError(f"diffuse_blocked {name}: {per_call} "
+                                 f"launches, plan {plan}")
+        # read the ids and the centre, write T (and read a T0 where the
+        # caller has one); per iteration and foreground pixel two adds a
+        # matching neighbour and a multiply
+        b, by = bound_ms(ids.numel() * 12, diffusion_ops(ids, n), PEAK_FP32)
+        shapes[name] = dict(
+            launches_per_call=per_call, window=WINDOWS[plan.window],
+            overlap=plan.overlap, bound_ms=b, bound_by=by,
+            **spread("", time_runs(lambda: diffuse_counts(
+                ids, cen, n, nmax, "diffuse_blocked"), 5, 3)))
+        if name == "eval_1x448_80":
+            line_plain_ms = time_ms(
+                lambda: diffuse_blocked_plain(zero, ids, cen, n, k=1), 3)
+            shapes[name]["device_busy_ms"] = traced(lambda: [
+                diffuse_counts(ids, cen, n, nmax, "diffuse_blocked")
+                for _ in range(10)])["device_busy_ms"] / 10
+            walls = {"int": [], "tensor": []}
+            n0 = torch.tensor(counts[0], dtype=torch.int32, device=dev)
+            for _ in range(20):
+                for kind, count in (("int", counts[0]), ("tensor", n0)):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    with (no_device_sync() if kind == "int"
+                          else contextlib.nullcontext()):
+                        port_flows._diffuse_dyn(ids[0], cen[0], count)
+                    torch.cuda.synchronize()
+                    walls[kind].append((time.perf_counter() - t0) * 1e3)
+            shapes[name].update(
+                wall_ms_int_count=statistics.median(walls["int"]),
+                wall_ms_tensor_count=statistics.median(walls["tensor"]))
+        if name == "qc_8x1024":
+            shapes[name]["masked_diffusion_ms"] = time_ms(
+                lambda: diffuse_counts(ids, cen, n, nmax, "masked_diffusion"))
+    ids, cen = design_labels(dev, EVAL_IMAGES, EVAL_SIZE, EVAL_SIZE)
+    T0 = (torch.rand(ids.shape, generator=gen, device=dev) * 2).contiguous()
+    raw = (ids * 977).contiguous()
+    odd = torch.tensor([13, 50, 0, 41, 79, 7, 120, 1], dtype=torch.int32,
+                       device=dev)
+    if not torch.equal(diffuse_blocked(T0, raw, cen, odd, k=40),
+                       diffuse_blocked_plain(T0, raw, cen, odd, k=40)):
+        raise AssertionError("diffuse_blocked from a nonzero start, raw "
+                             "labels, k = 40: not bitwise equal to plain")
+    line = shapes["eval_1x448_80"]
     return dict(
         name="diffuse_blocked", route="cuda",
-        source="classpose_tpu_torch/csrc/diffusion_blocked.cu",
+        source="classpose_tpu_torch/csrc/diffusion.cu",
         replaces="classpose_tpu/ops/diffusion_pallas.py:143",
-        max_abs_err=0.0,
-        ms=time_ms(lambda: diffuse_blocked(zero, ids, cen, niter, k=1)),
-        plain_ms=time_ms(
-            lambda: diffuse_blocked_plain(zero, ids, cen, niter, k=1), 3),
-        library_ms=None, bound_ms=b, bound_by=by,
-        cases=list(cases),
-        at_8x1024=dict(
-            blocked_ms=time_ms(lambda: diffuse_blocked(z4, ids4, cen4, n4,
-                                                       k=1)),
-            masked_diffusion_ms=time_ms(lambda: masked_diffusion(ids4, cen4,
-                                                                 n4)),
-            bound_ms=b4),
+        max_abs_err=0.0, ms=line["ms"], plain_ms=line_plain_ms,
+        library_ms=None, bound_ms=line["bound_ms"],
+        bound_by=line["bound_by"], shapes=shapes,
     )
 
 
@@ -827,13 +889,11 @@ def plain_versions(by_head: bool = False):
     attention through its differentiable plain route; with ``by_head``,
     inference only, one head at a time)."""
     saved = (port_masks.bilinear_sample, port_masks.landing_histogram,
-             port_flows.masked_diffusion, port_flows.diffuse_blocked,
-             port_vit.attention_relpos, port_vit.flash_attention_relpos,
-             port_ln.layernorm)
+             port_flows.diffuse_counts, port_vit.attention_relpos,
+             port_vit.flash_attention_relpos, port_ln.layernorm)
     port_masks.bilinear_sample = bilinear_sample_plain
     port_masks.landing_histogram = landing_histogram_plain
-    port_flows.masked_diffusion = masked_diffusion_plain
-    port_flows.diffuse_blocked = diffuse_blocked_plain
+    port_flows.diffuse_counts = diffuse_counts_plain
     port_vit.attention_relpos = (attention_by_head if by_head
                                  else attention_relpos_plain_route)
     port_vit.flash_attention_relpos = (
@@ -844,9 +904,8 @@ def plain_versions(by_head: bool = False):
 
     def restore():
         (port_masks.bilinear_sample, port_masks.landing_histogram,
-         port_flows.masked_diffusion, port_flows.diffuse_blocked,
-         port_vit.attention_relpos, port_vit.flash_attention_relpos,
-         port_ln.layernorm) = saved
+         port_flows.diffuse_counts, port_vit.attention_relpos,
+         port_vit.flash_attention_relpos, port_ln.layernorm) = saved
 
     return restore
 
@@ -857,8 +916,8 @@ def kernel_class(name: str) -> str:
     for cls, marks in (("attention kernels", ("attn_",)),
                        ("dynamics kernels", ("bilinear_sample",
                                              "landing_histogram",
-                                             "step_kernel", "pack_kernel",
-                                             "blocked_kernel")),
+                                             "round_kernel",
+                                             "pack_kernel")),
                        ("convolution", ("conv", "cudnn", "fprop", "dgrad",
                                         "wgrad")),
                        ("matmul", ("nvjet", "gemm", "cutlass", "xmma")),
@@ -924,7 +983,7 @@ def profile_slice(model, tiles, kw) -> dict:
                 **traced(lambda: model.eval_batch(tiles, **kw)))
 
 
-def run_slice(dev) -> tuple[dict, dict]:
+def run_slice(dev) -> tuple[dict, dict, tuple]:
     cfg = ClassTransformerConfig(n_cell_classes=6, dtype="bfloat16")
     t0 = time.perf_counter()
     model = ClassposeModel(cfg=cfg, params=structured_params(cfg),
@@ -944,8 +1003,19 @@ def run_slice(dev) -> tuple[dict, dict]:
             torch.cuda.synchronize()
             return res, time.perf_counter() - t0, dict(_build.LAUNCHES)
 
-    with ln_switch(False):
-        model.eval_batch(tiles, **kw)  # warm-up: allocator, cuDNN plans
+    # warm-up (allocator, cuDNN plans), keeping the histogram's input
+    landings = []
+
+    def keep_landing(fy, fx, cell):
+        landings.append((fy.clone(), fx.clone(), cell.clone()))
+        return landing_histogram(fy, fx, cell)
+
+    port_masks.landing_histogram = keep_landing
+    try:
+        with ln_switch(False):
+            model.eval_batch(tiles, **kw)
+    finally:
+        port_masks.landing_histogram = landing_histogram
     torch.cuda.reset_peak_memory_stats()
     out, wall, launches = timed_run(False)
     log(f"main path launches: {launches}")
@@ -993,8 +1063,10 @@ def run_slice(dev) -> tuple[dict, dict]:
         instances=counts, worst_iou_vs_plain=worst,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
         breakdown=breakdown,
+        # kernel 3 on this path's own input (one call per batch)
+        histogram_on_path=histogram_timing(*landings[-1]),
     )
-    return launches, stats
+    return launches, stats, landings[-1]
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1719,7 +1791,7 @@ def main() -> int:
     fault3_grids = check_fault3_grids(gen, dev)
     log(f"fault 3 grids: {json.dumps(fault3_grids)}")
 
-    launches, stats = run_slice(dev)
+    launches, stats, path_landing = run_slice(dev)
     log(f"slice: {json.dumps(stats)}")
     with tempfile.TemporaryDirectory() as out_dir:
         train_launches, train_stats = run_training(dev, out_dir)
@@ -1738,7 +1810,7 @@ def main() -> int:
     ab = None
     if args.ab:
         ab = dict(old=AB_PARENT, **run_ab(
-            parent_sources(AB_PARENT), BUILD / "ab_ptxas.txt"))
+            parent_sources(AB_PARENT), BUILD / "ab_ptxas.txt", path_landing))
         log(f"A/B: {json.dumps(ab)}")
     for k in kernels:
         # each kernel's count from the phase whose path runs it: the
@@ -1762,10 +1834,10 @@ def main() -> int:
                       "slice": stats, "training": train_stats,
                       "wsi": wsi_stats, "evaluate": ev_stats,
                       "layernorm_neck": by_name["layernorm"]["neck"],
-                      "diffuse_blocked_cases": by_name["diffuse_blocked"][
-                          "cases"],
-                      "diffusion_at_8x1024": by_name["diffuse_blocked"][
-                          "at_8x1024"],
+                      "diffuse_blocked_shapes": by_name["diffuse_blocked"][
+                          "shapes"],
+                      "landing_histogram_inputs": by_name[
+                          "landing_histogram"]["inputs"],
                       "flash_attention_relpos_bf16": by_name[
                           "flash_attention_relpos"]["bf16"],
                       "attention_detail": {

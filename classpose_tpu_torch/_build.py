@@ -11,8 +11,8 @@ with ``ctypes``. Every pointer and the CUDA stream cross the boundary as
 Nothing here runs at import time: the CPU tests import every module of
 the package on a machine without ``nvcc``.
 
-``LAUNCHES`` holds one plain integer per kernel. A wrapper adds one
-(:func:`count`, under a lock: the WSI pipeline launches from two
+``LAUNCHES`` holds one plain integer per kernel. A wrapper adds one per
+launch (:func:`count`, under a lock: the WSI pipeline launches from two
 inference threads) where it launches its kernel and nowhere else, so a
 caller can reset the counts, drive a path, and read which kernels it went
 through.
@@ -32,14 +32,13 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 
-# per-source extra flags: the sampler and the two diffusions must match
-# their plain versions bitwise, so no multiply-add contraction there
+# per-source extra flags: the sampler and the diffusion must match their
+# plain versions bitwise, so no multiply-add contraction there
 SOURCES = {
     "attention": [],
     "attention_bwd": [],
     "sample": ["-fmad=false"],
     "diffusion": ["-fmad=false"],
-    "diffusion_blocked": ["-fmad=false"],
     "attention_hm": [],
     "layernorm": [],
 }
@@ -73,13 +72,9 @@ _SIGNATURES = {
     "bilinear_sample_f32": ("sample", [P, P, P, P, I, I, I, I, P]),
     "landing_histogram_f32": ("sample", [P, P, P, P, I, I, I, P]),
     "diffusion_pack_nbr": ("diffusion", [P, P, P, P, I, I, I, P]),
-    "diffusion_resident_round": ("diffusion",
-                                 [P, P, P, P, P, I, I, I, I, P]),
-    "diffusion_resident_depth": ("diffusion", []),
+    "diffusion_rounds": ("diffusion",
+                         [P, P, P, P, P, P, I, I, I, I, I, I, P, P]),
     "layernorm_bf16": ("layernorm", [P, P, P, P, I, I, ctypes.c_float, I, P]),
-    "diffusion_blocked_round": ("diffusion_blocked",
-                                [P, P, P, P, P, I, I, I, I, P]),
-    "diffusion_blocked_depth": ("diffusion_blocked", []),
     "attn_hm_f32": ("attention_hm",
                     [P, P, P, P, P, P, I, I, I, I, I, ctypes.c_float, P]),
     "attn_hm_bf16": ("attention_hm",
@@ -93,10 +88,10 @@ def reset_launches() -> None:
             LAUNCHES[k] = 0
 
 
-def count(name: str) -> None:
-    """Add one launch of kernel ``name``."""
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` launches (default one) of kernel ``name``."""
     with _count_lock:
-        LAUNCHES[name] += 1
+        LAUNCHES[name] += n
 
 
 def _nvcc() -> str:

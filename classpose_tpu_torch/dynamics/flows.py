@@ -8,9 +8,9 @@ centroid), restricted to same-instance 3×3 neighbours, then the
 normalized central-difference gradient of log1p(T). The diffusion runs
 through ``ops/diffusion.py``: a CUDA kernel for tensors on the card, its
 plain version on the CPU. Geometries that pass the JAX package's
-residency gate take ``masked_diffusion`` (kernel 4), all others
-``diffuse_blocked`` (kernel 7) from zero with ``k = 1``; both give the
-same bits.
+residency gate count as ``masked_diffusion`` (kernel 4), all others as
+``diffuse_blocked`` (kernel 7) from zero with ``k = 1``; one kernel body
+runs both and gives the same bits.
 """
 
 from __future__ import annotations
@@ -21,8 +21,7 @@ import torch.nn.functional as F
 from scipy import ndimage
 
 from classpose_tpu_torch.ops.diffusion import (
-    diffuse_blocked,
-    masked_diffusion,
+    diffuse_counts,
     resident_diffusion_supported,
 )
 
@@ -30,7 +29,9 @@ from classpose_tpu_torch.ops.diffusion import (
 def _diffuse_dyn(masks: torch.Tensor, center_map: torch.Tensor, niter
                  ) -> torch.Tensor:
     """T after ``niter`` iterations; masks/center (H, W) or (B, H, W),
-    niter an int or a (B,) int tensor (one count per tile)."""
+    niter an int or a (B,) int tensor (one count per tile). An int is
+    handed down as the host's count, so nothing is read back from the
+    device."""
     single = masks.ndim == 2
     ids = masks.to(torch.int32)
     cen = center_map.to(torch.float32)
@@ -40,13 +41,14 @@ def _diffuse_dyn(masks: torch.Tensor, center_map: torch.Tensor, niter
     if isinstance(niter, torch.Tensor):
         n = niter.to(device=ids.device, dtype=torch.int32).reshape(-1)
         n = n.expand(B) if n.numel() == 1 else n
+        nmax = None
     else:
         n = torch.full((B,), int(niter), dtype=torch.int32, device=ids.device)
+        nmax = max(int(niter), 0)
     ids, cen, n = ids.contiguous(), cen.contiguous(), n.contiguous()
-    if resident_diffusion_supported(*ids.shape[1:]):
-        T = masked_diffusion(ids, cen, n)
-    else:
-        T = diffuse_blocked(torch.zeros_like(cen), ids, cen, n, k=1)
+    kernel = ("masked_diffusion" if resident_diffusion_supported(
+        *ids.shape[1:]) else "diffuse_blocked")
+    T = diffuse_counts(ids, cen, n, nmax, kernel)
     return T[0] if single else T
 
 

@@ -114,6 +114,9 @@ def landing_histogram(fy: torch.Tensor, fx: torch.Tensor,
     if fy.device.type == "cpu":
         return landing_histogram_plain(fy, fx, cell)
     _require_cuda(fy)
+    if H * W >= 2 ** 31 or B > 65535:
+        raise ValueError(f"kernel takes H·W < 2^31 and B ≤ 65535, got "
+                         f"{tuple(fy.shape)}")
     out = torch.empty((B, H, W), dtype=torch.float32, device=fy.device)
     lib = _build.lib("sample")
     _build.check(

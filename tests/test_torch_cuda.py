@@ -29,6 +29,7 @@ from classpose_tpu_torch.nn.layernorm import (
 from classpose_tpu_torch.ops.diffusion import (
     diffuse_blocked,
     diffuse_blocked_plain,
+    diffusion_plan,
     masked_diffusion,
     masked_diffusion_plain,
 )
@@ -235,8 +236,10 @@ def test_masked_diffusion_resident_kernel(dev, name, shape, counts):
     counts 40/80/120; counts 0, 1, 13 and 1200 and counts that are not
     multiples of the 16 iterations a launch runs; the smallest aligned
     tile (8 × 128, one window); one 512² training target at 1200. Random
-    labels stand beside the design field in the small cases. One pack
-    launch and ceil(max count / 16) stencil launches per call."""
+    labels stand beside the design field in the small cases. The
+    launches per call are the plan's (one pack, ceil(max count / depth)
+    rounds in the window the shape gets)."""
+
     B, H, W = shape
     ids, cen = _design_field(B, H, W)
     if H * W <= 256 * 384:
@@ -249,7 +252,7 @@ def test_masked_diffusion_resident_kernel(dev, name, shape, counts):
     before = _build.LAUNCHES["masked_diffusion"]
     got = masked_diffusion(ids_t, cen_t, niter)
     assert _build.LAUNCHES["masked_diffusion"] - before == \
-        1 + -(-max(counts) // 16)
+        diffusion_plan(B, H, W, max(counts)).launches
     assert torch.equal(got, masked_diffusion_plain(ids_t, cen_t, niter))
 
 
@@ -257,8 +260,8 @@ def test_masked_diffusion_resident_kernel(dev, name, shape, counts):
                                      ((1, 200, 333), 8)])
 def test_diffuse_blocked_kernel(dev, shape, k):
     """Kernel 7 against its plain version, bitwise: a nonzero T0, raw
-    labels, counts that are not multiples of k or of the kernel's 8
-    iterations per launch, a tile with no iteration, ragged 64² blocks."""
+    labels, counts that are not multiples of k or of the iterations per
+    launch, a tile with no iteration, ragged windows."""
     rng = np.random.default_rng(1)
     ids = torch.from_numpy(
         (rng.integers(0, 5, size=shape) * 977).astype(np.int32)).to(dev)
@@ -272,6 +275,106 @@ def test_diffuse_blocked_kernel(dev, shape, k):
     got = diffuse_blocked(T0, ids, cen, niters, k=k)
     assert _build.LAUNCHES["diffuse_blocked"] > before
     assert torch.equal(got, diffuse_blocked_plain(T0, ids, cen, niters, k=k))
+
+
+@pytest.mark.parametrize("name,shape,counts,k", [
+    ("eval_1x448_80", (1, 448, 448), [80], 1),
+    ("target_1x300x500", (1, 300, 500), [100], 1),
+    ("ragged_2x130x70", (2, 130, 70), [13, 80], 1),
+    ("strip_1x7x1000", (1, 7, 1000), [50], 1),
+    ("counts_0_1_13_80_1200", (5, 96, 200), [0, 1, 13, 80, 1200], 1),
+    ("T0_raw_k40", (3, 130, 300), [50, 0, 13], 40),
+    ("qc_8x448", (8, 448, 448), [40, 80, 120, 40, 80, 120, 40, 80], 1),
+])
+def test_diffuse_blocked_kernel_at_path_shapes(dev, name, shape, counts, k):
+    """Kernel 7 against its plain version, bitwise, at the evaluate QC of
+    one 448² image (niter 80, the design field), an unaligned target,
+    ragged shapes, a strip narrower than any window's interior, counts
+    0/1/13/80/1200 (tiles that finish while others go on), a nonzero
+    start on raw labels with k = 40, and eight 448² images; the launches
+    per call are the plan's (one pack, ceil(max count / depth) rounds)."""
+    B, H, W = shape
+    rng = np.random.default_rng(H + W)
+    if name in ("eval_1x448_80", "qc_8x448", "target_1x300x500"):
+        ids, cen = _design_field(B, H, W)
+        T0 = np.zeros(shape, np.float32)
+    else:
+        ids = (rng.integers(0, 5, size=shape) * 977).astype(np.int32)
+        cen = (rng.uniform(size=shape) < 0.05).astype(np.float32)
+        T0 = rng.uniform(0, 2, size=shape).astype(np.float32)
+    ids, cen, T0 = (torch.from_numpy(a).to(dev) for a in (ids, cen, T0))
+    niters = torch.tensor(counts, dtype=torch.int32, device=dev)
+    before = _build.LAUNCHES["diffuse_blocked"]
+    got = diffuse_blocked(T0, ids, cen, niters, k=k)
+    nmax = max(-(-c // k) * k for c in counts)
+    assert _build.LAUNCHES["diffuse_blocked"] - before == \
+        diffusion_plan(B, H, W, nmax).launches
+    assert torch.equal(got, diffuse_blocked_plain(T0, ids, cen, niters, k=k))
+
+
+def test_diffuse_dyn_int_count_reads_nothing_back(dev):
+    """``_diffuse_dyn`` with an int count at the evaluate QC's shape makes
+    the host wait for the device nowhere (CUDA's sync debug mode raises
+    on a read-back), and gives the plain version's bits."""
+    from classpose_tpu_torch.dynamics.flows import _diffuse_dyn
+
+    ids, cen = (torch.from_numpy(a[0]).to(dev)
+                for a in _design_field(1, 448, 448))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = _diffuse_dyn(ids, cen, 80)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    n = torch.tensor([80], dtype=torch.int32, device=dev)
+    assert torch.equal(got, diffuse_blocked_plain(
+        torch.zeros_like(cen)[None], ids[None], cen[None], n, k=1)[0])
+
+
+def _converged_landing(B, H, W):
+    """Every foreground pixel of the design field lands on its cell's
+    centre (clamped into the image) with cell 1; background pixels stay
+    put with cell 0."""
+    ids, _ = _design_field(B, H, W)
+    yy, xx = np.mgrid[:H, :W]
+    cy = np.minimum(yy // 32 * 32 + 16, H - 1)
+    cx = np.minimum(xx // 32 * 32 + 16, W - 1)
+    fg = ids > 0
+    return (np.where(fg, cy, yy).astype(np.int32),
+            np.where(fg, cx, xx).astype(np.int32), fg.astype(np.float32))
+
+
+@pytest.mark.parametrize("case", ["one_bin_1024", "converged_8x1024",
+                                  "converged_2x257x1023",
+                                  "converged_offset_view"])
+def test_histogram_kernel_contention(dev, case):
+    """Kernel 3 against its plain version, bitwise, where pixels pile up:
+    every pixel of a 1024² tile on one bin (2^20 adds), the converged
+    design field at 8 × 1024², at W % 4 != 0 (images that start inside a
+    warp's pixels), and on views 4 bytes past a 16-byte boundary; one
+    launch a call."""
+    if case == "one_bin_1024":
+        fy = np.zeros((1, 1024, 1024), np.int32)
+        fx, cell = fy.copy(), np.ones(fy.shape, np.float32)
+    else:
+        shape = (2, 257, 1023) if case == "converged_2x257x1023" else (
+            8, 1024, 1024)
+        fy, fx, cell = _converged_landing(*shape)
+    args = [torch.from_numpy(a).to(dev) for a in (fy, fx, cell)]
+    if case == "converged_offset_view":
+        args = [torch.cat([t.reshape(-1)[:1], t.reshape(-1)])[1:]
+                .view(fy.shape) for t in args]
+        assert all(t.data_ptr() % 16 == 4 for t in args)
+    before = _build.LAUNCHES["landing_histogram"]
+    got = landing_histogram(*args)
+    assert _build.LAUNCHES["landing_histogram"] - before == 1
+    ref = landing_histogram_plain(*args)
+    assert torch.equal(got, ref)
+    if case == "one_bin_1024":
+        assert float(got[0, 0, 0]) == 2.0 ** 20 and float(got.sum()) == \
+            2.0 ** 20
+    else:
+        assert float(got.sum()) == float(args[2].sum())
 
 
 @pytest.mark.parametrize("dtype,G", [(torch.float32, 8), (torch.float32, 16),

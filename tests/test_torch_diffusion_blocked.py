@@ -126,14 +126,12 @@ def test_routed_diffuse_dyn_matches_xla_stencil(H, W):
 
 
 def test_routing_by_the_gate(monkeypatch):
-    """Aligned geometries take kernel 4's wrapper, the others kernel 7's,
-    and both give the same bits."""
+    """Aligned geometries count as kernel 4, the others as kernel 7 (one
+    kernel body runs both), and both give the same bits."""
     calls = []
-    for name in ("masked_diffusion", "diffuse_blocked"):
-        fn = getattr(port, name)
-        monkeypatch.setattr(
-            "classpose_tpu_torch.dynamics.flows." + name,
-            lambda *a, _fn=fn, _n=name, **kw: calls.append(_n) or _fn(*a, **kw))
+    monkeypatch.setattr(
+        "classpose_tpu_torch.dynamics.flows.diffuse_counts",
+        lambda *a, **kw: calls.append(a[4]) or port.diffuse_counts(*a, **kw))
     masks, cms = _fixture(B=2, H=64, W=128, seed=6)
     ids, cen = torch.from_numpy(masks), torch.from_numpy(cms)
     n = torch.tensor([40, 80], dtype=torch.int32)
@@ -144,6 +142,59 @@ def test_routing_by_the_gate(monkeypatch):
     via_blocked = diffuse_blocked(torch.zeros_like(cen), ids, cen, n, k=1)
     assert torch.equal(aligned, via_blocked)
     assert unaligned.shape == (2, 64, 120)
+
+
+@pytest.mark.parametrize("B,H,W,nmax,window,grid,overlap,launches", [
+    # the evaluate QC of one 448² image: 25 CTAs of the 128² window on
+    # 132 SMs, so the 32-row window (4 × 28 CTAs, fewer than SMs: rounds
+    # launched plainly), 10 rounds of 8 after the pack
+    (1, 448, 448, 80, 1, (4, 28, 1), False, 11),
+    # eight evaluate images at once: 200 CTAs of the 128² window, under
+    # three waves, so 32 rows again (896 CTAs, overlapping rounds)
+    (8, 448, 448, 120, 1, (4, 28, 8), True, 16),
+    # a 512² target at 1200 iterations: 36 CTAs of the 128² window
+    (1, 512, 512, 1200, 1, (5, 32, 1), True, 151),
+    # the QC of one 8-tile batch: 968 CTAs of the 128² window
+    (8, 1024, 1024, 120, 0, (11, 11, 8), True, 9),
+    # a target past the residency gate: 484 CTAs
+    (1, 2048, 2048, 120, 0, (22, 22, 1), True, 9),
+    # nothing to run: no pack, no round
+    (1, 448, 448, 0, 1, (4, 28, 1), False, 0),
+])
+def test_window_and_launch_plan(B, H, W, nmax, window, grid, overlap,
+                                launches):
+    """The window and launch plan is a pure function of (B, H, W, nmax):
+    one pack, then ceil(nmax / depth) rounds, which overlap where the grid
+    has more CTAs than the card has SMs."""
+    plan = port.diffusion_plan(B, H, W, nmax)
+    assert (plan.window, plan.grid, plan.overlap, plan.launches) == (
+        window, grid, overlap, launches)
+    rows, depth = port.WINDOWS[plan.window]
+    assert plan.depth == depth
+    assert plan.grid[0] * (port.WINDOW_WIDTH - 2 * depth) >= W
+    assert plan.grid[1] * (rows - 2 * depth) >= H
+
+
+def test_int_niter_hands_the_host_count_down(monkeypatch):
+    """``_diffuse_dyn`` with a Python int passes it as the helper's
+    ``nmax`` and reads nothing back from a tensor: no ``.max()`` anywhere
+    on the way (the plain version included); a tensor count leaves
+    ``nmax`` to the helper."""
+    masks, cms = _fixture(B=1, H=70, W=96, seed=7)
+    ids, cen = torch.from_numpy(masks[0]), torch.from_numpy(cms[0])
+    seen = []
+    monkeypatch.setattr(
+        "classpose_tpu_torch.dynamics.flows.diffuse_counts",
+        lambda *a, **kw: seen.append(a[3]) or port.diffuse_counts(*a, **kw))
+    ref = _diffuse_dyn(ids, cen, torch.tensor(40, dtype=torch.int32))
+
+    def no_max(*a, **kw):
+        raise AssertionError("count read back with .max()")
+
+    monkeypatch.setattr(torch.Tensor, "max", no_max)
+    got = _diffuse_dyn(ids, cen, 40)
+    assert seen == [None, 40]
+    assert torch.equal(got, ref)
 
 
 def test_bad_inputs_raise():
