@@ -43,7 +43,13 @@
    run of the same slice with the plain versions swapped in; then runs
    the same batch again with ``CLASSPOSE_LN_PALLAS=1`` (400 LayerNorm
    launches: 48 block and 2 neck calls per tile's 25-crop chunk) and
-   compares its masks with the first run's;
+   compares its masks with the first run's; then ``--fast_qc``'s settings
+   (``qc_downsample=2``, ``percentile_subsample=2``) on the same batch as
+   float tiles, whose masks must equal those of the same call with the
+   plain versions (worst IoU 1.0), and kernel 4 at that call's QC shape
+   (8 × 512², one count for the batch), captured from the call, bitwise
+   against its plain version, timed, with its launches per call against
+   ``diffusion_plan``;
 5. runs the training slice at full ViT-L width in bf16 (``rdrop`` 0.4,
    seeded random weights): synthetic disc images through
    ``process_train_test`` (flow targets by the diffusion kernel) and
@@ -59,16 +65,29 @@
    finite non-zero gradient, and compares loss and gradients with the
    same step with the plain versions swapped in; then the same check for
    one step at batch 8 of 224² crops (28 × 28 tokens);
-6. runs the WSI CLI (``entrypoints.predict_wsi.main_with_args``) with
+6. writes a ViT-L checkpoint whose patch embed and attention are live
+   (``perturbed_structured_params`` with ``attn_ripple``, 6 classes) as a
+   published ``conic.pt`` (the published key layout, held against the
+   ViT-L manifest) and converts it with ``classpose-convert-weights-torch``
+   to a native ``.npz``; runs the WSI CLI
+   (``entrypoints.predict_wsi.main_with_args``) with
    ``CLASSPOSE_LN_PALLAS=1`` on a ~6144² synthetic slide at 0.4 µm/px
    (25 tiles of 1280² read and resized to 1024² at the config's 0.5 µm/px)
-   with a ViT-L bf16 checkpoint whose patch embed and attention are live
-   (``perturbed_structured_params`` with ``attn_ripple``), ``--output_type
-   csv spatialdata``: checks that the outputs parse, that the cell count
-   lies in the design field's range and that all five inference kernels
-   ran; a second run under ``--profile`` gives the device's idle share;
-   a third with the plain versions swapped in must agree (cell counts
-   within 0.5%, ≥ 99% of centroids within 1 px with the same class);
+   with that ``.npz`` in bf16, ``--output_type csv spatialdata``: checks
+   that the outputs parse, that the cell count lies in the design field's
+   range and that all five inference kernels ran; a second run under
+   ``--profile`` gives the device's idle share; a third with the plain
+   versions swapped in must agree (cell counts within 0.5%, ≥ 99% of
+   centroids within 1 px with the same class); then the published
+   checkpoint: ``python -m classpose_tpu_torch.entrypoints.predict_wsi
+   --model_config conic`` in a process of its own with
+   ``CLASSPOSE_MODEL_DIR`` on the ``.pt``'s directory must launch the
+   five kernels and find the ``.npz`` run's cells (the same count, every
+   cell matched with its class), and ``classpose-parity-check-torch`` on
+   the ``.pt`` with one 256² tile on the card (the port's fp32 forward
+   against the torch replica, layer by layer) must pass at its default
+   ``--atol``; then the CLI once more with ``--fast_qc``, whose cell
+   count must lie in the design field's range;
 7. runs the evaluate CLI (``entrypoints.run_inference.main_with_args``)
    at fp32 on 8 RGB images of 448² (3 × 3 crops each) written as
    ``images.npy`` with their design-field ``labels.npy``, with the WSI
@@ -149,6 +168,12 @@ from classpose_tpu_torch import _build
 from classpose_tpu_torch.entrypoints.calculate_metrics import (
     main_with_args as metrics_cli,
 )
+from classpose_tpu_torch.entrypoints.convert_weights import (
+    main_with_args as convert_cli,
+)
+from classpose_tpu_torch.entrypoints.parity_check import (
+    main_with_args as parity_cli,
+)
 from classpose_tpu_torch.entrypoints.predict_wsi import main_with_args
 from classpose_tpu_torch.entrypoints.run_inference import (
     main_with_args as evaluate_cli,
@@ -165,9 +190,11 @@ from classpose_tpu_torch.nn.attention import (
 )
 from classpose_tpu_torch.io.array_reader import synthetic_wsi
 from classpose_tpu_torch.io.zarrlite import read_zarr_array
-from classpose_tpu_torch.nn.convert import save_params
+from classpose_tpu_torch.model_configs import DEFAULT_MODEL_CONFIGS
+from classpose_tpu_torch.nn.convert import published_names, save_params
 from classpose_tpu_torch.nn.layernorm import layernorm, layernorm_cuda, \
     layernorm_ref
+from classpose_tpu_torch.nn.manifest import manifest_diff, vit_l_manifest
 from classpose_tpu_torch.nn.synthetic import (
     PERIOD,
     RADIUS,
@@ -983,7 +1010,7 @@ def profile_slice(model, tiles, kw) -> dict:
                 **traced(lambda: model.eval_batch(tiles, **kw)))
 
 
-def run_slice(dev) -> tuple[dict, dict, tuple]:
+def run_slice(dev) -> tuple[dict, dict, tuple, ClassposeModel]:
     cfg = ClassTransformerConfig(n_cell_classes=6, dtype="bfloat16")
     t0 = time.perf_counter()
     model = ClassposeModel(cfg=cfg, params=structured_params(cfg),
@@ -1066,7 +1093,83 @@ def run_slice(dev) -> tuple[dict, dict, tuple]:
         # kernel 3 on this path's own input (one call per batch)
         histogram_on_path=histogram_timing(*landings[-1]),
     )
-    return launches, stats, landings[-1]
+    return launches, stats, landings[-1], model
+
+
+def run_fast_qc(dev, model) -> dict:
+    """``eval_batch`` with ``--fast_qc``'s settings (``qc_downsample=2``,
+    ``percentile_subsample=2``) on phase 4's batch as float tiles, against
+    the same call with the plain versions; kernel 4 at the batch's QC
+    shape (the labels at every other pixel, one count for the batch),
+    captured from the call, against its plain version (see the module
+    docstring, step 4)."""
+    tiles = np.random.default_rng(SEED).integers(
+        0, 256, size=(N_TILES, TILE, TILE, 3)).astype(np.float32)
+    kw = dict(batch_size=32, niter=200, qc_downsample=2,
+              percentile_subsample=2)
+    qc_inputs = []
+
+    def keep_qc(ids, cen, n, nmax=None, kernel="masked_diffusion", T0=None):
+        qc_inputs.append((ids.clone(), cen.clone(), n.clone(), nmax))
+        return diffuse_counts(ids, cen, n, nmax, kernel, T0)
+
+    port_flows.diffuse_counts = keep_qc
+    try:
+        model.eval_batch(tiles, **kw)  # warm-up, keeping the QC's input
+    finally:
+        port_flows.diffuse_counts = diffuse_counts
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = model.eval_batch(tiles, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    log(f"fast QC launches: {launches}")
+    missing = [k for k in EVAL_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched with --fast_qc's "
+                             f"settings: {missing}")
+    restore = plain_versions()
+    try:
+        ref = model.eval_batch(tiles, **kw)
+    finally:
+        restore()
+    worst = compare_slices(out, ref)
+    if worst != 1.0:
+        raise AssertionError(f"fast QC vs plain: worst IoU {worst}")
+    t0 = time.perf_counter()
+    full = model.eval_batch(tiles, batch_size=32, niter=200)
+    torch.cuda.synchronize()
+    full_wall = time.perf_counter() - t0
+
+    ids, cen, n, nmax = qc_inputs[-1]
+    B, H, W = ids.shape
+    got, per_call = launches_of(
+        "masked_diffusion",
+        lambda: diffuse_counts(ids, cen, n, nmax, "masked_diffusion"))
+    if not torch.equal(got, diffuse_counts_plain(ids, cen, n, nmax)):
+        raise AssertionError("kernel 4 at the fast QC's shape not bitwise "
+                             "equal to plain")
+    plan = diffusion_plan(B, H, W, nmax)
+    if per_call != plan.launches or nmax is None:
+        raise AssertionError(f"fast QC diffusion: {per_call} launches, "
+                             f"plan {plan.launches}, count {nmax}")
+    b, by = bound_ms(ids.numel() * 12, diffusion_ops(ids, n), PEAK_FP32)
+    kernel4 = dict(
+        shape=[B, H, W], niter=nmax, launches_per_call=per_call,
+        window=WINDOWS[plan.window], bound_ms=b, bound_by=by,
+        ms=time_ms(lambda: diffuse_counts(ids, cen, n, nmax,
+                                          "masked_diffusion"), 5),
+        plain_ms=time_ms(lambda: diffuse_counts_plain(ids, cen, n, nmax), 3),
+        launches_in_batch=launches["masked_diffusion"])
+    log(f"kernel 4 at the fast QC's shape: {json.dumps(kernel4)}")
+    return dict(
+        tiles_per_s=N_TILES / wall, wall_s=wall,
+        full_fidelity_wall_s=full_wall,
+        instances=[int(m.max()) for m, _ in out],
+        full_fidelity_instances=[int(m.max()) for m, _ in full],
+        worst_iou_vs_plain=worst, launches=launches, kernel4=kernel4)
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1373,12 +1476,34 @@ def device_idle_share(trace_path: str) -> dict:
                 device_idle_share=1.0 - busy / 1e3 / span_ms)
 
 
-def run_wsi(dev, work: str) -> tuple[dict, dict]:
+def published_layout(sd: dict, n_classes: int) -> dict:
+    """A port ``state_dict`` of a ViT-L in a published checkpoint's layout:
+    the inverse of ``nn/convert.py``'s name map, the identity W2/W3 and
+    the diam buffers; held key for key and shape for shape against the
+    published ViT-L manifest."""
+    man = vit_l_manifest(n_classes)
+    back = {port: pub for pub, port in published_names(man).items()}
+    pub = {back[k]: v for k, v in sd.items()}
+    pub["diam_mean"] = torch.full((1,), 30.0)
+    pub["diam_labels"] = torch.full((1,), 30.0)
+    for name, c in (("W2", 3), ("W3", n_classes)):
+        n = c * 64
+        pub[name] = torch.eye(n).reshape(n, c, 8, 8)
+    diff = manifest_diff(pub, man)
+    if not diff["match"]:
+        raise AssertionError(f"published layout vs manifest: {diff}")
+    return pub
+
+
+def run_wsi(dev, work: str) -> tuple[dict, dict, dict]:
     """The WSI CLI on a synthetic slide with the LayerNorm switch on (see
-    the module docstring, step 6)."""
+    the module docstring, step 6), with the ``.npz`` that
+    ``classpose-convert-weights-torch`` writes from a published-layout
+    ``conic.pt``. Returns the launches, the stats, and what the later
+    WSI runs compare with."""
     os.environ["WSI_READER"] = "array"
     cfg = ClassTransformerConfig(n_cell_classes=6, dtype="bfloat16")
-    labels = [f"class{i}" for i in range(1, cfg.n_cell_classes + 1)]
+    labels = DEFAULT_MODEL_CONFIGS["conic"]["cell_types"]
     t0 = time.perf_counter()
     slide, _ = synthetic_wsi(width=WSI_SIZE, height=WSI_SIZE, n_cells=4000,
                              mpp=WSI_MPP, seed=SEED)
@@ -1386,21 +1511,26 @@ def run_wsi(dev, work: str) -> tuple[dict, dict]:
     del slide
     slide_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    save_params(perturbed_structured_params(cfg, ripple=0.5, seed=SEED,
-                                            attn_ripple=0.5),
-                f"{work}/vitl.npz", cfg)
-    ckpt_s = time.perf_counter() - t0
+    os.makedirs(f"{work}/models")
+    pt = f"{work}/models/conic.pt"
+    torch.save(published_layout(perturbed_structured_params(
+        cfg, ripple=0.5, seed=SEED, attn_ripple=0.5), cfg.n_cell_classes),
+        pt)
+    pt_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    convert_cli(["--input", pt, "--output", f"{work}/vitl.npz"])
+    convert_s = time.perf_counter() - t0
     with open(f"{work}/config.yaml", "w") as f:
         f.write(f"path: {work}/vitl.npz\nmpp: {WSI_MODEL_MPP}\n"
                 "cell_types:\n" + "".join(f"- {c}\n" for c in labels))
+    slide_args = ["--slide_path", f"{work}/slide.npy", "--device", "cuda",
+                  "--precision", "bf16", "--batch_size", "32",
+                  "--tile_size", "1024", "--overlap", "64", "--mpp",
+                  str(WSI_MPP), "--output_type", "csv", "spatialdata"]
 
     def cli(out: str, *extra):
         argv = ["--model_config", f"{work}/config.yaml",
-                "--slide_path", f"{work}/slide.npy", "--output_folder", out,
-                "--device", "cuda", "--precision", "bf16",
-                "--batch_size", "32", "--tile_size", "1024",
-                "--overlap", "64", "--mpp", str(WSI_MPP),
-                "--output_type", "csv", "spatialdata", *extra]
+                "--output_folder", out, *slide_args, *extra]
         with ln_switch(True):
             torch.cuda.synchronize()
             _build.reset_launches()
@@ -1435,28 +1565,121 @@ def run_wsi(dev, work: str) -> tuple[dict, dict]:
     finally:
         restore()
     ref_pts, ref_names = read_outputs(f"{work}/out_plain", "slide", labels)
-    from scipy.spatial import cKDTree
-
-    dist, idx = cKDTree(ref_pts).query(pts, distance_upper_bound=1.0)
-    hit = np.isfinite(dist)
-    same = np.array([h and names[i] == ref_names[j]
-                     for i, (h, j) in enumerate(zip(hit, idx))])
+    share = matched_share(pts, names, ref_pts, ref_names)
     count_diff = abs(len(pts) - len(ref_pts)) / len(ref_pts)
-    if count_diff > 0.005 or same.mean() < 0.99:
+    if count_diff > 0.005 or share < 0.99:
         raise AssertionError(f"WSI vs plain: {len(pts)} vs {len(ref_pts)} "
-                             f"cells, {same.mean():.4f} matched")
+                             f"cells, {share:.4f} matched")
     stats = dict(
         slide_px=WSI_SIZE, slide_mpp=WSI_MPP, model_mpp=WSI_MODEL_MPP,
-        make_slide_s=slide_s, make_checkpoint_s=ckpt_s,
+        make_slide_s=slide_s, write_pt_s=pt_s, convert_cli_s=convert_s,
         cli_wall_s=wall, pipeline_s=res["seconds"],
         slide_tiles_per_s=res["n_tiles"] / res["seconds"],
         n_tiles=res["n_tiles"], n_cells=res["n_cells"], n_design=n_design,
         stage_seconds=res["stage_seconds"],
         traced_pipeline_s=traced_res["seconds"], **idle,
         plain_cli_wall_s=plain_wall, plain_pipeline_s=ref["seconds"],
-        plain_n_cells=ref["n_cells"], matched_share=float(same.mean()),
+        plain_n_cells=ref["n_cells"], matched_share=share,
     )
-    return launches, stats
+    wsi = dict(cli=cli, work=work, slide_args=slide_args, labels=labels, pt=pt,
+               pts=pts, names=names, n_design=n_design, seconds=res["seconds"])
+    return launches, stats, wsi
+
+
+def matched_share(pts, names, ref_pts, ref_names) -> float:
+    """Share of cells with a cell of the same class within 1 px in the
+    other run."""
+    from scipy.spatial import cKDTree
+
+    dist, idx = cKDTree(ref_pts).query(pts, distance_upper_bound=1.0)
+    return float(np.mean([np.isfinite(d) and names[i] == ref_names[j]
+                          for i, (d, j) in enumerate(zip(dist, idx))]))
+
+
+# the WSI CLI as ``python -m classpose_tpu_torch.entrypoints.predict_wsi``
+# runs it, in a process of its own, printing the launch counts last
+PT_RUN = """
+import json, runpy
+from classpose_tpu_torch import _build
+runpy.run_module("classpose_tpu_torch.entrypoints.predict_wsi",
+                 run_name="__main__", alter_sys=True)
+print(json.dumps(dict(_build.LAUNCHES)))
+"""
+
+
+def run_published(work: str, wsi: dict) -> dict:
+    """The published checkpoint (see the module docstring, step 6): the
+    WSI CLI with ``--model_config conic`` on ``$CLASSPOSE_MODEL_DIR/
+    conic.pt``, in a process of its own, against the WSI phase's run on the
+    converted ``.npz``; then ``classpose-parity-check-torch`` on the
+    ``.pt`` on the card."""
+    env = {**os.environ, "CLASSPOSE_MODEL_DIR": os.path.dirname(wsi["pt"]),
+           LN_SWITCH: "1", "WSI_READER": "array"}
+    out = f"{work}/out_pt"
+    torch.cuda.empty_cache()  # the card's memory for the other process
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", PT_RUN, "--model_config", "conic",
+         "--output_folder", out, *wsi["slide_args"]],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        capture_output=True, text=True)
+    pt_wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"--model_config conic run failed:\n"
+                             f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    launches = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f".pt WSI launches: {launches}")
+    missing = [k for k in WSI_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the .pt run: "
+                             f"{missing}")
+    pts, names = read_outputs(out, "slide", wsi["labels"])
+    share = matched_share(pts, names, wsi["pts"], wsi["names"])
+    if len(pts) != len(wsi["pts"]) or share != 1.0:
+        raise AssertionError(f".pt vs converted .npz: {len(pts)} vs "
+                             f"{len(wsi['pts'])} cells, {share} matched")
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        report = parity_cli(["--checkpoint", wsi["pt"], "--n_tiles", "1",
+                             "--tile_size", "256", "--device", "cuda",
+                             "--output", f"{work}/parity.json"])
+    torch.cuda.synchronize()
+    parity_s = time.perf_counter() - t0
+    parity_launches = dict(_build.LAUNCHES)
+    pl = report["per_layer"]
+    log(f"parity check: {json.dumps(pl)}")
+    if not report["manifest_diff"]["match"] or pl["missing_keys"] \
+            or pl["unexpected_keys"] or not report["logit_parity_pass"] \
+            or parity_launches["flash_attention_relpos"] == 0 \
+            or not report["n_cells_per_tile"][0]:
+        raise AssertionError(f"parity check: {json.dumps(report)}")
+    stats = dict(
+        pt_cli_wall_s=pt_wall, n_cells=len(pts), npz_n_cells=len(wsi["pts"]),
+        matched_share=share, launches=launches,
+        parity=dict(wall_s=parity_s, atol=report["atol"],
+                    logit_parity_pass=report["logit_parity_pass"],
+                    final_logits_max_diff=pl["final_logits_max_diff"],
+                    layers=pl["layers"],
+                    n_cells=report["n_cells_per_tile"],
+                    launches=parity_launches))
+    return stats
+
+
+def run_wsi_fast_qc(wsi: dict) -> dict:
+    """The WSI CLI once more with ``--fast_qc``: its cells against the
+    design and the full-fidelity run."""
+    res, wall, launches = wsi["cli"](f"{wsi['work']}/out_fast_qc",
+                                     "--fast_qc")
+    n = res["n_cells"]
+    if not 0.9 * wsi["n_design"] <= n <= 1.05 * wsi["n_design"]:
+        raise AssertionError(f"--fast_qc: {n} cells (design "
+                             f"{wsi['n_design']})")
+    return dict(cli_wall_s=wall, pipeline_s=res["seconds"], n_cells=n,
+                full_fidelity_pipeline_s=wsi["seconds"],
+                full_fidelity_n_cells=len(wsi["pts"]),
+                stage_seconds=res["stage_seconds"], launches=launches)
 
 
 # ---------------------------------------------------------------- phase 7
@@ -1791,14 +2014,21 @@ def main() -> int:
     fault3_grids = check_fault3_grids(gen, dev)
     log(f"fault 3 grids: {json.dumps(fault3_grids)}")
 
-    launches, stats, path_landing = run_slice(dev)
+    launches, stats, path_landing, slice_model = run_slice(dev)
     log(f"slice: {json.dumps(stats)}")
+    fast_qc = run_fast_qc(dev, slice_model)
+    del slice_model
+    log(f"fast QC: {json.dumps(fast_qc)}")
     with tempfile.TemporaryDirectory() as out_dir:
         train_launches, train_stats = run_training(dev, out_dir)
     log(f"training: {json.dumps(train_stats)}")
     with tempfile.TemporaryDirectory() as work:
-        wsi_launches, wsi_stats = run_wsi(dev, work)
+        wsi_launches, wsi_stats, wsi = run_wsi(dev, work)
         log(f"wsi: {json.dumps(wsi_stats)}")
+        published = run_published(work, wsi)
+        log(f"published checkpoint: {json.dumps(published)}")
+        fast_qc["wsi"] = run_wsi_fast_qc(wsi)
+        log(f"--fast_qc WSI: {json.dumps(fast_qc['wsi'])}")
         ev_launches, ev_stats = run_evaluate(dev, work)
     log(f"evaluate: {json.dumps(ev_stats)}")
     fault3_eval = run_fault3_eval(dev)
@@ -1832,7 +2062,8 @@ def main() -> int:
     print(json.dumps({"kernels": [{key: k[key] for key in order}
                                   for k in kernels],
                       "slice": stats, "training": train_stats,
-                      "wsi": wsi_stats, "evaluate": ev_stats,
+                      "wsi": wsi_stats, "published": published,
+                      "fast_qc": fast_qc, "evaluate": ev_stats,
                       "layernorm_neck": by_name["layernorm"]["neck"],
                       "diffuse_blocked_shapes": by_name["diffuse_blocked"][
                           "shapes"],

@@ -5,11 +5,13 @@
         --output_folder out [--device cpu] [--output_type csv spatialdata]
 
 Flag for flag the JAX package's parser (same destinations, defaults,
-choices and ``nargs``), which the QuPath extension drives. ``--device``
-defaults to the card; ``cpu`` runs on the CPU. What waits (``ROADMAP.md``
-queue 1) raises ``NotImplementedError`` before any slide is read: the
-GrandQC model paths, ``--fast_qc``, several cards (``cuda:0,1``), ``.pt``
-weights and readers other than ``WSI_READER=array``.
+choices and ``nargs``), which the QuPath extension drives. A built-in
+``--model_config`` (``conic`` ...) loads its published
+``$CLASSPOSE_MODEL_DIR/<name>.pt``; a YAML config may name a ``.pt`` or a
+native ``.npz``. ``--device`` defaults to the card; ``cpu`` runs on the
+CPU. What waits (``ROADMAP.md`` queue 1) raises ``NotImplementedError``
+before any slide is read: the GrandQC model paths, several cards
+(``cuda:0,1``) and readers other than ``WSI_READER=array``.
 """
 
 from __future__ import annotations
@@ -116,8 +118,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--fast_qc", action="store_true", default=False,
-        help="Half-resolution flow-QC and strided percentile stats "
-        "(not ported yet: raises).",
+        help="Half-resolution flow-QC and strided percentile stats.",
     )
     parser.add_argument(
         "--progress", action="store_true", default=None,
@@ -135,7 +136,7 @@ def main_with_args(argv=None) -> list[dict]:
 
     args = build_parser().parse_args(argv)
     config = resolve_model_config(args.model_config)
-    check_supported(args, config)
+    check_supported(args)
     config.download_if_necessary()
     model = build_model_from_config(
         config, precision=args.precision,

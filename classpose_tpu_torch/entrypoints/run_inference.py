@@ -2,7 +2,7 @@
 inference over a dataset, then CoNIC multiclass PQ against its labels.
 
     python -m classpose_tpu_torch.entrypoints.run_inference \\
-        --data_path DIR --model_path model.npz --output_dir OUT \\
+        --data_path DIR --model_path model.pt --output_dir OUT \\
         [--device cpu] [--precision fp32]
 
 ``DIR`` holds ``images.npy`` (N images, HWC or CHW) and ``labels.npy``
@@ -48,12 +48,17 @@ def main(args) -> dict:
         images = images[:args.max_images]
         labels = labels[:args.max_images]
 
-    structure, n_classes = infer_structure(args.model_path)
+    # a .pt (or an .npz with __meta__) gives its model the config of its
+    # own tensors; an .npz without __meta__ needs the head from its keys
+    structure, n_classes = (infer_structure(args.model_path)
+                            if str(args.model_path).endswith(".npz")
+                            else (None, None))
     model = ClassposeModel(pretrained_model=args.model_path,
                            nclasses=n_classes,
                            feature_transformation_structure=structure,
                            precision=args.precision,
                            device=get_device(args.device))
+    n_classes = model.nclasses
 
     preds = []
     t0 = time.perf_counter()

@@ -175,7 +175,8 @@ def build_parser():
                    help="auto (= cuda), cuda or cpu")
     p.add_argument("--resume_checkpoint", type=str, default=None)
     p.add_argument("--pretrained_model", type=str, default=None,
-                   help=".npz weights to start from")
+                   help="weights to start from: a published .pt or a "
+                   "native .npz")
     p.add_argument("--min_train_masks", type=int, default=5)
     p.add_argument("--augmentation", type=str, default=None,
                    help="augmentation config name (not ported yet)")

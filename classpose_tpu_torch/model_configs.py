@@ -2,10 +2,10 @@
 (counterpart of ``classpose_tpu/model_configs.py``).
 
 The six built-in configs carry each published model's training MPP and
-cell-type labels; ``CLASSPOSE_MODEL_DIR`` moves their weights. The port
-reads its weights from the JAX package's native ``.npz`` format
-(``nn/convert.py``); the built-ins point at the published ``.pt`` files,
-which wait for the reference-to-port name map (:data:`PT_WEIGHTS_ITEM`).
+cell-type labels and point at its published ``.pt`` weights under
+``CLASSPOSE_MODEL_DIR`` (read once, at import, as the JAX package reads
+it). The port loads those ``.pt`` files as well as the JAX package's
+native ``.npz`` checkpoints (``nn/convert.py``).
 
 ``ModelConfig`` is a dataclass, and :func:`parse_yaml` reads the subset
 of YAML a config uses (scalars, the ``hf:`` mapping, the ``cell_types:``
@@ -29,7 +29,6 @@ HOME = Path.home()
 ROOT_MODEL_DIR = Path(os.getenv("CLASSPOSE_MODEL_DIR",
                                 HOME / ".classpose_models"))
 REPO_ID = "classpose/classpose"
-PT_WEIGHTS_ITEM = 'ROADMAP.md queue 1, "published .pt checkpoints"'
 
 # Built-in model registry: (training MPP, cell-type labels), the published
 # model contract.
@@ -257,13 +256,6 @@ class ModelConfig:
         with open(path) as o:
             config = parse_yaml(o.read())
         return ModelConfig(**config)
-
-    def require_npz(self) -> None:
-        """Raise unless the weights are a native ``.npz`` checkpoint."""
-        if not self.path.endswith(".npz"):
-            raise NotImplementedError(
-                f"weights {self.path}: this package loads native .npz "
-                f"checkpoints; .pt weights wait for {PT_WEIGHTS_ITEM}")
 
     def download_if_necessary(self) -> None:
         if Path(self.path).exists():

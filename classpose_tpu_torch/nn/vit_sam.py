@@ -46,8 +46,9 @@ from classpose_tpu_torch.nn.unet import UNet
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # field of the JAX config that checkpoint metadata carries but the port
-# has no use for: the TPU kernel switch
-JAX_ONLY_FIELDS = ("use_pallas_attention",)
+# has no use for (the TPU kernel switch), with the JAX default that the
+# port's checkpoints carry, so that their metadata is the JAX package's
+JAX_ONLY_FIELDS = {"use_pallas_attention": True}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -15,9 +15,11 @@ wait for the other thread's program. A batch is uploaded from pinned
 memory on a copy stream as soon as it fills; the inference stream waits
 on the copy's event before using it.
 
-What waits (``ROADMAP.md`` queue 1) raises before a slide is read: the
-GrandQC tissue and artefact models, ``--fast_qc``, readers other than
-``WSI_READER=array``, ``.pt`` weights and several cards.
+Weights are a published ``.pt`` (the built-in configs) or a native
+``.npz``. ``--fast_qc`` runs ``eval_batch`` with ``qc_downsample=2`` and
+``percentile_subsample=2``. What waits (``ROADMAP.md`` queue 1) raises
+before a slide is read: the GrandQC tissue and artefact models, readers
+other than ``WSI_READER=array`` and several cards.
 """
 
 from __future__ import annotations
@@ -96,6 +98,8 @@ class DeviceWorker:
         cellprob_threshold: float = 0.0,
         min_size: int = 15,
         tile_batch: int | None = None,
+        qc_downsample: int = 1,
+        percentile_subsample: int = 1,
     ):
         self.model = model
         self.labels = labels
@@ -106,6 +110,8 @@ class DeviceWorker:
         self.flow_threshold = flow_threshold
         self.cellprob_threshold = cellprob_threshold
         self.min_size = min_size
+        self.qc_downsample = qc_downsample
+        self.percentile_subsample = percentile_subsample
         self.device = model.device
         self.tile_batch = max(1, int(tile_batch)) if tile_batch else 8
         self._pending: dict[int, list] = {}
@@ -184,7 +190,8 @@ class DeviceWorker:
         kw = dict(batch_size=self.batch_size, augment=self.augment,
                   niter=self.niter, flow_threshold=self.flow_threshold,
                   cellprob_threshold=self.cellprob_threshold,
-                  min_size=self.min_size)
+                  min_size=self.min_size, qc_downsample=self.qc_downsample,
+                  percentile_subsample=self.percentile_subsample)
         if self._cuda:
             stream = self._stream()
             with torch.cuda.stream(stream):
@@ -272,11 +279,10 @@ class ProgressReporter:
         return False
 
 
-def check_supported(args, model_config: ModelConfig | None = None) -> None:
+def check_supported(args) -> None:
     """Raise ``NotImplementedError`` for what this package does not run
     yet, before any slide is read or any model built: the GrandQC model
-    paths, ``--fast_qc``, a reader other than ``WSI_READER=array``,
-    ``.pt`` weights (when ``model_config`` is given) and several cards
+    paths, a reader other than ``WSI_READER=array`` and several cards
     (``get_device``)."""
     for flag in ("tissue_detection_model_path",
                  "artefact_detection_model_path"):
@@ -284,13 +290,7 @@ def check_supported(args, model_config: ModelConfig | None = None) -> None:
             raise NotImplementedError(
                 f"--{flag}: GrandQC tissue and artefact detection wait for "
                 f"{GRANDQC_ITEM}")
-    if getattr(args, "fast_qc", False):
-        from classpose_tpu_torch.runner.model import FAST_QC_ITEM
-
-        raise NotImplementedError(f"--fast_qc waits for {FAST_QC_ITEM}")
     get_wsi_reader()
-    if model_config is not None:
-        model_config.require_npz()
     get_device(getattr(args, "device", None))
 
 
@@ -298,25 +298,29 @@ def build_model_from_config(model_config: ModelConfig,
                             precision: str = "bf16",
                             n_config_labels: int | None = None,
                             device=None):
-    """The ClassposeModel of a resolved ModelConfig (class head and count
-    from the checkpoint), on ``device`` (default: the card). Reusable
-    across slides."""
+    """The ClassposeModel of a resolved ModelConfig, ``.pt`` or ``.npz``
+    (class head and count from the checkpoint), on ``device`` (default:
+    the card). Reusable across slides."""
     from classpose_tpu_torch.nn.convert import infer_structure
     from classpose_tpu_torch.runner import ClassposeModel
 
-    model_config.require_npz()
-    structure, n_classes = infer_structure(model_config.path)
-    logger.info("Inferred model structure: unet=%s n_classes=%d", structure,
-                n_classes)
+    path = model_config.path
+    # a .pt (or an .npz with __meta__) gives its model the config of its
+    # own tensors; an .npz without __meta__ needs the head from its keys
+    structure, n_classes = (infer_structure(path) if path.endswith(".npz")
+                            else (None, None))
+    model = ClassposeModel(
+        pretrained_model=path, nclasses=n_classes,
+        feature_transformation_structure=structure, precision=precision,
+        device=get_device(None) if device is None else device)
+    n_classes = model.nclasses
+    logger.info("Inferred model structure: unet=%s n_classes=%d",
+                model.cfg.feature_transformation_structure, n_classes)
     if n_config_labels is not None and n_classes > 1 \
             and n_config_labels != n_classes:
         logger.warning("Model has %d classes but config lists %d cell types",
                        n_classes, n_config_labels)
-    return ClassposeModel(
-        pretrained_model=model_config.path, nclasses=n_classes,
-        feature_transformation_structure=structure, precision=precision,
-        device=get_device(None) if device is None else device,
-    )
+    return model
 
 
 def main(args, model_override=None) -> dict:
@@ -328,8 +332,7 @@ def main(args, model_override=None) -> dict:
     model_config = (args.model_config
                     if isinstance(args.model_config, ModelConfig)
                     else resolve_model_config(args.model_config))
-    check_supported(args, None if model_override is not None
-                    else model_config)
+    check_supported(args)
     device = get_device(getattr(args, "device", None))
     os.makedirs(args.output_folder, exist_ok=True)
     base_name = Path(args.slide_path).name.rsplit(".", 1)[0]
@@ -374,6 +377,8 @@ def main(args, model_override=None) -> dict:
         augment=bool(getattr(args, "tta", False)),
         n_post_threads=getattr(args, "inference_threads", None) or 4,
         tile_batch=getattr(args, "tile_batch", None),
+        qc_downsample=2 if getattr(args, "fast_qc", False) else 1,
+        percentile_subsample=2 if getattr(args, "fast_qc", False) else 1,
     )
 
     profile_dir = getattr(args, "profile", None)

@@ -7,7 +7,9 @@ percentiles) → pad → 5×5 grid of bsize² crops → ClassTransformer forward
 → TTA unaugment → taper blend → Euler flow following →
 histogram/seeds/basins/label lookup → max-size filter and flow-error QC.
 The host then densifies the labels, fills holes, drops small instances
-and takes each instance's majority class.
+and takes each instance's majority class. With ``qc_downsample > 1``
+(``--fast_qc``) the QC runs after the host's labels instead, on every
+d-th pixel, in one batched diffusion.
 
 ``eval`` (the reference's per-image API, which ``classpose-evaluate``
 calls) segments one image, a list, or a 3D stack: convert → optional
@@ -25,6 +27,13 @@ import time
 import numpy as np
 import torch
 
+from classpose_tpu_torch.dynamics.flows import (
+    _bucket,
+    _diffuse_dyn,
+    _max_instance_extent,
+    grad_from_T,
+    instance_center_map,
+)
 from classpose_tpu_torch.dynamics.masks import (
     compute_masks as _dyn_compute_masks,
     densify_labels,
@@ -34,12 +43,11 @@ from classpose_tpu_torch.dynamics.masks import (
     qc_filter_masks,
 )
 from classpose_tpu_torch.nn.convert import (
+    load_checkpoint,
     load_into,
-    load_npz_checkpoint,
     params_from_jax,
 )
 from classpose_tpu_torch.nn.vit_sam import (
-    JAX_ONLY_FIELDS,
     ClassTransformer,
     ClassTransformerConfig,
 )
@@ -62,8 +70,6 @@ from classpose_tpu_torch.runner.core import (
 from classpose_tpu_torch.runner.run3d import compute_masks_3d, run_3D, stitch3D
 
 logger = logging.getLogger(__name__)
-
-FAST_QC_ITEM = 'ROADMAP.md queue 1, "--fast_qc"'
 
 
 def compute_class_masks_from_pixels(masks: np.ndarray, pixel_cls: np.ndarray,
@@ -177,13 +183,15 @@ def _norm_params(normalize, invert: bool) -> dict:
 class ClassposeModel:
     """Network + tiled inference + mask dynamics.
 
-    Weights: a native ``.npz`` checkpoint (the JAX package's format),
+    Weights: a checkpoint file, native ``.npz`` (the JAX package's format)
+    or published ``.pt`` (loaded on the CPU, then moved to the device),
     ``params`` as a port ``state_dict`` or a flax parameter tree, or
     neither for PyTorch's default random init drawn from ``seed``. ``cfg``
     defaults to ViT-L with ``nclasses`` classes and the class head
     ``feature_transformation_structure`` (a UNet ladder, or None for a
-    1×1 conv); a checkpoint's metadata replaces it. Runs on ``device``
-    (CUDA unless the caller asks for the CPU)."""
+    1×1 conv); an ``.npz``'s metadata, or the config a ``.pt``'s tensor
+    shapes give (``infer_config_from_state_dict``), replaces it. Runs on
+    ``device`` (CUDA unless the caller asks for the CPU)."""
 
     def __init__(self, pretrained_model: str | None = None,
                  nclasses: int | None = None,
@@ -203,15 +211,8 @@ class ClassposeModel:
         sd = None
         if pretrained_model is not None:
             logger.info("loading model %s", pretrained_model)
-            flat, meta = load_npz_checkpoint(str(pretrained_model))
-            sd = params_from_jax(flat)
-            if meta is not None:
-                meta = {k: v for k, v in meta.items()
-                        if k not in JAX_ONLY_FIELDS}
-                fts = meta.get("feature_transformation_structure")
-                meta["feature_transformation_structure"] = (
-                    tuple(fts) if fts else None)
-                cfg = ClassTransformerConfig(**meta)
+            sd, ck_cfg = load_checkpoint(str(pretrained_model))
+            cfg = cfg if ck_cfg is None else ck_cfg
         elif params is not None:
             sd = (params_from_jax(params)
                   if any(isinstance(v, dict) for v in params.values())
@@ -230,9 +231,13 @@ class ClassposeModel:
 
     @torch.no_grad()
     def _device_program(self, x, batch_size, augment, niter, flow_threshold,
-                        cellprob_threshold, max_size_fraction):
+                        cellprob_threshold, max_size_fraction,
+                        percentile_subsample=1, qc=True):
         """uint8 or f32 tiles (B, S, S, 3) on the device → (raw labels
-        (B, S, S) int32, class argmax (B, S, S) int8 or None)."""
+        (B, S, S) int32, class argmax (B, S, S) int8 or None, flows dP
+        (B, 2, S, S)). With ``qc`` the labels have been through the
+        max-size filter and the flow-error QC; without, they are the
+        seeds' raw labels."""
         B, S = x.shape[0], x.shape[1]
         bsize = self.cfg.bsize
         ncls = self.nclasses
@@ -245,6 +250,7 @@ class ClassposeModel:
         ys = []
         for b in range(B):
             img = normalize_img(x[b].to(torch.float32), axis=-1,
+                                percentile_subsample=percentile_subsample,
                                 integral_stats=integral)
             chw = torch.nn.functional.pad(
                 img.permute(2, 0, 1), (xpad1, xpad2, ypad1, ypad2))
@@ -272,9 +278,10 @@ class ClassposeModel:
 
         p = follow_flows_batched(dP, iscell, niter=niter)
         raw = get_masks_from_positions_batched(p, iscell)
-        raw = qc_filter_masks(raw, dP, flow_threshold=flow_threshold,
-                              max_size_fraction=max_size_fraction)
-        return raw, class_pix
+        if qc:
+            raw = qc_filter_masks(raw, dP, flow_threshold=flow_threshold,
+                                  max_size_fraction=max_size_fraction)
+        return raw, class_pix, dP
 
     def eval_batch(self, tiles, batch_size: int = 8, augment: bool = False,
                    niter: int = 200, flow_threshold: float = 0.4,
@@ -286,28 +293,35 @@ class ClassposeModel:
         numpy array or a tensor, which may already be on the device).
         Returns one (masks, class_masks) pair of int32 arrays per tile.
 
-        ``qc_downsample`` and ``percentile_subsample`` are the JAX
-        signature's ``--fast_qc`` approximations; only 1 (full fidelity)
-        is ported."""
-        if qc_downsample != 1 or percentile_subsample != 1:
-            raise NotImplementedError(
-                f"qc_downsample={qc_downsample}, percentile_subsample="
-                f"{percentile_subsample}: the --fast_qc approximations wait "
-                f"for {FAST_QC_ITEM}")
+        ``qc_downsample`` and ``percentile_subsample`` are ``--fast_qc``'s
+        approximations. ``percentile_subsample = s > 1`` takes a float
+        tile's percentiles from every s-th pixel (uint8 tiles take exact
+        histogram percentiles either way). ``qc_downsample = d > 1`` moves
+        the QC off the device program: the host densifies each tile's
+        labels and drops instances over ``max_size_fraction``, then one
+        batched diffusion recomputes the flows of every tile's labels at
+        every d-th pixel, with one horizon for the batch, and the host
+        drops the instances whose mean squared error against ``dP/5``
+        there exceeds ``flow_threshold``."""
         x = torch.as_tensor(np.asarray(tiles) if not isinstance(
             tiles, torch.Tensor) else tiles)
         if x.dtype != torch.uint8:
             x = x.to(torch.float32)
         x = x.to(self.device)
-        raw, class_pix = self._device_program(
+        fast = qc_downsample > 1
+        raw, class_pix, dP = self._device_program(
             x, batch_size, augment, niter, flow_threshold,
-            cellprob_threshold, max_size_fraction)
+            cellprob_threshold, max_size_fraction, percentile_subsample,
+            qc=not fast)
         raw = raw.cpu().numpy()
         class_pix = None if class_pix is None else class_pix.cpu().numpy()
+        masks_list = [densify_labels(m) for m in raw]
+        if fast:
+            self._fast_qc(masks_list, dP, qc_downsample, flow_threshold,
+                          max_size_fraction)
 
         out = []
-        for i in range(raw.shape[0]):
-            masks = densify_labels(raw[i])
+        for i, masks in enumerate(masks_list):
             if masks.max():
                 masks = fill_holes_and_remove_small_masks(masks, min_size)
             if self.nclasses > 1 and masks.max():
@@ -317,6 +331,48 @@ class ClassposeModel:
                 cm = np.zeros_like(masks)
             out.append((masks.astype(np.int32), cm))
         return out
+
+    def _fast_qc(self, masks_list: list[np.ndarray], dP: torch.Tensor,
+                 d: int, flow_threshold: float,
+                 max_size_fraction: float) -> None:
+        """``eval_batch``'s host QC at ``qc_downsample = d`` (the JAX
+        package's unfused path): zeroes, in place, the instances of each
+        tile's dense labels that are too large or whose flows disagree."""
+        S = masks_list[0].shape[0]
+        for masks in masks_list:
+            nmax = int(masks.max())
+            if nmax:
+                too_big = np.bincount(masks.ravel(), minlength=nmax + 1) \
+                    > max_size_fraction * S * S
+                too_big[0] = False
+                if too_big.any():
+                    masks[too_big[masks]] = 0
+        if not flow_threshold or flow_threshold <= 0:
+            return
+        ms = np.stack([m[::d, ::d] for m in masks_list])
+        niter_qc = _bucket(min(max(
+            2 * max(_max_instance_extent(m) for m in ms), 40), 400), 40)
+        cms = np.stack([instance_center_map(m) for m in ms])
+        ms_dev = torch.from_numpy(ms.astype(np.int32)).to(self.device)
+        T = _diffuse_dyn(ms_dev, torch.from_numpy(cms).to(self.device),
+                         niter_qc)
+        mu = grad_from_T(ms_dev, T).cpu().numpy()
+        dP_ds = dP[:, :, ::d, ::d].float().cpu().numpy()
+        for i, masks in enumerate(masks_list):
+            nmax = int(masks.max())
+            if nmax == 0:
+                continue
+            err_map = ((mu[i] - dP_ds[i] / 5.0) ** 2).sum(axis=0)
+            ids = ms[i].ravel().astype(np.int64)
+            fg = ids > 0
+            n = np.bincount(ids[fg], minlength=nmax + 1)
+            ssum = np.bincount(ids[fg], weights=err_map.ravel()[fg],
+                               minlength=nmax + 1)
+            bad = (ssum / np.maximum(n, 1)).astype(np.float32) \
+                > flow_threshold
+            bad[0] = False
+            if bad.any():
+                masks[bad[masks]] = 0
 
     # ------------------------------------------------------ per-image API
 

@@ -54,7 +54,6 @@ def setup(tmp_path, monkeypatch):
 @pytest.mark.parametrize("extra,match", [
     (["--tissue_detection_model_path", "t.pt"], "GrandQC"),
     (["--artefact_detection_model_path", "a.pt"], "GrandQC"),
-    (["--fast_qc"], "fast_qc"),
     (["--device", "cuda:0,1"], "multi-card"),
     (["--device", "gpu:0,1,2"], "multi-card"),
 ])
@@ -79,15 +78,6 @@ def test_unset_reader_raises(setup, monkeypatch):
     monkeypatch.delenv("WSI_READER")
     with pytest.raises(NotImplementedError, match="WSI_READER=array"):
         main_with_args(base)
-
-
-@pytest.mark.parametrize("builtin", ["conic", "puma"])
-def test_pt_weights_raise(setup, builtin):
-    _, base = setup
-    argv = list(base)
-    argv[1] = builtin
-    with pytest.raises(NotImplementedError, match=".pt checkpoints"):
-        main_with_args(argv)
 
 
 def test_get_device_without_cuda_raises(monkeypatch):

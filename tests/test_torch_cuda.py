@@ -527,3 +527,52 @@ def test_wsi_pipeline_on_card_matches_cpu(dev, tmp_path, monkeypatch):
     dist, _ = cKDTree(pts["cpu"]).query(pts["cuda"],
                                         distance_upper_bound=1.0)
     assert np.isfinite(dist).mean() >= 0.99
+
+
+def test_fast_qc_diffusion_kernel(dev):
+    """Kernel 4 at the ``--fast_qc`` QC's shape, bitwise: 8 tiles of
+    1024² labels at every other pixel (8 × 512²), one int count for the
+    batch as ``eval_batch`` passes it (nothing read back), with the plan's
+    launches."""
+    import classpose_tpu_torch.dynamics.flows as port_flows
+    from classpose_tpu_torch.ops.diffusion import diffuse_counts_plain
+
+    ids, cen = _design_field(8, 512, 512)
+    ids_t = torch.from_numpy(ids).to(dev)
+    cen_t = torch.from_numpy(cen).to(dev)
+    before = _build.LAUNCHES["masked_diffusion"]
+    got = port_flows._diffuse_dyn(ids_t, cen_t, 80)
+    assert _build.LAUNCHES["masked_diffusion"] - before == \
+        diffusion_plan(8, 512, 512, 80).launches
+    n = torch.full((8,), 80, dtype=torch.int32, device=dev)
+    assert torch.equal(got, diffuse_counts_plain(ids_t, cen_t, n, 80))
+
+
+def test_vit_l_pt_loads_to_card(dev, tmp_path):
+    """A ViT-L checkpoint in the published layout (every key and shape of
+    the manifest, 6 classes, seeded values) builds its model on the card:
+    the config read off its shapes is the default ViT-L's, every tensor
+    arrives unchanged, and a bf16 forward of one crop is finite."""
+    from classpose_tpu_torch.nn.convert import published_names
+    from classpose_tpu_torch.nn.manifest import vit_l_manifest
+    from classpose_tpu_torch.nn.vit_sam import ClassTransformerConfig
+    from classpose_tpu_torch.runner import ClassposeModel
+
+    man = vit_l_manifest(6)
+    g = torch.Generator().manual_seed(0)
+    sd = {k: torch.randn(s, generator=g) * 0.02 for k, s in man.items()}
+    for name, c in (("W2", 3), ("W3", 6)):
+        sd[name] = torch.eye(c * 64).reshape(c * 64, c, 8, 8)
+    torch.save(sd, tmp_path / "conic.pt")
+    model = ClassposeModel(pretrained_model=str(tmp_path / "conic.pt"),
+                           precision="bf16", device=dev)
+    assert model.cfg == ClassTransformerConfig(n_cell_classes=6,
+                                               dtype="bfloat16")
+    own = model.net.state_dict()
+    for pub, port in published_names(sd).items():
+        assert own[port].device.type == "cuda"
+        assert torch.equal(own[port].cpu(), sd[pub]), pub
+    x = torch.rand((1, 3, 256, 256), generator=g).to(dev)
+    with torch.no_grad():
+        y = model.net(x)[0]
+    assert y.shape == (1, 9, 256, 256) and torch.isfinite(y).all()

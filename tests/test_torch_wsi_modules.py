@@ -379,8 +379,6 @@ def test_builtin_configs_match():
         b = jcfg.resolve_model_config(name)
         assert (a.path, a.mpp, a.cell_types, a.hf.filename) == \
             (b.path, b.mpp, b.cell_types, b.hf.filename)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            a.require_npz()
 
 
 def test_download_branches(tmp_path, monkeypatch):
