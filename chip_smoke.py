@@ -87,7 +87,19 @@
    the ``.pt`` with one 256² tile on the card (the port's fp32 forward
    against the torch replica, layer by layer) must pass at its default
    ``--atol``; then the CLI once more with ``--fast_qc``, whose cell
-   count must lie in the design field's range;
+   count must lie in the design field's range; then the slide phase: the
+   same slide written by the port's ``write_tiled_tiff`` (512² JPEG
+   tiles at quality 80, MPP 0.4 in its Aperio description) as
+   ``slide.svs`` and run through the CLI with ``WSI_READER`` unset (the
+   port's ``TiffSlide``, the MPP read from the file): the five kernels
+   must run, its cells lie within 0.5% of the ``.npy`` run's with ≥ 99%
+   matched; its level 0 decoded whole by the reader and run as
+   ``decoded.npy`` must find its cells exactly; the golden JPEG
+   (``tests/golden``) must decode to the pixels PIL decoded; it prints
+   the write seconds and the codec's host rates (encode on one thread,
+   decode of level 0's 144 tiles on one and on the loader's 4 reader
+   threads) and the SVS run's pipeline and stage seconds beside the
+   ``.npy`` run's;
 7. runs the evaluate CLI (``entrypoints.run_inference.main_with_args``)
    at fp32 on 8 RGB images of 448² (3 × 3 crops each) written as
    ``images.npy`` with their design-field ``labels.npy``, with the WSI
@@ -134,6 +146,8 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -188,7 +202,9 @@ from classpose_tpu_torch.nn.attention import (
     flash_attention_relpos,
     flash_attention_relpos_plain,
 )
+from classpose_tpu_torch.io import TiffSlide, jpeg
 from classpose_tpu_torch.io.array_reader import synthetic_wsi
+from classpose_tpu_torch.io.tiff_writer import write_tiled_tiff
 from classpose_tpu_torch.io.zarrlite import read_zarr_array
 from classpose_tpu_torch.model_configs import DEFAULT_MODEL_CONFIGS
 from classpose_tpu_torch.nn.convert import published_names, save_params
@@ -220,6 +236,7 @@ from classpose_tpu_torch.ops.sample import (
     landing_histogram_plain,
 )
 from classpose_tpu_torch.ops.tiles import compute_tile_grid
+from classpose_tpu_torch.pipeline.slide_loader import SlideLoader
 from classpose_tpu_torch.runner import ClassposeModel
 from classpose_tpu_torch.runner.core import chunk_plan
 from classpose_tpu_torch.train.dataset import ClassposeTrainingDataset
@@ -229,6 +246,7 @@ from classpose_tpu_torch.train.train import (
     train_class_seg,
 )
 from classpose_tpu_torch.train.train_utils import process_train_test
+from classpose_tpu_torch.utils import get_slide_resolution
 
 SEED = 0
 N_TILES, TILE = 8, 1024
@@ -243,6 +261,10 @@ LN_SWITCH = "CLASSPOSE_LN_PALLAS"
 # and resized to 1024² at the config's 0.5 µm/px → a 5×5 grid of tiles
 # covering 4864² model pixels
 WSI_SIZE, WSI_MPP, WSI_MODEL_MPP = 6144, 0.4, 0.5
+# the slide phase: that slide as a tiled-JPEG SVS at the writer's defaults
+# (512² tiles, quality 80: 144 tiles at level 0), and the golden stream
+SVS_TILE, SVS_QUALITY = 512, 80
+GOLDEN = Path(__file__).resolve().parent / "tests" / "golden"
 TRAIN_BATCH, TRAIN_IMAGES, TRAIN_SIZE = 8, 16, 512
 # the evaluate phase: 8 RGB images of 448² (3 × 3 crops of 256² each;
 # 448 % 128 != 0, so the QC diffusion takes kernel 7), fp32 as the CLI
@@ -1528,9 +1550,9 @@ def run_wsi(dev, work: str) -> tuple[dict, dict, dict]:
                   "--tile_size", "1024", "--overlap", "64", "--mpp",
                   str(WSI_MPP), "--output_type", "csv", "spatialdata"]
 
-    def cli(out: str, *extra):
+    def cli(out: str, *extra, args=slide_args):
         argv = ["--model_config", f"{work}/config.yaml",
-                "--output_folder", out, *slide_args, *extra]
+                "--output_folder", out, *args, *extra]
         with ln_switch(True):
             torch.cuda.synchronize()
             _build.reset_launches()
@@ -1582,7 +1604,8 @@ def run_wsi(dev, work: str) -> tuple[dict, dict, dict]:
         plain_n_cells=ref["n_cells"], matched_share=share,
     )
     wsi = dict(cli=cli, work=work, slide_args=slide_args, labels=labels, pt=pt,
-               pts=pts, names=names, n_design=n_design, seconds=res["seconds"])
+               pts=pts, names=names, n_design=n_design, seconds=res["seconds"],
+               stage_seconds=res["stage_seconds"], n_tiles=res["n_tiles"])
     return launches, stats, wsi
 
 
@@ -1680,6 +1703,109 @@ def run_wsi_fast_qc(wsi: dict) -> dict:
                 full_fidelity_pipeline_s=wsi["seconds"],
                 full_fidelity_n_cells=len(wsi["pts"]),
                 stage_seconds=res["stage_seconds"], launches=launches)
+
+
+def run_slide(wsi: dict) -> dict:
+    """The slide phase (see the module docstring, step 6): the WSI phase's
+    slide as a tiled-JPEG SVS written by the port's writer, read by the
+    default reader; the exact chain through its decoded level 0; the
+    golden stream; the codec's host rates."""
+    work, labels = wsi["work"], wsi["labels"]
+    level0 = np.load(f"{work}/slide.npy")
+    H, W = level0.shape[:2]
+    t0 = time.perf_counter()
+    write_tiled_tiff(f"{work}/slide.svs", level0, mpp=WSI_MPP)
+    write_s = time.perf_counter() - t0
+    tiles = [np.ascontiguousarray(level0[y:y + SVS_TILE, x:x + SVS_TILE])
+             for y in range(0, H, SVS_TILE) for x in range(0, W, SVS_TILE)]
+    t0 = time.perf_counter()
+    for t in tiles:
+        jpeg.encode(t, SVS_QUALITY)
+    encode_s = time.perf_counter() - t0
+
+    slide = TiffSlide(f"{work}/slide.svs")
+    n_tiles = len(slide._levels[0].offsets)
+    if slide.level_dimensions[0] != (W, H) or n_tiles != len(tiles) \
+            or get_slide_resolution(slide) != (WSI_MPP, WSI_MPP):
+        raise AssertionError(f"SVS: {slide.level_dimensions}, {n_tiles} "
+                             f"tiles, {slide.properties}")
+    # the tile reads as the loader's threads make them, undecoded: the
+    # decode rates below time the codec, not the file
+    p = slide._levels[0]
+    with open(f"{work}/slide.svs", "rb") as f:
+        streams = []
+        for off, n in zip(p.offsets, p.counts):
+            f.seek(off)
+            streams.append(f.read(n))
+    t0 = time.perf_counter()
+    for st in streams:
+        jpeg.decode(st)
+    decode_1t_s = time.perf_counter() - t0
+    n_read = SlideLoader.n_read_threads
+    with ThreadPoolExecutor(n_read) as pool:
+        t0 = time.perf_counter()
+        list(pool.map(jpeg.decode, streams))
+        decode_nt_s = time.perf_counter() - t0
+    tile_mp = n_tiles * SVS_TILE ** 2 / 1e6
+    decoded = slide.read_region((0, 0), 0, (W, H))[..., :3]
+    slide.close()
+    np.save(f"{work}/decoded.npy", decoded)
+    psnr = float(10 * np.log10(255.0 ** 2 / np.mean(
+        (decoded.astype(np.float64) - level0) ** 2)))
+    del level0, decoded
+
+    # (d) the golden stream, bit for bit as PIL decoded it
+    golden = jpeg.decode((GOLDEN / "jpeg_golden.jpg").read_bytes())
+    if not np.array_equal(golden, np.load(GOLDEN / "jpeg_golden_rgb.npy")):
+        raise AssertionError("the golden JPEG decodes unlike PIL")
+
+    # the CLI on the SVS with WSI_READER unset: the MPP from its
+    # description, not --mpp
+    svs_args = [a for a in wsi["slide_args"] if a != str(WSI_MPP)
+                and a != "--mpp"]
+    svs_args[svs_args.index("--slide_path") + 1] = f"{work}/slide.svs"
+    os.environ.pop("WSI_READER", None)
+    try:
+        res, wall, launches = wsi["cli"](f"{work}/out_svs", args=svs_args)
+    finally:
+        os.environ["WSI_READER"] = "array"
+    log(f"SVS launches: {launches}")
+    missing = [k for k in WSI_KERNELS if launches[k] == 0]
+    if missing:  # (a)
+        raise AssertionError(f"kernels not launched on the SVS run: "
+                             f"{missing}")
+    pts, names = read_outputs(f"{work}/out_svs", "slide", labels)
+    share = matched_share(pts, names, wsi["pts"], wsi["names"])
+    count_diff = abs(len(pts) - len(wsi["pts"])) / len(wsi["pts"])
+    if res["n_tiles"] != wsi["n_tiles"] or count_diff > 0.005 \
+            or share < 0.99:  # (b)
+        raise AssertionError(f"SVS vs .npy: {res['n_tiles']} tiles, "
+                             f"{len(pts)} vs {len(wsi['pts'])} cells, "
+                             f"{share:.4f} matched")
+    # (c) the SVS's decoded level 0 as an array slide: the same cells
+    dec_args = list(wsi["slide_args"])
+    dec_args[dec_args.index("--slide_path") + 1] = f"{work}/decoded.npy"
+    dec, _, _ = wsi["cli"](f"{work}/out_decoded", args=dec_args)
+    dec_pts, dec_names = read_outputs(f"{work}/out_decoded", "decoded",
+                                      labels)
+    exact = matched_share(dec_pts, dec_names, pts, names)
+    if len(dec_pts) != len(pts) or exact != 1.0:
+        raise AssertionError(f"decoded.npy vs SVS: {len(dec_pts)} vs "
+                             f"{len(pts)} cells, {exact} matched")
+    return dict(
+        tile=SVS_TILE, quality=SVS_QUALITY, write_s=write_s,
+        svs_mib=os.path.getsize(f"{work}/slide.svs") / 2 ** 20,
+        level0_tiles=n_tiles, level0_psnr_db=psnr,
+        encode_1t_mp_per_s=tile_mp / encode_s,
+        decode_1t_mp_per_s=tile_mp / decode_1t_s,
+        decode_threads=n_read, decode_nt_mp_per_s=tile_mp / decode_nt_s,
+        decode_1t_s=decode_1t_s, decode_nt_s=decode_nt_s,
+        cli_wall_s=wall, pipeline_s=res["seconds"],
+        stage_seconds=res["stage_seconds"], n_cells=res["n_cells"],
+        npy_pipeline_s=wsi["seconds"], npy_stage_seconds=wsi["stage_seconds"],
+        npy_n_cells=len(wsi["pts"]), matched_share=share,
+        decoded_pipeline_s=dec["seconds"], decoded_n_cells=dec["n_cells"],
+        decoded_matched_share=exact, launches=launches)
 
 
 # ---------------------------------------------------------------- phase 7
@@ -2029,6 +2155,16 @@ def main() -> int:
         log(f"published checkpoint: {json.dumps(published)}")
         fast_qc["wsi"] = run_wsi_fast_qc(wsi)
         log(f"--fast_qc WSI: {json.dumps(fast_qc['wsi'])}")
+        slide_stats = run_slide(wsi)
+        log(f"slide: {json.dumps(slide_stats)}")
+        log(f"slide write {slide_stats['write_s']:.3f} s, encode "
+            f"{slide_stats['encode_1t_mp_per_s']:.2f} MP/s; decode "
+            f"{slide_stats['decode_1t_mp_per_s']:.2f} MP/s on 1 thread, "
+            f"{slide_stats['decode_nt_mp_per_s']:.2f} MP/s on "
+            f"{slide_stats['decode_threads']} (host); SVS pipeline "
+            f"{slide_stats['pipeline_s']:.3f} s {slide_stats['stage_seconds']}"
+            f" vs .npy {slide_stats['npy_pipeline_s']:.3f} s "
+            f"{slide_stats['npy_stage_seconds']}")
         ev_launches, ev_stats = run_evaluate(dev, work)
     log(f"evaluate: {json.dumps(ev_stats)}")
     fault3_eval = run_fault3_eval(dev)
@@ -2063,6 +2199,7 @@ def main() -> int:
                                   for k in kernels],
                       "slice": stats, "training": train_stats,
                       "wsi": wsi_stats, "published": published,
+                      "slide": slide_stats,
                       "fast_qc": fast_qc, "evaluate": ev_stats,
                       "layernorm_neck": by_name["layernorm"]["neck"],
                       "diffuse_blocked_shapes": by_name["diffuse_blocked"][

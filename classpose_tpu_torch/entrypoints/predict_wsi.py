@@ -1,7 +1,7 @@
 """``classpose-predict-wsi`` for the PyTorch / CUDA package.
 
-    WSI_READER=array python -m classpose_tpu_torch.entrypoints.predict_wsi \\
-        --model_config config.yaml --slide_path slide.npy \\
+    python -m classpose_tpu_torch.entrypoints.predict_wsi \\
+        --model_config config.yaml --slide_path slide.svs \\
         --output_folder out [--device cpu] [--output_type csv spatialdata]
 
 Flag for flag the JAX package's parser (same destinations, defaults,
@@ -9,9 +9,11 @@ choices and ``nargs``), which the QuPath extension drives. A built-in
 ``--model_config`` (``conic`` ...) loads its published
 ``$CLASSPOSE_MODEL_DIR/<name>.pt``; a YAML config may name a ``.pt`` or a
 native ``.npz``. ``--device`` defaults to the card; ``cpu`` runs on the
-CPU. What waits (``ROADMAP.md`` queue 1) raises ``NotImplementedError``
-before any slide is read: the GrandQC model paths, several cards
-(``cuda:0,1``) and readers other than ``WSI_READER=array``.
+CPU. A ``.svs``/``.tif`` slide is read by the package's own TIFF reader
+(the default, or ``WSI_READER=tiff``); a ``.npy`` slide takes
+``WSI_READER=array``. What waits (``ROADMAP.md`` queue 1) raises
+``NotImplementedError`` before any slide is read: the GrandQC model
+paths, several cards (``cuda:0,1``) and ``WSI_READER=czi``.
 """
 
 from __future__ import annotations

@@ -2,14 +2,15 @@
 single-class Cellpose-SAM model (no class head), counterpart of the JAX
 package's ``classpose-predict-wsi-cpsam``.
 
-    WSI_READER=array python -m \\
-        classpose_tpu_torch.entrypoints.predict_wsi_cpsam \\
-        --model_path cpsam.pt --slide_path slide.npy --output_folder out
+    python -m classpose_tpu_torch.entrypoints.predict_wsi_cpsam \\
+        --model_path cpsam.pt --slide_path slide.svs --output_folder out
 
 The same slide loader, post-processing and GeoJSON output as
 ``classpose-predict-wsi-torch``, with the model read from
 ``--model_path`` (a published ``.pt`` or a native ``.npz``) at
 ``--train_mpp``; every cell gets the label "cell" (color [0, 168, 132]).
+Slides are read as ``WSI_READER`` selects (``.svs``/``.tif`` by default,
+``.npy`` with ``WSI_READER=array``).
 """
 
 from __future__ import annotations

@@ -1,31 +1,42 @@
 """Slide readers (counterpart of ``classpose_tpu/io`` and the
 ``WSIReader`` facade of ``classpose_tpu/__init__.py``).
 
-``WSI_READER`` selects the backend. ``array`` (the in-memory
-:class:`~classpose_tpu_torch.io.array_reader.ArraySlide`, which also reads
-``.npy`` paths) is the one this package has. The TIFF/SVS, CZI and
-OpenSlide readers (``tiff``, ``czi``/``czi-zeiss`` and the default
-``openslide``) need JPEG and JPEG-XR decoders and raise.
+``WSI_READER`` selects the backend:
+
+- ``tiff`` and the default ``openslide``:
+  :class:`~classpose_tpu_torch.io.tiff_reader.TiffSlide`, the package's
+  own TIFF/SVS reader. The JAX package takes OpenSlide when it can import
+  it and this reader otherwise; this package never uses OpenSlide.
+- ``array``: the in-memory
+  :class:`~classpose_tpu_torch.io.array_reader.ArraySlide`, which also
+  reads ``.npy`` paths.
+- ``czi``/``czi-zeiss`` raise: the CZI reader needs pylibCZIrw's JPEG-XR
+  decoder.
 """
 
 from __future__ import annotations
 
 import os
 
+from classpose_tpu_torch.io.array_reader import ArraySlide
+from classpose_tpu_torch.io.tiff_reader import TiffSlide
+
 READERS_ITEM = 'ROADMAP.md queue 1, "slide readers"'
+
+__all__ = ["ArraySlide", "TiffSlide", "WSIReader", "get_wsi_reader"]
 
 
 def get_wsi_reader():
     """The slide reader class that ``WSI_READER`` selects."""
     reader = os.getenv("WSI_READER", "openslide").lower()
     if reader == "array":
-        from classpose_tpu_torch.io.array_reader import ArraySlide
-
         return ArraySlide
-    raise NotImplementedError(
-        f"WSI_READER={reader}: this package reads slides with "
-        f"WSI_READER=array only; the TIFF, CZI and OpenSlide readers wait "
-        f"for {READERS_ITEM}")
+    if reader in ("czi", "czi-zeiss"):
+        raise NotImplementedError(
+            f"WSI_READER={reader}: the CZI reader needs pylibCZIrw (a "
+            f"JPEG-XR decoder), which this package does not have; "
+            f"{READERS_ITEM} lists what still raises")
+    return TiffSlide
 
 
 class _WSIReaderMeta(type):

@@ -1,0 +1,60 @@
+"""Baseline JPEG decode and encode on the native codec
+(``native/jpeg.cpp``), for the TIFF slide reader and writer.
+
+:func:`decode` returns what libjpeg's default decompression to RGB
+returns, bit for bit (islow IDCT, fancy upsampling, its colour tables
+and its YCbCr-or-RGB rule); progressive, arithmetic, lossless, 12-bit and
+4-component streams raise ``ValueError`` naming the marker.
+:func:`encode` writes a baseline JFIF stream at 4:2:0 with the Annex K
+tables scaled by ``quality`` as ``jpeg_set_quality`` scales them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+
+from classpose_tpu_torch.native import load_jpeg
+
+_ERRLEN = 256
+
+
+def info(data: bytes) -> tuple[int, int, int]:
+    """(height, width, components) from the frame header."""
+    lib = load_jpeg()
+    dims = (ctypes.c_int32 * 3)()
+    err = ctypes.create_string_buffer(_ERRLEN)
+    if lib.jpeg_info(data, len(data), dims, err, _ERRLEN):
+        raise ValueError(err.value.decode())
+    return dims[0], dims[1], dims[2]
+
+
+def decode(data: bytes) -> np.ndarray:
+    """(H, W, 3) RGB uint8 of a baseline JPEG stream (grey replicated)."""
+    lib = load_jpeg()
+    h, w, _ = info(data)
+    out = np.empty((h, w, 3), np.uint8)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    if lib.jpeg_decode(data, len(data), out.ctypes.data, out.nbytes, err,
+                       _ERRLEN):
+        raise ValueError(err.value.decode())
+    return out
+
+
+def encode(rgb: np.ndarray, quality: int = 75) -> bytes:
+    """Baseline JFIF stream (4:2:0) of an (H, W, 3) uint8 image."""
+    rgb = np.ascontiguousarray(rgb, np.uint8)
+    if rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"encode takes (H, W, 3) uint8, got {rgb.shape}")
+    lib = load_jpeg()
+    h, w = rgb.shape[:2]
+    # room for the worst case: every coefficient of every block coded at
+    # full length (~5 bytes a pixel at 4:2:0), doubled for 0xFF stuffing
+    out = np.empty(h * w * 10 + 65536, np.uint8)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    n = lib.jpeg_encode(rgb.ctypes.data, h, w, int(quality), out.ctypes.data,
+                        out.nbytes, err, _ERRLEN)
+    if n < 0:
+        raise ValueError(err.value.decode())
+    return out[:n].tobytes()

@@ -1,11 +1,14 @@
-"""The native geometry core (``geomfast.cpp``), built on first use.
+"""The native host cores, built on first use: the geometry core
+(``geomfast.cpp``) and the JPEG codec of the slide reader and writer
+(``jpeg.cpp``).
 
-:func:`load_geomfast` compiles the source with ``g++`` into
-``classpose_tpu_torch/_build/`` (the kernels' build directory, which git
-ignores), named by a hash of the source and the flags, and loads it with
-``ctypes``. Nothing happens at import. A build or load failure raises:
-the package has no slower fallback for contours, metrics, containment or
-deduplication.
+:func:`load_geomfast` and :func:`load_jpeg` compile their source with
+``g++`` into ``classpose_tpu_torch/_build/`` (the kernels' build directory,
+which git ignores), named by a hash of the source and the flags, and load
+it with ``ctypes`` (whose calls release the GIL, so reader threads decode
+in parallel). Nothing happens at import. A build or load failure raises:
+the package has no slower fallback for contours, metrics, containment,
+deduplication or JPEG tiles.
 """
 
 from __future__ import annotations
@@ -17,17 +20,20 @@ import subprocess
 import threading
 from pathlib import Path
 
-_SRC = Path(__file__).resolve().parent / "geomfast.cpp"
+_DIR = Path(__file__).resolve().parent
+_SRC = _DIR / "geomfast.cpp"
+_JPEG_SRC = _DIR / "jpeg.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 _FLAGS = ["-O2", "-shared", "-fPIC"]
 
-_lib: ctypes.CDLL | None = None
+_libs: dict[Path, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 D = ctypes.POINTER(ctypes.c_double)
 L = ctypes.POINTER(ctypes.c_long)
 I32 = ctypes.POINTER(ctypes.c_int32)
 U8 = ctypes.POINTER(ctypes.c_ubyte)
+P = ctypes.c_void_p
 
 # name -> (restype, argtypes) of the entry points this package calls
 _SIGNATURES = {
@@ -40,34 +46,50 @@ _SIGNATURES = {
     "contours_batch": (ctypes.c_long, [I32, ctypes.c_long, ctypes.c_long,
                                        ctypes.c_long, I32, L, I32, L]),
 }
+_JPEG_SIGNATURES = {
+    "jpeg_info": (ctypes.c_int, [P, ctypes.c_long, I32, P, ctypes.c_int]),
+    "jpeg_decode": (ctypes.c_int, [P, ctypes.c_long, P, ctypes.c_long, P,
+                                   ctypes.c_int]),
+    "jpeg_encode": (ctypes.c_long, [P, ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_int, P, ctypes.c_long, P,
+                                    ctypes.c_int]),
+}
 
 
-def _target() -> Path:
-    h = hashlib.sha1(_SRC.read_bytes() + " ".join(_FLAGS).encode())
-    return BUILD_DIR / f"libgeomfast_{h.hexdigest()[:12]}.so"
+def _target(src: Path = _SRC) -> Path:
+    h = hashlib.sha1(src.read_bytes() + " ".join(_FLAGS).encode())
+    return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:12]}.so"
 
 
-def load_geomfast() -> ctypes.CDLL:
-    """The loaded library, built on first use; raises if it cannot be."""
-    global _lib
+def _load(src: Path, signatures: dict) -> ctypes.CDLL:
     with _lock:
-        if _lib is not None:
-            return _lib
-        out = _target()
+        if src in _libs:
+            return _libs[src]
+        out = _target(src)
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
             cxx = os.environ.get("CXX", "g++")
-            r = subprocess.run([cxx, *_FLAGS, str(_SRC), "-o", str(tmp)],
+            r = subprocess.run([cxx, *_FLAGS, str(src), "-o", str(tmp)],
                                capture_output=True, text=True)
             if r.returncode != 0:
-                raise RuntimeError(f"building geomfast.cpp failed:\n"
+                raise RuntimeError(f"building {src.name} failed:\n"
                                    f"{r.stderr}")
             os.replace(tmp, out)
         lib = ctypes.CDLL(str(out))
-        for name, (restype, argtypes) in _SIGNATURES.items():
+        for name, (restype, argtypes) in signatures.items():
             fn = getattr(lib, name)
             fn.restype = restype
             fn.argtypes = argtypes
-        _lib = lib
+        _libs[src] = lib
         return lib
+
+
+def load_geomfast() -> ctypes.CDLL:
+    """The geometry core, built on first use; raises if it cannot be."""
+    return _load(_SRC, _SIGNATURES)
+
+
+def load_jpeg() -> ctypes.CDLL:
+    """The JPEG codec, built on first use; raises if it cannot be."""
+    return _load(_JPEG_SRC, _JPEG_SIGNATURES)

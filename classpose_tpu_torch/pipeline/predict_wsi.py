@@ -17,9 +17,11 @@ on the copy's event before using it.
 
 Weights are a published ``.pt`` (the built-in configs) or a native
 ``.npz``. ``--fast_qc`` runs ``eval_batch`` with ``qc_downsample=2`` and
-``percentile_subsample=2``. What waits (``ROADMAP.md`` queue 1) raises
-before a slide is read: the GrandQC tissue and artefact models, readers
-other than ``WSI_READER=array`` and several cards.
+``percentile_subsample=2``. Slides are read by the reader ``WSI_READER``
+selects (by default the package's TIFF/SVS reader; ``array`` for
+``.npy``). What waits (``ROADMAP.md`` queue 1) raises before a slide is
+read: the GrandQC tissue and artefact models, the CZI reader and several
+cards.
 """
 
 from __future__ import annotations
@@ -282,7 +284,7 @@ class ProgressReporter:
 def check_supported(args) -> None:
     """Raise ``NotImplementedError`` for what this package does not run
     yet, before any slide is read or any model built: the GrandQC model
-    paths, a reader other than ``WSI_READER=array`` and several cards
+    paths, ``WSI_READER=czi`` (``get_wsi_reader``) and several cards
     (``get_device``)."""
     for flag in ("tissue_detection_model_path",
                  "artefact_detection_model_path"):
