@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-1. requires CUDA and prints the card's name and power limit;
+1. requires CUDA and prints the card's name and power limit, and whether
+   ``h5py`` imports on the card's machine;
 2. builds the port's CUDA kernels from ``classpose_tpu_torch/csrc`` with
    nvcc (one process per source, in parallel) and prints the build time;
 3. holds each kernel against its plain PyTorch version on the card at the
@@ -99,7 +100,23 @@
    the write seconds and the codec's host rates (encode on one thread,
    decode of level 0's 144 tiles on one and on the loader's 4 reader
    threads) and the SVS run's pipeline and stage seconds beside the
-   ``.npy`` run's;
+   ``.npy`` run's; then the GrandQC phase: a tissue (2 classes) and an
+   artefact (8 classes) UNet++ of seeded random weights in the smp
+   layout, the tissue head's bias set once by rule (``run_grandqc``'s
+   docstring), written as ``.pt`` and converted by
+   ``classpose-convert-weights-torch --kind grandqc --strict``; the WSI
+   CLI on the ``.npy`` slide with both models, ``--filter_artefacts`` and
+   ``--min_area`` (QuPath's call): the five kernels must run, the tissue
+   pre-filter keep more than 0 and fewer than all 25 tiles, the QC
+   GeoJSONs, CSV and store parse (with their tissue and artefact
+   groups), and the plain WSI run's cells, filtered on the host by this
+   run's tissue and artefact polygons, must be this run's (counts within
+   0.5%, ≥ 99% matched); the nets' argmax on the card must agree with
+   the same nets on the CPU in ≥ 99.9% of pixels (the tissue thumbnail
+   and the first 4 artefact patches); it prints the seconds of the
+   thumbnails, the JPEG simulation, both forwards and the contours, the
+   UNet++ rate at batch 8, the tissue share and the artefact class
+   histogram, and the QC run's pipeline seconds beside the plain run's;
 7. runs the evaluate CLI (``entrypoints.run_inference.main_with_args``)
    at fp32 on 8 RGB images of 448² (3 × 3 crops each) written as
    ``images.npy`` with their design-field ``labels.npy``, with the WSI
@@ -202,15 +219,32 @@ from classpose_tpu_torch.nn.attention import (
     flash_attention_relpos,
     flash_attention_relpos_plain,
 )
+from classpose_tpu_torch.grandqc import helpers as qc_helpers
+from classpose_tpu_torch.grandqc.artefact import (
+    MIN_TISSUE_PIXELS,
+    MPP_ARTEFACT_MODEL,
+)
+from classpose_tpu_torch.grandqc.tissue import (
+    MPP_TISSUE_MODEL,
+    load_unetpp,
+    make_unetpp_predict_fn,
+    unetpp_logits,
+)
 from classpose_tpu_torch.io import TiffSlide, jpeg
-from classpose_tpu_torch.io.array_reader import synthetic_wsi
+from classpose_tpu_torch.io.array_reader import ArraySlide, synthetic_wsi
 from classpose_tpu_torch.io.tiff_writer import write_tiled_tiff
 from classpose_tpu_torch.io.zarrlite import read_zarr_array
 from classpose_tpu_torch.model_configs import DEFAULT_MODEL_CONFIGS
 from classpose_tpu_torch.nn.convert import published_names, save_params
 from classpose_tpu_torch.nn.layernorm import layernorm, layernorm_cuda, \
     layernorm_ref
-from classpose_tpu_torch.nn.manifest import manifest_diff, vit_l_manifest
+from classpose_tpu_torch.geometry import Polygon, STRtree
+from classpose_tpu_torch.grandqc.nets import UnetPlusPlus, UnetPlusPlusConfig
+from classpose_tpu_torch.nn.manifest import (
+    grandqc_manifest,
+    manifest_diff,
+    vit_l_manifest,
+)
 from classpose_tpu_torch.nn.synthetic import (
     PERIOD,
     RADIUS,
@@ -236,6 +270,7 @@ from classpose_tpu_torch.ops.sample import (
     landing_histogram_plain,
 )
 from classpose_tpu_torch.ops.tiles import compute_tile_grid
+from classpose_tpu_torch.pipeline.outputs import filter_cells_by_tree
 from classpose_tpu_torch.pipeline.slide_loader import SlideLoader
 from classpose_tpu_torch.runner import ClassposeModel
 from classpose_tpu_torch.runner.core import chunk_plan
@@ -265,6 +300,9 @@ WSI_SIZE, WSI_MPP, WSI_MODEL_MPP = 6144, 0.4, 0.5
 # (512² tiles, quality 80: 144 tiles at level 0), and the golden stream
 SVS_TILE, SVS_QUALITY = 512, 80
 GOLDEN = Path(__file__).resolve().parent / "tests" / "golden"
+# the GrandQC phase: the QC run's --min_area (µm²; 100 px at MPP 10), the
+# artefact patches also run on the CPU, and the batch its rate is timed at
+GRANDQC_MIN_AREA, GRANDQC_CPU_PATCHES, GRANDQC_BATCH = 10000, 4, 8
 TRAIN_BATCH, TRAIN_IMAGES, TRAIN_SIZE = 8, 16, 512
 # the evaluate phase: 8 RGB images of 448² (3 × 3 crops of 256² each;
 # 448 % 128 != 0, so the QC diffusion takes kernel 7), fp32 as the CLI
@@ -1808,6 +1846,236 @@ def run_slide(wsi: dict) -> dict:
         decoded_matched_share=exact, launches=launches)
 
 
+def grandqc_weights(classes: int, seed: int) -> dict[str, torch.Tensor]:
+    """Seeded random UNet++ weights over every key of ``grandqc_manifest``
+    (the smp layout of the published checkpoints, step counters too):
+    He-scaled convs, BatchNorm scales near 1, small biases and means and
+    variances drawn positive, so activations stay finite through the 16
+    MBConv blocks and the decoder."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for k, shape in grandqc_manifest(classes).items():
+        if k.endswith("num_batches_tracked"):
+            sd[k] = torch.tensor(1000, dtype=torch.int64)
+            continue
+        if k.endswith("running_var"):
+            v = rng.uniform(0.5, 1.5, shape)
+        elif k.endswith(("running_mean", "bias")):
+            v = rng.normal(0.0, 0.1, shape)
+        elif len(shape) == 1:
+            v = rng.uniform(0.8, 1.2, shape)
+        else:
+            v = rng.normal(0.0, np.sqrt(2.0 / np.prod(shape[1:])), shape)
+        sd[k] = torch.from_numpy(v.astype(np.float32))
+    return sd
+
+
+def qc_patch_logits(net, img: np.ndarray, limit: int | None = None
+                    ) -> np.ndarray:
+    """Logits (C, H, W) of ``img`` on the net's device, assembled as
+    ``predict_mask`` assembles its argmax (the first ``limit`` patches
+    only: (n, C, 512, 512))."""
+    grid = list(qc_helpers.iter_patches(img))
+    if limit is not None:
+        batch = np.stack([p for _, _, p in grid[:limit]])
+        return unetpp_logits(net, batch).cpu().numpy()
+    H, W = img.shape[:2]
+    out = None
+    for y, x, p in grid:
+        lg = unetpp_logits(net, p[None])[0].cpu().numpy()
+        if out is None:
+            out = np.zeros((lg.shape[0], H, W), np.float32)
+        h, w = min(512, H - y), min(512, W - x)
+        out[:, y:y + h, x:x + w] = lg[:, :h, :w]
+    return out
+
+
+def run_grandqc(dev, wsi: dict) -> dict:
+    """The GrandQC phase (see the module docstring, step 6): the WSI CLI
+    on the ``.npy`` slide as QuPath calls it, with tissue and artefact
+    models of random weights.
+
+    The rule for the tissue head, fixed before any run: a random head's
+    two logits are uncalibrated, so its argmax would call all of the slide
+    tissue or none of it, and neither exercises the tile pre-filter. So,
+    once, the class-1 bias is lowered by the median over the slide's
+    MPP-10 thumbnail (JPEG-simulated, as the stage sees it) of logit₁ −
+    logit₀, which the net computes on the card: about half of the
+    thumbnail becomes tissue. The artefact head is left as drawn."""
+    work, labels = wsi["work"], wsi["labels"]
+    qc = f"{work}/grandqc"
+    os.makedirs(qc)
+    slide_path = f"{work}/slide.npy"
+    stats: dict = {}
+
+    # the stages' host and card steps, timed one by one
+    slide = ArraySlide(slide_path)  # the reader the stages open
+    t0 = time.perf_counter()
+    thumb10, scale10, _ = qc_helpers.extract_slide_thumbnail(
+        slide, MPP_TISSUE_MODEL)
+    thumb1, scale1, _ = qc_helpers.extract_slide_thumbnail(
+        slide, MPP_ARTEFACT_MODEL)
+    stats["thumbnail_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sim10 = qc_helpers.simulate_jpeg_compression(thumb10)
+    sim1 = qc_helpers.simulate_jpeg_compression(thumb1)
+    stats["jpeg_simulation_s"] = time.perf_counter() - t0
+    stats["thumbnails"] = dict(mpp10=list(thumb10.shape[:2]),
+                               mpp1=list(thumb1.shape[:2]),
+                               scale10=scale10, scale1=scale1)
+
+    t_sd, a_sd = grandqc_weights(2, SEED + 1), grandqc_weights(8, SEED + 2)
+    net = UnetPlusPlus(UnetPlusPlusConfig(classes=2))
+    net.load_state_dict({k: v for k, v in t_sd.items()
+                         if not k.endswith("num_batches_tracked")})
+    d = qc_patch_logits(net.eval().to(dev), sim10)
+    offset = float(np.median(d[1] - d[0]))
+    t_sd["segmentation_head.0.bias"][1] -= offset
+    stats["tissue_bias_offset"] = offset
+    npz = {}
+    for name, sd in (("tissue", t_sd), ("artefact", a_sd)):
+        torch.save(sd, f"{qc}/{name}.pt")
+        t0 = time.perf_counter()
+        convert_cli(["--input", f"{qc}/{name}.pt", "--output",
+                     f"{qc}/{name}.npz", "--kind", "grandqc", "--strict"])
+        stats[f"convert_{name}_s"] = time.perf_counter() - t0
+        npz[name] = f"{qc}/{name}.npz"
+
+    t_fn = make_unetpp_predict_fn(npz["tissue"], 2, dev)
+    a_fn = make_unetpp_predict_fn(npz["artefact"], 8, dev)
+    t_fn(next(qc_helpers.iter_patches(sim10))[2][None])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    raw = qc_helpers.predict_mask(sim10, t_fn) == 1
+    stats["tissue_forward_s"] = time.perf_counter() - t0
+    tmask = qc_helpers.resize_nearest(raw.astype(np.uint8),
+                                      thumb1.shape[1], thumb1.shape[0])
+    tmask = tmask.astype(bool)
+
+    def patch_filter(y, x, p):
+        return tmask[y:y + p.shape[0], x:x + p.shape[1]].sum() >= \
+            MIN_TISSUE_PIXELS
+
+    t0 = time.perf_counter()
+    amask = qc_helpers.predict_mask(sim1, a_fn, patch_filter=patch_filter,
+                                    fill_value=7)
+    stats["artefact_forward_s"] = time.perf_counter() - t0
+    amask[~tmask] = 7
+    stats["artefact_patches"] = int(sum(
+        patch_filter(y, x, p) for y, x, p in qc_helpers.iter_patches(sim1)))
+    t0 = time.perf_counter()
+    filtered = qc_helpers.filter_components_by_area(raw, GRANDQC_MIN_AREA,
+                                                    MPP_TISSUE_MODEL)
+    n_regions = len(qc_helpers.contours_with_holes(filtered))
+    for cls in range(2, 7):
+        qc_helpers.contours_with_holes((amask == cls).astype(np.uint8),
+                                       min_area_px=10)
+    stats["contours_s"] = time.perf_counter() - t0
+    stats["tissue_share"] = float(filtered.mean())
+    stats["tissue_regions"] = n_regions
+    stats["artefact_class_histogram"] = np.bincount(
+        amask.ravel(), minlength=8).tolist()
+
+    # UNet++ rate at batch 8 on the card: the predict_fn (upload, forward,
+    # argmax, readback; host clock) and upload + forward (CUDA events)
+    batch = np.stack([p for _, _, p in qc_helpers.iter_patches(sim1)]
+                     [:GRANDQC_BATCH])
+    batch = np.concatenate([batch] * (-(-GRANDQC_BATCH // len(batch))))[
+        :GRANDQC_BATCH]
+    a_net = load_unetpp(npz["artefact"], 8, dev)
+    a_fn(batch)
+    torch.cuda.synchronize()
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        a_fn(batch)
+    fn_s = (time.perf_counter() - t0) / reps
+    fwd_ms = time_ms(lambda: unetpp_logits(a_net, batch))
+    stats["unetpp_batch8"] = dict(
+        predict_fn_ms=fn_s * 1e3, patches_per_s=GRANDQC_BATCH / fn_s,
+        upload_forward_ms=fwd_ms,
+        upload_forward_patches_per_s=GRANDQC_BATCH / fwd_ms * 1e3)
+
+    # the card's masks against the same nets on the CPU
+    agree, max_d = {}, {}
+    for name, img, classes, limit in (
+            ("tissue", sim10, 2, None),
+            ("artefact", sim1, 8, GRANDQC_CPU_PATCHES)):
+        gpu_net = load_unetpp(npz[name], classes, dev)
+        cpu_net = load_unetpp(npz[name], classes, "cpu")
+        t0 = time.perf_counter()
+        lg = qc_patch_logits(gpu_net, img, limit)
+        lc = qc_patch_logits(cpu_net, img, limit)
+        stats[f"{name}_cpu_check_s"] = time.perf_counter() - t0
+        ax = 0 if limit is None else 1
+        agree[name] = float((lg.argmax(ax) == lc.argmax(ax)).mean())
+        max_d[name] = float(np.abs(lg - lc).max())
+    stats["card_vs_cpu_agreement"] = agree
+    stats["card_vs_cpu_logits_max_abs"] = max_d
+    log(f"GrandQC card vs CPU: agreement {agree}, logits max|Δ| {max_d}")
+    if min(agree.values()) < 0.999:
+        raise AssertionError(f"GrandQC masks, card vs CPU: {agree}")
+
+    # the WSI CLI as QuPath calls it
+    res, wall, launches = wsi["cli"](
+        f"{work}/out_qc", "--tissue_detection_model_path", npz["tissue"],
+        "--artefact_detection_model_path", npz["artefact"],
+        "--filter_artefacts", "--min_area", str(GRANDQC_MIN_AREA))
+    log(f"GrandQC WSI launches: {launches}")
+    missing = [k for k in WSI_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the GrandQC WSI "
+                             f"run: {missing}")
+    if not 0 < res["n_tiles"] < wsi["n_tiles"]:
+        raise AssertionError(f"tissue pre-filter kept {res['n_tiles']} of "
+                             f"{wsi['n_tiles']} tiles")
+    out = f"{work}/out_qc"
+    pts, names = read_outputs(out, "slide", labels)
+    qc_polys = {}
+    for kind in ("tissue", "artefact"):
+        with open(f"{out}/slide_{kind}_contours.geojson") as f:
+            fc = json.load(f)
+        if fc["type"] != "FeatureCollection":
+            raise AssertionError(f"{kind} GeoJSON: {fc['type']}")
+        qc_polys[kind] = [
+            Polygon(ft["geometry"]["coordinates"][0],
+                    holes=ft["geometry"]["coordinates"][1:])
+            for ft in fc["features"]]
+        store = Path(f"{out}/slide_spatialdata.zarr/shapes/"
+                     f"{kind}_contours/geojson")
+        if qc_polys[kind] and not store.is_dir():
+            raise AssertionError(f"the store lacks {kind}_contours")
+    if not qc_polys["tissue"]:
+        raise AssertionError("no tissue region")
+
+    # the same filters on the host, on the plain WSI run's cells
+    with open(f"{work}/out/slide_cell_centroids.geojson") as f:
+        cells = json.load(f)["features"]
+    cells = filter_cells_by_tree(cells, STRtree(qc_polys["tissue"]), True)
+    if qc_polys["artefact"]:
+        cells = filter_cells_by_tree(cells, STRtree(qc_polys["artefact"]),
+                                     False)
+    ref_pts = np.array([c["geometry"]["coordinates"] for c in cells],
+                       np.float64).reshape(-1, 2)
+    ref_names = [c["properties"]["classification"]["name"] for c in cells]
+    share = matched_share(pts, names, ref_pts, ref_names) if len(pts) \
+        else 0.0
+    count_diff = abs(len(pts) - len(ref_pts)) / max(len(ref_pts), 1)
+    if not len(ref_pts) or count_diff > 0.005 or share < 0.99:
+        raise AssertionError(f"GrandQC run vs the host-filtered plain run: "
+                             f"{len(pts)} vs {len(ref_pts)} cells, "
+                             f"{share:.4f} matched")
+    stats.update(
+        min_area_um2=GRANDQC_MIN_AREA, cli_wall_s=wall,
+        pipeline_s=res["seconds"], stage_seconds=res["stage_seconds"],
+        plain_pipeline_s=wsi["seconds"], n_tiles=res["n_tiles"],
+        plain_n_tiles=wsi["n_tiles"], n_cells=res["n_cells"],
+        host_filtered_n_cells=len(ref_pts), matched_share=share,
+        tissue_polygons=len(qc_polys["tissue"]),
+        artefact_polygons=len(qc_polys["artefact"]), launches=launches)
+    return stats
+
+
 # ---------------------------------------------------------------- phase 7
 
 def design_dataset(rng) -> tuple[np.ndarray, np.ndarray]:
@@ -2111,6 +2379,12 @@ def main() -> int:
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {smi}")
+    try:
+        import h5py
+        h5py_version = h5py.__version__
+    except ImportError:
+        h5py_version = None
+    log(f"h5py: {h5py_version or 'does not import'}")
 
     t0 = time.perf_counter()
     per_source = _build.build_all()
@@ -2165,6 +2439,18 @@ def main() -> int:
             f"{slide_stats['pipeline_s']:.3f} s {slide_stats['stage_seconds']}"
             f" vs .npy {slide_stats['npy_pipeline_s']:.3f} s "
             f"{slide_stats['npy_stage_seconds']}")
+        grandqc_stats = run_grandqc(dev, wsi)
+        log(f"grandqc: {json.dumps(grandqc_stats)}")
+        log(f"GrandQC (host unless named): thumbnails "
+            f"{grandqc_stats['thumbnail_s']:.3f} s, JPEG simulation "
+            f"{grandqc_stats['jpeg_simulation_s']:.3f} s, tissue forward "
+            f"{grandqc_stats['tissue_forward_s']:.3f} s, artefact forward "
+            f"{grandqc_stats['artefact_forward_s']:.3f} s, UNet++ "
+            f"{grandqc_stats['unetpp_batch8']['patches_per_s']:.1f} "
+            f"patches/s at batch {GRANDQC_BATCH}, contours "
+            f"{grandqc_stats['contours_s']:.3f} s; pipeline "
+            f"{grandqc_stats['pipeline_s']:.3f} s with QC vs "
+            f"{grandqc_stats['plain_pipeline_s']:.3f} s")
         ev_launches, ev_stats = run_evaluate(dev, work)
     log(f"evaluate: {json.dumps(ev_stats)}")
     fault3_eval = run_fault3_eval(dev)
@@ -2199,7 +2485,8 @@ def main() -> int:
                                   for k in kernels],
                       "slice": stats, "training": train_stats,
                       "wsi": wsi_stats, "published": published,
-                      "slide": slide_stats,
+                      "slide": slide_stats, "grandqc": grandqc_stats,
+                      "host": {"h5py": h5py_version},
                       "fast_qc": fast_qc, "evaluate": ev_stats,
                       "layernorm_neck": by_name["layernorm"]["neck"],
                       "diffuse_blocked_shapes": by_name["diffuse_blocked"][

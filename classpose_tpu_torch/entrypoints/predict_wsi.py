@@ -11,9 +11,12 @@ choices and ``nargs``), which the QuPath extension drives. A built-in
 native ``.npz``. ``--device`` defaults to the card; ``cpu`` runs on the
 CPU. A ``.svs``/``.tif`` slide is read by the package's own TIFF reader
 (the default, or ``WSI_READER=tiff``); a ``.npy`` slide takes
-``WSI_READER=array``. What waits (``ROADMAP.md`` queue 1) raises
-``NotImplementedError`` before any slide is read: the GrandQC model
-paths, several cards (``cuda:0,1``) and ``WSI_READER=czi``.
+``WSI_READER=array``. ``--tissue_detection_model_path`` and
+``--artefact_detection_model_path`` take GrandQC ``.npz`` files
+(``classpose-convert-weights-torch --kind grandqc``), run on the same
+device. What waits (``ROADMAP.md`` queue 1) raises
+``NotImplementedError`` before any slide is read: several cards
+(``cuda:0,1``) and ``WSI_READER=czi``.
 """
 
 from __future__ import annotations

@@ -45,6 +45,9 @@ _SIGNATURES = {
                                    U8]),
     "contours_batch": (ctypes.c_long, [I32, ctypes.c_long, ctypes.c_long,
                                        ctypes.c_long, I32, L, I32, L]),
+    "contours_ccomp": (ctypes.c_long, [U8, ctypes.c_long, ctypes.c_long,
+                                       ctypes.c_long, ctypes.c_long, I32, L,
+                                       I32]),
 }
 _JPEG_SIGNATURES = {
     "jpeg_info": (ctypes.c_int, [P, ctypes.c_long, I32, P, ctypes.c_int]),

@@ -1,6 +1,6 @@
 // Native geometry core for the host post-processing hot path (the port's
-// own copy of classpose_tpu/native/geomfast.cpp, unchanged below this
-// comment).
+// own copy of classpose_tpu/native/geomfast.cpp, with contours_ccomp
+// added).
 //
 // The WSI pipeline extracts and validates one polygon per detected cell;
 // at production cell densities per-call numpy machinery on ~40-point
@@ -16,6 +16,8 @@
 //     x < xcross).
 //   - contours_batch: every instance's outer contour in one pass over a
 //     label image (Suzuki-Abe border following, CHAIN_APPROX_SIMPLE).
+//   - contours_ccomp: outer and hole borders of a binary mask with the
+//     RETR_CCOMP hierarchy (the GrandQC tissue and artefact regions).
 //   - dedup_keep: grid-hash centroid pairs + greedy grouping.
 //
 // Built with g++ -O2 -shared -fPIC into classpose_tpu_torch/_build/ on
@@ -411,6 +413,122 @@ long contours_batch(const int32_t* masks, long H, long W, long cap,
         cell_ids[m] = id;
         first_px[m] = first[id];
         offs[++m] = np_total;
+    }
+    return m;
+}
+
+// Outer and hole borders of a binary mask with the two-level hierarchy
+// of cv2.findContours(mask, RETR_CCOMP, CHAIN_APPROX_SIMPLE): the tissue
+// and artefact regions of the GrandQC quality control
+// (classpose_tpu/grandqc/helpers.py contours_with_holes).
+//
+// Suzuki-Abe as OpenCV runs it on a copy padded by one zero pixel: a
+// raster scan that starts an outer border at a 0 -> 1 step and a hole
+// border at a (1 or marked, not right-marked) -> 0 step, each traced by
+// icvFetchContourEx's step order from its start pixel (the foreground
+// pixel left of the hole for a hole: first scan direction 0, else 4).
+// Tracing marks each border pixel with the border's number NBD, and with
+// -NBD where the trace examined its right neighbour and found background
+// (a right-marked pixel starts no hole). A hole's parent is the outer
+// border of the contour whose mark the scan passed last on the row
+// (LNBD), or that contour's own parent when it is a hole; every outer
+// border is top level (RETR_CCOMP puts an island in a hole at the top).
+// Marks are int32 and unique per border, where OpenCV wraps them at 127
+// and tells the borders of one mark apart by bounding rectangles; both
+// give the same parent (see tests/test_torch_grandqc.py).
+//
+// Outputs, in discovery (raster) order of the m borders:
+//   pts    : interleaved x,y int32 vertices of all borders
+//   offs   : m+1 vertex offsets
+//   parent : -1 for an outer border, else the index of its outer border
+// Returns m, or -1 when `cap` vertices or `cap_n` borders would overflow
+// (the caller grows the buffers and retries).
+long contours_ccomp(const uint8_t* mask, long H, long W, long cap,
+                    long cap_n, int32_t* pts, long* offs,
+                    int32_t* parent) {
+    const long Wp = W + 2;
+    std::vector<int32_t> img((H + 2) * Wp, 0);
+    for (long y = 0; y < H; ++y)
+        for (long x = 0; x < W; ++x)
+            img[(y + 1) * Wp + x + 1] = mask[y * W + x] != 0;
+    const long d8[16] = {1, -Wp + 1, -Wp, -Wp - 1, -1, Wp - 1, Wp, Wp + 1,
+                         1, -Wp + 1, -Wp, -Wp - 1, -1, Wp - 1, Wp, Wp + 1};
+    const long dx8[8] = {1, 1, 0, -1, -1, -1, 0, 1};
+    const long dy8[8] = {0, -1, -1, -1, 0, 1, 1, 1};
+    std::vector<int32_t> outer_of;  // per border: its outer border's index
+    long m = 0, np_total = 0;
+    offs[0] = 0;
+    for (long y = 1; y <= H; ++y) {
+        long lnbd = 0;
+        int32_t prev = 0;
+        for (long x = 1; x <= W; ++x) {
+            int32_t p = img[y * Wp + x];
+            if (p == prev) continue;
+            bool outer = prev == 0 && p == 1;
+            bool hole = !outer && p == 0 && prev >= 1;
+            if (!outer && !hole) {
+                prev = p;
+                if (p != 0 && p != 1) lnbd = x;
+                continue;
+            }
+            if (hole && prev != 1) lnbd = x - 1;
+            int32_t par = -1;
+            if (hole) {
+                int32_t lab = img[y * Wp + lnbd];
+                lab = lab < 0 ? -lab : lab;
+                par = lab >= 2 ? outer_of[lab - 2] : -1;
+            }
+            if (m + 1 > cap_n) return -1;
+            const int32_t nbd = (int32_t)(m + 2);
+            const long x0 = x - hole;
+            lnbd = x0;
+            const long i0 = y * Wp + x0;
+            long py = y - 1, px = x0 - 1;  // unpadded vertex coordinates
+            int s = hole ? 0 : 4, s_end = s;
+            long i1 = 0;
+            do {
+                s = (s - 1) & 7;
+                i1 = i0 + d8[s];
+            } while (img[i1] == 0 && s != s_end);
+            if (s == s_end) {  // single-pixel border
+                img[i0] = -nbd;
+                if (np_total + 1 > cap) return -1;
+                pts[2 * np_total] = (int32_t)px;
+                pts[2 * np_total + 1] = (int32_t)py;
+                ++np_total;
+            } else {
+                long i3 = i0, i4 = 0;
+                int prev_s = s ^ 4;
+                for (;;) {
+                    s_end = s;
+                    for (;;) {
+                        i4 = i3 + d8[++s];
+                        if (img[i4] != 0) break;
+                    }
+                    s &= 7;
+                    if ((unsigned)(s - 1) < (unsigned)s_end)
+                        img[i3] = -nbd;
+                    else if (img[i3] == 1)
+                        img[i3] = nbd;
+                    if (s != prev_s) {  // CHAIN_APPROX_SIMPLE
+                        if (np_total + 1 > cap) return -1;
+                        pts[2 * np_total] = (int32_t)px;
+                        pts[2 * np_total + 1] = (int32_t)py;
+                        ++np_total;
+                    }
+                    prev_s = s;
+                    px += dx8[s];
+                    py += dy8[s];
+                    if (i4 == i0 && i3 == i1) break;
+                    i3 = i4;
+                    s = (s + 4) & 7;
+                }
+            }
+            parent[m] = par;
+            outer_of.push_back(hole ? par : (int32_t)m);
+            offs[++m] = np_total;
+            prev = img[y * Wp + x];  // the scan resumes past the start
+        }
     }
     return m;
 }

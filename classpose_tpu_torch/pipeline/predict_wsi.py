@@ -6,7 +6,16 @@
     → ClassposeModel.eval_batch on two inference threads,
       each on its own CUDA stream                             [card]
     → polygon extraction thread pool                          [host]
-    → dedup → ROI filter → GeoJSON / CSV / zarr export        [host]
+    → dedup → ROI / tissue / artefact filters
+    → GeoJSON / CSV / zarr export                             [host]
+
+With ``--tissue_detection_model_path`` the GrandQC tissue model runs
+first, on the slide's MPP-10 thumbnail; only tiles that meet a tissue
+region are read, and only cells inside one are kept. With
+``--artefact_detection_model_path`` the artefact model runs after the
+tiles, on the MPP-1 thumbnail, and ``--filter_artefacts`` drops the cells
+inside an artefact; the artefact area corrects the densities. Both nets
+run on the pipeline's device, outside the inference threads.
 
 Two inference threads let batch i+1's device work run while batch i's
 host finish (labels, holes, class vote) runs. Each thread launches on a
@@ -20,8 +29,7 @@ Weights are a published ``.pt`` (the built-in configs) or a native
 ``percentile_subsample=2``. Slides are read by the reader ``WSI_READER``
 selects (by default the package's TIFF/SVS reader; ``array`` for
 ``.npy``). What waits (``ROADMAP.md`` queue 1) raises before a slide is
-read: the GrandQC tissue and artefact models, the CZI reader and several
-cards.
+read: the CZI reader and several cards.
 """
 
 from __future__ import annotations
@@ -37,7 +45,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from classpose_tpu_torch.geometry import deduplicate
+from classpose_tpu_torch.geometry import STRtree, deduplicate, \
+    intersection_area
 from classpose_tpu_torch.io import get_wsi_reader
 from classpose_tpu_torch.log import get_logger
 from classpose_tpu_torch.model_configs import (
@@ -68,7 +77,6 @@ from classpose_tpu_torch.utils import get_device, get_geojson_output_filename
 logger = get_logger(__name__)
 
 TILE_BUCKETS = (256, 384, 512, 640, 768, 896, 1024)
-GRANDQC_ITEM = 'ROADMAP.md queue 1, "GrandQC"'
 
 
 def _bucket_size(n: int) -> int:
@@ -283,15 +291,8 @@ class ProgressReporter:
 
 def check_supported(args) -> None:
     """Raise ``NotImplementedError`` for what this package does not run
-    yet, before any slide is read or any model built: the GrandQC model
-    paths, ``WSI_READER=czi`` (``get_wsi_reader``) and several cards
-    (``get_device``)."""
-    for flag in ("tissue_detection_model_path",
-                 "artefact_detection_model_path"):
-        if getattr(args, flag, None):
-            raise NotImplementedError(
-                f"--{flag}: GrandQC tissue and artefact detection wait for "
-                f"{GRANDQC_ITEM}")
+    yet, before any slide is read or any model built: ``WSI_READER=czi``
+    (``get_wsi_reader``) and several cards (``get_device``)."""
     get_wsi_reader()
     get_device(getattr(args, "device", None))
 
@@ -363,6 +364,25 @@ def main(args, model_override=None) -> dict:
     if model.nclasses <= 1:
         labels = None
 
+    # ------------------------------------------------ tissue detection (QC)
+    tissue = None
+    tissue_polygons = None
+    tissue_features = None
+    tissue_area = 0.0
+    if getattr(args, "tissue_detection_model_path", None):
+        from classpose_tpu_torch.grandqc import detect_tissue_wsi
+
+        tissue = detect_tissue_wsi(
+            args.slide_path, model_path=args.tissue_detection_model_path,
+            min_area=getattr(args, "min_area", 0), device=device)
+        tissue_polygons = tissue["polygons"]  # level-0 coordinates
+        tissue_features = tissue["geojson"]["features"]
+        tissue_area = sum(p.area for p in tissue_polygons)  # level-0 px²
+        if not tissue_polygons:
+            logger.warning("No tissue detected in slide. Skipping "
+                           "inference.")
+            return {"n_cells": 0}
+
     # --------------------------------------------------------------- slide
     loader = SlideLoader(
         slide_path=args.slide_path,
@@ -370,6 +390,7 @@ def main(args, model_override=None) -> dict:
         tile_size=getattr(args, "tile_size", DEFAULT_TILE_SIZE),
         overlap=getattr(args, "overlap", DEFAULT_OVERLAP),
         roi_tree=roi_tree,
+        tissue_polygons=tissue_polygons,
         mpp_override=getattr(args, "mpp", None),
     ).open()
     worker = DeviceWorker(
@@ -431,6 +452,32 @@ def main(args, model_override=None) -> dict:
 
     if roi_tree is not None:
         features = filter_cells_by_tree(features, roi_tree, keep_inside=True)
+    if tissue_polygons:
+        features = filter_cells_by_tree(features, STRtree(tissue_polygons),
+                                        keep_inside=True)
+
+    artefact_features = None
+    artefact_area = 0.0
+    artefact_polygons_l0: list = []
+    if getattr(args, "artefact_detection_model_path", None):
+        from classpose_tpu_torch.grandqc import detect_artefacts_wsi
+
+        # the artefact stage's tissue mask has no area filter: the tissue
+        # stage's mask before its filter is that mask
+        art = detect_artefacts_wsi(
+            args.slide_path, model_path=args.artefact_detection_model_path,
+            tissue_model_path=getattr(args, "tissue_detection_model_path",
+                                      None),
+            tissue_result=(None if tissue is None
+                           else {"mask": tissue["mask_unfiltered"]}),
+            device=device)
+        artefact_features = art["geojson"]["features"]
+        artefact_polygons_l0 = art["polygons_level0"]
+        artefact_area = sum(p.area for p in art["polygons"])  # level-0 px²
+        if getattr(args, "filter_artefacts", False) and art["polygons"]:
+            features = filter_cells_by_tree(
+                features, STRtree(art["polygons_level0"]), keep_inside=False)
+
     centroids = polygons_to_centroids(features)
 
     bx, by = loader.bounds_x, loader.bounds_y
@@ -439,6 +486,12 @@ def main(args, model_override=None) -> dict:
                     for f in features]
         centroids = [apply_bounds_offset_to_feature(f, bx, by)
                      for f in centroids]
+        if tissue_features:
+            tissue_features = [apply_bounds_offset_to_feature(f, bx, by)
+                               for f in tissue_features]
+        if artefact_features:
+            artefact_features = [apply_bounds_offset_to_feature(f, bx, by)
+                                 for f in artefact_features]
 
     out = Path(args.output_folder)
     write_feature_collection(
@@ -447,6 +500,15 @@ def main(args, model_override=None) -> dict:
     write_feature_collection(
         centroids, out / get_geojson_output_filename("cell_centroids",
                                                      base_name))
+    if tissue_features is not None:
+        write_feature_collection(
+            tissue_features,
+            out / get_geojson_output_filename("tissue_contours", base_name))
+    if artefact_features is not None:
+        write_feature_collection(
+            artefact_features,
+            out / get_geojson_output_filename("artefact_contours",
+                                              base_name))
 
     densities = None
     if output_types and labels is not None:
@@ -456,14 +518,20 @@ def main(args, model_override=None) -> dict:
                 getattr(args, "roi_class_priority", None))
             tissue_by_roi = {k: sum(p.area for p in v)
                              for k, v in roi_class_dict.items()}
+            # per-ROI artefact correction: effective area = ROI − ROI ∩
+            # artefact
+            artefact_by_roi = {
+                k: sum(intersection_area(ap, rp)
+                       for ap in artefact_polygons_l0 for rp in v)
+                for k, v in roi_class_dict.items()}
             densities = calculate_cellular_densities(
-                cells_by_roi, tissue_by_roi, {}, loader.mpp[0],
+                cells_by_roi, tissue_by_roi, artefact_by_roi, loader.mpp[0],
                 loader.mpp[1], labels)
         else:
             W, H = loader.slide.level_dimensions[0]
             densities = calculate_cellular_densities(
-                features, float(W) * float(H), 0.0, loader.mpp[0],
-                loader.mpp[1], labels)
+                features, tissue_area or float(W) * float(H), artefact_area,
+                loader.mpp[0], loader.mpp[1], labels)
         if "csv" in output_types:
             write_densities_csv(
                 densities, out / f"{base_name}_cellular_densities.csv")
@@ -473,8 +541,8 @@ def main(args, model_override=None) -> dict:
             with open(args.roi_geojson) as f:
                 roi_features = json.load(f).get("features")
         create_spatialdata_output(
-            out / f"{base_name}_spatialdata.zarr", features, None, None,
-            roi_features, densities,
+            out / f"{base_name}_spatialdata.zarr", features,
+            tissue_features, artefact_features, roi_features, densities,
             metadata={
                 "slide": str(args.slide_path),
                 "mpp": loader.mpp,

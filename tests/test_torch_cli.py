@@ -52,10 +52,11 @@ def setup(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--tissue_detection_model_path", "t.pt"], "GrandQC"),
-    (["--artefact_detection_model_path", "a.pt"], "GrandQC"),
-    (["--device", "cuda:0,1"], "multi-card"),
-    (["--device", "gpu:0,1,2"], "multi-card"),
+    # the GrandQC flags no longer wait (tests/test_torch_grandqc_pipeline.py)
+    pytest.param(["--device", "cuda:0,1"], "multi-card",
+                 id="extra2-multi-card"),
+    pytest.param(["--device", "gpu:0,1,2"], "multi-card",
+                 id="extra3-multi-card"),
 ])
 def test_waiting_flags_raise_before_slide(setup, extra, match):
     tmp_path, base = setup

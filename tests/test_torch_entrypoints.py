@@ -61,9 +61,16 @@ def test_convert_cli_writes_what_jax_writes(checkpoints, tmp_path, name):
 
 
 def test_convert_cli_refuses_grandqc(checkpoints, tmp_path):
-    with pytest.raises(NotImplementedError, match="GrandQC"):
-        pcw.main_with_args(["--input", checkpoints["conv6"], "--output",
-                            str(tmp_path / "x.npz"), "--kind", "grandqc"])
+    """``--kind grandqc`` on a classpose checkpoint: both CLIs refuse it
+    (the GrandQC encoder's tensors are missing) and write nothing."""
+    from classpose_tpu.entrypoints.convert_weights import (
+        main_with_args as jax_cli,
+    )
+
+    for cli in (pcw.main_with_args, jax_cli):
+        with pytest.raises(KeyError, match="encoder.conv_stem.weight"):
+            cli(["--input", checkpoints["conv6"], "--output",
+                 str(tmp_path / "x.npz"), "--kind", "grandqc"])
     assert not (tmp_path / "x.npz").exists()
 
 

@@ -120,3 +120,18 @@ def test_zarr_store_holds_the_cells(runs):
     assert len(x) == len(cls) == got["n_cells"]
     X = read_zarr_array(z / "tables" / "cellular_densities" / "X")
     assert X.shape == (len(LABELS), 2) and X[:, 0].sum() == got["n_cells"]
+
+
+def test_store_passes_the_jax_spec_check(runs):
+    """The JAX package's independent zarr v2 / AnnData checker on the
+    port's store: the JAX store's group and array counts, and the port's
+    cells."""
+    from classpose_tpu.io.zarr_spec_check import validate_spatialdata_store
+
+    tmp, _, got = runs
+    port = validate_spatialdata_store(tmp / "port" / "slide_spatialdata.zarr")
+    ref = validate_spatialdata_store(tmp / "jax" / "slide_spatialdata.zarr")
+    assert port["n_cells"] == got["n_cells"]
+    assert (port["n_groups"], port["n_arrays"], port["tables"]) == \
+        (ref["n_groups"], ref["n_arrays"], ref["tables"]) == \
+        (15, 9, ["tables/cellular_densities"])
