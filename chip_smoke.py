@@ -3,8 +3,7 @@
 
     python3 chip_smoke.py
 
-1. requires CUDA and prints the card's name and power limit, and whether
-   ``h5py`` imports on the card's machine;
+1. requires CUDA and prints the card's name and power limit;
 2. builds the port's CUDA kernels from ``classpose_tpu_torch/csrc`` with
    nvcc (one process per source, in parallel) and prints the build time;
 3. holds each kernel against its plain PyTorch version on the card at the
@@ -65,7 +64,24 @@
    without layer-drop, checks that every attention parameter got a
    finite non-zero gradient, and compares loss and gradients with the
    same step with the plain versions swapped in; then the same check for
-   one step at batch 8 of 224² crops (28 × 28 tokens);
+   one step at batch 8 of 224² crops (28 × 28 tokens); then the training
+   CLI phase on the same 16 images written as ``images.npy`` /
+   ``labels.npy``: ``classpose-dataset-to-hdf5-torch``
+   (``dataset_to_hdf5.main_with_args``, targets by kernel 4 on the card,
+   the file by the package's own HDF5 writer) must launch kernel 4, and
+   the file read back by the package's reader must hold bit for bit the
+   images, labels, diameters and class and instance counts of the
+   training phase's targets; each colour and quality transform of the
+   ``enhanced`` augmentation, forced to fire, is timed alone on one 512²
+   item (the median of 5 calls), then one batch of 4 items of
+   ``ClassposeHDF5Dataset(..., augmentation_strategy="enhanced")``;
+   then ``classpose-train-torch`` (``run_training.main_with_args``) on
+   the ``.h5`` with ``--augmentation enhanced``, 2 epochs at batch 4, at
+   its defaults (full ViT-L, fp32, ``--device auto``): every logged loss
+   finite, the weights written and loaded by ``load_checkpoint`` into a
+   model whose ``eval`` of a 256² image gives finite outputs; it prints
+   the CLI's wall, its steps and the seconds its items took in
+   ``ClassposeHDF5Dataset.__getitem__``;
 6. writes a ViT-L checkpoint whose patch embed and attention are live
    (``perturbed_structured_params`` with ``attn_ripple``, 6 classes) as a
    published ``conic.pt`` (the published key layout, held against the
@@ -157,7 +173,9 @@ import contextlib
 import csv
 import io
 import json
+import logging
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -199,6 +217,9 @@ from classpose_tpu_torch import _build
 from classpose_tpu_torch.entrypoints.calculate_metrics import (
     main_with_args as metrics_cli,
 )
+from classpose_tpu_torch.entrypoints.dataset_to_hdf5 import (
+    main_with_args as dataset_to_hdf5_main,
+)
 from classpose_tpu_torch.entrypoints.convert_weights import (
     main_with_args as convert_cli,
 )
@@ -206,6 +227,9 @@ from classpose_tpu_torch.entrypoints.parity_check import (
     main_with_args as parity_cli,
 )
 from classpose_tpu_torch.entrypoints.predict_wsi import main_with_args
+from classpose_tpu_torch.entrypoints.run_training import (
+    main_with_args as run_training_main,
+)
 from classpose_tpu_torch.entrypoints.run_inference import (
     main_with_args as evaluate_cli,
 )
@@ -230,12 +254,16 @@ from classpose_tpu_torch.grandqc.tissue import (
     make_unetpp_predict_fn,
     unetpp_logits,
 )
-from classpose_tpu_torch.io import TiffSlide, jpeg
+from classpose_tpu_torch.io import TiffSlide, hdf5, jpeg
 from classpose_tpu_torch.io.array_reader import ArraySlide, synthetic_wsi
 from classpose_tpu_torch.io.tiff_writer import write_tiled_tiff
 from classpose_tpu_torch.io.zarrlite import read_zarr_array
 from classpose_tpu_torch.model_configs import DEFAULT_MODEL_CONFIGS
-from classpose_tpu_torch.nn.convert import published_names, save_params
+from classpose_tpu_torch.nn.convert import (
+    load_checkpoint,
+    published_names,
+    save_params,
+)
 from classpose_tpu_torch.nn.layernorm import layernorm, layernorm_cuda, \
     layernorm_ref
 from classpose_tpu_torch.geometry import Polygon, STRtree
@@ -274,13 +302,23 @@ from classpose_tpu_torch.pipeline.outputs import filter_cells_by_tree
 from classpose_tpu_torch.pipeline.slide_loader import SlideLoader
 from classpose_tpu_torch.runner import ClassposeModel
 from classpose_tpu_torch.runner.core import chunk_plan
-from classpose_tpu_torch.train.dataset import ClassposeTrainingDataset
+from classpose_tpu_torch.train.dataset import (
+    ClassposeHDF5Dataset,
+    ClassposeTrainingDataset,
+)
 from classpose_tpu_torch.train.train import (
     make_optimizer,
     make_train_step,
     train_class_seg,
 )
 from classpose_tpu_torch.train.train_utils import process_train_test
+from classpose_tpu_torch.transforms import (
+    AdditiveNoiseTransform,
+    GaussianBlurTransform,
+    HEDTransform,
+    HEStainingTransform,
+    HueBrightnessSaturationTransform,
+)
 from classpose_tpu_torch.utils import get_slide_resolution
 
 SEED = 0
@@ -304,6 +342,9 @@ GOLDEN = Path(__file__).resolve().parent / "tests" / "golden"
 # artefact patches also run on the CPU, and the batch its rate is timed at
 GRANDQC_MIN_AREA, GRANDQC_CPU_PATCHES, GRANDQC_BATCH = 10000, 4, 8
 TRAIN_BATCH, TRAIN_IMAGES, TRAIN_SIZE = 8, 16, 512
+# the training CLI phase: its epochs and batch, the calls each transform
+# is timed over, and the dataset items timed as one batch
+CLI_EPOCHS, CLI_BATCH, AUG_CALLS, AUG_ITEMS = 2, 4, 5, 4
 # the evaluate phase: 8 RGB images of 448² (3 × 3 crops of 256² each;
 # 448 % 128 != 0, so the QC diffusion takes kernel 7), fp32 as the CLI
 # defaults; its kernels, and those of eval's 3D branch in bf16
@@ -1306,7 +1347,7 @@ def step_grads(net, X, lbl, cw, n_classes):
                    for k, p in net.named_parameters()}
 
 
-def run_training(dev, out_dir: str) -> tuple[dict, dict]:
+def run_training(dev, out_dir: str) -> tuple[dict, dict, dict]:
     cfg = ClassTransformerConfig(n_cell_classes=6, dtype="bfloat16")
     rng = np.random.default_rng(SEED)
     images, labels = disc_images(rng, TRAIN_IMAGES, TRAIN_SIZE, 60,
@@ -1418,6 +1459,10 @@ def run_training(dev, out_dir: str) -> tuple[dict, dict]:
     del grads, grads_ref
     fault3 = fault3_train_step(dev, tr_d, tr_l, tr_diam)
     log(f"fault 3 train step: {json.dumps(fault3)}")
+    targets = dict(images=np.stack(tr_d), labels=np.stack(tr_l),
+                   diameters=np.asarray(tr_diam),
+                   class_counts=ds.class_counts,
+                   instance_counts=ds.instance_counts)
     stats = dict(
         targets_s=targets_s, target_diffusion_launches=target_launches,
         trainer_s=trainer_s, batch_load_s=batch_load_s,
@@ -1431,7 +1476,7 @@ def run_training(dev, out_dir: str) -> tuple[dict, dict]:
         plain_check_min_cosine=[worst, cos[worst]],
         breakdown=breakdown, fault3_step=fault3,
     )
-    return launches, stats
+    return launches, stats, targets
 
 
 def fault3_train_step(dev, tr_d, tr_l, tr_diam) -> dict:
@@ -1479,6 +1524,140 @@ def fault3_train_step(dev, tr_d, tr_l, tr_diam) -> dict:
                 launches={k: launches[k] for k in ("attention_fwd",
                                                    "attention_bwd")},
                 loss=[total, total_ref], min_cosine=[worst, cos[worst]])
+
+
+def median_ms(fn, calls: int = AUG_CALLS) -> float:
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def run_training_cli(dev, work: str, targets: dict) -> dict:
+    """The training CLI phase (see the module docstring, step 5): npy
+    arrays → ``dataset_to_hdf5`` on the card → ``.h5`` → the augmentation
+    alone → ``run_training --augmentation enhanced`` at full ViT-L."""
+    work = Path(work)
+    rng = np.random.default_rng(SEED)
+    images, labels = disc_images(rng, TRAIN_IMAGES, TRAIN_SIZE, 60, 6)
+    data = work / "data"
+    data.mkdir()
+    np.save(data / "images.npy", np.stack(images))
+    np.save(data / "labels.npy", np.stack(labels))
+    h5 = work / "train.h5"
+
+    # (a) the targets and the file
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    dataset_to_hdf5_main(["--data_path", str(data), "--output", str(h5)])
+    torch.cuda.synchronize()
+    to_hdf5_s = time.perf_counter() - t0
+    target_launches = _build.LAUNCHES["masked_diffusion"]
+    if target_launches == 0:
+        raise AssertionError("dataset_to_hdf5 launched no kernel 4")
+    raw_bytes = sum(v.nbytes for v in targets.values())
+    with hdf5.File(h5) as f:
+        for name, ref in targets.items():
+            got = np.asarray(f[name])
+            if (got.dtype != ref.dtype or got.shape != ref.shape
+                    or got.tobytes() != ref.tobytes()):
+                raise AssertionError(
+                    f"{name} in the .h5: {got.dtype} {got.shape}, not the "
+                    f"training phase's {ref.dtype} {ref.shape} bit for bit")
+        item = f["images"][0]
+
+    # (b) each transform alone, forced to fire, on one 512² item (HED on
+    # the item scaled to [0, 1]: its cutoff reads the raw mean)
+    transforms = {
+        "hed": (HEDTransform(seed=SEED), item / np.float32(255)),
+        "he_staining": (HEStainingTransform(seed=SEED), item),
+        "gaussian_blur_sigma2": (GaussianBlurTransform(
+            p=1.0, sigma_range=(2.0, 2.0), seed=SEED), item),
+        "additive_noise": (AdditiveNoiseTransform(p=1.0, seed=SEED), item),
+        "hue_brightness_saturation": (HueBrightnessSaturationTransform(
+            p=1.0, seed=SEED), item),
+    }
+    transform_ms = {}
+    for name, (t, x) in transforms.items():
+        out = t(x)
+        if (out.shape != x.shape or not np.isfinite(out).all()
+                or np.array_equal(out, x)):
+            raise AssertionError(f"{name}: did not fire or not finite")
+        transform_ms[name] = median_ms(lambda: t(x))
+    ds = ClassposeHDF5Dataset(str(h5), augmentation_strategy="enhanced",
+                              bsize=256, seed=SEED)
+    ds[0]
+    t0 = time.perf_counter()
+    batch = [ds[i] for i in range(AUG_ITEMS)]
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    if not all(np.isfinite(x).all() and x.shape == (3, 256, 256)
+               for x, _ in batch):
+        raise AssertionError("augmented items not finite or misshapen")
+
+    # (c) the training CLI, items timed in ClassposeHDF5Dataset.__getitem__
+    getitem = ClassposeHDF5Dataset.__getitem__
+    spent = {"s": 0.0, "items": 0}
+
+    def timed_getitem(self, index):
+        t = time.perf_counter()
+        out = getitem(self, index)
+        spent["s"] += time.perf_counter() - t
+        spent["items"] += 1
+        return out
+
+    losses = []
+
+    class Losses(logging.Handler):
+        def emit(self, record):
+            losses.extend(float(v) for v in re.findall(
+                r"Loss: (\S+?),?(?:\s|$)", record.getMessage()))
+
+    trainer_log = logging.getLogger("classpose_tpu_torch.train.train")
+    handler, level = Losses(), trainer_log.level
+    trainer_log.addHandler(handler)
+    trainer_log.setLevel(logging.INFO)
+    ClassposeHDF5Dataset.__getitem__ = timed_getitem
+    _build.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        path = run_training_main([
+            "--data_path", str(h5), "--augmentation", "enhanced",
+            "--epochs", str(CLI_EPOCHS), "--batch_size", str(CLI_BATCH),
+            "--seed", "0", "--output_dir", str(work / "models"),
+            "--model_name", "cli"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+    finally:
+        ClassposeHDF5Dataset.__getitem__ = getitem
+        trainer_log.removeHandler(handler)
+        trainer_log.setLevel(level)
+    cli_launches = dict(_build.LAUNCHES)
+    if not losses or not np.isfinite(losses).all():
+        raise AssertionError(f"training CLI losses {losses}")
+    meta = json.loads((Path(path).parent / "checkpoint_last.train" /
+                       "meta.json").read_text())
+    n_train = int(TRAIN_IMAGES * 0.9)
+    steps = CLI_EPOCHS * (n_train // CLI_BATCH)
+
+    sd, cfg = load_checkpoint(path)
+    if cfg is None or cfg.embed_dim != 1024 or cfg.depth != 24:
+        raise AssertionError(f"CLI weights: config {cfg}")
+    model = ClassposeModel(cfg=cfg, params=sd, precision="fp32", device=dev)
+    masks, flows, *_ = model.eval(np.stack(images)[0][:, :256, :256],
+                                  channel_axis=0)
+    if not all(np.isfinite(np.asarray(f)).all() for f in flows[1:3]):
+        raise AssertionError("eval with the CLI's weights: not finite")
+    return dict(
+        to_hdf5_s=to_hdf5_s, target_launches=target_launches,
+        h5_bytes=h5.stat().st_size, raw_bytes=raw_bytes,
+        transform_ms=transform_ms, batch_items=AUG_ITEMS,
+        batch_ms=batch_ms, cli_s=cli_s, cli_steps=steps,
+        getitem_s=spent["s"], getitem_items=spent["items"],
+        getitem_share=spent["s"] / cli_s, cli_launches=cli_launches,
+        logged_losses=losses, train_losses=meta["train_losses"],
+        weights=Path(path).name, eval_masks=int(np.asarray(masks).max()))
 
 
 # ---------------------------------------------------------------- phase 6
@@ -2379,12 +2558,6 @@ def main() -> int:
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {smi}")
-    try:
-        import h5py
-        h5py_version = h5py.__version__
-    except ImportError:
-        h5py_version = None
-    log(f"h5py: {h5py_version or 'does not import'}")
 
     t0 = time.perf_counter()
     per_source = _build.build_all()
@@ -2420,8 +2593,21 @@ def main() -> int:
     del slice_model
     log(f"fast QC: {json.dumps(fast_qc)}")
     with tempfile.TemporaryDirectory() as out_dir:
-        train_launches, train_stats = run_training(dev, out_dir)
+        train_launches, train_stats, targets = run_training(dev, out_dir)
     log(f"training: {json.dumps(train_stats)}")
+    with tempfile.TemporaryDirectory() as work:
+        cli_stats = run_training_cli(dev, work, targets)
+    del targets
+    log(f"training CLI: {json.dumps(cli_stats)}")
+    log(f"training CLI (host unless named): dataset_to_hdf5 "
+        f"{cli_stats['to_hdf5_s']:.3f} s ({cli_stats['target_launches']} "
+        f"kernel 4 launches), .h5 {cli_stats['h5_bytes']} bytes of "
+        f"{cli_stats['raw_bytes']} raw; transforms (median ms) "
+        f"{cli_stats['transform_ms']}; {AUG_ITEMS} items "
+        f"{cli_stats['batch_ms']:.1f} ms; CLI {cli_stats['cli_s']:.2f} s for "
+        f"{cli_stats['cli_steps']} steps, __getitem__ "
+        f"{cli_stats['getitem_s']:.2f} s "
+        f"({100 * cli_stats['getitem_share']:.1f}%)")
     with tempfile.TemporaryDirectory() as work:
         wsi_launches, wsi_stats, wsi = run_wsi(dev, work)
         log(f"wsi: {json.dumps(wsi_stats)}")
@@ -2486,7 +2672,7 @@ def main() -> int:
                       "slice": stats, "training": train_stats,
                       "wsi": wsi_stats, "published": published,
                       "slide": slide_stats, "grandqc": grandqc_stats,
-                      "host": {"h5py": h5py_version},
+                      "training_cli": cli_stats,
                       "fast_qc": fast_qc, "evaluate": ev_stats,
                       "layernorm_neck": by_name["layernorm"]["neck"],
                       "diffuse_blocked_shapes": by_name["diffuse_blocked"][

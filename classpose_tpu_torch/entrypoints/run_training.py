@@ -4,12 +4,17 @@ the ``classpose-train`` command), with the same flags and defaults:
     python -m classpose_tpu_torch.entrypoints.run_training \\
         --data_path DIR --output_dir models [--tiny_model] [--device cpu]
 
-Loads ``images.npy`` / ``labels.npy`` from ``--data_path``, makes the flow
-targets, splits train and validation, optionally sparsifies or subsamples
-the labels, computes oversampling probabilities and class weights, builds
-the model with its freeze selection and runs ``train_class_seg``.
-``--device auto`` means CUDA. Not ported yet (``ROADMAP.md``): HDF5 data,
-``--augmentation`` pipelines, and ``--lr_scaling sqrt`` across cards.
+Loads ``images.npy`` / ``labels.npy`` from ``--data_path`` and makes the
+flow targets, or reads a ``.h5``/``.hdf5`` file that
+``classpose-dataset-to-hdf5-torch`` (or the JAX package's
+``classpose-dataset-to-hdf5``) wrote; splits train and validation,
+optionally sparsifies or subsamples the npy labels, computes oversampling
+probabilities and class weights, builds the model with its freeze
+selection and runs ``train_class_seg``. ``--augmentation`` names a
+StarDist augmentation config (``hed_only``, ``enhanced``) applied to each
+item before the random rotate/resize. ``--device auto`` means CUDA.
+``--lr_scaling sqrt`` scales nothing on one card (several cards are not
+ported yet: ``ROADMAP.md`` queue 1).
 """
 
 from __future__ import annotations
@@ -48,34 +53,47 @@ def main(args):
     # ------------------------------------------------------------- dataset
     data_path = Path(args.data_path)
     if data_path.suffix in (".h5", ".hdf5"):
-        ClassposeHDF5Dataset(str(data_path))  # raises NotImplementedError
-    images, labels = load_data_arrays(
-        str(data_path / "images.npy"), str(data_path / "labels.npy"))
-    if args.subsample_fraction:
-        k = max(1, int(len(images) * args.subsample_fraction))
-        sel = rng.choice(len(images), k, replace=False)
-        images = [images[i] for i in sel]
-        labels = [labels[i] for i in sel]
-    if args.make_sparse:
-        labels = [make_sparse(np.asarray(lab), 0.5, rng) for lab in labels]
-    tr_d, tr_l, tr_diam, *_ = process_train_test(
-        images, labels, min_train_masks=args.min_train_masks, device=device)
-    n = len(tr_d)
-    idx = rng.permutation(n)
-    n_train = max(1, int(n * args.train_fraction))
-
-    def mk(sel):
-        return ClassposeTrainingDataset(
-            np.stack([tr_d[i] for i in sel]),
-            np.stack([tr_l[i] for i in sel]),
-            diameter_array=np.asarray([tr_diam[i] for i in sel]),
+        full = ClassposeHDF5Dataset(
+            str(data_path),
             augmentation_strategy=args.augmentation,
             bsize=args.bsize,
             seed=args.seed,
         )
+        n = len(full)
+        idx = rng.permutation(n)
+        n_train = int(n * args.train_fraction)
+        train_ds = full.subset(idx[:n_train])
+        val_ds = full.subset(idx[n_train:]) if n_train < n else None
+    else:
+        images, labels = load_data_arrays(
+            str(data_path / "images.npy"), str(data_path / "labels.npy"))
+        if args.subsample_fraction:
+            k = max(1, int(len(images) * args.subsample_fraction))
+            sel = rng.choice(len(images), k, replace=False)
+            images = [images[i] for i in sel]
+            labels = [labels[i] for i in sel]
+        if args.make_sparse:
+            labels = [make_sparse(np.asarray(lab), 0.5, rng)
+                      for lab in labels]
+        tr_d, tr_l, tr_diam, *_ = process_train_test(
+            images, labels, min_train_masks=args.min_train_masks,
+            device=device)
+        n = len(tr_d)
+        idx = rng.permutation(n)
+        n_train = max(1, int(n * args.train_fraction))
 
-    train_ds = mk(idx[:n_train])
-    val_ds = mk(idx[n_train:]) if n_train < n else None
+        def mk(sel):
+            return ClassposeTrainingDataset(
+                np.stack([tr_d[i] for i in sel]),
+                np.stack([tr_l[i] for i in sel]),
+                diameter_array=np.asarray([tr_diam[i] for i in sel]),
+                augmentation_strategy=args.augmentation,
+                bsize=args.bsize,
+                seed=args.seed,
+            )
+
+        train_ds = mk(idx[:n_train])
+        val_ds = mk(idx[n_train:]) if n_train < n else None
 
     n_classes = train_ds._resolve_n_classes()
     logger.info("dataset: %d train, %d classes", len(train_ds), n_classes)
@@ -144,7 +162,7 @@ def main(args):
 def build_parser():
     p = argparse.ArgumentParser(description="Train a Classpose model.")
     p.add_argument("--data_path", required=True,
-                   help="Directory with images.npy/labels.npy")
+                   help="Directory with images.npy/labels.npy or HDF5 file")
     p.add_argument("--train_fraction", type=float, default=0.9)
     p.add_argument("--epochs", type=int, default=100)
     p.add_argument("--batch_size", type=int, default=4)
@@ -179,7 +197,7 @@ def build_parser():
                    "native .npz")
     p.add_argument("--min_train_masks", type=int, default=5)
     p.add_argument("--augmentation", type=str, default=None,
-                   help="augmentation config name (not ported yet)")
+                   help="augmentation config name (hed_only/enhanced)")
     p.add_argument("--bsize", type=int, default=256)
     p.add_argument("--tiny_model", action="store_true", default=False,
                    help="tiny architecture for smoke tests")

@@ -3,13 +3,17 @@
 
 ``ClassposeDataset`` is the base with lazy class and instance counts and
 ``subset()``; ``ClassposeTrainingDataset`` holds images (N, C, H, W) and
-labels (N, 5, H, W) in memory. An item is a random rotate/scale/crop to
-``bsize`` followed by a per-channel 1–99 percentile normalization:
-(image (3, b, b) float32, label (4, b, b) [class, binary, fy, fx]).
-
-Not ported (see ``ROADMAP.md``): the HDF5-backed dataset (needs ``h5py``)
-and the StarDist/HED ``augmentation_strategy`` pipelines (the JAX
-package's ``transforms/``).
+labels (N, 5, H, W) in memory; ``ClassposeHDF5Dataset`` reads them item by
+item from an HDF5 file with ``images`` and ``labels`` [instance, class,
+binary, flow_y, flow_x], and takes the cached ``class_counts``,
+``instance_counts`` and ``diameters`` where the file has them (the
+package's own reader, ``io/hdf5.py``). An item is the optional StarDist
+augmentation (``augmentation_strategy``: a name of
+``transforms.AUGMENTATION_CONFIGS`` or a config dict), then a random
+rotate/scale/crop to ``bsize``, then a per-channel 1–99 percentile
+normalization: (image (3, b, b) float32, label (4, b, b) [class, binary,
+fy, fx]). The augmentation pipeline is built unseeded, as in the JAX
+package: its draws differ from run to run.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from typing import Any
 
 import numpy as np
 
+from classpose_tpu_torch.io import hdf5
 from classpose_tpu_torch.train.augment import random_rotate_and_resize
 from classpose_tpu_torch.train.train_utils import (
     get_class_counts,
@@ -44,10 +49,13 @@ def augment_single_image(
     bsize: int,
     normalize_params: dict[str, Any] | None,
     augment: bool,
+    augment_pipeline=None,
     rng: np.random.Generator | None = None,
 ):
     rsc = diam / diam_mean if rescale else 1.0
     if augment:
+        if augment_pipeline is not None:
+            img = augment_pipeline.transform(img)
         img, lbl, _ = random_rotate_and_resize(
             img, lbl, rescale=rsc,
             scale_range=scale_range if scale_range is not None else 0.5,
@@ -87,10 +95,14 @@ class ClassposeDataset:
         self._class_weights = None
         self._is_subset = False
         self._rng = np.random.default_rng(seed)
+        self.augment_pipeline = None
         if augmentation_strategy is not None:
-            raise NotImplementedError(
-                "augmentation_strategy pipelines (the JAX package's "
-                "transforms/) are not ported yet; see ROADMAP.md queue 1")
+            from classpose_tpu_torch.transforms import (
+                create_stardist_augmentation,
+            )
+
+            self.augment_pipeline = create_stardist_augmentation(
+                augmentation_strategy)
 
     # ---- to be provided by subclasses: self.indices, self.length,
     # _get_class_map(idx), _get_instance_map(idx)
@@ -197,14 +209,79 @@ class ClassposeTrainingDataset(ClassposeDataset):
             bsize=self.bsize,
             normalize_params=self.normalize_params,
             augment=self.augment,
+            augment_pipeline=self.augment_pipeline,
             rng=self._rng,
         )
 
 
 class ClassposeHDF5Dataset(ClassposeDataset):
-    """Out-of-core HDF5 dataset: not ported (needs ``h5py``)."""
+    """Out-of-core dataset over an HDF5 file with ``images`` (N, C, H, W)
+    and ``labels`` (N, 5, H, W); the cached ``class_counts`` /
+    ``instance_counts`` / ``diameters`` datasets are used when present.
+    ``keep_open`` keeps one handle for the dataset's life (dropped when
+    pickled); otherwise every read opens the file."""
 
-    def __init__(self, *args, **kw):
-        raise NotImplementedError(
-            "the HDF5 dataset is not ported yet (it needs h5py); see "
-            "ROADMAP.md queue 1")
+    def __init__(self, h5_path: str, keep_open: bool = False,
+                 diameter_array=None, **kw):
+        super().__init__(**kw)
+        self.h5_path = str(h5_path)
+        self.keep_open = keep_open
+        self._fh = None
+        with hdf5.File(self.h5_path) as f:
+            self.length = f["images"].shape[0]
+            if "class_counts" in f:
+                self._class_counts = np.asarray(f["class_counts"])
+                self.n_classes = len(self._class_counts)
+            if "instance_counts" in f:
+                self._instance_counts = np.asarray(f["instance_counts"])
+            if "diameters" in f and diameter_array is None:
+                diameter_array = np.asarray(f["diameters"])
+        self.indices = np.arange(self.length)
+        self.diameter_array = (
+            np.asarray(diameter_array) if diameter_array is not None else None
+        )
+        self.initialise_diameter_array_if_necessary()
+
+    def _file(self) -> hdf5.File:
+        if self.keep_open:
+            if self._fh is None:
+                self._fh = hdf5.File(self.h5_path)
+            return self._fh
+        return hdf5.File(self.h5_path)
+
+    def _get(self, name, idx):
+        f = self._file()
+        try:
+            return np.asarray(f[name][idx])
+        finally:
+            if not self.keep_open:
+                f.close()
+
+    def _get_class_map(self, i):
+        return self._get("labels", int(self.indices[i]))[1]
+
+    def _get_instance_map(self, i):
+        return self._get("labels", int(self.indices[i]))[0]
+
+    def __getitem__(self, index: int):
+        idx = int(self.indices[index])
+        img = self._get("images", idx).astype(np.float32)
+        lbl = self._get("labels", idx)[1:].astype(np.float32)
+        return augment_single_image(
+            img,
+            lbl,
+            float(self.diameter_array[index]),
+            diam_mean=self.diam_mean,
+            rescale=self.rescale,
+            scale_range=self.scale_range,
+            bsize=self.bsize,
+            normalize_params=self.normalize_params,
+            augment=self.augment,
+            augment_pipeline=self.augment_pipeline,
+            rng=self._rng,
+        )
+
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        state["_fh"] = None
+        return state

@@ -292,3 +292,24 @@ def test_evaluate_cli_takes_pt(tmp_path):
     preds = np.load(tmp_path / "out" / "predictions.npy")
     assert preds.shape == (2, 128, 128, 2) and res["n_images"] == 2
     assert preds[..., 0].max() >= 5
+
+
+def test_console_scripts_name_the_port_clis():
+    """``pyproject.toml`` names the training and dataset CLIs of the port
+    beside the JAX package's, and each target imports."""
+    import importlib
+    import tomllib
+
+    scripts = tomllib.loads((ROOT / "pyproject.toml").read_text())[
+        "project"]["scripts"]
+    want = {
+        "classpose-train-torch":
+            "classpose_tpu_torch.entrypoints.run_training:main_with_args",
+        "classpose-dataset-to-hdf5-torch":
+            "classpose_tpu_torch.entrypoints.dataset_to_hdf5:main_with_args",
+    }
+    for name, target in want.items():
+        assert scripts[name] == target
+        module, fn = target.split(":")
+        assert callable(getattr(importlib.import_module(module), fn))
+    assert scripts["classpose-train"].startswith("classpose_tpu.")

@@ -2,7 +2,7 @@
 ``chip_smoke.py`` and not ``ab_attention.py`` (which it imports) imports
 JAX, flax or the JAX package, nor a host library the card's machine lacks
 (cv2, PIL, pandas, sklearn, yaml, pydantic, matplotlib, requests, shapely,
-openslide); its kernel and native sources ship with the package."""
+openslide, h5py); its kernel and native sources ship with the package."""
 
 import ast
 import pkgutil
@@ -15,7 +15,7 @@ import classpose_tpu_torch
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "classpose_tpu")
 HOST_LIBS = ("cv2", "PIL", "pandas", "sklearn", "yaml", "pydantic",
-             "matplotlib", "requests", "shapely", "openslide")
+             "matplotlib", "requests", "shapely", "openslide", "h5py")
 
 
 def _forbidden(name: str, names=FORBIDDEN) -> bool:
