@@ -116,7 +116,19 @@
    the write seconds and the codec's host rates (encode on one thread,
    decode of level 0's 144 tiles on one and on the loader's 4 reader
    threads) and the SVS run's pipeline and stage seconds beside the
-   ``.npy`` run's; then the GrandQC phase: a tissue (2 classes) and an
+   ``.npy`` run's; its JPEG 2000 step: the golden codestreams and the
+   16 tiles of the committed Aperio SVS (``tests/golden/j2k_region.svs``:
+   compression 33005, 512² tiles of 9/7 at rate 60, the slide's
+   ``[0:2048, 0:2048]`` region, MPP 0.4 in its description) must decode
+   on the card's host to the SHA-256 of the pixels PIL decoded
+   (``j2k_golden.json``); the SVS run through the CLI with
+   ``WSI_READER`` unset (512² model tiles: 9 of them) must launch the
+   five kernels and find the cells of the CLI run on that region cut from
+   ``slide.npy`` (within 0.5%,
+   ≥ 99% matched); its level 0 decoded whole and run as an ``.npy`` must
+   find exactly its cells; it prints the decoder's rate in MP/s on one
+   thread and on the loader's reader threads and both runs' pipeline
+   seconds; then the GrandQC phase: a tissue (2 classes) and an
    artefact (8 classes) UNet++ of seeded random weights in the smp
    layout, the tissue head's bias set once by rule (``run_grandqc``'s
    docstring), written as ``.pt`` and converted by
@@ -171,6 +183,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import csv
+import hashlib
 import io
 import json
 import logging
@@ -254,7 +267,7 @@ from classpose_tpu_torch.grandqc.tissue import (
     make_unetpp_predict_fn,
     unetpp_logits,
 )
-from classpose_tpu_torch.io import TiffSlide, hdf5, jpeg
+from classpose_tpu_torch.io import TiffSlide, hdf5, jpeg, jpeg2000
 from classpose_tpu_torch.io.array_reader import ArraySlide, synthetic_wsi
 from classpose_tpu_torch.io.tiff_writer import write_tiled_tiff
 from classpose_tpu_torch.io.zarrlite import read_zarr_array
@@ -338,6 +351,13 @@ WSI_SIZE, WSI_MPP, WSI_MODEL_MPP = 6144, 0.4, 0.5
 # (512² tiles, quality 80: 144 tiles at level 0), and the golden stream
 SVS_TILE, SVS_QUALITY = 512, 80
 GOLDEN = Path(__file__).resolve().parent / "tests" / "golden"
+# its JPEG 2000 step: the committed Aperio SVS (compression 33005, 16 tiles
+# of 512² at rate 60) of the slide's [0:2048, 0:2048] region, and the PIL
+# hashes of it and of the golden codestreams (tests/golden/regenerate_j2k.py)
+J2K_SVS, J2K_JSON = GOLDEN / "j2k_region.svs", GOLDEN / "j2k_golden.json"
+# its runs read 512² model tiles: a 3×3 grid over the region (at the WSI
+# phase's 1024² the region holds one tile)
+J2K_MODEL_TILE = 512
 # the GrandQC phase: the QC run's --min_area (µm²; 100 px at MPP 10), the
 # artefact patches also run on the CPU, and the batch its rate is timed at
 GRANDQC_MIN_AREA, GRANDQC_CPU_PATCHES, GRANDQC_BATCH = 10000, 4, 8
@@ -2009,7 +2029,8 @@ def run_slide(wsi: dict) -> dict:
     if len(dec_pts) != len(pts) or exact != 1.0:
         raise AssertionError(f"decoded.npy vs SVS: {len(dec_pts)} vs "
                              f"{len(pts)} cells, {exact} matched")
-    return dict(
+    j2k = run_slide_j2k(wsi)
+    return dict(j2k=j2k,
         tile=SVS_TILE, quality=SVS_QUALITY, write_s=write_s,
         svs_mib=os.path.getsize(f"{work}/slide.svs") / 2 ** 20,
         level0_tiles=n_tiles, level0_psnr_db=psnr,
@@ -2023,6 +2044,112 @@ def run_slide(wsi: dict) -> dict:
         npy_n_cells=len(wsi["pts"]), matched_share=share,
         decoded_pipeline_s=dec["seconds"], decoded_n_cells=dec["n_cells"],
         decoded_matched_share=exact, launches=launches)
+
+
+def _sha256(rgb: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(rgb).tobytes()).hexdigest()
+
+
+def run_slide_j2k(wsi: dict) -> dict:
+    """The slide phase's JPEG 2000 step (see the module docstring, step
+    6): the golden codestreams and the committed 33005 SVS's tiles against
+    the hashes of PIL's pixels; the SVS through the CLI with
+    ``WSI_READER`` unset against its region cut from ``slide.npy``; its
+    decoded level 0 as an array slide; the decoder's host rates."""
+    work, labels = wsi["work"], wsi["labels"]
+    golden = json.loads(J2K_JSON.read_text())
+    g = golden["svs"]
+    if g["slide"] != dict(width=WSI_SIZE, height=WSI_SIZE, n_cells=4000,
+                          mpp=WSI_MPP, seed=SEED):
+        raise AssertionError(f"the J2K SVS is of another slide: {g}")
+    # (a) every golden codestream and SVS tile, bit for bit as PIL decoded
+    for name, want in golden["streams"].items():
+        rgb = jpeg2000.decode((GOLDEN / f"{name}.j2k").read_bytes())
+        if list(rgb.shape) != want["shape"] or _sha256(rgb) != want["sha256"]:
+            raise AssertionError(f"golden {name} decodes unlike PIL")
+    slide = TiffSlide(str(J2K_SVS))
+    p = slide._levels[0]
+    raw = J2K_SVS.read_bytes()
+    streams = [raw[o:o + n] for o, n in zip(p.offsets, p.counts)]
+    if p.compression != 33005 or len(streams) != len(g["tiles"]) \
+            or get_slide_resolution(slide) != (WSI_MPP, WSI_MPP):
+        raise AssertionError(f"J2K SVS: compression {p.compression}, "
+                             f"{len(streams)} tiles, {slide.properties}")
+    for k, (st, want) in enumerate(zip(streams, g["tiles"])):
+        if _sha256(jpeg2000.decode(st)) != want:
+            raise AssertionError(f"J2K SVS tile {k} decodes unlike PIL")
+    # (d) the decoder's rates on the card's host, one thread and the
+    # loader's reader threads
+    t0 = time.perf_counter()
+    for st in streams:
+        jpeg2000.decode(st)
+    decode_1t_s = time.perf_counter() - t0
+    n_read = SlideLoader.n_read_threads
+    with ThreadPoolExecutor(n_read) as pool:
+        t0 = time.perf_counter()
+        list(pool.map(jpeg2000.decode, streams))
+        decode_nt_s = time.perf_counter() - t0
+    tile_mp = len(streams) * g["tile"] ** 2 / 1e6
+    side = g["region"]
+    decoded = slide.read_region((0, 0), 0, (side, side))[..., :3]
+    slide.close()
+    np.save(f"{work}/j2k_decoded.npy", decoded)
+    region = np.load(f"{work}/slide.npy", mmap_mode="r")[:side, :side]
+    np.save(f"{work}/region.npy", region)
+    psnr = float(10 * np.log10(255.0 ** 2 / np.mean(
+        (decoded.astype(np.float64) - region) ** 2)))
+    del decoded, region
+
+    # (b) the region as an array slide, then the SVS with WSI_READER
+    # unset (the MPP from its description)
+    npy_args = list(wsi["slide_args"])
+    npy_args[npy_args.index("--slide_path") + 1] = f"{work}/region.npy"
+    npy_args[npy_args.index("--tile_size") + 1] = str(J2K_MODEL_TILE)
+    ref, _, _ = wsi["cli"](f"{work}/out_region", args=npy_args)
+    ref_pts, ref_names = read_outputs(f"{work}/out_region", "region", labels)
+    svs_args = [a for a in npy_args if a not in (str(WSI_MPP), "--mpp")]
+    svs_args[svs_args.index("--slide_path") + 1] = str(J2K_SVS)
+    os.environ.pop("WSI_READER", None)
+    try:
+        res, wall, launches = wsi["cli"](f"{work}/out_j2k", args=svs_args)
+    finally:
+        os.environ["WSI_READER"] = "array"
+    log(f"J2K SVS launches: {launches}")
+    missing = [k for k in WSI_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the J2K SVS run: "
+                             f"{missing}")
+    pts, names = read_outputs(f"{work}/out_j2k", J2K_SVS.stem, labels)
+    share = matched_share(pts, names, ref_pts, ref_names)
+    count_diff = abs(len(pts) - len(ref_pts)) / len(ref_pts)
+    if res["n_tiles"] != ref["n_tiles"] or count_diff > 0.005 \
+            or share < 0.99:
+        raise AssertionError(f"J2K SVS vs region .npy: {res['n_tiles']} "
+                             f"tiles, {len(pts)} vs {len(ref_pts)} cells, "
+                             f"{share:.4f} matched")
+    # (c) its decoded level 0 as an array slide: exactly its cells
+    dec_args = list(npy_args)
+    dec_args[dec_args.index("--slide_path") + 1] = f"{work}/j2k_decoded.npy"
+    dec, _, _ = wsi["cli"](f"{work}/out_j2k_decoded", args=dec_args)
+    dec_pts, dec_names = read_outputs(f"{work}/out_j2k_decoded",
+                                      "j2k_decoded", labels)
+    exact = matched_share(dec_pts, dec_names, pts, names)
+    if len(dec_pts) != len(pts) or exact != 1.0:
+        raise AssertionError(f"j2k_decoded.npy vs J2K SVS: {len(dec_pts)} "
+                             f"vs {len(pts)} cells, {exact} matched")
+    return dict(
+        goldens=len(golden["streams"]), tiles=len(streams), tile=g["tile"],
+        rate=g["rate"], svs_kib=len(raw) / 1024, level0_psnr_db=psnr,
+        decode_1t_mp_per_s=tile_mp / decode_1t_s,
+        decode_threads=n_read, decode_nt_mp_per_s=tile_mp / decode_nt_s,
+        decode_1t_s=decode_1t_s, decode_nt_s=decode_nt_s,
+        cli_wall_s=wall, pipeline_s=res["seconds"],
+        stage_seconds=res["stage_seconds"], n_tiles=res["n_tiles"],
+        n_cells=res["n_cells"], npy_pipeline_s=ref["seconds"],
+        npy_stage_seconds=ref["stage_seconds"], npy_n_cells=len(ref_pts),
+        matched_share=share, decoded_pipeline_s=dec["seconds"],
+        decoded_n_cells=dec["n_cells"], decoded_matched_share=exact,
+        launches=launches)
 
 
 def grandqc_weights(classes: int, seed: int) -> dict[str, torch.Tensor]:
@@ -2625,6 +2752,15 @@ def main() -> int:
             f"{slide_stats['pipeline_s']:.3f} s {slide_stats['stage_seconds']}"
             f" vs .npy {slide_stats['npy_pipeline_s']:.3f} s "
             f"{slide_stats['npy_stage_seconds']}")
+        j2k = slide_stats["j2k"]
+        log(f"slide J2K: decode {j2k['decode_1t_mp_per_s']:.2f} MP/s on 1 "
+            f"thread, {j2k['decode_nt_mp_per_s']:.2f} MP/s on "
+            f"{j2k['decode_threads']} (host); J2K SVS pipeline "
+            f"{j2k['pipeline_s']:.3f} s {j2k['stage_seconds']} vs region "
+            f".npy {j2k['npy_pipeline_s']:.3f} s {j2k['npy_stage_seconds']} "
+            f"(the first run at 512² tiles) and its decoded level 0 as .npy "
+            f"{j2k['decoded_pipeline_s']:.3f} s; {j2k['n_cells']} vs "
+            f"{j2k['npy_n_cells']} cells, {j2k['matched_share']:.4f} matched")
         grandqc_stats = run_grandqc(dev, wsi)
         log(f"grandqc: {json.dumps(grandqc_stats)}")
         log(f"GrandQC (host unless named): thumbnails "

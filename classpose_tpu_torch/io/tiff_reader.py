@@ -5,17 +5,20 @@ Random access is per tile: only the tiles covering a requested region
 are read and decoded (256 of them kept in an LRU cache), so 100k × 100k
 slides never sit whole in memory. Raw reads on the shared file handle
 are serialized; decoding is not, so the slide loader's reader threads
-decode in parallel (the JPEG codec is native code called with the GIL
-released).
+decode in parallel (the JPEG and JPEG 2000 decoders are native code
+called with the GIL released).
 
 Supported: classic and BigTIFF, both byte orders, tiled and striped
 pages, compressions none (1), LZW (5), JPEG (7, merging the page's
 ``JPEGTables``, decoded by :mod:`classpose_tpu_torch.io.jpeg` bit for
-bit as libjpeg decodes), Deflate (8, 32946), the horizontal predictor
-(2), photometric RGB and YCbCr. JPEG 2000 (33003, 33005) raises
-``NotImplementedError``. Pyramid levels are the pages of the base's
-aspect sorted by area; the MPP comes from the Aperio ImageDescription
-(``|MPP = x``) or the resolution tags.
+bit as libjpeg decodes), Deflate (8, 32946), Aperio JPEG 2000 (33003,
+33005: raw codestreams decoded by :mod:`classpose_tpu_torch.io.jpeg2000`
+bit for bit as PIL's OpenJPEG decodes them; the components go out as
+coded, so a 33003 tile whose codestream holds Y, Cb, Cr without the MCT
+flag gives those values, as the reference reader's PIL call does), the
+horizontal predictor (2), photometric RGB and YCbCr. Pyramid levels are
+the pages of the base's aspect sorted by area; the MPP comes from the
+Aperio ImageDescription (``|MPP = x``) or the resolution tags.
 
 Regions and thumbnails are numpy arrays, as
 :class:`~classpose_tpu_torch.io.array_reader.ArraySlide` returns them.
@@ -30,7 +33,7 @@ from functools import lru_cache
 
 import numpy as np
 
-from classpose_tpu_torch.io import jpeg
+from classpose_tpu_torch.io import jpeg, jpeg2000
 from classpose_tpu_torch.log import get_logger
 
 logger = get_logger(__name__)
@@ -283,10 +286,8 @@ class TiffSlide:
             )
         elif comp == 7:
             arr = jpeg.decode(_merge_jpeg_tables(p.jpeg_tables, data))
-        elif comp in (33003, 33005):
-            raise NotImplementedError(
-                f"TIFF compression {comp} (Aperio JPEG 2000): this package "
-                f"has no JPEG 2000 decoder")
+        elif comp in (33003, 33005):  # Aperio JPEG 2000 (YCbCr / RGB)
+            arr = jpeg2000.decode(data)
         else:
             raise NotImplementedError(f"TIFF compression {comp}")
         if arr.shape[0] < th or arr.shape[1] < tw:

@@ -1,14 +1,16 @@
 """The native host cores, built on first use: the geometry core
-(``geomfast.cpp``) and the JPEG codec of the slide reader and writer
-(``jpeg.cpp``).
+(``geomfast.cpp``), the JPEG codec of the slide reader and writer
+(``jpeg.cpp``) and the JPEG 2000 decoder of the slide reader
+(``jpeg2000.cpp``).
 
-:func:`load_geomfast` and :func:`load_jpeg` compile their source with
+:func:`load_geomfast`, :func:`load_jpeg` and :func:`load_jpeg2000` compile
+their source with
 ``g++`` into ``classpose_tpu_torch/_build/`` (the kernels' build directory,
 which git ignores), named by a hash of the source and the flags, and load
 it with ``ctypes`` (whose calls release the GIL, so reader threads decode
 in parallel). Nothing happens at import. A build or load failure raises:
 the package has no slower fallback for contours, metrics, containment,
-deduplication or JPEG tiles.
+deduplication, JPEG or JPEG 2000 tiles.
 """
 
 from __future__ import annotations
@@ -23,8 +25,13 @@ from pathlib import Path
 _DIR = Path(__file__).resolve().parent
 _SRC = _DIR / "geomfast.cpp"
 _JPEG_SRC = _DIR / "jpeg.cpp"
+_J2K_SRC = _DIR / "jpeg2000.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 _FLAGS = ["-O2", "-shared", "-fPIC"]
+# the 9/7 wavelet must round as OpenJPEG does: no fused multiply-adds
+# (GCC fuses them by default on aarch64), and integer lifting of corrupt
+# streams wraps instead of being undefined
+_EXTRA_FLAGS = {_J2K_SRC: ["-ffp-contract=off", "-fwrapv"]}
 
 _libs: dict[Path, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -57,10 +64,19 @@ _JPEG_SIGNATURES = {
                                     ctypes.c_int, P, ctypes.c_long, P,
                                     ctypes.c_int]),
 }
+_J2K_SIGNATURES = {
+    "j2k_info": (ctypes.c_int, [P, ctypes.c_long, I32, P, ctypes.c_int]),
+    "j2k_decode": (ctypes.c_int, [P, ctypes.c_long, P, ctypes.c_long, P,
+                                  ctypes.c_int]),
+}
+
+
+def _flags(src: Path) -> list[str]:
+    return _FLAGS + _EXTRA_FLAGS.get(src, [])
 
 
 def _target(src: Path = _SRC) -> Path:
-    h = hashlib.sha1(src.read_bytes() + " ".join(_FLAGS).encode())
+    h = hashlib.sha1(src.read_bytes() + " ".join(_flags(src)).encode())
     return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:12]}.so"
 
 
@@ -73,7 +89,7 @@ def _load(src: Path, signatures: dict) -> ctypes.CDLL:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
             cxx = os.environ.get("CXX", "g++")
-            r = subprocess.run([cxx, *_FLAGS, str(src), "-o", str(tmp)],
+            r = subprocess.run([cxx, *_flags(src), str(src), "-o", str(tmp)],
                                capture_output=True, text=True)
             if r.returncode != 0:
                 raise RuntimeError(f"building {src.name} failed:\n"
@@ -96,3 +112,8 @@ def load_geomfast() -> ctypes.CDLL:
 def load_jpeg() -> ctypes.CDLL:
     """The JPEG codec, built on first use; raises if it cannot be."""
     return _load(_JPEG_SRC, _JPEG_SIGNATURES)
+
+
+def load_jpeg2000() -> ctypes.CDLL:
+    """The JPEG 2000 decoder, built on first use; raises if it cannot be."""
+    return _load(_J2K_SRC, _J2K_SIGNATURES)

@@ -1,0 +1,1640 @@
+// JPEG 2000 Part-1 codestream decoder for the slide reader (Aperio SVS
+// tiles, TIFF compressions 33003 and 33005).
+//
+// It follows the decoding path of OpenJPEG 2.5 step by step, so its
+// pixels equal OpenJPEG's (and so PIL's) bit for bit:
+//   - main and tile-part headers: SIZ, COD, COC, QCD, QCC, RGN, POC, COM,
+//     TLM, PLM, PLT, CRG, SOT/SOD/EOC, several tiles and tile-parts, image
+//     and tile offsets; COD/COC/QCD/QCC precedence as in Annex A, a
+//     tile's POC progressions after the main header's;
+//   - tier 2: the five progression orders (the position-driven ones in
+//     the order of Annex B.12) and POC, each packet read once (OpenJPEG's
+//     include table), packet headers with tag trees, Lblock, empty
+//     packets and codeword segments, SOP/EPH markers where the COD says
+//     so; past the end of a tile's data a header reads zero bits (empty
+//     packets), as OpenJPEG's bit reader does;
+//   - tier 1: the MQ decoder (Annex C) with OpenJPEG's 0xFFFF tail on
+//     each segment, the raw segments of the bypass mode, the three coding
+//     passes with the cleanup run mode (Annex D), the code-block style
+//     flags (bypass, context reset, termination on each pass, vertically
+//     causal contexts, predictable termination, segmentation symbols),
+//     the maximum-shift ROI, and OpenJPEG's reconstruction: every
+//     coefficient carries one bit below its last decoded bit plane, set
+//     to one half (a mid-point);
+//   - dequantization: reversible coefficients are halved with C integer
+//     division; irreversible ones are multiplied by 0.5f times the step
+//     size (1 + mu / 2048) * 2^(8 - eps) of every band (no band gain, as
+//     OpenJPEG's decoder computes it), expounded or derived;
+//   - the inverse 5/3 (integer) and 9/7 (float32) lifting with symmetric
+//     extension, rows first, then columns, on subband origins of either
+//     parity; the 9/7 scales the low band by K and the high band by
+//     OpenJPEG's 1.625732422f, and leaves a one-sample line as it is;
+//   - inverse RCT (5/3) or ICT (9/7, OpenJPEG's constants), the DC level
+//     shift, lrintf (round to nearest even) and clamping to 8 bits.
+// Float operations are written one at a time and the source is built with
+// -ffp-contract=off, so no multiply-add is fused on any host.
+//
+// Refused with a message naming the feature: JP2 file format boxes,
+// precision other than 8 bits, component subsampling (PIL reads such
+// planes as if they were full size, so there is no reference to hold),
+// more than four components, PPM and PPT, Part-15 (HTJ2K) and Part-2
+// codestreams (Rsiz, markers, kernels, MCT, quantization, offsets, ROI
+// styles), and a precinct exponent plus decomposition level of 31 or
+// more in a position-driven progression. Truncated or corrupt streams
+// raise; nothing is read outside the buffer.
+//
+// Entry points (C ABI, loaded with ctypes, which releases the GIL; the
+// decoder keeps no mutable static state, so threads decode in parallel):
+//   j2k_info(data, n, dims[3], err, errlen)   -> 0, or 1 with a message;
+//       dims = (height, width, components)
+//   j2k_decode(data, n, out, cap, err, errlen) -> 0, or 1 with a message;
+//       out receives (H, W, 3) RGB uint8: one or two components are
+//       replicated, a fourth is dropped, signed components are shifted by
+//       128, as PIL's convert("RGB") gives them
+
+#include <algorithm>
+#include <climits>
+#include <cmath>
+#include <cstdint>
+#include <cstdio>
+#include <cstring>
+#include <stdexcept>
+#include <string>
+#include <vector>
+
+namespace {
+
+struct Error : std::runtime_error {
+  using std::runtime_error::runtime_error;
+};
+
+[[noreturn]] void fail(const std::string& msg) { throw Error(msg); }
+
+constexpr int64_t kMaxPixels = int64_t(1) << 26;  // per image
+constexpr int64_t kMaxPrecincts = int64_t(1) << 20;  // per tile
+constexpr int64_t kMaxPackets = int64_t(1) << 24;    // per tile
+
+// -------------------------------------------------------------- bytes
+struct Bytes {
+  const uint8_t* p;
+  size_t n;
+  size_t pos = 0;
+  Bytes(const uint8_t* p_, size_t n_) : p(p_), n(n_) {}
+  void need(size_t k) const {
+    if (k > n - pos) fail("truncated codestream");
+  }
+  uint8_t u8() {
+    need(1);
+    return p[pos++];
+  }
+  uint16_t u16() {
+    need(2);
+    uint16_t v = uint16_t(p[pos] << 8 | p[pos + 1]);
+    pos += 2;
+    return v;
+  }
+  uint32_t u32() {
+    need(4);
+    uint32_t v = uint32_t(p[pos]) << 24 | uint32_t(p[pos + 1]) << 16 |
+                 uint32_t(p[pos + 2]) << 8 | uint32_t(p[pos + 3]);
+    pos += 4;
+    return v;
+  }
+};
+
+std::string hex(unsigned m) {
+  char b[16];
+  snprintf(b, sizeof b, "0x%04X", m);
+  return b;
+}
+
+int64_t ceildiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
+int64_t ceildivpow2(int64_t a, int e) {
+  return (a + (int64_t(1) << e) - 1) >> e;
+}
+int64_t floordivpow2(int64_t a, int e) { return a >> e; }
+int floorlog2(uint32_t v) {
+  int l = 0;
+  while (v > 1) {
+    v >>= 1;
+    ++l;
+  }
+  return l;
+}
+
+// ------------------------------------------------------- coding style
+struct Spc {  // SPcod / SPcoc and the precinct bit of Scod / Scoc
+  int nl = 0;
+  int cbw = 0, cbh = 0;  // exponents
+  int cbstyle = 0;
+  int qmfbid = 0;  // 1: reversible 5/3, 0: irreversible 9/7
+  uint8_t ppx[33], ppy[33];
+};
+
+struct Quant {
+  int style = 0;  // 0 none, 1 scalar derived, 2 scalar expounded
+  int guard = 0;
+  int nsteps = 0;
+  uint16_t expn[97], mant[97];
+};
+
+struct Cod {
+  bool sop = false, eph = false;
+  int prog = 0, layers = 1, mct = 0;
+  Spc spc;
+};
+
+struct Poc {  // one progression of a POC marker
+  int res0, comp0, lay1, res1, comp1, prog;
+};
+
+void parse_spc(Bytes& b, size_t end, bool custom, Spc& s) {
+  s.nl = b.u8();
+  if (s.nl > 32) fail("COD/COC: " + std::to_string(s.nl) +
+                      " decomposition levels (at most 32)");
+  s.cbw = b.u8() + 2;
+  s.cbh = b.u8() + 2;
+  if (s.cbw > 10 || s.cbh > 10 || s.cbw + s.cbh > 12)
+    fail("COD/COC: code-block size out of range");
+  s.cbstyle = b.u8();
+  if (s.cbstyle & 0xC0)
+    fail("code-block style " + hex(unsigned(s.cbstyle)) +
+         ": HT block coding (Part 15) is not supported");
+  int t = b.u8();
+  if (t > 1) fail("COD/COC: wavelet transform " + std::to_string(t) +
+                  " (Part 2 arbitrary kernels) is not supported");
+  s.qmfbid = t;
+  for (int r = 0; r <= s.nl; ++r) {
+    if (custom) {
+      int v = b.u8();
+      s.ppx[r] = uint8_t(v & 15);
+      s.ppy[r] = uint8_t(v >> 4);
+      if (r > 0 && (s.ppx[r] == 0 || s.ppy[r] == 0))
+        fail("COD/COC: precinct exponent 0 above resolution 0");
+    } else {
+      s.ppx[r] = s.ppy[r] = 15;
+    }
+  }
+  if (b.pos != end) fail("COD/COC: bad segment length");
+}
+
+void parse_quant(Bytes& b, size_t end, Quant& q) {
+  int sq = b.u8();
+  q.guard = sq >> 5;
+  q.style = sq & 31;
+  if (q.style > 2) fail("QCD/QCC: quantization style " +
+                        std::to_string(q.style) +
+                        " (Part 2 trellis or unknown) is not supported");
+  size_t left = end - b.pos;
+  if (q.style == 0) {
+    q.nsteps = int(left);
+    if (q.nsteps < 1 || q.nsteps > 97) fail("QCD/QCC: bad length");
+    for (int i = 0; i < q.nsteps; ++i) {
+      q.expn[i] = uint16_t(b.u8() >> 3);
+      q.mant[i] = 0;
+    }
+  } else {
+    if (left % 2 || left < 2) fail("QCD/QCC: bad length");
+    q.nsteps = int(left / 2);
+    if (q.style == 1 && q.nsteps != 1) fail("QCD/QCC: bad length");
+    if (q.nsteps > 97) fail("QCD/QCC: bad length");
+    for (int i = 0; i < q.nsteps; ++i) {
+      int v = b.u16();
+      q.expn[i] = uint16_t(v >> 11);
+      q.mant[i] = uint16_t(v & 2047);
+    }
+  }
+}
+
+// ------------------------------------------------------------- header
+struct CompSiz {
+  bool sgnd;
+};
+
+struct TileData {
+  std::vector<uint8_t> bytes;
+  int nparts = 0;
+  bool has_cod = false, has_qcd = false;
+  Cod cod;
+  Quant qcd;
+  std::vector<int> coc_set, qcc_set, rgn_set, roishift;
+  std::vector<Spc> coc;
+  std::vector<Quant> qcc;
+  std::vector<Poc> poc;  // appended to the main header's
+};
+
+struct Codestream {
+  int64_t X = 0, Y = 0, X0 = 0, Y0 = 0, TW = 0, TH = 0, TX0 = 0, TY0 = 0;
+  int nc = 0;
+  std::vector<CompSiz> comp;
+  int ntx = 0, nty = 0;
+  bool has_cod = false, has_qcd = false;
+  Cod cod;
+  Quant qcd;
+  std::vector<int> coc_set, qcc_set, roishift;
+  std::vector<Spc> coc;
+  std::vector<Quant> qcc;
+  std::vector<Poc> poc;
+  std::vector<TileData> tiles;
+
+  int height() const { return int(Y - Y0); }
+  int width() const { return int(X - X0); }
+
+  static void refuse_marker(unsigned m) {
+    switch (m) {
+      case 0xFF60:
+        fail("PPM marker (packed packet headers, main) is not supported");
+      case 0xFF61:
+        fail("PPT marker (packed packet headers, tile) is not supported");
+      case 0xFF50: case 0xFF59:
+        fail("HTJ2K (Part 15) marker " + hex(m) + " is not supported");
+      default:
+        break;
+    }
+    if (m >= 0xFF70 && m <= 0xFF7F)
+      fail("Part-2 extension marker " + hex(m) + " is not supported");
+    fail("unknown marker " + hex(m));
+  }
+
+  void parse_siz(Bytes& b) {
+    size_t start = b.pos;
+    int len = b.u16();
+    int rsiz = b.u16();
+    if (rsiz & 0x8000) fail("Part-2 extensions (Rsiz " + hex(rsiz) +
+                            ") are not supported");
+    if (rsiz & 0x4000) fail("HTJ2K (Part 15, Rsiz " + hex(rsiz) +
+                            ") is not supported");
+    X = b.u32();
+    Y = b.u32();
+    X0 = b.u32();
+    Y0 = b.u32();
+    TW = b.u32();
+    TH = b.u32();
+    TX0 = b.u32();
+    TY0 = b.u32();
+    nc = b.u16();
+    if (nc < 1 || nc > 4)
+      fail(std::to_string(nc) + " components (1 to 4 are supported)");
+    if (len != 38 + 3 * nc) fail("SIZ: bad segment length");
+    if (X <= X0 || Y <= Y0) fail("SIZ: empty image area");
+    if (TW == 0 || TH == 0) fail("SIZ: zero tile size");
+    if (TX0 > X0 || TY0 > Y0 || TX0 + TW <= X0 || TY0 + TH <= Y0)
+      fail("SIZ: tile grid does not cover the image origin");
+    if ((X - X0) * (Y - Y0) > kMaxPixels)
+      fail("SIZ: image larger than " + std::to_string(kMaxPixels) +
+           " pixels");
+    int64_t ntx64 = ceildiv(X - TX0, TW), nty64 = ceildiv(Y - TY0, TH);
+    if (ntx64 * nty64 > 65535) fail("SIZ: more than 65535 tiles");
+    ntx = int(ntx64);
+    nty = int(nty64);
+    comp.resize(size_t(nc));
+    for (int c = 0; c < nc; ++c) {
+      int ssiz = b.u8();
+      int dx = b.u8(), dy = b.u8();
+      if ((ssiz & 0x7F) + 1 != 8)
+        fail("component precision " + std::to_string((ssiz & 0x7F) + 1) +
+             " bits (only 8 is supported)");
+      if (dx != 1 || dy != 1)
+        fail("component subsampling (" + std::to_string(dx) + " x " +
+             std::to_string(dy) + ") is not supported");
+      comp[size_t(c)].sgnd = ssiz & 0x80;
+    }
+    if (b.pos != start + size_t(len)) fail("SIZ: bad segment length");
+    coc_set.assign(size_t(nc), 0);
+    qcc_set.assign(size_t(nc), 0);
+    roishift.assign(size_t(nc), 0);
+    coc.resize(size_t(nc));
+    qcc.resize(size_t(nc));
+    tiles.resize(size_t(ntx * nty));
+    for (auto& t : tiles) {
+      t.coc_set.assign(size_t(nc), 0);
+      t.qcc_set.assign(size_t(nc), 0);
+      t.rgn_set.assign(size_t(nc), 0);
+      t.roishift.assign(size_t(nc), 0);
+      t.coc.resize(size_t(nc));
+      t.qcc.resize(size_t(nc));
+    }
+  }
+
+  static void parse_cod(Bytes& b, size_t end, Cod& c) {
+    int scod = b.u8();
+    if (scod & ~7) fail("COD: Scod " + hex(unsigned(scod)) +
+                        " (Part 2 precinct or code-block offsets) is not "
+                        "supported");
+    c.sop = scod & 2;
+    c.eph = scod & 4;
+    c.prog = b.u8();
+    if (c.prog > 4) fail("COD: unknown progression order " +
+                         std::to_string(c.prog));
+    c.layers = b.u16();
+    if (c.layers < 1) fail("COD: zero quality layers");
+    c.mct = b.u8();
+    if (c.mct > 1) fail("COD: multiple component transform " +
+                        std::to_string(c.mct) + " (Part 2) is not supported");
+    parse_spc(b, end, scod & 1, c.spc);
+  }
+
+  int comp_index(Bytes& b) const { return nc < 257 ? b.u8() : b.u16(); }
+
+  // POC: progressions appended in the order read; the end indices are
+  // clipped to the tile's counts where they are used, as OpenJPEG does
+  void parse_poc(Bytes& b, size_t end, std::vector<Poc>& out) {
+    size_t entry = nc < 257 ? 7 : 9;
+    if (b.pos == end || (end - b.pos) % entry) fail("POC: bad length");
+    while (b.pos < end) {
+      // a tile's progressions follow the main header's
+      if (out.size() + (&out == &poc ? 0 : poc.size()) >= 32)
+        fail("POC: more than 32 progressions");
+      Poc q;
+      q.res0 = b.u8();
+      q.comp0 = comp_index(b);
+      q.lay1 = b.u16();
+      q.res1 = b.u8();
+      q.comp1 = comp_index(b);
+      q.prog = b.u8();
+      if (q.prog > 4) fail("POC: unknown progression order " +
+                           std::to_string(q.prog));
+      out.push_back(q);
+    }
+  }
+
+  // RGN: the maximum-shift region of interest of one component
+  void parse_rgn(Bytes& b, size_t end, std::vector<int>& shift,
+                 std::vector<int>* set) {
+    int ci = comp_index(b);
+    if (ci >= nc) fail("RGN: component index out of range");
+    int style = b.u8();
+    if (style != 0) fail("RGN: region style " + std::to_string(style) +
+                         " (Part 2) is not supported");
+    shift[size_t(ci)] = b.u8();
+    if (set) (*set)[size_t(ci)] = 1;
+    if (b.pos != end) fail("RGN: bad length");
+  }
+
+  // a COC, QCD or QCC segment of the main header (tile == nullptr) or of
+  // a tile's first tile-part
+  void parse_coding(unsigned m, Bytes& b, size_t end, TileData* t) {
+    if (m == 0xFF52) {
+      Cod& c = t ? t->cod : cod;
+      parse_cod(b, end, c);
+      (t ? t->has_cod : has_cod) = true;
+    } else if (m == 0xFF53) {
+      int ci = comp_index(b);
+      if (ci >= nc) fail("COC: component index out of range");
+      int scoc = b.u8();
+      if (scoc & ~1) fail("COC: bad Scoc");
+      Spc& s = t ? t->coc[size_t(ci)] : coc[size_t(ci)];
+      parse_spc(b, end, scoc & 1, s);
+      (t ? t->coc_set : coc_set)[size_t(ci)] = 1;
+    } else if (m == 0xFF5C) {
+      parse_quant(b, end, t ? t->qcd : qcd);
+      (t ? t->has_qcd : has_qcd) = true;
+    } else {  // QCC
+      int ci = comp_index(b);
+      if (ci >= nc) fail("QCC: component index out of range");
+      parse_quant(b, end, t ? t->qcc[size_t(ci)] : qcc[size_t(ci)]);
+      (t ? t->qcc_set : qcc_set)[size_t(ci)] = 1;
+    }
+    if (b.pos != end) fail("marker segment " + hex(m) + ": bad length");
+  }
+
+  void parse(const uint8_t* data, size_t n, bool header_only) {
+    if (n >= 12 && memcmp(data, "\0\0\0\x0cjP  \r\n\x87\n", 12) == 0)
+      fail("JP2 file format (boxed codestream) is not supported: give the "
+           "raw codestream");
+    Bytes b(data, n);
+    if (b.u16() != 0xFF4F) fail("not a JPEG 2000 codestream (no SOC)");
+    if (b.u16() != 0xFF51) fail("SIZ must follow SOC");
+    parse_siz(b);
+    // main header
+    for (;;) {
+      unsigned m = b.u16();
+      if (m == 0xFF90) break;
+      if (m == 0xFFD9) fail("codestream has no tile-part");
+      if ((m & 0xFF00) != 0xFF00) fail("expected a marker, got " + hex(m));
+      size_t seg = b.pos;
+      int len = b.u16();
+      if (len < 2) fail("marker " + hex(m) + ": bad length");
+      b.need(size_t(len) - 2);
+      size_t end = seg + size_t(len);
+      switch (m) {
+        case 0xFF52: case 0xFF53: case 0xFF5C: case 0xFF5D:
+          parse_coding(m, b, end, nullptr);
+          break;
+        case 0xFF5F:
+          parse_poc(b, end, poc);
+          break;
+        case 0xFF5E:
+          parse_rgn(b, end, roishift, nullptr);
+          break;
+        case 0xFF64: case 0xFF55: case 0xFF57: case 0xFF63:  // COM TLM PLM CRG
+          b.pos = end;
+          break;
+        default:
+          refuse_marker(m);
+      }
+    }
+    if (!has_cod) fail("main header has no COD");
+    if (!has_qcd) fail("main header has no QCD");
+    if (header_only) return;
+    b.pos -= 2;
+    // tile-parts
+    for (;;) {
+      unsigned m = b.u16();
+      if (m == 0xFFD9) break;
+      if (m != 0xFF90) fail("expected SOT or EOC, got " + hex(m));
+      size_t sot = b.pos - 2;
+      if (b.u16() != 10) fail("SOT: bad length");
+      int isot = b.u16();
+      uint32_t psot = b.u32();
+      int tpsot = b.u8();
+      b.u8();  // TNsot
+      if (isot >= ntx * nty) fail("SOT: tile index out of range");
+      TileData& t = tiles[size_t(isot)];
+      if (tpsot != t.nparts) fail("tile-parts out of order");
+      size_t end;
+      if (psot == 0) {
+        if (n < sot + 14 || data[n - 2] != 0xFF || data[n - 1] != 0xD9)
+          fail("truncated codestream (no EOC)");
+        end = n - 2;
+      } else {
+        if (psot < 14 || psot > n - sot) fail("truncated codestream");
+        end = sot + psot;
+      }
+      for (;;) {
+        unsigned mm = b.u16();
+        if (mm == 0xFF93) break;
+        if ((mm & 0xFF00) != 0xFF00)
+          fail("expected a marker, got " + hex(mm));
+        size_t seg = b.pos;
+        int len = b.u16();
+        if (len < 2 || seg + size_t(len) > end)
+          fail("marker " + hex(mm) + ": bad length");
+        size_t send = seg + size_t(len);
+        switch (mm) {
+          case 0xFF52: case 0xFF53: case 0xFF5C: case 0xFF5D:
+            if (t.nparts) fail("coding marker after the first tile-part");
+            parse_coding(mm, b, send, &t);
+            break;
+          case 0xFF5E:
+            if (t.nparts) fail("RGN marker after the first tile-part");
+            parse_rgn(b, send, t.roishift, &t.rgn_set);
+            break;
+          case 0xFF5F:
+            parse_poc(b, send, t.poc);
+            break;
+          case 0xFF64: case 0xFF58:  // COM PLT
+            b.pos = send;
+            break;
+          default:
+            refuse_marker(mm);
+        }
+      }
+      if (b.pos > end) fail("truncated codestream");
+      t.bytes.insert(t.bytes.end(), data + b.pos, data + end);
+      t.nparts++;
+      b.pos = end;
+    }
+    for (size_t i = 0; i < tiles.size(); ++i)
+      if (!tiles[i].nparts) fail("tile " + std::to_string(i) + " is missing");
+  }
+};
+
+// ----------------------------------------------------------- tag tree
+struct TagTree {
+  struct Node {
+    int parent;
+    int value;
+    int low;
+  };
+  std::vector<Node> nodes;
+  void init(int w, int h) {
+    nodes.clear();
+    if (w <= 0 || h <= 0) return;
+    std::vector<int> lw, lh;
+    int cw = w, ch = h;
+    for (;;) {
+      lw.push_back(cw);
+      lh.push_back(ch);
+      if (cw == 1 && ch == 1) break;
+      cw = (cw + 1) / 2;
+      ch = (ch + 1) / 2;
+    }
+    size_t total = 0;
+    for (size_t k = 0; k < lw.size(); ++k) total += size_t(lw[k]) * lh[k];
+    nodes.assign(total, Node{-1, 999, 0});
+    size_t base = 0;
+    for (size_t k = 0; k + 1 < lw.size(); ++k) {
+      size_t next = base + size_t(lw[k]) * lh[k];
+      for (int y = 0; y < lh[k]; ++y)
+        for (int x = 0; x < lw[k]; ++x)
+          nodes[base + size_t(y) * lw[k] + x].parent =
+              int(next + size_t(y / 2) * lw[k + 1] + x / 2);
+      base = next;
+    }
+  }
+};
+
+// packet header bit reader (bit stuffing after 0xFF); past the end of
+// the tile's data it reads zero bits, as OpenJPEG's does, so packets that
+// an encoder left out read as empty (one such byte each); a header that
+// needs more of them is truncated
+struct Bio {
+  const uint8_t* p;
+  size_t n, pos = 0;
+  uint32_t buf = 0;
+  int ct = 0, past_end = 0;
+  Bio(const uint8_t* p_, size_t n_) : p(p_), n(n_) {}
+  void bytein() {
+    buf = (buf << 8) & 0xFFFF;
+    ct = buf == 0xFF00 ? 7 : 8;
+    if (pos < n)
+      buf |= p[pos++];
+    else if (++past_end > 2)
+      fail("truncated packet header");
+  }
+  uint32_t bit() {
+    if (ct == 0) bytein();
+    --ct;
+    return (buf >> ct) & 1;
+  }
+  uint32_t read(int k) {
+    uint32_t v = 0;
+    for (int i = 0; i < k; ++i) v = v << 1 | bit();
+    return v;
+  }
+  void inalign() {
+    if ((buf & 0xFF) == 0xFF) bytein();
+    ct = 0;
+  }
+  bool tag_decode(TagTree& t, int leaf, int threshold) {
+    int stk[40];
+    int sp = 0;
+    int node = leaf;
+    while (t.nodes[size_t(node)].parent >= 0) {
+      if (sp == 40) fail("tag tree too deep");
+      stk[sp++] = node;
+      node = t.nodes[size_t(node)].parent;
+    }
+    int low = 0;
+    for (;;) {
+      TagTree::Node& nd = t.nodes[size_t(node)];
+      if (low > nd.low)
+        nd.low = low;
+      else
+        low = nd.low;
+      while (low < threshold && low < nd.value) {
+        if (bit())
+          nd.value = low;
+        else
+          ++low;
+      }
+      nd.low = low;
+      if (sp == 0) break;
+      node = stk[--sp];
+    }
+    return t.nodes[size_t(node)].value < threshold;
+  }
+};
+
+// ----------------------------------------------------------- MQ coder
+struct QeEntry {
+  uint16_t qe;
+  uint8_t nmps, nlps, sw;
+};
+const QeEntry kQe[47] = {
+    {0x5601, 1, 1, 1},   {0x3401, 2, 6, 0},   {0x1801, 3, 9, 0},
+    {0x0AC1, 4, 12, 0},  {0x0521, 5, 29, 0},  {0x0221, 38, 33, 0},
+    {0x5601, 7, 6, 1},   {0x5401, 8, 14, 0},  {0x4801, 9, 14, 0},
+    {0x3801, 10, 14, 0}, {0x3001, 11, 17, 0}, {0x2401, 12, 18, 0},
+    {0x1C01, 13, 20, 0}, {0x1601, 29, 21, 0}, {0x5601, 15, 14, 1},
+    {0x5401, 16, 14, 0}, {0x5101, 17, 15, 0}, {0x4801, 18, 16, 0},
+    {0x3801, 19, 17, 0}, {0x3401, 20, 18, 0}, {0x3001, 21, 19, 0},
+    {0x2801, 22, 19, 0}, {0x2401, 23, 20, 0}, {0x2201, 24, 21, 0},
+    {0x1C01, 25, 22, 0}, {0x1801, 26, 23, 0}, {0x1601, 27, 24, 0},
+    {0x1401, 28, 25, 0}, {0x1201, 29, 26, 0}, {0x1101, 30, 27, 0},
+    {0x0AC1, 31, 28, 0}, {0x09C1, 32, 29, 0}, {0x08A1, 33, 30, 0},
+    {0x0521, 34, 31, 0}, {0x0441, 35, 32, 0}, {0x02A1, 36, 33, 0},
+    {0x0221, 37, 34, 0}, {0x0141, 38, 35, 0}, {0x0111, 39, 36, 0},
+    {0x0085, 40, 37, 0}, {0x0049, 41, 38, 0}, {0x0025, 42, 39, 0},
+    {0x0015, 43, 40, 0}, {0x0009, 44, 41, 0}, {0x0005, 45, 42, 0},
+    {0x0001, 45, 43, 0}, {0x5601, 46, 46, 0}};
+
+enum { kCtxZc = 0, kCtxSc = 9, kCtxMag = 14, kCtxRl = 17, kCtxUni = 18,
+       kNumCtx = 19 };
+
+struct Mq {
+  const uint8_t* bp;  // the segment, followed by 0xFF 0xFF
+  uint32_t a = 0, c = 0;
+  int ct = 0;
+  uint8_t state[kNumCtx], mps[kNumCtx];
+
+  void reset_contexts() {
+    memset(state, 0, sizeof state);
+    memset(mps, 0, sizeof mps);
+    state[kCtxUni] = 46;
+    state[kCtxRl] = 3;
+    state[kCtxZc] = 4;
+  }
+  void bytein() {
+    uint32_t next = bp[1];
+    if (bp[0] == 0xFF) {
+      if (next > 0x8F) {
+        c += 0xFF00;
+        ct = 8;
+      } else {
+        ++bp;
+        c += next << 9;
+        ct = 7;
+      }
+    } else {
+      ++bp;
+      c += next << 8;
+      ct = 8;
+    }
+  }
+  // data must have two readable 0xFF bytes after len
+  void init(const uint8_t* data, size_t len) {
+    bp = data;
+    c = len ? uint32_t(*bp) << 16 : 0xFFu << 16;
+    bytein();
+    c <<= 7;
+    ct -= 7;
+    a = 0x8000;
+  }
+  void renorm() {
+    do {
+      if (ct == 0) bytein();
+      a <<= 1;
+      c <<= 1;
+      --ct;
+    } while (!(a & 0x8000));
+  }
+  int decode(int cx) {
+    const QeEntry& e = kQe[state[cx]];
+    uint32_t qe = e.qe;
+    int d;
+    a -= qe;
+    if ((c >> 16) < qe) {
+      if (a < qe) {
+        a = qe;
+        d = mps[cx];
+        state[cx] = e.nmps;
+      } else {
+        a = qe;
+        d = !mps[cx];
+        if (e.sw) mps[cx] = uint8_t(!mps[cx]);
+        state[cx] = e.nlps;
+      }
+      renorm();
+    } else {
+      c -= qe << 16;
+      if (!(a & 0x8000)) {
+        if (a < qe) {
+          d = !mps[cx];
+          if (e.sw) mps[cx] = uint8_t(!mps[cx]);
+          state[cx] = e.nlps;
+        } else {
+          d = mps[cx];
+          state[cx] = e.nmps;
+        }
+        renorm();
+      } else {
+        d = mps[cx];
+      }
+    }
+    return d;
+  }
+};
+
+// -------------------------------------------------------------- tier 1
+// per-sample flags: significance of the eight neighbours, signs of the
+// four direct ones, and the sample's own state
+enum : uint32_t {
+  F_NW = 1u << 0, F_N = 1u << 1, F_NE = 1u << 2, F_W = 1u << 3,
+  F_E = 1u << 4, F_SW = 1u << 5, F_S = 1u << 6, F_SE = 1u << 7,
+  F_SGN_N = 1u << 8, F_SGN_S = 1u << 9, F_SGN_W = 1u << 10,
+  F_SGN_E = 1u << 11, F_SIG = 1u << 12, F_VISIT = 1u << 13,
+  F_REFINE = 1u << 14
+};
+
+struct Luts {
+  uint8_t zc[4][256];  // by band: LL, HL, LH, HH
+  uint8_t sc[256];     // low 4 bits: context - 9, bit 4: xor bit
+  Luts() {
+    for (int orient = 0; orient < 4; ++orient)
+      for (int f = 0; f < 256; ++f) {
+        int h = !!(f & F_W) + !!(f & F_E);
+        int v = !!(f & F_N) + !!(f & F_S);
+        int d = !!(f & F_NW) + !!(f & F_NE) + !!(f & F_SW) + !!(f & F_SE);
+        int n = 0;
+        if (orient == 1) std::swap(h, v);  // HL: horizontally high-pass
+        if (orient != 3) {
+          if (h == 0) {
+            if (v == 0) n = d == 0 ? 0 : d == 1 ? 1 : 2;
+            else n = v == 1 ? 3 : 4;
+          } else if (h == 1) {
+            n = v == 0 ? (d == 0 ? 5 : 6) : 7;
+          } else {
+            n = 8;
+          }
+        } else {
+          int hv = h + v;
+          if (d == 0) n = hv == 0 ? 0 : hv == 1 ? 1 : 2;
+          else if (d == 1) n = hv == 0 ? 3 : hv == 1 ? 4 : 5;
+          else if (d == 2) n = hv == 0 ? 6 : 7;
+          else n = 8;
+        }
+        zc[orient][f] = uint8_t(kCtxZc + n);
+      }
+    // sc index bits: 0 N sig, 1 S sig, 2 W sig, 3 E sig, 4 N neg, 5 S
+    // neg, 6 W neg, 7 E neg
+    for (int i = 0; i < 256; ++i) {
+      auto contrib = [&](int sig, int neg) {
+        return (i >> sig & 1) ? ((i >> neg & 1) ? -1 : 1) : 0;
+      };
+      int hc = contrib(2, 6) + contrib(3, 7);
+      int vc = contrib(0, 4) + contrib(1, 5);
+      hc = std::max(-1, std::min(1, hc));
+      vc = std::max(-1, std::min(1, vc));
+      int ctx, x = 0;
+      if (hc < 0) {
+        x = 1;
+        hc = -hc;
+        vc = -vc;
+      } else if (hc == 0 && vc < 0) {
+        x = 1;
+        vc = -vc;
+      }
+      if (hc == 0) ctx = vc == 0 ? 9 : 10;
+      else ctx = vc == 1 ? 13 : vc == 0 ? 12 : 11;
+      sc[i] = uint8_t((ctx - kCtxSc) | x << 4);
+    }
+  }
+};
+
+const Luts& luts() {
+  static const Luts t;  // built once, read only afterwards
+  return t;
+}
+
+// the bypass (raw) bit reader of selective arithmetic coding bypass: a
+// byte after 0xFF gives 7 bits; a marker (0xFF then > 0x8F) gives ones
+struct Raw {
+  const uint8_t* bp;
+  uint32_t c = 0;
+  int ct = 0;
+  void init(const uint8_t* data) {
+    bp = data;
+    c = 0;
+    ct = 0;
+  }
+  int decode() {
+    if (ct == 0) {
+      if (c == 0xFF) {
+        if (*bp > 0x8F) {
+          c = 0xFF;
+          ct = 8;
+        } else {
+          c = *bp++;
+          ct = 7;
+        }
+      } else {
+        c = *bp++;
+        ct = 8;
+      }
+    }
+    --ct;
+    return int(c >> ct & 1);
+  }
+};
+
+// code-block style flags; predictable termination (16) changes nothing
+// for a decoder
+enum : int { kBypass = 1, kReset = 2, kTermAll = 4, kVsc = 8, kSegSym = 32 };
+
+struct CodewordSegment {
+  int maxpasses, passes = 0;
+  size_t len = 0;
+};
+
+struct T1 {
+  int w = 0, h = 0, fs = 0;
+  bool vsc = false;
+  std::vector<int32_t> data;
+  std::vector<uint32_t> flags;
+  std::vector<uint8_t> seg;
+  Mq mq;
+  Raw raw;
+
+  uint32_t& fl(int x, int y) { return flags[size_t(y + 1) * fs + x + 1]; }
+
+  void set_sig(int x, int y, int neg) {
+    uint32_t* f = &fl(x, y);
+    *f |= F_SIG;
+    // vertically causal: the stripe above never learns of its south
+    // neighbours in this one
+    if (!(vsc && (y & 3) == 0)) {
+      f[-fs - 1] |= F_SE;
+      f[-fs] |= F_S | (neg ? uint32_t(F_SGN_S) : 0u);
+      f[-fs + 1] |= F_SW;
+    }
+    f[-1] |= F_E | (neg ? uint32_t(F_SGN_E) : 0u);
+    f[1] |= F_W | (neg ? uint32_t(F_SGN_W) : 0u);
+    f[fs - 1] |= F_NE;
+    f[fs] |= F_N | (neg ? uint32_t(F_SGN_N) : 0u);
+    f[fs + 1] |= F_NW;
+  }
+
+  int decode_sign(uint32_t f) {
+    int i = (!!(f & F_N)) | (!!(f & F_S)) << 1 | (!!(f & F_W)) << 2 |
+            (!!(f & F_E)) << 3 | (!!(f & F_SGN_N)) << 4 |
+            (!!(f & F_SGN_S)) << 5 | (!!(f & F_SGN_W)) << 6 |
+            (!!(f & F_SGN_E)) << 7;
+    int e = luts().sc[i];
+    return mq.decode(kCtxSc + (e & 15)) ^ (e >> 4);
+  }
+
+  template <bool kRaw>
+  void sigpass(int bp, const uint8_t* zc) {
+    int32_t oph = (1 << bp) | (1 << bp >> 1);
+    for (int y0 = 0; y0 < h; y0 += 4)
+      for (int x = 0; x < w; ++x)
+        for (int y = y0; y < std::min(y0 + 4, h); ++y) {
+          uint32_t f = fl(x, y);
+          if (!(f & (F_SIG | F_VISIT)) && (f & 0xFF)) {
+            if (kRaw ? raw.decode() : mq.decode(zc[f & 0xFF])) {
+              int neg = kRaw ? raw.decode() : decode_sign(f);
+              data[size_t(y) * w + x] = neg ? -oph : oph;
+              set_sig(x, y, neg);
+            }
+            fl(x, y) |= F_VISIT;
+          }
+        }
+  }
+
+  template <bool kRaw>
+  void refpass(int bp) {
+    int32_t half = (1 << bp) >> 1;
+    for (int y0 = 0; y0 < h; y0 += 4)
+      for (int x = 0; x < w; ++x)
+        for (int y = y0; y < std::min(y0 + 4, h); ++y) {
+          uint32_t& f = fl(x, y);
+          if ((f & (F_SIG | F_VISIT)) == F_SIG) {
+            int v;
+            if (kRaw) {
+              v = raw.decode();
+            } else {
+              int cx = (f & F_REFINE) ? kCtxMag + 2
+                                      : (f & 0xFF) ? kCtxMag + 1 : kCtxMag;
+              v = mq.decode(cx);
+            }
+            int32_t& d = data[size_t(y) * w + x];
+            d += (v ^ (d < 0)) ? half : -half;
+            f |= F_REFINE;
+          }
+        }
+  }
+
+  void clnpass(int bp, const uint8_t* zc, bool segsym) {
+    int32_t oph = (1 << bp) | (1 << bp >> 1);
+    for (int y0 = 0; y0 < h; y0 += 4)
+      for (int x = 0; x < w; ++x) {
+        int y1 = std::min(y0 + 4, h);
+        int ystart = y0;
+        if (y1 - y0 == 4) {
+          uint32_t agg = 0;
+          for (int y = y0; y < y1; ++y)
+            agg |= fl(x, y) & (F_SIG | F_VISIT | 0xFF);
+          if (!agg) {
+            if (!mq.decode(kCtxRl)) continue;
+            int run = mq.decode(kCtxUni) << 1;
+            run |= mq.decode(kCtxUni);
+            int y = y0 + run;
+            int neg = decode_sign(fl(x, y));
+            data[size_t(y) * w + x] = neg ? -oph : oph;
+            set_sig(x, y, neg);
+            ystart = y + 1;
+          }
+        }
+        for (int y = ystart; y < y1; ++y) {
+          uint32_t f = fl(x, y);
+          if (!(f & (F_SIG | F_VISIT))) {
+            if (mq.decode(zc[f & 0xFF])) {
+              int neg = decode_sign(f);
+              data[size_t(y) * w + x] = neg ? -oph : oph;
+              set_sig(x, y, neg);
+            }
+          }
+        }
+        for (int y = y0; y < y1; ++y) fl(x, y) &= ~F_VISIT;
+      }
+    if (segsym) {  // the four symbols 1010, read and not checked
+      for (int i = 0; i < 4; ++i) mq.decode(kCtxUni);
+    }
+  }
+
+  // decodes a code-block of `numbps` bit planes from its codeword
+  // segments (concatenated in `bytes`), then undoes the ROI shift
+  void decode(int cw, int ch, int orient, int numbps, int roishift,
+              int style, const std::vector<CodewordSegment>& segs,
+              const std::vector<uint8_t>& bytes) {
+    w = cw;
+    h = ch;
+    fs = w + 2;
+    vsc = style & kVsc;
+    data.assign(size_t(w) * h, 0);
+    flags.assign(size_t(fs) * (h + 2), 0);
+    mq.reset_contexts();
+    const uint8_t* zc = luts().zc[orient];
+    int bp = numbps + roishift, type = 2;
+    if (bp >= 31)
+      fail("code-block with " + std::to_string(bp) +
+           " bit planes (at most 30)");
+    size_t at = 0;
+    for (const CodewordSegment& sg : segs) {
+      if (bp < 1) break;
+      // each segment ends in OpenJPEG's artificial 0xFF 0xFF
+      seg.assign(bytes.begin() + long(at), bytes.begin() + long(at + sg.len));
+      at += sg.len;
+      seg.push_back(0xFF);
+      seg.push_back(0xFF);
+      bool is_raw = (style & kBypass) && type < 2 && bp <= numbps - 4;
+      if (is_raw)
+        raw.init(seg.data());
+      else
+        mq.init(seg.data(), sg.len);
+      for (int p = 0; p < sg.passes && bp >= 1; ++p) {
+        if (type == 0) {
+          if (is_raw) sigpass<true>(bp, zc);
+          else sigpass<false>(bp, zc);
+        } else if (type == 1) {
+          if (is_raw) refpass<true>(bp);
+          else refpass<false>(bp);
+        } else {
+          clnpass(bp, zc, style & kSegSym);
+        }
+        if ((style & kReset) && !is_raw) mq.reset_contexts();
+        if (++type == 3) {
+          type = 0;
+          --bp;
+        }
+      }
+    }
+    if (roishift) {
+      int32_t thresh = int32_t(1) << roishift;
+      for (int32_t& v : data) {
+        int32_t mag = v < 0 ? -v : v;
+        if (mag >= thresh) {
+          mag >>= roishift;
+          v = v < 0 ? -mag : mag;
+        }
+      }
+    }
+  }
+};
+
+// --------------------------------------------------------- tile model
+struct Cblk {
+  int64_t x0, y0, x1, y1;
+  bool included = false;
+  int numbps = 0, lblock = 3, passes = 0;
+  std::vector<CodewordSegment> segs;
+  std::vector<uint8_t> bytes;
+};
+
+struct Prec {
+  int cw = 0, ch = 0;
+  std::vector<Cblk> cb;
+  TagTree incl, imsb;
+};
+
+struct Band {
+  int bandno = 0;
+  int64_t x0, y0, x1, y1;
+  int mb = 0;
+  float step = 0;  // 0.5f * step size (9/7)
+  std::vector<Prec> prec;
+  bool empty() const { return x0 >= x1 || y0 >= y1; }
+};
+
+struct Res {
+  int64_t x0, y0, x1, y1;
+  int pdx, pdy, pw = 0, ph = 0, nb = 0;
+  Band band[3];
+};
+
+struct TileComp {
+  int64_t x0, y0, x1, y1;
+  Spc spc;
+  Quant q;
+  bool sgnd = false;
+  int roishift = 0;
+  std::vector<Res> res;
+  std::vector<int32_t> idata;
+  std::vector<float> fdata;
+  int64_t width() const { return x1 - x0; }
+  int64_t height() const { return y1 - y0; }
+};
+
+void build_comp(TileComp& tc, int64_t& nprec_total) {
+  const Spc& s = tc.spc;
+  const Quant& q = tc.q;
+  int nl = s.nl;
+  tc.res.resize(size_t(nl + 1));
+  for (int r = 0; r <= nl; ++r) {
+    Res& R = tc.res[size_t(r)];
+    int lev = nl - r;
+    R.x0 = ceildivpow2(tc.x0, lev);
+    R.y0 = ceildivpow2(tc.y0, lev);
+    R.x1 = ceildivpow2(tc.x1, lev);
+    R.y1 = ceildivpow2(tc.y1, lev);
+    R.pdx = s.ppx[r];
+    R.pdy = s.ppy[r];
+    int64_t px0 = floordivpow2(R.x0, R.pdx) << R.pdx;
+    int64_t py0 = floordivpow2(R.y0, R.pdy) << R.pdy;
+    int64_t px1 = ceildivpow2(R.x1, R.pdx) << R.pdx;
+    int64_t py1 = ceildivpow2(R.y1, R.pdy) << R.pdy;
+    R.pw = R.x0 == R.x1 ? 0 : int((px1 - px0) >> R.pdx);
+    R.ph = R.y0 == R.y1 ? 0 : int((py1 - py0) >> R.pdy);
+    int64_t np = int64_t(R.pw) * R.ph;
+    nprec_total += np;
+    if (nprec_total > kMaxPrecincts) fail("too many precincts in a tile");
+    int64_t cbgx0, cbgy0;
+    int cbgw, cbgh;
+    if (r == 0) {
+      cbgx0 = px0;
+      cbgy0 = py0;
+      cbgw = R.pdx;
+      cbgh = R.pdy;
+      R.nb = 1;
+    } else {
+      cbgx0 = ceildivpow2(px0, 1);
+      cbgy0 = ceildivpow2(py0, 1);
+      cbgw = R.pdx - 1;
+      cbgh = R.pdy - 1;
+      R.nb = 3;
+    }
+    int cbw = std::min(s.cbw, cbgw), cbh = std::min(s.cbh, cbgh);
+    for (int bi = 0; bi < R.nb; ++bi) {
+      Band& B = R.band[bi];
+      B.bandno = r == 0 ? 0 : bi + 1;
+      if (r == 0) {
+        B.x0 = R.x0;
+        B.y0 = R.y0;
+        B.x1 = R.x1;
+        B.y1 = R.y1;
+      } else {
+        int nb = nl - r + 1;
+        int64_t ox = (B.bandno & 1) ? int64_t(1) << (nb - 1) : 0;
+        int64_t oy = (B.bandno & 2) ? int64_t(1) << (nb - 1) : 0;
+        B.x0 = ceildivpow2(tc.x0 - ox, nb);
+        B.y0 = ceildivpow2(tc.y0 - oy, nb);
+        B.x1 = ceildivpow2(tc.x1 - ox, nb);
+        B.y1 = ceildivpow2(tc.y1 - oy, nb);
+      }
+      int idx = r == 0 ? 0 : 3 * (r - 1) + bi + 1;
+      int expn, mant;
+      if (q.style == 1) {
+        expn = std::max(0, int(q.expn[0]) - (idx - 1) / 3);  // idx 0: eps0
+        mant = q.mant[0];
+      } else {
+        if (idx >= q.nsteps)
+          fail("QCD/QCC gives " + std::to_string(q.nsteps) +
+               " step sizes, the decomposition needs " +
+               std::to_string(3 * nl + 1));
+        expn = q.expn[idx];
+        mant = q.mant[idx];
+      }
+      B.mb = expn + q.guard - 1;
+      if (s.qmfbid == 0) {
+        // (1 + mu / 2^11) * 2^(R - eps) in double, cast to float: R is
+        // the precision alone, with no band gain, for the irreversible
+        // path (OpenJPEG compensates its 9/7 high-band scale there)
+        float st = float((1.0 + mant / 2048.0) * std::pow(2.0, 8 - expn));
+        B.step = 0.5f * st;
+      }
+      B.prec.resize(size_t(np));
+      if (B.empty()) continue;
+      for (int64_t p = 0; p < np; ++p) {
+        Prec& P = B.prec[size_t(p)];
+        int64_t gx0 = cbgx0 + ((p % R.pw) << cbgw);
+        int64_t gy0 = cbgy0 + ((p / R.pw) << cbgh);
+        int64_t qx0 = std::max(gx0, B.x0), qy0 = std::max(gy0, B.y0);
+        int64_t qx1 = std::min(gx0 + (int64_t(1) << cbgw), B.x1);
+        int64_t qy1 = std::min(gy0 + (int64_t(1) << cbgh), B.y1);
+        if (qx0 >= qx1 || qy0 >= qy1) continue;
+        int64_t bx0 = floordivpow2(qx0, cbw) << cbw;
+        int64_t by0 = floordivpow2(qy0, cbh) << cbh;
+        int64_t bx1 = ceildivpow2(qx1, cbw) << cbw;
+        int64_t by1 = ceildivpow2(qy1, cbh) << cbh;
+        P.cw = int((bx1 - bx0) >> cbw);
+        P.ch = int((by1 - by0) >> cbh);
+        P.cb.resize(size_t(P.cw) * P.ch);
+        for (int j = 0; j < P.ch; ++j)
+          for (int i = 0; i < P.cw; ++i) {
+            Cblk& C = P.cb[size_t(j) * P.cw + i];
+            int64_t cx0 = bx0 + (int64_t(i) << cbw);
+            int64_t cy0 = by0 + (int64_t(j) << cbh);
+            C.x0 = std::max(cx0, qx0);
+            C.y0 = std::max(cy0, qy0);
+            C.x1 = std::min(cx0 + (int64_t(1) << cbw), qx1);
+            C.y1 = std::min(cy0 + (int64_t(1) << cbh), qy1);
+          }
+        P.incl.init(P.cw, P.ch);
+        P.imsb.init(P.cw, P.ch);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------- tier 2
+// a new codeword segment's pass capacity (OpenJPEG's opj_t2_init_seg):
+// one pass each with termall; with bypass, 10 MQ passes, then raw
+// significance + refinement pairs and MQ cleanups in turn
+int seg_maxpasses(int style, const std::vector<CodewordSegment>& segs) {
+  if (style & kTermAll) return 1;
+  if (style & kBypass) {
+    if (segs.empty()) return 10;
+    int prev = segs.back().maxpasses;
+    return prev == 1 || prev == 10 ? 2 : 1;
+  }
+  return 109;
+}
+
+struct PacketReader {
+  const std::vector<uint8_t>& d;
+  size_t pos = 0;
+  bool sop, eph;
+  PacketReader(const std::vector<uint8_t>& d_, bool sop_, bool eph_)
+      : d(d_), sop(sop_), eph(eph_) {}
+
+  void read(TileComp& tc, int r, int p, int layer) {
+    Res& R = tc.res[size_t(r)];
+    int style = tc.spc.cbstyle;
+    if (sop && d.size() - pos >= 6 && d[pos] == 0xFF && d[pos + 1] == 0x91)
+      pos += 6;
+    Bio bio(d.data() + pos, d.size() - pos);
+    struct Part {  // bytes of this packet for one codeword segment
+      Cblk* cb;
+      size_t seg;
+      int passes;
+      uint32_t len;
+    };
+    std::vector<Part> parts;
+    if (bio.bit()) {
+      for (int bi = 0; bi < R.nb; ++bi) {
+        Band& B = R.band[bi];
+        if (B.empty()) continue;
+        Prec& P = B.prec[size_t(p)];
+        for (int k = 0; k < P.cw * P.ch; ++k) {
+          Cblk& C = P.cb[size_t(k)];
+          bool inc;
+          if (!C.included)
+            inc = bio.tag_decode(P.incl, k, layer + 1);
+          else
+            inc = bio.bit();
+          if (!inc) continue;
+          if (!C.included) {
+            int i = 0;
+            while (!bio.tag_decode(P.imsb, k, i)) {
+              if (++i > 64) fail("corrupt packet header (zero bit planes)");
+            }
+            C.numbps = B.mb + 1 - i;
+            C.included = true;
+          }
+          int np;
+          if (!bio.bit()) np = 1;
+          else if (!bio.bit()) np = 2;
+          else if ((np = int(bio.read(2))) != 3) np += 3;
+          else if ((np = int(bio.read(5))) != 31) np += 6;
+          else np = 37 + int(bio.read(7));
+          while (bio.bit()) {
+            if (++C.lblock > 32) fail("corrupt packet header (Lblock)");
+          }
+          C.passes += np;
+          if (C.passes > 109)
+            fail("corrupt packet header (more than 109 coding passes)");
+          // the passes fill the open segment, then new ones; each part
+          // has its own length
+          if (C.segs.empty() ||
+              C.segs.back().passes == C.segs.back().maxpasses)
+            C.segs.push_back({seg_maxpasses(style, C.segs)});
+          size_t sg = C.segs.size() - 1;
+          for (;;) {
+            int nn = std::min(C.segs[sg].maxpasses - C.segs[sg].passes, np);
+            int nbits = C.lblock + floorlog2(uint32_t(nn));
+            if (nbits > 32) fail("corrupt packet header (length bits)");
+            parts.push_back({&C, sg, nn, bio.read(nbits)});
+            np -= nn;
+            if (np <= 0) break;
+            C.segs.push_back({seg_maxpasses(style, C.segs)});
+            sg = C.segs.size() - 1;
+          }
+        }
+      }
+    }
+    bio.inalign();
+    pos += bio.pos;
+    if (eph && d.size() - pos >= 2 && d[pos] == 0xFF && d[pos + 1] == 0x92)
+      pos += 2;
+    for (const Part& pt : parts) {
+      if (pt.len > d.size() - pos) fail("truncated packet body");
+      CodewordSegment& sg = pt.cb->segs[pt.seg];
+      pt.cb->bytes.insert(pt.cb->bytes.end(), d.begin() + long(pos),
+                          d.begin() + long(pos + pt.len));
+      sg.len += pt.len;
+      sg.passes += pt.passes;
+      pos += pt.len;
+    }
+  }
+};
+
+struct PacketKey {
+  __int128 k0, k1, k2, k3;
+  int c, r, p;
+};
+
+// the packets of one progression over the resolutions [r0, r1), the
+// components [c0, c1) and the layers [0, l1), each read once: a POC's
+// progressions skip what an earlier one read (OpenJPEG's include table)
+struct Progression {
+  std::vector<TileComp>& tcs;
+  PacketReader& pr;
+  int64_t tx0, ty0;
+  std::vector<std::vector<std::vector<uint8_t>>> done;  // [c][r][p*L + l]
+  int L;
+
+  Progression(std::vector<TileComp>& t, PacketReader& r, int64_t x0,
+              int64_t y0, int layers)
+      : tcs(t), pr(r), tx0(x0), ty0(y0), L(layers) {
+    int64_t n = 0;
+    for (const TileComp& tc : tcs)
+      for (const Res& R : tc.res) n += int64_t(R.pw) * R.ph * L;
+    if (n > kMaxPackets) fail("too many packets in a tile");
+    done.resize(tcs.size());
+    for (size_t c = 0; c < tcs.size(); ++c)
+      for (const Res& R : tcs[c].res)
+        done[c].push_back(std::vector<uint8_t>(size_t(R.pw) * R.ph * L, 0));
+  }
+
+  void packet(int c, int r, int p, int l) {
+    uint8_t& d = done[size_t(c)][size_t(r)][size_t(p) * L + l];
+    if (d) return;
+    d = 1;
+    pr.read(tcs[size_t(c)], r, p, l);
+  }
+
+  int nprec(int c, int r) const {
+    const Res& R = tcs[size_t(c)].res[size_t(r)];
+    return R.pw * R.ph;
+  }
+  bool has(int c, int r) const { return r <= tcs[size_t(c)].spc.nl; }
+
+  void run(int prog, int r0, int r1, int c0, int c1, int l1) {
+    if (prog == 0) {  // LRCP
+      for (int l = 0; l < l1; ++l)
+        for (int r = r0; r < r1; ++r)
+          for (int c = c0; c < c1; ++c)
+            if (has(c, r))
+              for (int p = 0; p < nprec(c, r); ++p) packet(c, r, p, l);
+      return;
+    }
+    if (prog == 1) {  // RLCP
+      for (int r = r0; r < r1; ++r)
+        for (int l = 0; l < l1; ++l)
+          for (int c = c0; c < c1; ++c)
+            if (has(c, r))
+              for (int p = 0; p < nprec(c, r); ++p) packet(c, r, p, l);
+      return;
+    }
+    // RPCL, PCRL, CPRL: each precinct is met at the first position (x, y)
+    // of the tile's reference grid where Annex B.12's loops reach it
+    std::vector<PacketKey> keys;
+    for (int c = c0; c < c1; ++c) {
+      TileComp& tc = tcs[size_t(c)];
+      for (int r = r0; r < std::min(r1, tc.spc.nl + 1); ++r) {
+        Res& R = tc.res[size_t(r)];
+        if (R.pw == 0 || R.ph == 0) continue;
+        int lev = tc.spc.nl - r;
+        if (R.pdx + lev >= 31 || R.pdy + lev >= 31)
+          fail("precinct exponent plus decomposition level of 31 or more "
+               "in a position-driven progression is not supported");
+        for (int j = 0; j < R.ph; ++j)
+          for (int i = 0; i < R.pw; ++i) {
+            int64_t pxs = ((R.x0 >> R.pdx) + i) << R.pdx;
+            int64_t pys = ((R.y0 >> R.pdy) + j) << R.pdy;
+            __int128 x = (i == 0 && (R.x0 & ((int64_t(1) << R.pdx) - 1)))
+                             ? __int128(tx0) : __int128(pxs) << lev;
+            __int128 y = (j == 0 && (R.y0 & ((int64_t(1) << R.pdy) - 1)))
+                             ? __int128(ty0) : __int128(pys) << lev;
+            PacketKey k{0, 0, 0, 0, c, r, j * R.pw + i};
+            if (prog == 2) {  // RPCL
+              k.k0 = r; k.k1 = y; k.k2 = x; k.k3 = c;
+            } else if (prog == 3) {  // PCRL
+              k.k0 = y; k.k1 = x; k.k2 = c; k.k3 = r;
+            } else {  // CPRL
+              k.k0 = c; k.k1 = y; k.k2 = x; k.k3 = r;
+            }
+            keys.push_back(k);
+          }
+      }
+    }
+    std::sort(keys.begin(), keys.end(), [](const PacketKey& a,
+                                           const PacketKey& b) {
+      if (a.k0 != b.k0) return a.k0 < b.k0;
+      if (a.k1 != b.k1) return a.k1 < b.k1;
+      if (a.k2 != b.k2) return a.k2 < b.k2;
+      return a.k3 < b.k3;
+    });
+    for (const PacketKey& k : keys)
+      for (int l = 0; l < l1; ++l) packet(k.c, k.r, k.p, l);
+  }
+};
+
+void decode_packets(std::vector<TileComp>& tcs, const Cod& cod,
+                    const std::vector<Poc>& poc,
+                    const std::vector<uint8_t>& bytes, int64_t tx0,
+                    int64_t ty0) {
+  PacketReader pr(bytes, cod.sop, cod.eph);
+  int nc = int(tcs.size());
+  int maxres = 0;
+  for (auto& tc : tcs) maxres = std::max(maxres, tc.spc.nl + 1);
+  Progression prog(tcs, pr, tx0, ty0, cod.layers);
+  if (poc.empty()) {
+    prog.run(cod.prog, 0, maxres, 0, nc, cod.layers);
+    return;
+  }
+  for (const Poc& q : poc)
+    prog.run(q.prog, q.res0, std::min(q.res1, maxres), q.comp0,
+             std::min(q.comp1, nc), std::min(q.lay1, cod.layers));
+}
+
+// --------------------------------------------------------- tier 1 glue
+void decode_blocks(TileComp& tc, T1& t1) {
+  int64_t stride = tc.width();
+  bool rev = tc.spc.qmfbid == 1;
+  if (rev)
+    tc.idata.assign(size_t(stride * tc.height()), 0);
+  else
+    tc.fdata.assign(size_t(stride * tc.height()), 0.f);
+  for (size_t r = 0; r < tc.res.size(); ++r) {
+    Res& R = tc.res[r];
+    for (int bi = 0; bi < R.nb; ++bi) {
+      Band& B = R.band[bi];
+      if (B.empty()) continue;
+      int64_t offx = 0, offy = 0;
+      if (B.bandno & 1) offx = tc.res[r - 1].x1 - tc.res[r - 1].x0;
+      if (B.bandno & 2) offy = tc.res[r - 1].y1 - tc.res[r - 1].y0;
+      for (Prec& P : B.prec)
+        for (Cblk& C : P.cb) {
+          if (!C.passes || C.x1 <= C.x0 || C.y1 <= C.y0) continue;
+          int cw = int(C.x1 - C.x0), ch = int(C.y1 - C.y0);
+          int64_t ox = C.x0 - B.x0 + offx, oy = C.y0 - B.y0 + offy;
+          if (ox < 0 || oy < 0 || ox + cw > stride || oy + ch > tc.height())
+            fail("code-block outside its tile-component");
+          t1.decode(cw, ch, B.bandno, C.numbps, tc.roishift, tc.spc.cbstyle,
+                    C.segs, C.bytes);
+          for (int y = 0; y < ch; ++y) {
+            const int32_t* src = &t1.data[size_t(y) * cw];
+            size_t at = size_t((oy + y) * stride + ox);
+            if (rev) {
+              int32_t* dst = &tc.idata[at];
+              for (int x = 0; x < cw; ++x) dst[x] = src[x] / 2;
+            } else {
+              float* dst = &tc.fdata[at];
+              for (int x = 0; x < cw; ++x) dst[x] = float(src[x]) * B.step;
+            }
+          }
+        }
+    }
+  }
+}
+
+// ---------------------------------------------------------- wavelets
+// one line: low samples first, then high; cas = parity of its origin
+void idwt53_line(int32_t* v, int n, int cas, std::vector<int32_t>& t) {
+  if (n == 1) {
+    if (cas) v[0] /= 2;
+    return;
+  }
+  if (n < 1) return;
+  int sn = (n + 1 - cas) / 2;
+  t.resize(size_t(n));
+  for (int i = 0; i < n; ++i) {
+    bool low = ((i + cas) & 1) == 0;
+    t[size_t(i)] = low ? v[i / 2] : v[sn + i / 2];
+  }
+  int32_t* x = t.data();
+  for (int i = cas; i < n; i += 2) {
+    int32_t l = i > 0 ? x[i - 1] : x[i + 1];
+    int32_t r = i + 1 < n ? x[i + 1] : x[i - 1];
+    x[i] -= (l + r + 2) >> 2;
+  }
+  for (int i = 1 - cas; i < n; i += 2) {
+    int32_t l = i > 0 ? x[i - 1] : x[i + 1];
+    int32_t r = i + 1 < n ? x[i + 1] : x[i - 1];
+    x[i] += (l + r) >> 1;
+  }
+  memcpy(v, x, size_t(n) * sizeof(int32_t));
+}
+
+const float kK = 1.230174105f;
+const float kTwoInvK = 1.625732422f;
+const float kLift[4] = {-0.443506852f, -0.882911075f, 0.052980118f,
+                        1.586134342f};
+
+void idwt97_line(float* v, int n, int cas, std::vector<float>& t) {
+  if (n <= 1) return;
+  int sn = (n + 1 - cas) / 2;
+  t.resize(size_t(n));
+  for (int i = 0; i < n; ++i) {
+    bool low = ((i + cas) & 1) == 0;
+    t[size_t(i)] = low ? v[i / 2] * kK : v[sn + i / 2] * kTwoInvK;
+  }
+  float* x = t.data();
+  for (int s = 0; s < 4; ++s) {
+    const float c = kLift[s];
+    // steps 0 and 2 update the low samples, 1 and 3 the high ones
+    int start = (s & 1) ? 1 - cas : cas;
+    for (int i = start; i < n; i += 2) {
+      float l = i > 0 ? x[i - 1] : x[i + 1];
+      float r = i + 1 < n ? x[i + 1] : x[i - 1];
+      float sum = l + r;
+      float prod = sum * c;
+      x[i] = x[i] + prod;
+    }
+  }
+  memcpy(v, x, size_t(n) * sizeof(float));
+}
+
+template <typename T, typename F>
+void idwt(TileComp& tc, std::vector<T>& buf, F line) {
+  int64_t stride = tc.width();
+  std::vector<T> col, tmp;
+  for (size_t r = 1; r < tc.res.size(); ++r) {
+    const Res& R = tc.res[r];
+    int rw = int(R.x1 - R.x0), rh = int(R.y1 - R.y0);
+    int casx = int(R.x0 & 1), casy = int(R.y0 & 1);
+    for (int j = 0; j < rh; ++j)
+      line(&buf[size_t(j * stride)], rw, casx, tmp);
+    col.resize(size_t(rh));
+    for (int i = 0; i < rw; ++i) {
+      for (int j = 0; j < rh; ++j)
+        col[size_t(j)] = buf[size_t(j * stride + i)];
+      line(col.data(), rh, casy, tmp);
+      for (int j = 0; j < rh; ++j)
+        buf[size_t(j * stride + i)] = col[size_t(j)];
+    }
+  }
+}
+
+// --------------------------------------------------------------- tile
+void decode_tile(const Codestream& cs, int ti, uint8_t* out) {
+  const TileData& td = cs.tiles[size_t(ti)];
+  int p = ti % cs.ntx, q = ti / cs.ntx;
+  int64_t tx0 = std::max(cs.TX0 + p * cs.TW, cs.X0);
+  int64_t ty0 = std::max(cs.TY0 + q * cs.TH, cs.Y0);
+  int64_t tx1 = std::min(cs.TX0 + (p + 1) * cs.TW, cs.X);
+  int64_t ty1 = std::min(cs.TY0 + (q + 1) * cs.TH, cs.Y);
+  const Cod& cod = td.has_cod ? td.cod : cs.cod;
+  int nc = cs.nc;
+  std::vector<TileComp> tcs(static_cast<size_t>(nc));
+  int64_t nprec = 0;
+  for (int c = 0; c < nc; ++c) {
+    TileComp& tc = tcs[size_t(c)];
+    size_t cu = size_t(c);
+    tc.x0 = tx0;
+    tc.y0 = ty0;
+    tc.x1 = tx1;
+    tc.y1 = ty1;
+    tc.sgnd = cs.comp[cu].sgnd;
+    tc.spc = td.coc_set[cu] ? td.coc[cu]
+             : td.has_cod   ? td.cod.spc
+             : cs.coc_set[cu] ? cs.coc[cu]
+                              : cs.cod.spc;
+    tc.q = td.qcc_set[cu] ? td.qcc[cu]
+           : td.has_qcd   ? td.qcd
+           : cs.qcc_set[cu] ? cs.qcc[cu]
+                            : cs.qcd;
+    tc.roishift = td.rgn_set[cu] ? td.roishift[cu] : cs.roishift[cu];
+    build_comp(tc, nprec);
+  }
+  std::vector<Poc> poc = cs.poc;
+  poc.insert(poc.end(), td.poc.begin(), td.poc.end());
+  decode_packets(tcs, cod, poc, td.bytes, tx0, ty0);
+  T1 t1;
+  for (auto& tc : tcs) {
+    decode_blocks(tc, t1);
+    if (tc.spc.qmfbid == 1)
+      idwt(tc, tc.idata, idwt53_line);
+    else
+      idwt(tc, tc.fdata, idwt97_line);
+  }
+  size_t np = size_t((tx1 - tx0) * (ty1 - ty0));
+  if (cod.mct && nc >= 3) {
+    int qm = tcs[0].spc.qmfbid;
+    if (tcs[1].spc.qmfbid != qm || tcs[2].spc.qmfbid != qm)
+      fail("multiple component transform over components with different "
+           "wavelets is not supported");
+    if (qm == 1) {
+      int32_t *c0 = tcs[0].idata.data(), *c1 = tcs[1].idata.data(),
+              *c2 = tcs[2].idata.data();
+      for (size_t i = 0; i < np; ++i) {
+        int32_t y = c0[i], u = c1[i], v = c2[i];
+        int32_t g = y - ((u + v) >> 2);
+        c0[i] = v + g;
+        c1[i] = g;
+        c2[i] = u + g;
+      }
+    } else {
+      float *c0 = tcs[0].fdata.data(), *c1 = tcs[1].fdata.data(),
+            *c2 = tcs[2].fdata.data();
+      for (size_t i = 0; i < np; ++i) {
+        float y = c0[i], u = c1[i], v = c2[i];
+        float vr = v * 1.402f;
+        float r = y + vr;
+        float ug = u * 0.34413f, vg = v * 0.71414f;
+        float g = y - ug;
+        g = g - vg;
+        float ub = u * 1.772f;
+        float b = y + ub;
+        c0[i] = r;
+        c1[i] = g;
+        c2[i] = b;
+      }
+    }
+  }
+  // DC level shift, rounding and clamping, then the RGB output
+  int64_t W = cs.width();
+  int64_t ox = tx0 - cs.X0, oy = ty0 - cs.Y0;
+  int64_t tw = tx1 - tx0, th = ty1 - ty0;
+  for (int o = 0; o < 3; ++o) {
+    int c = nc >= 3 ? o : 0;
+    TileComp& tc = tcs[size_t(c)];
+    int lo = tc.sgnd ? -128 : 0, hi = tc.sgnd ? 127 : 255;
+    int shift = tc.sgnd ? 0 : 128;
+    for (int64_t y = 0; y < th; ++y) {
+      uint8_t* dst = out + ((oy + y) * W + ox) * 3 + o;
+      for (int64_t x = 0; x < tw; ++x) {
+        size_t i = size_t(y * tw + x);
+        int64_t v;
+        if (tc.spc.qmfbid == 1) {
+          v = int64_t(tc.idata[i]) + shift;
+        } else {
+          float f = tc.fdata[i];
+          if (f > float(INT_MAX)) v = hi;
+          else if (!(f >= float(INT_MIN))) v = lo;
+          else v = int64_t(lrintf(f)) + shift;
+        }
+        v = std::max<int64_t>(lo, std::min<int64_t>(hi, v));
+        dst[x * 3] = uint8_t(tc.sgnd ? v + 128 : v);
+      }
+    }
+  }
+}
+
+void set_err(char* err, int errlen, const char* msg) {
+  if (err && errlen > 0) snprintf(err, size_t(errlen), "%s", msg);
+}
+
+}  // namespace
+
+extern "C" {
+
+int j2k_info(const uint8_t* data, long n, int* dims, char* err,
+             int errlen) {
+  try {
+    if (n < 0) fail("negative length");
+    Codestream cs;
+    cs.parse(data, size_t(n), true);
+    dims[0] = cs.height();
+    dims[1] = cs.width();
+    dims[2] = cs.nc;
+    return 0;
+  } catch (const std::exception& e) {
+    set_err(err, errlen, e.what());
+    return 1;
+  }
+}
+
+int j2k_decode(const uint8_t* data, long n, uint8_t* out, long cap,
+               char* err, int errlen) {
+  try {
+    if (n < 0) fail("negative length");
+    Codestream cs;
+    cs.parse(data, size_t(n), false);
+    if (int64_t(cs.height()) * cs.width() * 3 > cap)
+      fail("output buffer too small");
+    for (int t = 0; t < cs.ntx * cs.nty; ++t) decode_tile(cs, t, out);
+    return 0;
+  } catch (const std::bad_alloc&) {
+    set_err(err, errlen, "out of memory");
+    return 1;
+  } catch (const std::exception& e) {
+    set_err(err, errlen, e.what());
+    return 1;
+  }
+}
+
+}  // extern "C"

@@ -2,8 +2,10 @@
 decoder bit for bit against PIL (libjpeg-turbo) on every sequential
 stream a slide carries, the encoder against PIL's own streams, and the
 port's ``TiffSlide`` bit for bit against the JAX ``TiffSlide`` on every
-file the JAX I/O tests build, plus hand-made files for what those leave
-out (big-endian, the horizontal predictor, classic tiled pages).
+file the JAX I/O tests build, on Aperio JPEG 2000 pyramids (33003 and
+33005, 240² tiles with partial edge tiles), plus hand-made files for what
+those leave out (big-endian, the horizontal predictor, classic tiled
+pages).
 
 PIL is used here only, to make and decode reference streams; the port
 never imports it."""
@@ -24,6 +26,7 @@ from classpose_tpu_torch.io import jpeg
 from classpose_tpu_torch.io.tiff_reader import TiffSlide
 from classpose_tpu_torch.io.tiff_writer import write_tiled_tiff
 from classpose_tpu_torch.utils import get_slide_resolution
+from golden import regenerate_j2k as regen_j2k
 
 GOLDEN = Path(__file__).parent / "golden"
 
@@ -318,6 +321,14 @@ def _file(kind, tmp_path):
         write = jax_write if kind == "jax-writer" else write_tiled_tiff
         path = write(path, _image(700, 1100, seed=5), tile=256, quality=92,
                      mpp=0.5)
+    elif kind.startswith("j2k-"):
+        # Aperio's 9/7 tiles: RGB with the ICT (33005), or the YCbCr
+        # values as plain components (33003)
+        comp = int(kind[4:])
+        regen_j2k.write_j2k_tiff(path, _image(300, 400, seed=3), tile=240,
+                                 mpp=0.5, compression=comp, n_levels=3,
+                                 irreversible=True, quality_layers=[12],
+                                 mct=int(comp == 33005))
     else:  # hand-made: order-big-tile-compression-predictor
         order, big, tile, comp, pred = kind.split("-")
         _write_handmade(path, _base(150, 130, 2), order.encode(),
@@ -326,7 +337,7 @@ def _file(kind, tmp_path):
 
 
 FILES = ["pil-raw", "pil-tiff_adobe_deflate", "pil-tiff_lzw", "jpeg-strips",
-         "bigtiff", "jax-writer", "port-writer",
+         "bigtiff", "jax-writer", "port-writer", "j2k-33003", "j2k-33005",
          "MM-classic-0-1-1", "MM-big-64-8-2", "II-classic-64-8-2",
          "MM-classic-0-8-2"]
 WINDOWS = [  # (level, level-0 location, size)
@@ -372,7 +383,7 @@ def test_handmade_files_hold_their_pixels(tmp_path):
     """The hand-made files are what they claim: both byte orders, the
     predictor and Deflate decode to the source pixels."""
     base = _base(150, 130, 2)
-    for kind in FILES[7:]:
+    for kind in [k for k in FILES if k[:2] in ("II", "MM")]:
         s = TiffSlide(_file(kind, tmp_path))
         np.testing.assert_array_equal(
             s.read_region((0, 0), 0, (130, 150))[..., :3], base)
@@ -420,6 +431,9 @@ def test_reader_thumbnail_subsamples(tmp_path):
 
 
 def test_reader_refuses_jpeg2000(tmp_path):
+    """A 33003 page whose tile is not a JPEG 2000 codestream: the decoder's
+    ``ValueError`` (the reader decodes Aperio JPEG 2000 tiles; the pyramids
+    of ``FILES`` hold it bitwise to the JAX reader)."""
     path = tmp_path / "j2k.tif"
     _write_handmade(path, _base(16, 16, 1), b"II", False, 16, 1, 1)
     raw = bytearray(path.read_bytes())
@@ -428,7 +442,7 @@ def test_reader_refuses_jpeg2000(tmp_path):
     raw[at:at + 10] = struct.pack("<HHIH", 259, 3, 1, 33003)
     path.write_bytes(bytes(raw))
     s = TiffSlide(str(path))
-    with pytest.raises(NotImplementedError, match="JPEG 2000"):
+    with pytest.raises(ValueError, match="not a JPEG 2000 codestream"):
         s.read_region((0, 0), 0, (8, 8))
     s.close()
     with pytest.raises(ValueError, match="not a TIFF"):

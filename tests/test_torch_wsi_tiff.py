@@ -9,7 +9,10 @@ no ``--mpp``) and the same tiny checkpoint as
 The two readers decode the tiles to the same pixels (libjpeg in PIL for
 JAX, the port's codec here), so the comparison is the one of the
 ``.npy`` test: equal tiles, cell counts within 0.5%, ≥ 99% of the port's
-cells within 1 px of a JAX cell with the same class."""
+cells within 1 px of a JAX cell with the same class. The same holds on
+that slide as an Aperio JPEG 2000 pyramid (compression 33005, 9/7 tiles
+with the ICT, written by ``tests/golden/regenerate_j2k.py``'s writer):
+OpenJPEG in PIL for JAX, the port's decoder here."""
 
 import os
 
@@ -24,6 +27,7 @@ from classpose_tpu.nn.convert import save_params
 from classpose_tpu.nn.synthetic import perturbed_structured_params
 from classpose_tpu.pipeline.predict_wsi import main as jax_main
 from classpose_tpu_torch.pipeline.predict_wsi import main as port_main
+from golden.regenerate_j2k import write_j2k_tiff
 from test_torch_pipeline import CFG, LABELS, _args, _centroids
 
 
@@ -46,12 +50,13 @@ def _run(reader, fn, *args):
             os.environ["WSI_READER"] = old
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("wsi_tiff")
+def _runs(tmp, write, region=None):
     slide, _ = synthetic_wsi(width=1100, height=900, n_cells=80, seed=4,
                              mpp=0.4)
-    write_tiled_tiff(tmp / "slide.svs", slide._level0, tile=256, mpp=0.4)
+    level0 = slide._level0
+    if region is not None:
+        level0 = np.ascontiguousarray(level0[:region[0], :region[1]])
+    write(tmp / "slide.svs", level0)
     cfg = JaxCfg(**CFG)
     save_params(perturbed_structured_params(cfg, ripple=0.5, seed=0),
                 str(tmp / "ckpt.npz"), cfg=cfg)
@@ -63,14 +68,34 @@ def runs(tmp_path_factory):
     return tmp, ref, got
 
 
-def test_tiff_slide_same_tiles_and_cells(runs):
+# the JPEG 2000 run reads the slide's top-left 700 × 600: 4 tiles
+J2K_REGION = (600, 700)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    return _runs(tmp_path_factory.mktemp("wsi_tiff"),
+                 lambda path, img: write_tiled_tiff(path, img, tile=256,
+                                                    mpp=0.4))
+
+
+@pytest.fixture(scope="module")
+def runs_j2k(tmp_path_factory):
+    return _runs(tmp_path_factory.mktemp("wsi_j2k"),
+                 lambda path, img: write_j2k_tiff(
+                     path, img, tile=256, mpp=0.4, n_levels=2,
+                     irreversible=True, mct=1, quality_layers=[20]),
+                 region=J2K_REGION)
+
+
+def _same_tiles_and_cells(runs, n_tiles, min_cells):
     _, ref, got = runs
-    assert got["n_tiles"] == ref["n_tiles"] == 12
-    assert ref["n_cells"] >= 100
+    assert got["n_tiles"] == ref["n_tiles"] == n_tiles
+    assert ref["n_cells"] >= min_cells
     assert abs(got["n_cells"] - ref["n_cells"]) <= 0.005 * ref["n_cells"]
 
 
-def test_tiff_slide_centroids_and_classes_match(runs):
+def _centroids_and_classes_match(runs):
     tmp, _, _ = runs
     ref_pts, ref_names = _centroids(tmp / "jax" /
                                     "slide_cell_centroids.geojson")
@@ -79,6 +104,22 @@ def test_tiff_slide_centroids_and_classes_match(runs):
     same = [np.isfinite(d) and names[i] == ref_names[j]
             for i, (d, j) in enumerate(zip(dist, idx))]
     assert np.mean(same) >= 0.99
+
+
+def test_tiff_slide_same_tiles_and_cells(runs):
+    _same_tiles_and_cells(runs, 12, 100)
+
+
+def test_tiff_slide_centroids_and_classes_match(runs):
+    _centroids_and_classes_match(runs)
+
+
+def test_j2k_slide_same_tiles_and_cells(runs_j2k):
+    _same_tiles_and_cells(runs_j2k, 4, 20)
+
+
+def test_j2k_slide_centroids_and_classes_match(runs_j2k):
+    _centroids_and_classes_match(runs_j2k)
 
 
 def test_tiff_slide_reads_its_mpp(runs):
