@@ -240,34 +240,31 @@ def build(csrc: Path, tag: str, log_path: Path, sources=SOURCES,
 
 def fwd_tm(lib, qkv, rel, out, G, n, scale):
     B, L, _ = qkv.shape
-    _build.check(lib.attn_fwd_bf16(
-        qkv.data_ptr(), rel.data_ptr(), out.data_ptr(), None, None, B, L, n,
-        G, G, scale, _build.stream_ptr(qkv.device)), "attn_fwd_bf16")
+    _build.call(lib, "attn_fwd_bf16", qkv.device, qkv.data_ptr(),
+                rel.data_ptr(), out.data_ptr(), None, None, B, L, n, G, G,
+                scale)
 
 
 def fwd_hm(lib, q, k, v, rh, rw, out, G, scale):
     B, n, L, _ = q.shape
     fn = "attn_hm_f32" if q.dtype == torch.float32 else "attn_hm_bf16"
-    _build.check(getattr(lib, fn)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), rh.data_ptr(),
-        rw.data_ptr(), out.data_ptr(), B, L, n, G, G, scale,
-        _build.stream_ptr(q.device)), fn)
+    _build.call(lib, fn, q.device, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), rh.data_ptr(), rw.data_ptr(), out.data_ptr(),
+                B, L, n, G, G, scale)
 
 
 def sample(lib, u, py, px, out):
     B, C, H, W = u.shape
-    _build.check(lib.bilinear_sample_f32(
-        u.data_ptr(), py.data_ptr(), px.data_ptr(), out.data_ptr(), B, C, H,
-        W, _build.stream_ptr(u.device)), "bilinear_sample_f32")
+    _build.call(lib, "bilinear_sample_f32", u.device, u.data_ptr(),
+                py.data_ptr(), px.data_ptr(), out.data_ptr(), B, C, H, W)
 
 
 def bwd(lib, qkv, rel, out32, lse, dout, delta, dqkv, drel, G, n, scale):
     B, L, _ = qkv.shape
-    _build.check(lib.attn_bwd_bf16(
-        qkv.data_ptr(), rel.data_ptr(), out32.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), drel.data_ptr(),
-        B, L, n, G, G, scale, _build.stream_ptr(qkv.device)),
-        "attn_bwd_bf16")
+    _build.call(lib, "attn_bwd_bf16", qkv.device, qkv.data_ptr(),
+                rel.data_ptr(), out32.data_ptr(), dout.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(),
+                drel.data_ptr(), B, L, n, G, G, scale)
 
 
 def ab(calls: dict, flops: float, bound: float) -> dict:
@@ -485,15 +482,13 @@ def blocked_rounds(lib, T0, ids, cen, n_eff, nmax, bufs) -> torch.Tensor:
     (``diffusion_blocked_round``), as its wrapper drove them, with the
     count given from the host; ``bufs`` two scratch planes."""
     B, H, W = ids.shape
-    stream = _build.stream_ptr(ids.device)
     depth = lib.diffusion_blocked_depth()
     src = T0
     for r in range(-(-nmax // depth)):
         dst = bufs[r % 2]
-        _build.check(lib.diffusion_blocked_round(
-            src.data_ptr(), dst.data_ptr(), ids.data_ptr(), cen.data_ptr(),
-            n_eff.data_ptr(), B, H, W, r * depth, stream),
-            "diffusion_blocked_round")
+        _build.call(lib, "diffusion_blocked_round", ids.device,
+                    src.data_ptr(), dst.data_ptr(), ids.data_ptr(),
+                    cen.data_ptr(), n_eff.data_ptr(), B, H, W, r * depth)
         src = dst
     return src
 
@@ -505,16 +500,14 @@ def resident_rounds(lib, ids, cen, niter, nmax, cenm, mask, bufs
     ``nmax`` = max(niter); ``cenm``, ``mask`` and the two ``bufs`` are
     scratch of ids' shape."""
     B, H, W = ids.shape
-    stream = _build.stream_ptr(ids.device)
-    _build.check(lib.diffusion_pack_nbr(
-        ids.data_ptr(), cen.data_ptr(), cenm.data_ptr(), mask.data_ptr(), B,
-        H, W, stream), "diffusion_pack_nbr")
+    _build.call(lib, "diffusion_pack_nbr", ids.device, ids.data_ptr(),
+                cen.data_ptr(), cenm.data_ptr(), mask.data_ptr(), B, H, W)
     T, T2 = bufs
     T.zero_()
     for s0 in range(0, nmax, lib.diffusion_resident_depth()):
-        _build.check(lib.diffusion_resident_round(
-            T.data_ptr(), T2.data_ptr(), cenm.data_ptr(), mask.data_ptr(),
-            niter.data_ptr(), B, H, W, s0, stream), "diffusion round")
+        _build.call(lib, "diffusion_resident_round", ids.device,
+                    T.data_ptr(), T2.data_ptr(), cenm.data_ptr(),
+                    mask.data_ptr(), niter.data_ptr(), B, H, W, s0)
         T, T2 = T2, T
     return T
 
@@ -649,9 +642,8 @@ def converged_landing(dev, B, H, W):
 
 def histogram(lib, fy, fx, cell, out):
     B, H, W = fy.shape
-    _build.check(lib.landing_histogram_f32(
-        fy.data_ptr(), fx.data_ptr(), cell.data_ptr(), out.data_ptr(), B, H,
-        W, _build.stream_ptr(fy.device)), "landing_histogram_f32")
+    _build.call(lib, "landing_histogram_f32", fy.device, fy.data_ptr(),
+                fx.data_ptr(), cell.data_ptr(), out.data_ptr(), B, H, W)
 
 
 def bincount_yardstick(fy, fx, cell, reps: int = 15, inner: int = 3) -> dict:

@@ -81,7 +81,17 @@
    finite, the weights written and loaded by ``load_checkpoint`` into a
    model whose ``eval`` of a 256² image gives finite outputs; it prints
    the CLI's wall, its steps and the seconds its items took in
-   ``ClassposeHDF5Dataset.__getitem__``;
+   ``ClassposeHDF5Dataset.__getitem__``; then several ranks: two
+   processes run the trainer's configuration above for its first 2
+   epochs of 2 steps (epoch 0's learning rate is 0 by the schedule, so a
+   single epoch would move no weight) at 4 images a rank, global batch
+   8, on the very items the one-process run drew (recorded, then
+   replayed by rank share), with NCCL on two cards (``torch.distributed.run``) where two
+   are visible, else both on ``cuda:0`` over gloo; both ranks' final
+   weights must be bitwise equal, rank 0's ``.npz`` (written
+   uncompressed here: the compressed save is timed above) must hold them,
+   and each step's total loss must lie within 1e-4 of the one-process
+   run's; it prints the route, each rank's imgs/s and peak memory;
 6. writes a ViT-L checkpoint whose patch embed and attention are live
    (``perturbed_structured_params`` with ``attn_ripple``, 6 classes) as a
    published ``conic.pt`` (the published key layout, held against the
@@ -95,7 +105,16 @@
    range and that all five inference kernels ran; a second run under
    ``--profile`` gives the device's idle share; a third with the plain
    versions swapped in must agree (cell counts within 0.5%, ≥ 99% of
-   centroids within 1 px with the same class); then the published
+   centroids within 1 px with the same class); then several cards: the
+   same slide, checkpoint and flags on two replicas, through the CLI with
+   ``--device cuda:0,1`` where two cards are visible, else through
+   ``pipeline.predict_wsi.main(..., devices=[cuda:0, cuda:0])``; the five
+   kernels must run, both replicas get batches, and its cells must be the
+   one-card run's (equal count, every cell matched with its class); the
+   run is made once, under ``--profile``; it prints the route, the
+   batches dealt to each replica, the seconds (against the one-card
+   ``--profile`` run's), the slide tiles/s, the idle share and whether
+   the sorted features are byte-identical; then the published
    checkpoint: ``python -m classpose_tpu_torch.entrypoints.predict_wsi
    --model_config conic`` in a process of its own with
    ``CLASSPOSE_MODEL_DIR`` on the ``.pt``'s directory must launch the
@@ -157,7 +176,7 @@
    the outputs must reproduce the evaluate CLI's numbers; then
    ``ClassposeModel.eval`` on one 448² image under the profiler, on one
    256² image (kernel 4, not kernel 7), and ``eval(do_3D=True)`` in bf16
-   on a 16 × 128 × 128 stack (kernel 1), compared with the plain
+   on a 16 × 64 × 64 stack (kernel 1), compared with the plain
    versions; then ``eval`` with a ViT-L at bsize 224 (28 × 28 tokens) on
    one 480² image in fp32 and bf16, against the plain versions, and with
    a ViT-L at bsize 1024 (128 × 128 tokens, L = 16384) on one 1024² image
@@ -183,12 +202,14 @@ from __future__ import annotations
 import argparse
 import contextlib
 import csv
+import gc
 import hashlib
 import io
 import json
 import logging
 import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -196,6 +217,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -226,6 +248,7 @@ import classpose_tpu_torch.dynamics.flows as port_flows
 import classpose_tpu_torch.dynamics.masks as port_masks
 import classpose_tpu_torch.nn.layernorm as port_ln
 import classpose_tpu_torch.nn.vit_sam as port_vit
+import classpose_tpu_torch.train.train as port_train
 from classpose_tpu_torch import _build
 from classpose_tpu_torch.entrypoints.calculate_metrics import (
     main_with_args as metrics_cli,
@@ -239,7 +262,10 @@ from classpose_tpu_torch.entrypoints.convert_weights import (
 from classpose_tpu_torch.entrypoints.parity_check import (
     main_with_args as parity_cli,
 )
-from classpose_tpu_torch.entrypoints.predict_wsi import main_with_args
+from classpose_tpu_torch.entrypoints.predict_wsi import (
+    build_parser as wsi_parser,
+    main_with_args,
+)
 from classpose_tpu_torch.entrypoints.run_training import (
     main_with_args as run_training_main,
 )
@@ -271,7 +297,10 @@ from classpose_tpu_torch.io import TiffSlide, hdf5, jpeg, jpeg2000
 from classpose_tpu_torch.io.array_reader import ArraySlide, synthetic_wsi
 from classpose_tpu_torch.io.tiff_writer import write_tiled_tiff
 from classpose_tpu_torch.io.zarrlite import read_zarr_array
-from classpose_tpu_torch.model_configs import DEFAULT_MODEL_CONFIGS
+from classpose_tpu_torch.model_configs import (
+    DEFAULT_MODEL_CONFIGS,
+    resolve_model_config,
+)
 from classpose_tpu_torch.nn.convert import (
     load_checkpoint,
     published_names,
@@ -311,7 +340,15 @@ from classpose_tpu_torch.ops.sample import (
     landing_histogram_plain,
 )
 from classpose_tpu_torch.ops.tiles import compute_tile_grid
+from classpose_tpu_torch.parallel.distributed import (
+    setup_distributed,
+    teardown_distributed,
+)
 from classpose_tpu_torch.pipeline.outputs import filter_cells_by_tree
+from classpose_tpu_torch.pipeline.predict_wsi import (
+    build_model_from_config,
+    main as wsi_main,
+)
 from classpose_tpu_torch.pipeline.slide_loader import SlideLoader
 from classpose_tpu_torch.runner import ClassposeModel
 from classpose_tpu_torch.runner.core import chunk_plan
@@ -371,7 +408,7 @@ CLI_EPOCHS, CLI_BATCH, AUG_CALLS, AUG_ITEMS = 2, 4, 5, 4
 EVAL_IMAGES, EVAL_SIZE, EVAL_BATCH = 8, 448, 8
 EVALUATE_KERNELS = ("flash_attention_relpos", "bilinear_sample",
                     "landing_histogram", "diffuse_blocked")
-STACK_SHAPE = (16, 128, 128)
+STACK_SHAPE = (16, 64, 64)  # 16 + 64 + 64 slices, one 256² tile each
 # fault 3: token grids off the 32 x 32 of bsize 256 (bsize 224 and 512 at
 # patch 8, and a non-square one), and the end-to-end checks at bsize 224
 # (28 x 28 tokens, L = 784): eval on one image of 480², whose 3 x 3 crop
@@ -384,6 +421,14 @@ BIG_BSIZE, BIG_SIZE = 1024, 1024
 # the commit whose kernel bodies the A/B phase (``--ab``) holds the
 # working tree's against
 AB_PARENT = "5846458"
+# the several-ranks phase: two ranks replay the first 2 epochs of phase
+# 5's trainer run (2 steps each at global batch 8, 4 images a rank; epoch
+# 0's learning rate is 0, epoch 1's moves the weights); seconds a rank
+# may wait in a collective, and the phase's limit; the step totals' limit
+# against the one-process run (its bf16 steps sum the two shares'
+# gradients in another order: ~4e-6 apart on an H100)
+RANKS, RANK_EPOCHS, RANK_COLLECTIVE_S, RANKS_LIMIT_S = 2, 2, 300, 480
+RANK_LOSS_RTOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -1389,16 +1434,26 @@ def run_training(dev, out_dir: str) -> tuple[dict, dict, dict]:
     watched = {k: p.detach().clone() for k, p in net.named_parameters()
                if ".attn." in k or k.startswith(("out.", "out_class."))}
 
-    # the trainer: 3 epochs of 2 steps, epoch 0 at lr 0 by the schedule
+    # the trainer: 3 epochs of 2 steps, epoch 0 at lr 0 by the schedule;
+    # its items and step losses recorded for the several-ranks phase
     n_epochs, steps = 3, 3 * (TRAIN_IMAGES // TRAIN_BATCH)
+    recorded, step_totals, save_walls = RecordedDataset(ds), [], []
+
+    def timed_save(*args, **kwargs):
+        t = time.perf_counter()
+        save_params(*args, **kwargs)
+        save_walls.append(time.perf_counter() - t)
+
     _build.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    path, train_losses, _ = train_class_seg(
-        model, ds, batch_size=TRAIN_BATCH, n_epochs=n_epochs,
-        learning_rate=1e-4, save_path=out_dir, model_name="smoke",
-        class_weights=cw, use_uncertainty_weighting=True,
-        random_seed=SEED)
+    with mock.patch.object(port_train, "save_params", timed_save):
+        path, train_losses, _ = train_class_seg(
+            model, recorded, batch_size=TRAIN_BATCH, n_epochs=n_epochs,
+            learning_rate=1e-4, save_path=out_dir, model_name="smoke",
+            class_weights=cw, use_uncertainty_weighting=True,
+            random_seed=SEED,
+            on_step=lambda s, m: step_totals.append(m["total"]))
     torch.cuda.synchronize()
     trainer_s = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
@@ -1417,13 +1472,11 @@ def run_training(dev, out_dir: str) -> tuple[dict, dict, dict]:
     del watched
 
     # the trainer's host work besides its steps: one batch through the
-    # augmentation, and one save of the final weights
+    # augmentation, and its save of the final weights (timed above)
     t0 = time.perf_counter()
     items = [ds[i] for i in range(TRAIN_BATCH)]
     batch_load_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    save_params(net.state_dict(), f"{out_dir}/again.npz", cfg)
-    save_npz_s = time.perf_counter() - t0
+    (save_npz_s,) = save_walls
 
     # the step alone at batch 8: median wall, peak memory, MFU, a trace
     X = torch.from_numpy(np.stack([x for x, _ in items])).to(dev)
@@ -1482,7 +1535,8 @@ def run_training(dev, out_dir: str) -> tuple[dict, dict, dict]:
     targets = dict(images=np.stack(tr_d), labels=np.stack(tr_l),
                    diameters=np.asarray(tr_diam),
                    class_counts=ds.class_counts,
-                   instance_counts=ds.instance_counts)
+                   instance_counts=ds.instance_counts,
+                   replay=recorded.replay(step_totals, cw))
     stats = dict(
         targets_s=targets_s, target_diffusion_launches=target_launches,
         trainer_s=trainer_s, batch_load_s=batch_load_s,
@@ -1680,6 +1734,204 @@ def run_training_cli(dev, work: str, targets: dict) -> dict:
         weights=Path(path).name, eval_masks=int(np.asarray(masks).max()))
 
 
+# ------------------------------------------------- phase 5, several ranks
+
+class RecordedDataset:
+    """A training dataset that records each item it hands out, in order,
+    so that a run of several ranks can replay the same data."""
+
+    def __init__(self, ds):
+        self.ds, self.items = ds, []
+
+    def __len__(self) -> int:
+        return len(self.ds)
+
+    def __getitem__(self, i):
+        item = self.ds[i]
+        self.items.append((int(i), item))
+        return item
+
+    def replay(self, step_totals: list, class_weights) -> dict:
+        """What the ranks replay: the items in draw order, the run's
+        per-step total losses, its class weights and length. The learning
+        rate of epoch e does not depend on the run's epoch count, so a
+        replay of its first epochs takes its first steps."""
+        return dict(indices=np.array([i for i, _ in self.items]),
+                    X=np.stack([x for _, (x, _) in self.items]),
+                    L=np.stack([y for _, (_, y) in self.items]),
+                    totals=np.array(step_totals), class_weights=class_weights,
+                    length=len(self.ds))
+
+
+class ReplayDataset:
+    """Rank ``rank``'s view of a recorded one-process run at global batch
+    ``batch``: its k-th request is the recorded item at global position
+    ``(k // share) · batch + rank · share + k % share`` (share = batch /
+    world), which must be the index the rank's sampler asks for."""
+
+    def __init__(self, rec: dict, rank: int, world: int, batch: int):
+        self.rec, self.rank, self.batch = rec, rank, batch
+        self.share, self.k = batch // world, 0
+
+    def __len__(self) -> int:
+        return int(self.rec["length"])
+
+    def __getitem__(self, i):
+        k, self.k = self.k, self.k + 1
+        pos = (k // self.share) * self.batch + self.rank * self.share \
+            + k % self.share
+        if int(self.rec["indices"][pos]) != int(i):
+            raise AssertionError(f"rank {self.rank} asked for item {i} at "
+                                 f"position {pos}, the run drew "
+                                 f"{self.rec['indices'][pos]}")
+        return self.rec["X"][pos], self.rec["L"][pos]
+
+
+def weights_sha256(sd: dict) -> str:
+    """SHA-256 of a ``state_dict``'s names, dtypes and values."""
+    h = hashlib.sha256()
+    for k in sorted(sd):
+        v = sd[k].detach().cpu().contiguous()
+        h.update(f"{k} {v.dtype}".encode())
+        h.update(v.numpy().tobytes())
+    return h.hexdigest()
+
+
+def train_rank(work: str, backend: str) -> int:
+    """One rank of the several-ranks phase (``chip_smoke.py --train-rank
+    WORK BACKEND``, started by :func:`run_training_ranks`): phase 5's
+    trainer on its share of phase 5's recorded items; writes
+    ``WORK/rank<r>.json``."""
+    shared = backend == "gloo"
+    ctx = setup_distributed(torch.device("cuda", 0) if shared else "cuda",
+                            backend=backend)
+    rec = dict(np.load(f"{work}/replay.npz"))
+    cfg = ClassTransformerConfig(n_cell_classes=6, dtype="bfloat16")
+    model = ClassposeModel(cfg=cfg, precision="bf16", device=ctx.device,
+                           seed=SEED)
+    ds = ReplayDataset(rec, ctx.rank, ctx.world_size, TRAIN_BATCH)
+    totals, stamps = [], []
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize(ctx.device)
+        totals.append(metrics["total"])
+        stamps.append(time.perf_counter())
+
+    torch.cuda.reset_peak_memory_stats(ctx.device)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    # rank 0's final .npz goes uncompressed: phase 5 times the trainer's
+    # compressed save (~65 s of zlib on the host), and the parent reads
+    # this one back
+    with mock.patch.object(np, "savez_compressed", np.savez):
+        path, _, _ = train_class_seg(
+            model, ds, batch_size=TRAIN_BATCH, n_epochs=RANK_EPOCHS,
+            learning_rate=1e-4, save_path=f"{work}/rank{ctx.rank}",
+            model_name="ranks", class_weights=rec["class_weights"],
+            use_uncertainty_weighting=True, random_seed=SEED,
+            on_step=on_step)
+    wall = time.perf_counter() - t0
+    # a step's wall: the second step of each epoch (the first follows the
+    # previous epoch's checkpoint write)
+    per_epoch = len(totals) // RANK_EPOCHS
+    step_s = statistics.median(stamps[i] - stamps[i - 1]
+                               for i in range(len(stamps))
+                               if i % per_epoch)
+    out = dict(rank=ctx.rank, world=ctx.world_size, backend=ctx.backend,
+               device=str(ctx.device), totals=totals,
+               sha256=weights_sha256(model.net.state_dict()), path=path,
+               trainer_s=wall,
+               step_s=step_s, imgs_per_s=ds.share / step_s,
+               peak_mem_gib=torch.cuda.max_memory_allocated(ctx.device)
+               / 2 ** 30, launches=dict(_build.LAUNCHES))
+    Path(work, f"rank{ctx.rank}.json").write_text(json.dumps(out))
+    teardown_distributed()
+    return 0
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_training_ranks(work: str, replay: dict) -> dict:
+    """Several ranks, training (module docstring, step 5): two processes
+    replay the first 2 epochs of phase 5's trainer run at 4 images a rank
+    (global batch 8), with NCCL on two cards when there are two, else
+    both on ``cuda:0`` over gloo. Both ranks' final weights must be
+    bitwise equal and held in rank 0's ``.npz``, and each step's total
+    loss within :data:`RANK_LOSS_RTOL` of phase 5's one-process run."""
+    np.savez(f"{work}/replay.npz", **replay)
+    gc.collect()
+    torch.cuda.empty_cache()
+    two_cards = torch.cuda.device_count() >= RANKS
+    backend = "nccl" if two_cards else "gloo"
+    me = [sys.executable, str(Path(__file__).resolve()), "--train-rank",
+          work, backend]
+    env = {**os.environ, "CLASSPOSE_DIST_TIMEOUT_S": str(RANK_COLLECTIVE_S)}
+    if two_cards:
+        cmds = [[sys.executable, "-m", "torch.distributed.run",
+                 "--standalone", "--nproc_per_node", str(RANKS), *me[1:]]]
+        envs = [env]
+    else:
+        port = free_port()
+        cmds = [me] * RANKS
+        envs = [{**env, "WORLD_SIZE": str(RANKS), "RANK": str(r),
+                 "LOCAL_RANK": str(r), "MASTER_ADDR": "localhost",
+                 "MASTER_PORT": str(port)} for r in range(RANKS)]
+    t0 = time.perf_counter()
+    logs = [open(f"{work}/launch{i}.log", "w") for i in range(len(cmds))]
+    procs = [subprocess.Popen(c, env=e, stdout=f, stderr=subprocess.STDOUT)
+             for c, e, f in zip(cmds, envs, logs)]
+    try:
+        deadline = t0 + RANKS_LIMIT_S
+        rcs = [p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+               for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    if any(rcs):
+        for i in range(len(cmds)):
+            log(Path(f"{work}/launch{i}.log").read_text()[-4000:])
+        raise AssertionError(f"several-ranks phase: exit codes {rcs}")
+    ranks = [json.loads(Path(f"{work}/rank{r}.json").read_text())
+             for r in range(RANKS)]
+    ref = [float(v) for v in replay["totals"]]
+    if len({r["sha256"] for r in ranks}) != 1:
+        raise AssertionError("the ranks' final weights differ")
+    if weights_sha256(load_checkpoint(ranks[0]["path"])[0]) \
+            != ranks[0]["sha256"]:
+        raise AssertionError("rank 0's .npz does not hold its weights")
+    for r in ranks:
+        if r["totals"] != ranks[0]["totals"]:
+            raise AssertionError("the ranks logged different losses")
+        for k in ("attention_fwd", "attention_bwd"):
+            if r["launches"][k] == 0:
+                raise AssertionError(f"rank {r['rank']}: {k} not launched")
+    got = ranks[0]["totals"]
+    ref = ref[:len(got)]
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, ref)]
+    if len(got) != len(ref) or max(rel) > RANK_LOSS_RTOL:
+        raise AssertionError(f"step losses {got} vs one process {ref}")
+    return dict(
+        route=("two cards, torch.distributed.run, NCCL" if two_cards
+               else "cuda:0 shared by two processes, gloo (CUDA tensors "
+               "staged through the host)"),
+        backend=backend, ranks=RANKS, per_rank_batch=TRAIN_BATCH // RANKS,
+        global_batch=TRAIN_BATCH, steps=len(got), wall_s=wall,
+        step_totals=got, one_process_totals=ref, max_rel_diff=max(rel),
+        weights_equal=True, npz_holds_weights=True,
+        per_rank=[{k: r[k] for k in ("rank", "device", "imgs_per_s",
+                                     "step_s", "peak_mem_gib",
+                                     "trainer_s")} for r in ranks])
+
+
 # ---------------------------------------------------------------- phase 6
 
 def read_outputs(out_dir: str, base: str, labels: list[str]):
@@ -1782,7 +2034,7 @@ def run_wsi(dev, work: str) -> tuple[dict, dict, dict]:
     with open(f"{work}/config.yaml", "w") as f:
         f.write(f"path: {work}/vitl.npz\nmpp: {WSI_MODEL_MPP}\n"
                 "cell_types:\n" + "".join(f"- {c}\n" for c in labels))
-    slide_args = ["--slide_path", f"{work}/slide.npy", "--device", "cuda",
+    slide_args = ["--slide_path", f"{work}/slide.npy", "--device", "cuda:0",
                   "--precision", "bf16", "--batch_size", "32",
                   "--tile_size", "1024", "--overlap", "64", "--mpp",
                   str(WSI_MPP), "--output_type", "csv", "spatialdata"]
@@ -1842,6 +2094,7 @@ def run_wsi(dev, work: str) -> tuple[dict, dict, dict]:
     )
     wsi = dict(cli=cli, work=work, slide_args=slide_args, labels=labels, pt=pt,
                pts=pts, names=names, n_design=n_design, seconds=res["seconds"],
+               traced_seconds=traced_res["seconds"],
                stage_seconds=res["stage_seconds"], n_tiles=res["n_tiles"])
     return launches, stats, wsi
 
@@ -1854,6 +2107,88 @@ def matched_share(pts, names, ref_pts, ref_names) -> float:
     dist, idx = cKDTree(ref_pts).query(pts, distance_upper_bound=1.0)
     return float(np.mean([np.isfinite(d) and names[i] == ref_names[j]
                           for i, (d, j) in enumerate(zip(dist, idx))]))
+
+
+def sorted_features(path: str) -> list[str]:
+    """A GeoJSON file's features, each without its random id, sorted."""
+    with open(path) as f:
+        feats = json.load(f)["features"]
+    return sorted(json.dumps({k: v for k, v in f.items() if k != "id"},
+                             sort_keys=True) for f in feats)
+
+
+def run_wsi_multicard(wsi: dict) -> dict:
+    """Several cards, WSI (module docstring, step 6): the WSI phase's
+    slide, checkpoint and flags on two replicas, through the CLI with
+    ``--device cuda:0,1`` where two cards are visible, else through
+    ``pipeline.predict_wsi.main(..., devices=[cuda:0, cuda:0])``; its
+    cells must be the one-card run's (equal count, every cell matched).
+    It runs once, under ``--profile`` (the device idle share), and its
+    seconds stand beside the one-card ``--profile`` run's."""
+    work, labels = wsi["work"], wsi["labels"]
+    two_cards = torch.cuda.device_count() >= 2
+    cards = range(2 if two_cards else 1)
+    model = None
+    if not two_cards:
+        # built once, as main_with_args builds it for all its slides
+        config = resolve_model_config(f"{work}/config.yaml")
+        model = build_model_from_config(
+            config, precision="bf16", n_config_labels=len(config.cell_types),
+            device=torch.device("cuda", 0))
+
+    def run(out: str, *extra):
+        argv = ["--model_config", f"{work}/config.yaml",
+                "--output_folder", out, *wsi["slide_args"], *extra]
+        with ln_switch(True):
+            for i in cards:
+                torch.cuda.synchronize(i)
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            if two_cards:
+                res = main_with_args(argv + ["--device", "cuda:0,1"])[0]
+            else:
+                args = wsi_parser().parse_args(argv)
+                args.slide_path = args.slide_path[0]
+                res = wsi_main(args, model_override=model,
+                               devices=[torch.device("cuda", 0)] * 2)
+            for i in cards:
+                torch.cuda.synchronize(i)
+            return res, time.perf_counter() - t0, dict(_build.LAUNCHES)
+
+    res, wall, launches = run(f"{work}/out_multi", "--profile",
+                              f"{work}/trace_multi")
+    missing = [k for k in WSI_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on two replicas: "
+                             f"{missing}")
+    if len(res["batches_per_device"]) != 2 \
+            or min(res["batches_per_device"]) == 0:
+        raise AssertionError(f"batches per replica "
+                             f"{res['batches_per_device']}")
+    pts, names = read_outputs(f"{work}/out_multi", "slide", labels)
+    share = matched_share(pts, names, wsi["pts"], wsi["names"])
+    if len(pts) != len(wsi["pts"]) or share != 1.0:
+        raise AssertionError(f"two replicas: {len(pts)} cells, "
+                             f"{share:.4f} matched, against one card's "
+                             f"{len(wsi['pts'])}")
+    identical = all(
+        sorted_features(f"{work}/out_multi/slide_{kind}.geojson")
+        == sorted_features(f"{work}/out/slide_{kind}.geojson")
+        for kind in ("cell_contours", "cell_centroids"))
+    del model
+    idle = device_idle_share(f"{work}/trace_multi/trace.json")
+    return dict(
+        route=("--device cuda:0,1 (two cards)" if two_cards
+               else "main(devices=[cuda:0, cuda:0]) (one card shared)"),
+        devices=res["devices"], batches_per_device=res["batches_per_device"],
+        wall_s=wall, traced_pipeline_s=res["seconds"],
+        slide_tiles_per_s=res["n_tiles"] / res["seconds"],
+        one_card_traced_pipeline_s=wsi["traced_seconds"],
+        one_card_slide_tiles_per_s=wsi["n_tiles"] / wsi["traced_seconds"],
+        n_tiles=res["n_tiles"], n_cells=len(pts),
+        one_card_n_cells=len(wsi["pts"]), matched_share=share,
+        sorted_features_identical=identical,
+        stage_seconds=res["stage_seconds"], **idle, launches=launches)
 
 
 # the WSI CLI as ``python -m classpose_tpu_torch.entrypoints.predict_wsi``
@@ -2676,7 +3011,12 @@ def main() -> int:
     ap.add_argument("--ab", action="store_true",
                     help=f"also A/B the kernels against the bodies of "
                     f"{AB_PARENT} (phase 8)")
+    ap.add_argument("--train-rank", nargs=2, metavar=("WORK", "BACKEND"),
+                    help="run one rank of the several-ranks phase (started "
+                    "by the phase itself)")
     args = ap.parse_args()
+    if args.train_rank:
+        return train_rank(*args.train_rank)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
     dev = torch.device("cuda")
@@ -2721,10 +3061,20 @@ def main() -> int:
     log(f"fast QC: {json.dumps(fast_qc)}")
     with tempfile.TemporaryDirectory() as out_dir:
         train_launches, train_stats, targets = run_training(dev, out_dir)
+    replay = targets.pop("replay")
     log(f"training: {json.dumps(train_stats)}")
     with tempfile.TemporaryDirectory() as work:
         cli_stats = run_training_cli(dev, work, targets)
-    del targets
+    with tempfile.TemporaryDirectory() as work:
+        ranks_stats = run_training_ranks(work, replay)
+    del targets, replay
+    log(f"several ranks: {json.dumps(ranks_stats)}")
+    log(f"several ranks ({ranks_stats['route']}): "
+        + ", ".join(f"rank {r['rank']} {r['imgs_per_s']:.2f} imgs/s, peak "
+                    f"{r['peak_mem_gib']:.1f} GiB" for r in
+                    ranks_stats["per_rank"])
+        + f"; step losses within {ranks_stats['max_rel_diff']:.2e} of one "
+        "process; weights bitwise equal")
     log(f"training CLI: {json.dumps(cli_stats)}")
     log(f"training CLI (host unless named): dataset_to_hdf5 "
         f"{cli_stats['to_hdf5_s']:.3f} s ({cli_stats['target_launches']} "
@@ -2738,6 +3088,16 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work:
         wsi_launches, wsi_stats, wsi = run_wsi(dev, work)
         log(f"wsi: {json.dumps(wsi_stats)}")
+        multi = run_wsi_multicard(wsi)
+        log(f"several cards, WSI: {json.dumps(multi)}")
+        log(f"several cards, WSI ({multi['route']}): batches "
+            f"{multi['batches_per_device']}, "
+            f"{multi['traced_pipeline_s']:.2f} s traced, "
+            f"{multi['slide_tiles_per_s']:.2f} slide tiles/s (one card "
+            f"{multi['one_card_slide_tiles_per_s']:.2f}), idle share "
+            f"{multi['device_idle_share']:.3f}, {multi['n_cells']} cells, "
+            f"matched {multi['matched_share']}, sorted features identical: "
+            f"{multi['sorted_features_identical']}")
         published = run_published(work, wsi)
         log(f"published checkpoint: {json.dumps(published)}")
         fast_qc["wsi"] = run_wsi_fast_qc(wsi)
@@ -2809,6 +3169,8 @@ def main() -> int:
                       "wsi": wsi_stats, "published": published,
                       "slide": slide_stats, "grandqc": grandqc_stats,
                       "training_cli": cli_stats,
+                      "several_cards_wsi": multi,
+                      "several_ranks_training": ranks_stats,
                       "fast_qc": fast_qc, "evaluate": ev_stats,
                       "layernorm_neck": by_name["layernorm"]["neck"],
                       "diffuse_blocked_shapes": by_name["diffuse_blocked"][

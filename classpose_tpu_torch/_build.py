@@ -8,6 +8,12 @@ with ``ctypes``. Every pointer and the CUDA stream cross the boundary as
 ``c_void_p``; each C entry point returns ``cudaGetLastError()`` and
 :func:`check` raises when it is not 0.
 
+Every launch goes through :func:`call`, which makes the tensors' card the
+calling thread's current CUDA device first: the C side launches on the
+current device, and sets its shared-memory limits and sizes its
+persistent grids for that device, so a thread whose current device is
+another card would pass a stream of the wrong card.
+
 Nothing here runs at import time: the CPU tests import every module of
 the package on a machine without ``nvcc``.
 
@@ -170,7 +176,15 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"CUDA error {err} launching {what}")
 
 
-def stream_ptr(device) -> int:
+def call(library, fn: str, device, *args, tail=()) -> None:
+    """Launch C entry point ``fn`` of ``library`` (a name in
+    :data:`SOURCES`, or a loaded ``CDLL`` such as an A/B build) for
+    tensors on CUDA ``device``: ``args``, then the current stream of
+    ``device``, then ``tail``, with ``device`` the calling thread's
+    current device for the call; raises when ``fn`` returns an error."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    cdll = lib(library) if isinstance(library, str) else library
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        check(getattr(cdll, fn)(*args, stream, *tail), fn)

@@ -8,15 +8,18 @@ Flag for flag the JAX package's parser (same destinations, defaults,
 choices and ``nargs``), which the QuPath extension drives. A built-in
 ``--model_config`` (``conic`` ...) loads its published
 ``$CLASSPOSE_MODEL_DIR/<name>.pt``; a YAML config may name a ``.pt`` or a
-native ``.npz``. ``--device`` defaults to the card; ``cpu`` runs on the
-CPU. A ``.svs``/``.tif`` slide is read by the package's own TIFF reader
+native ``.npz``. ``--device`` defaults to the first card; ``cpu`` runs on
+the CPU. A ``.svs``/``.tif`` slide is read by the package's own TIFF reader
 (the default, or ``WSI_READER=tiff``); a ``.npy`` slide takes
 ``WSI_READER=array``. ``--tissue_detection_model_path`` and
 ``--artefact_detection_model_path`` take GrandQC ``.npz`` files
-(``classpose-convert-weights-torch --kind grandqc``), run on the same
-device. What waits (``ROADMAP.md`` queue 1) raises
-``NotImplementedError`` before any slide is read: several cards
-(``cuda:0,1``) and ``WSI_READER=czi``.
+(``classpose-convert-weights-torch --kind grandqc``), run on the first
+card. ``--device cuda:0,1`` (or ``cuda``, every visible card) runs the
+tiles on several cards, one model copy each, as QuPath's "Device ids"
+field asks; a card this machine lacks, a card named twice and
+``cpu:0,1`` raise ``ValueError`` before any slide is read, as
+``WSI_READER=czi`` (not ported yet, ``ROADMAP.md`` queue 1) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -86,7 +89,10 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--device", type=str, default=None,
-        help="'cuda' (default), 'cuda:N', 'gpu' or 'cpu'.",
+        help="'cuda' (every visible card), 'cuda:N', a list 'cuda:0,1' "
+        "(tile-parallel: one model copy per card, whole --tile_batch "
+        "batches dealt to the least busy card), 'gpu[:...]' alike, or "
+        "'cpu'; unset, the first card.",
     )
     parser.add_argument(
         "--precision", type=str, default="bf16",
@@ -114,7 +120,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--tile_batch", type=int, default=None,
-        help="Slide tiles per eval_batch call (default 8).",
+        help="Slide tiles per eval_batch call, each on one card "
+        "(default 8, whatever the number of cards).",
     )
     parser.add_argument(
         "--filter_background_tiles", action="store_true", default=False,
@@ -134,7 +141,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main_with_args(argv=None) -> list[dict]:
-    """Parse ``argv``, check what waits, build the model once and run
+    """Parse ``argv``, check what waits, build the model once (on the
+    first listed card; the pipeline copies it onto the others) and run
     every slide; returns each slide's summary."""
     from classpose_tpu_torch.model_configs import resolve_model_config
     from classpose_tpu_torch.utils import get_device

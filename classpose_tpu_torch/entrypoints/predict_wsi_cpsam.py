@@ -61,7 +61,11 @@ def build_parser() -> argparse.ArgumentParser:
                         default=False)
     parser.add_argument("--batch_size", type=int, default=32)
     parser.add_argument("--device", type=str, default=None,
-                        help="'cuda' (default), 'cuda:N', 'gpu' or 'cpu'.")
+                        help="'cuda' (every visible card), 'cuda:N', a "
+                        "list 'cuda:0,1' (tile-parallel: one model copy "
+                        "per card, whole --tile_batch batches dealt to the "
+                        "least busy card), 'gpu[:...]' alike, or 'cpu'; "
+                        "unset, the first card.")
     parser.add_argument("--precision", type=str, default="bf16",
                         choices=["fp32", "fp16", "bf16"])
     parser.add_argument("--tile_size", type=int, default=DEFAULT_TILE_SIZE)

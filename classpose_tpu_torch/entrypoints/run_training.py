@@ -4,6 +4,11 @@ the ``classpose-train`` command), with the same flags and defaults:
     python -m classpose_tpu_torch.entrypoints.run_training \\
         --data_path DIR --output_dir models [--tiny_model] [--device cpu]
 
+or data-parallel, one process per card:
+
+    torchrun --nproc_per_node N -m \\
+        classpose_tpu_torch.entrypoints.run_training --data_path DIR ...
+
 Loads ``images.npy`` / ``labels.npy`` from ``--data_path`` and makes the
 flow targets, or reads a ``.h5``/``.hdf5`` file that
 ``classpose-dataset-to-hdf5-torch`` (or the JAX package's
@@ -13,8 +18,14 @@ probabilities and class weights, builds the model with its freeze
 selection and runs ``train_class_seg``. ``--augmentation`` names a
 StarDist augmentation config (``hed_only``, ``enhanced``) applied to each
 item before the random rotate/resize. ``--device auto`` means CUDA.
-``--lr_scaling sqrt`` scales nothing on one card (several cards are not
-ported yet: ``ROADMAP.md`` queue 1).
+
+Under ``torchrun`` each rank joins the process group (NCCL on cards, gloo
+on the CPU) and takes card ``LOCAL_RANK`` of ``--device`` (``auto`` or
+``cuda``: every visible card; a list ``cuda:2,3`` those cards);
+``--batch_size`` is the global batch, split evenly over the ranks, and
+each step is the update of the global batch. ``--lr_scaling sqrt``
+multiplies the learning rate by √world there. Each rank draws its own
+items' augmentation from its own stream, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -30,8 +41,22 @@ logger = logging.getLogger(__name__)
 
 
 def main(args):
+    """Train as ``args`` asks (a process group when ``WORLD_SIZE`` > 1);
+    returns the final ``.npz``'s path."""
+    from classpose_tpu_torch.parallel.distributed import (
+        setup_distributed,
+        teardown_distributed,
+    )
+
+    ctx = setup_distributed("cuda" if args.device == "auto" else args.device)
+    try:
+        return _train(args, ctx)
+    finally:
+        teardown_distributed()
+
+
+def _train(args, ctx):
     from classpose_tpu_torch.nn.vit_sam import ClassTransformerConfig
-    from classpose_tpu_torch.parallel.distributed import setup_distributed
     from classpose_tpu_torch.runner import ClassposeModel
     from classpose_tpu_torch.train.dataset import (
         ClassposeHDF5Dataset,
@@ -46,8 +71,7 @@ def main(args):
     )
     from classpose_tpu_torch.utils import make_sparse
 
-    device = "cuda" if args.device == "auto" else args.device
-    ctx = setup_distributed(device)
+    device = ctx.device
     rng = np.random.default_rng(args.seed)
 
     # ------------------------------------------------------------- dataset
@@ -190,7 +214,10 @@ def build_parser():
     p.add_argument("--validate_every_epoch", action="store_true",
                    default=False)
     p.add_argument("--device", type=str, default="auto",
-                   help="auto (= cuda), cuda or cpu")
+                   help="auto (= cuda), cuda, cuda:N, a list cuda:0,1 or "
+                   "cpu; under torchrun rank r trains on entry LOCAL_RANK "
+                   "of the list (cuda: every visible card), a process "
+                   "alone on the first")
     p.add_argument("--resume_checkpoint", type=str, default=None)
     p.add_argument("--pretrained_model", type=str, default=None,
                    help="weights to start from: a published .pt or a "

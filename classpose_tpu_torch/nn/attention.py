@@ -130,16 +130,11 @@ def _fwd_kernel(qkv: torch.Tensor, rel: torch.Tensor, scale: float,
         lse = torch.empty((B, n, L), dtype=torch.float32, device=qkv.device)
         out32 = torch.empty((B, L, n * hd), dtype=torch.float32,
                             device=qkv.device)
-    lib = _build.lib("attention")
-    _build.check(
-        lib.attn_fwd_bf16(
-            qkv.data_ptr(), rel.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(),
-            None if out32 is None else out32.data_ptr(), B, L, n, H, W,
-            float(scale), _build.stream_ptr(qkv.device),
-        ),
-        "attn_fwd_bf16",
-    )
+    _build.call("attention", "attn_fwd_bf16", qkv.device,
+                qkv.data_ptr(), rel.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(),
+                None if out32 is None else out32.data_ptr(), B, L, n, H, W,
+                float(scale))
     _build.count("attention_fwd")
     return out, lse, out32
 
@@ -177,17 +172,11 @@ def attention_relpos_bwd(qkv: torch.Tensor, rel: torch.Tensor,
     dqkv = torch.empty_like(qkv)
     drel = torch.empty_like(rel)
     delta = torch.empty((B, n, L), dtype=torch.float32, device=qkv.device)
-    lib = _build.lib("attention_bwd")
-    _build.check(
-        lib.attn_bwd_bf16(
-            qkv.data_ptr(), rel.data_ptr(), out32.data_ptr(),
-            dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(),
-            drel.data_ptr(), B, L, n, H, W, float(scale),
-            _build.stream_ptr(qkv.device),
-        ),
-        "attn_bwd_bf16",
-    )
+    _build.call("attention_bwd", "attn_bwd_bf16", qkv.device,
+                qkv.data_ptr(), rel.data_ptr(), out32.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dqkv.data_ptr(), drel.data_ptr(), B, L, n, H, W,
+                float(scale))
     _build.count("attention_bwd")
     return dqkv, drel
 
@@ -300,14 +289,9 @@ def _hm_kernel(q, k, v, rel_h, rel_w, scale: float, grid_hw) -> torch.Tensor:
         raise ValueError("kernel needs 16-byte aligned q, k, v, rel_h and "
                          "rel_w")
     out = torch.empty_like(q)
-    lib = _build.lib("attention_hm")
-    _build.check(
-        getattr(lib, fn)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         rel_h.data_ptr(), rel_w.data_ptr(), out.data_ptr(),
-                         B, L, n, H, W, float(scale),
-                         _build.stream_ptr(q.device)),
-        fn,
-    )
+    _build.call("attention_hm", fn, q.device, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
+                out.data_ptr(), B, L, n, H, W, float(scale))
     _build.count("flash_attention_relpos")
     return out
 

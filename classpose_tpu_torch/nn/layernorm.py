@@ -77,13 +77,9 @@ def layernorm_cuda(x: torch.Tensor, weight: torch.Tensor,
     rows = x.numel() // C
     if rows == 0:
         return y
-    _build.check(
-        _build.lib("layernorm").layernorm_bf16(
-            x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
-            rows, C, float(eps), int(fast_var), _build.stream_ptr(x.device),
-        ),
-        "layernorm_bf16",
-    )
+    _build.call("layernorm", "layernorm_bf16", x.device, x.data_ptr(),
+                weight.data_ptr(), bias.data_ptr(), y.data_ptr(), rows, C,
+                float(eps), int(fast_var))
     _build.count("layernorm")
     return y
 

@@ -201,6 +201,17 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
 
+def draw_drop_mask(cfg: ClassTransformerConfig, n: int,
+                   generator: torch.Generator) -> torch.Tensor:
+    """A (n, depth) layer-drop mask (True = drop) from ``generator``, on
+    its device: block i is dropped with probability
+    ``linspace(0, rdrop, depth)[i]``. A data-parallel step draws it for
+    the global batch and gives each rank its rows."""
+    gdev = generator.device
+    p = torch.linspace(0.0, cfg.rdrop, cfg.depth, device=gdev)
+    return torch.rand((n, cfg.depth), generator=generator, device=gdev) < p
+
+
 class ImageEncoderViT(nn.Module):
     def __init__(self, cfg: ClassTransformerConfig):
         super().__init__()
@@ -233,10 +244,7 @@ class ImageEncoderViT(nn.Module):
         if train and cfg.rdrop > 0 and (drop_mask is not None
                                         or generator is not None):
             if drop_mask is None:
-                gdev = generator.device
-                p = torch.linspace(0.0, cfg.rdrop, cfg.depth, device=gdev)
-                drop_mask = torch.rand((x.shape[0], cfg.depth),
-                                       generator=generator, device=gdev) < p
+                drop_mask = draw_drop_mask(cfg, x.shape[0], generator)
             drop = drop_mask.to(device=x.device, dtype=x.dtype)
             for i, blk in enumerate(self.blocks):
                 m = drop[:, i][:, None, None, None]

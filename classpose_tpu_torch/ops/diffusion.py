@@ -176,27 +176,20 @@ def run_kernel(lib, ids: torch.Tensor, center: torch.Tensor,
     plan = diffusion_plan(B, H, W, nmax, window)
     if plan.launches == 0:
         return (torch.zeros_like(center) if T0 is None else T0.clone()), 0
-    stream = _build.stream_ptr(ids.device)
     cenm = torch.empty_like(center)
     mask = torch.empty((B, H, W), dtype=torch.int16, device=ids.device)
-    _build.check(
-        lib.diffusion_pack_nbr(ids.data_ptr(), center.data_ptr(),
-                               cenm.data_ptr(), mask.data_ptr(), B, H, W,
-                               stream),
-        "diffusion_pack_nbr",
-    )
+    _build.call(lib, "diffusion_pack_nbr", ids.device, ids.data_ptr(),
+                center.data_ptr(), cenm.data_ptr(), mask.data_ptr(), B, H, W)
     out = torch.empty_like(center)
     scratch = torch.empty_like(center) if nmax > plan.depth else None
     launched = ctypes.c_int(0)
-    _build.check(
-        lib.diffusion_rounds(
-            None if T0 is None else T0.data_ptr(), out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(),
-            cenm.data_ptr(), mask.data_ptr(), counts.data_ptr(), B, H, W,
-            nmax, plan.window, int(plan.overlap), stream,
-            ctypes.addressof(launched)),
-        "diffusion_rounds",
-    )
+    _build.call(
+        lib, "diffusion_rounds", ids.device,
+        None if T0 is None else T0.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        cenm.data_ptr(), mask.data_ptr(), counts.data_ptr(), B, H, W,
+        nmax, plan.window, int(plan.overlap),
+        tail=(ctypes.addressof(launched),))
     return out, 1 + launched.value
 
 

@@ -72,14 +72,9 @@ def bilinear_sample(u: torch.Tensor, py: torch.Tensor,
         raise ValueError(f"kernel takes H·W < 2^31 and B ≤ 65535, got "
                          f"{tuple(u.shape)}")
     out = torch.empty_like(u)
-    lib = _build.lib("sample")
-    _build.check(
-        lib.bilinear_sample_f32(
-            u.data_ptr(), py.data_ptr(), px.data_ptr(), out.data_ptr(),
-            B, C, H, W, _build.stream_ptr(u.device),
-        ),
-        "bilinear_sample_f32",
-    )
+    _build.call("sample", "bilinear_sample_f32", u.device,
+                u.data_ptr(), py.data_ptr(), px.data_ptr(), out.data_ptr(),
+                B, C, H, W)
     _build.count("bilinear_sample")
     return out
 
@@ -118,13 +113,8 @@ def landing_histogram(fy: torch.Tensor, fx: torch.Tensor,
         raise ValueError(f"kernel takes H·W < 2^31 and B ≤ 65535, got "
                          f"{tuple(fy.shape)}")
     out = torch.empty((B, H, W), dtype=torch.float32, device=fy.device)
-    lib = _build.lib("sample")
-    _build.check(
-        lib.landing_histogram_f32(
-            fy.data_ptr(), fx.data_ptr(), cell.data_ptr(), out.data_ptr(),
-            B, H, W, _build.stream_ptr(fy.device),
-        ),
-        "landing_histogram_f32",
-    )
+    _build.call("sample", "landing_histogram_f32", fy.device,
+                fy.data_ptr(), fx.data_ptr(), cell.data_ptr(),
+                out.data_ptr(), B, H, W)
     _build.count("landing_histogram")
     return out

@@ -1,10 +1,12 @@
 """WSI inference pipeline (counterpart of
-``classpose_tpu/pipeline/predict_wsi.py``), on one CUDA card or the CPU:
+``classpose_tpu/pipeline/predict_wsi.py``), on one or several CUDA cards
+or the CPU:
 
   reader thread pool (SlideLoader.stream)                     [host]
-    → tile-size-bucketed batches, pinned and copied ahead     [host → card]
-    → ClassposeModel.eval_batch on two inference threads,
-      each on its own CUDA stream                             [card]
+    → tile-size-bucketed batches, dealt whole to the cards,
+      pinned and copied ahead                                 [host → card]
+    → ClassposeModel.eval_batch on two inference threads per
+      card, each on its own CUDA stream                       [card]
     → polygon extraction thread pool                          [host]
     → dedup → ROI / tissue / artefact filters
     → GeoJSON / CSV / zarr export                             [host]
@@ -15,21 +17,30 @@ region are read, and only cells inside one are kept. With
 ``--artefact_detection_model_path`` the artefact model runs after the
 tiles, on the MPP-1 thumbnail, and ``--filter_artefacts`` drops the cells
 inside an artefact; the artefact area corrects the densities. Both nets
-run on the pipeline's device, outside the inference threads.
+run on the first card, outside the inference threads.
 
-Two inference threads let batch i+1's device work run while batch i's
-host finish (labels, holes, class vote) runs. Each thread launches on a
-CUDA stream of its own: on one shared stream, one thread's readback would
-wait for the other thread's program. A batch is uploaded from pinned
-memory on a copy stream as soon as it fills; the inference stream waits
-on the copy's event before using it.
+``--device cuda:0,1`` (``cuda``: every visible card) runs tile-parallel:
+the model is copied once onto each card, and each full batch of
+``--tile_batch`` tiles goes whole to the card with the fewest batches in
+flight. The JAX package instead splits each batch over its device mesh;
+whole batches keep an H100 full and make every batch the program it is
+on one card. Features are gathered in the order their tiles were
+submitted, whichever card ran them, so several cards find one card's
+cells (in the order the reader threads hand the tiles over).
+
+Two inference threads per card let batch i+1's device work run while
+batch i's host finish (labels, holes, class vote) runs. Each thread
+launches on a CUDA stream of its own: on one shared stream, one thread's
+readback would wait for the other thread's program. A batch is uploaded
+from pinned memory on its card's copy stream as soon as it fills; the
+inference stream waits on the copy's event before using it.
 
 Weights are a published ``.pt`` (the built-in configs) or a native
 ``.npz``. ``--fast_qc`` runs ``eval_batch`` with ``qc_downsample=2`` and
 ``percentile_subsample=2``. Slides are read by the reader ``WSI_READER``
 selects (by default the package's TIFF/SVS reader; ``array`` for
 ``.npy``). What waits (``ROADMAP.md`` queue 1) raises before a slide is
-read: the CZI reader and several cards.
+read: the CZI reader.
 """
 
 from __future__ import annotations
@@ -72,7 +83,11 @@ from classpose_tpu_torch.pipeline.slide_loader import (
     SlideLoader,
 )
 from classpose_tpu_torch.pipeline.tile_filter import filter_tile
-from classpose_tpu_torch.utils import get_device, get_geojson_output_filename
+from classpose_tpu_torch.utils import (
+    get_device,
+    get_devices,
+    get_geojson_output_filename,
+)
 
 logger = get_logger(__name__)
 
@@ -86,14 +101,42 @@ def _bucket_size(n: int) -> int:
     return int(256 * np.ceil(n / 256))
 
 
-class DeviceWorker:
-    """Tile consumer: ``eval_batch`` on the card for each full bucket of
-    same-sized tiles, mask → polygon extraction on a host thread pool.
+class _Replica:
+    """One device's part of a :class:`DeviceWorker`: its model, its pinned
+    copy stream, two inference threads whose current CUDA device is its
+    card, and its batches (in flight now, and in all)."""
 
-    ``tile_batch`` (default 8) tiles make one ``eval_batch`` call. Two
-    inference threads each run their batches under their own CUDA stream
-    (:meth:`_stream`); uploads go through pinned memory on a copy stream
-    (:meth:`_flush_bucket`)."""
+    def __init__(self, model):
+        self.model = model
+        self.device = model.device
+        cuda = self.device.type == "cuda"
+        self.copy_stream = torch.cuda.Stream(self.device) if cuda else None
+        self.pool = ThreadPoolExecutor(
+            max_workers=2, initializer=_set_card,
+            initargs=(self.device if cuda else None,))
+        self.in_flight = 0
+        self.batches = 0
+
+
+def _set_card(device) -> None:
+    """Make ``device`` the calling inference thread's current card, once:
+    every launch also sets its tensors' card (``_build.call``)."""
+    if device is not None:
+        torch.cuda.set_device(device)
+
+
+class DeviceWorker:
+    """Tile consumer: ``eval_batch`` on the device(s) for each full bucket
+    of same-sized tiles, mask → polygon extraction on a host thread pool.
+
+    ``tile_batch`` (default 8) tiles make one ``eval_batch`` call, on one
+    device. ``devices`` (default: the model's) lists the devices; the
+    model is replicated once per entry (``ClassposeModel.replicate``), and
+    each replica has a pinned copy stream and two inference threads, each
+    thread with its own CUDA stream (:meth:`_stream`). Whole batches are
+    dealt: the next one goes to the replica with the fewest batches in
+    flight (the first such), so every batch runs the program it runs on
+    one device."""
 
     def __init__(
         self,
@@ -110,8 +153,8 @@ class DeviceWorker:
         tile_batch: int | None = None,
         qc_downsample: int = 1,
         percentile_subsample: int = 1,
+        devices: list | None = None,
     ):
-        self.model = model
         self.labels = labels
         self.scale = prediction_to_slide_scale
         self.batch_size = batch_size
@@ -122,16 +165,22 @@ class DeviceWorker:
         self.min_size = min_size
         self.qc_downsample = qc_downsample
         self.percentile_subsample = percentile_subsample
-        self.device = model.device
+        devices = [model.device] if devices is None else list(devices)
+        if devices == [model.device]:
+            models = [model]
+        elif hasattr(model, "replicate"):
+            models = model.replicate(devices)
+        else:
+            raise ValueError(f"{type(model).__name__} has no replicate(); "
+                             "it runs on its own device only")
+        self.replicas = [_Replica(m) for m in models]
+        self.model = models[0]
+        self.device = self.replicas[0].device
         self.tile_batch = max(1, int(tile_batch)) if tile_batch else 8
         self._pending: dict[int, list] = {}
         self._pool = ThreadPoolExecutor(max_workers=n_post_threads)
-        self._infer_pool = ThreadPoolExecutor(max_workers=2)
         self._futures = []
         self._tls = threading.local()
-        self._cuda = self.device.type == "cuda"
-        self._copy_stream = (torch.cuda.Stream(self.device) if self._cuda
-                             else None)
         self.n_tiles = 0
         self.n_invalid = 0
         self.infer_seconds = 0.0  # cumulative seconds in eval_batch
@@ -140,6 +189,10 @@ class DeviceWorker:
         self.n_cells_found = 0    # cells extracted so far (may lag)
         self.post_seconds = 0.0   # cumulative host polygon CPU-seconds
         self._stats_lock = threading.Lock()
+
+    @property
+    def batches_per_device(self) -> list[int]:
+        return [r.batches for r in self.replicas]
 
     def _timed_process_tile(self, *a, **kw):
         """process_tile + GeoJSON feature conversion + stage counters, in
@@ -169,49 +222,59 @@ class DeviceWorker:
             self._flush_bucket(b)
 
     def _flush_bucket(self, b: int):
-        """Stack a bucket (a partial one at the end) and, on the card,
-        start its upload from pinned memory on the copy stream; the
+        """Stack a bucket (a partial one at the end), deal it to the
+        replica with the fewest batches in flight and, on a card, start
+        its upload from pinned memory on that replica's copy stream; the
         inference thread waits on the copy's event."""
         items = self._pending.pop(b, [])
         if not items:
             return
         tiles = np.stack([t for t, _, _ in items])
+        with self._stats_lock:
+            rep = min(self.replicas, key=lambda r: r.in_flight)
+            rep.in_flight += 1
+            rep.batches += 1
         ready = None
-        if self._cuda:
+        if rep.copy_stream is not None:
             host = torch.from_numpy(tiles).pin_memory()
-            with torch.cuda.stream(self._copy_stream):
-                tiles = host.to(self.device, non_blocking=True)
+            with torch.cuda.device(rep.device), \
+                    torch.cuda.stream(rep.copy_stream):
+                tiles = host.to(rep.device, non_blocking=True)
                 ready = torch.cuda.Event()
-                ready.record(self._copy_stream)
+                ready.record(rep.copy_stream)
         self._futures.append(
-            self._infer_pool.submit(self._run_batch, tiles, ready, items))
+            rep.pool.submit(self._run_batch, rep, tiles, ready, items))
 
-    def _stream(self) -> torch.cuda.Stream:
-        """This inference thread's own CUDA stream."""
+    def _stream(self, device) -> torch.cuda.Stream:
+        """This inference thread's own CUDA stream (on its replica's
+        card: a thread serves one replica)."""
         s = getattr(self._tls, "stream", None)
         if s is None:
-            s = self._tls.stream = torch.cuda.Stream(self.device)
+            s = self._tls.stream = torch.cuda.Stream(device)
         return s
 
-    def _run_batch(self, tiles, ready, items):
-        """One ``eval_batch`` for a bucket; returns its post-proc
-        futures."""
+    def _run_batch(self, rep, tiles, ready, items):
+        """One ``eval_batch`` for a bucket on replica ``rep``; returns its
+        post-proc futures."""
         t0 = time.time()
         kw = dict(batch_size=self.batch_size, augment=self.augment,
                   niter=self.niter, flow_threshold=self.flow_threshold,
                   cellprob_threshold=self.cellprob_threshold,
                   min_size=self.min_size, qc_downsample=self.qc_downsample,
                   percentile_subsample=self.percentile_subsample)
-        if self._cuda:
-            stream = self._stream()
-            with torch.cuda.stream(stream):
-                stream.wait_event(ready)
-                tiles.record_stream(stream)
-                results = self.model.eval_batch(tiles, **kw)
-        else:
-            results = self.model.eval_batch(tiles, **kw)
-        with self._stats_lock:
-            self.infer_seconds += time.time() - t0
+        try:
+            if ready is not None:
+                stream = self._stream(rep.device)
+                with torch.cuda.stream(stream):
+                    stream.wait_event(ready)
+                    tiles.record_stream(stream)
+                    results = rep.model.eval_batch(tiles, **kw)
+            else:
+                results = rep.model.eval_batch(tiles, **kw)
+        finally:
+            with self._stats_lock:
+                rep.in_flight -= 1
+                self.infer_seconds += time.time() - t0
         return [
             self._pool.submit(
                 self._timed_process_tile,
@@ -238,7 +301,8 @@ class DeviceWorker:
                     cells.extend(c)
                     self.n_invalid += inv
         finally:
-            self._infer_pool.shutdown(wait=True)
+            for rep in self.replicas:
+                rep.pool.shutdown(wait=True)
             self._pool.shutdown(wait=True)
         return cells
 
@@ -290,11 +354,13 @@ class ProgressReporter:
 
 
 def check_supported(args) -> None:
-    """Raise ``NotImplementedError`` for what this package does not run
-    yet, before any slide is read or any model built: ``WSI_READER=czi``
-    (``get_wsi_reader``) and several cards (``get_device``)."""
+    """Raise before any slide is read or any model built: for what this
+    package does not run yet (``WSI_READER=czi``: ``NotImplementedError``
+    from ``get_wsi_reader``) and for a ``--device`` that names no card of
+    this machine, a card twice or another CPU (``ValueError`` from
+    ``get_devices``)."""
     get_wsi_reader()
-    get_device(getattr(args, "device", None))
+    get_devices(getattr(args, "device", None))
 
 
 def build_model_from_config(model_config: ModelConfig,
@@ -326,17 +392,22 @@ def build_model_from_config(model_config: ModelConfig,
     return model
 
 
-def main(args, model_override=None) -> dict:
+def main(args, model_override=None, devices=None) -> dict:
     """Run the full WSI pipeline on one slide; returns a small summary.
 
     ``model_override`` is a model built once for several slides (or a
-    test's model) with ``eval_batch`` and ``nclasses``."""
+    test's model) with ``eval_batch`` and ``nclasses``. ``devices``
+    replaces the list ``--device`` gives, so that a check can run two
+    replicas on one card (``[cuda:0, cuda:0]``) or on the CPU; the flag
+    itself never takes a device twice."""
     t_start = time.time()
     model_config = (args.model_config
                     if isinstance(args.model_config, ModelConfig)
                     else resolve_model_config(args.model_config))
     check_supported(args)
-    device = get_device(getattr(args, "device", None))
+    devices = (get_devices(getattr(args, "device", None)) if devices is None
+               else [torch.device(d) for d in devices])
+    device = devices[0]
     os.makedirs(args.output_folder, exist_ok=True)
     base_name = Path(args.slide_path).name.rsplit(".", 1)[0]
     if model_override is None:
@@ -402,7 +473,12 @@ def main(args, model_override=None) -> dict:
         tile_batch=getattr(args, "tile_batch", None),
         qc_downsample=2 if getattr(args, "fast_qc", False) else 1,
         percentile_subsample=2 if getattr(args, "fast_qc", False) else 1,
+        devices=devices,
     )
+    if len(devices) > 1:
+        logger.info("Tile-parallel inference over %d devices (%s), whole "
+                    "batches of %d tiles", len(devices),
+                    ", ".join(map(str, devices)), worker.tile_batch)
 
     profile_dir = getattr(args, "profile", None)
     prof = None
@@ -560,6 +636,8 @@ def main(args, model_override=None) -> dict:
         "n_tiles": n_streamed,
         "seconds": dt,
         "features": features,
+        "devices": [str(d) for d in devices],
+        "batches_per_device": worker.batches_per_device,
         # stream = read+submit wall and drain = post-submit finish wall,
         # both walls over overlapped device and host work; device = the
         # inference threads' cumulative seconds in eval_batch (two threads

@@ -21,6 +21,7 @@ recomputed per image by ``masks_to_flows``) → class vote. Resizes follow
 
 from __future__ import annotations
 
+import copy
 import logging
 import time
 
@@ -52,6 +53,7 @@ from classpose_tpu_torch.nn.vit_sam import (
     ClassTransformerConfig,
 )
 from classpose_tpu_torch.ops.normalize import NORMALIZE_DEFAULT, normalize_img
+from classpose_tpu_torch.parallel.mesh import replicate
 from classpose_tpu_torch.ops.resize import resize
 from classpose_tpu_torch.ops.tiles import (
     average_tiles_separable,
@@ -228,6 +230,24 @@ class ClassposeModel:
         else:
             logger.warning("no weights given: random init from seed %d", seed)
         self.net.to(self.device).eval()
+
+    def replicate(self, devices) -> list["ClassposeModel"]:
+        """One model per entry of ``devices`` (the counterpart of the JAX
+        package's ``shard_over``): this model for the first entry when it
+        lies there, else a copy whose ``net`` is copied once onto that
+        device in the same dtype. The LayerNorm switch is read from the
+        environment at every call, so every replica follows it. Replicas
+        share no mutable state (each has its own net and timings); the
+        launch counts they add to are under ``_build``'s lock."""
+        out = []
+        for dev, net in zip(devices, replicate(self.net, devices)):
+            if net is self.net:
+                out.append(self)
+                continue
+            r = copy.copy(self)
+            r.net, r.device, r.timing = net, torch.device(dev), []
+            out.append(r)
+        return out
 
     @torch.no_grad()
     def _device_program(self, x, batch_size, augment, niter, flow_threshold,

@@ -32,22 +32,40 @@ def loss_fn_seg(lbl: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return mse + bce
 
 
-def loss_fn_class(lbl: torch.Tensor, y: torch.Tensor,
-                  class_weights: torch.Tensor | None = None) -> torch.Tensor:
-    """Masked (ignore −100), optionally class-weighted cross-entropy."""
-    logits = y[:, :-3]
+def _pixel_weights(lbl: torch.Tensor, class_weights) -> tuple:
+    """(class index with −100 read as 0, per-pixel weight: the class's
+    weight, or 1, on the valid pixels and 0 on the −100 ones)."""
     target = lbl[:, 0].to(torch.int64)
     valid = target != -100
     safe = torch.where(valid, target, 0)
-    logp = F.log_softmax(logits, dim=1)
-    picked = torch.gather(logp, 1, safe[:, None])[:, 0]
     if class_weights is not None:
         w = torch.as_tensor(class_weights, dtype=torch.float32,
-                            device=y.device)[safe]
+                            device=lbl.device)[safe]
     else:
-        w = torch.ones_like(picked)
-    w = w * valid
-    return -(picked * w).sum() / torch.clamp(w.sum(), min=1e-12)
+        w = torch.ones(safe.shape, dtype=torch.float32, device=lbl.device)
+    return safe, w * valid
+
+
+def class_weight_sum(lbl: torch.Tensor,
+                     class_weights: torch.Tensor | None = None
+                     ) -> torch.Tensor:
+    """:func:`loss_fn_class`'s denominator, Σ w over the valid pixels: it
+    depends on the labels only, so it carries no gradient."""
+    return _pixel_weights(lbl, class_weights)[1].sum()
+
+
+def loss_fn_class(lbl: torch.Tensor, y: torch.Tensor,
+                  class_weights: torch.Tensor | None = None,
+                  weight_sum: torch.Tensor | None = None) -> torch.Tensor:
+    """Masked (ignore −100), optionally class-weighted cross-entropy: the
+    weighted mean over the valid pixels, or with ``weight_sum`` (a larger
+    batch's :func:`class_weight_sum`) this batch's share of that batch's
+    weighted mean."""
+    safe, w = _pixel_weights(lbl, class_weights)
+    logp = F.log_softmax(y[:, :-3], dim=1)
+    picked = torch.gather(logp, 1, safe[:, None])[:, 0]
+    denom = w.sum() if weight_sum is None else weight_sum
+    return -(picked * w).sum() / torch.clamp(denom, min=1e-12)
 
 
 def loss_fn_tversky(lbl: torch.Tensor, y: torch.Tensor, n_classes: int,

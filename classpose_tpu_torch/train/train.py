@@ -16,12 +16,16 @@
   optimizer;
 - deterministic sampling (``DistributedEpochSampler``), validation on
   epoch 5 and every 10th (or every epoch);
+- data parallelism over a process group (``torchrun``, one process per
+  rank): each rank takes its share of the global batch, and a step is the
+  JAX package's step on the global batch, whose losses reduce over the
+  whole sharded batch (see :func:`make_train_step`); the weights start
+  from rank 0's, checkpoints and the final weights are written by rank 0,
+  validation sums are all-reduced;
 - checkpoints ``checkpoint_last.train`` / ``checkpoint_best.train``: a
   ``torch.save`` of the network, log-variances, optimizer, step and the
   layer-drop generator, plus the JAX package's ``meta.json`` keys; full
   resume; final weights as the native ``.npz`` (``nn/convert.py``).
-
-One card: multi-card data parallelism is a later slice.
 """
 
 from __future__ import annotations
@@ -30,22 +34,26 @@ import json
 import logging
 import time
 from pathlib import Path
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
 from classpose_tpu_torch.nn.convert import save_params
+from classpose_tpu_torch.nn.vit_sam import draw_drop_mask
 from classpose_tpu_torch.parallel.distributed import (
+    all_reduce_,
     all_reduce_sum,
     allgather_object,
     barrier,
+    broadcast_,
     get_rank,
     get_world_size,
     is_main_process,
 )
 from classpose_tpu_torch.train.losses import (
     aggregate_losses,
+    class_weight_sum,
     loss_fn_class,
     loss_fn_seg,
     loss_fn_tversky,
@@ -116,14 +124,20 @@ def make_optimizer(net: torch.nn.Module, log_var: torch.Tensor,
     return torch.optim.AdamW(groups, lr=0.0, betas=(0.9, 0.999), eps=1e-8)
 
 
-def _losses(y, lbl, n_classes, log_var, seg_trainable, cw, optimise):
+def _losses(y, lbl, n_classes, log_var, seg_trainable, cw, optimise,
+            weight_sum=None, world: int = 1):
+    """(total, seg, ce, tversky). With ``weight_sum`` (the global batch's
+    class weight sum) ``ce`` is ``world`` × this share's part of the
+    global CE, so that its mean over the ranks is the global CE."""
     y = y.float()
     seg = torch.zeros((), device=y.device)
     losses = []
     if seg_trainable:
         seg = loss_fn_seg(lbl, y)
         losses.append(seg)
-    ce = loss_fn_class(lbl, y, class_weights=cw)
+    ce = loss_fn_class(lbl, y, class_weights=cw, weight_sum=weight_sum)
+    if weight_sum is not None:
+        ce = ce * world
     tv = loss_fn_tversky(lbl, y, n_classes, class_weights=cw)
     losses.extend([ce, tv])
     total = aggregate_losses(log_var, torch.stack(losses), optimise=optimise)
@@ -141,35 +155,78 @@ def make_train_step(
     class_weights=None,
     rdrop: bool = True,
     generator: torch.Generator | None = None,
+    world: int = 1,
+    rank: int = 0,
 ):
     """Return ``train_step(X, lbl, drop_mask=None) -> metrics``: forward
     (with the layer-drop when ``rdrop``, from ``drop_mask`` or
     ``generator``), the three losses, their aggregate, backward and one
     optimizer step at this step's learning rate. The step count lives on
     the returned function (``train_step.step``); gradients stay on the
-    parameters until the next step."""
+    parameters until the next step.
+
+    At ``world`` > 1 this process is rank ``rank`` of a process group of
+    that size, ``X`` and ``lbl`` are its share of the global batch (equal
+    shares in rank order), and the step is the global batch's: the
+    layer-drop mask is drawn for the global batch from ``generator`` and
+    the rank takes its rows; the class CE divides by the global batch's
+    weight sum (all-reduced first: shares may hold different numbers of
+    valid pixels, so the mean of per-share means is not the global mean);
+    the seg and Tversky losses are means over equal shares, and the
+    aggregate is linear in the losses, so the mean of the ranks'
+    gradients, taken in one all-reduce of a flat buffer of every trained
+    tensor's gradient (``log_var`` included), is the global batch's; the
+    returned metrics are the global values."""
     dev = log_var.device
     cw = None if class_weights is None else torch.as_tensor(
         np.asarray(class_weights, np.float32), device=dev)
     lrs = np.asarray(lr_by_step, np.float64)
+    trained = [p for group in optimizer.param_groups for p in group["params"]]
 
     def train_step(X, lbl, drop_mask=None):
         lr = float(lrs[min(train_step.step, len(lrs) - 1)])
         for group in optimizer.param_groups:
             group["lr"] = lr * group["lr_scale"]
+        weight_sum = None
+        if world > 1:
+            if rdrop and drop_mask is None and generator is not None \
+                    and net.cfg.rdrop > 0:
+                n = X.shape[0]
+                drop_mask = draw_drop_mask(net.cfg, world * n, generator)[
+                    rank * n:(rank + 1) * n]
+            weight_sum = all_reduce_(class_weight_sum(lbl, cw))
         y, _ = net(X, train=rdrop, drop_mask=drop_mask, generator=generator)
         total, seg, ce, tv = _losses(y, lbl, n_classes, log_var,
                                      seg_trainable, cw,
-                                     use_uncertainty_weighting)
+                                     use_uncertainty_weighting, weight_sum,
+                                     world)
         optimizer.zero_grad(set_to_none=True)
         total.backward()
+        if world > 1:
+            _average_gradients(trained, world)
         optimizer.step()
         train_step.step += 1
-        return {"seg": seg.detach(), "ce": ce.detach(),
-                "tversky": tv.detach(), "total": total.detach()}
+        metrics = torch.stack([seg, ce, tv, total]).detach()
+        if world > 1:
+            metrics = all_reduce_(metrics.double()) / world
+        return dict(zip(("seg", "ce", "tversky", "total"), metrics))
 
     train_step.step = 0
     return train_step
+
+
+def _average_gradients(params: list[torch.Tensor], world: int) -> None:
+    """Replace each parameter's gradient by its mean over the ranks: one
+    all-reduce of one flat buffer (a missing gradient counts as zeros, so
+    every rank's buffer has the same layout)."""
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad
+             for p in params]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    all_reduce_(flat).div_(world)
+    off = 0
+    for p in params:
+        p.grad = flat[off:off + p.numel()].view_as(p)
+        off += p.numel()
 
 
 def _save_checkpoint(path: Path, net, log_var, optimizer, step: int,
@@ -236,9 +293,15 @@ def train_class_seg(
     config_snapshot: dict[str, Any] | None = None,
     freeze: dict | None = None,
     seg_trainable: bool = True,
+    on_step: Callable[[int, dict], None] | None = None,
 ):
     """Train the class+seg network of ``model`` (a ``ClassposeModel``: its
-    ``.net`` is trained in place on ``model.device``).
+    ``.net`` is trained in place on ``model.device``). In a process group
+    (``parallel/distributed.py``) ``batch_size`` is the global batch and
+    every rank calls this with the same arguments.
+
+    ``on_step(step, metrics)``, when given, is called after each step with
+    the step's index and its global losses as floats.
 
     Returns (path of the final ``.npz``, train losses, validation losses)
     per epoch."""
@@ -250,11 +313,6 @@ def train_class_seg(
     dev = model.device
     n_classes = cfg.n_cell_classes
     rank, world = get_rank(), get_world_size()
-    if world > 1:
-        # without a gradient all-reduce each process would train its own
-        # replica on its shard
-        raise NotImplementedError(
-            "multi-card training is not ported yet; see ROADMAP.md queue 1")
 
     # per-rank host RNG (augmentation); one layer-drop generator
     host_rng = np.random.default_rng(random_seed + rank)
@@ -290,7 +348,7 @@ def train_class_seg(
         seg_trainable=seg_trainable,
         use_uncertainty_weighting=use_uncertainty_weighting,
         class_weights=class_weights, rdrop=cfg.rdrop > 0,
-        generator=generator,
+        generator=generator, world=world, rank=rank,
     )
 
     t0 = time.time()
@@ -337,6 +395,12 @@ def train_class_seg(
         train_logger.info("Resumed from %s at epoch %d", resume_checkpoint,
                           start_epoch)
 
+    if world > 1:
+        # every rank starts from rank 0's weights
+        with torch.no_grad():
+            for t in [*net.state_dict().values(), log_var]:
+                broadcast_(t)
+
     val_sampler = (SequentialDistributedSampler(
         len(test_dataset), rank=rank, num_replicas=world)
         if test_dataset is not None else None)
@@ -365,10 +429,12 @@ def train_class_seg(
             if len(idx) < per_rank_batch:
                 break
             X, lbl = _collect(train_dataset, idx)
-            metrics = train_step(X, lbl)
+            metrics = {k: float(v) for k, v in train_step(X, lbl).items()}
+            if on_step is not None:
+                on_step(train_step.step - 1, metrics)
             count += global_batch
             for k in sums:
-                sums[k] += float(metrics[k]) * global_batch
+                sums[k] += metrics[k] * global_batch
         train_losses[iepoch] = sums["total"] / max(count, 1)
 
         n = max(count, 1)

@@ -34,10 +34,6 @@ GEOJSON_OUTPUT_TEMPLATES = {
     "roi": os.getenv("CLASSPOSE_ROI_GEOJSON", "{base_name}_roi.geojson"),
 }
 
-# the ROADMAP.md item that multi-card tile parallelism waits on
-MULTI_CARD_ITEM = 'ROADMAP.md queue 1, "multi-card tile parallelism"'
-
-
 def get_geojson_output_filename(output_kind: str, base_name: str) -> str:
     """Output filename for one of the GeoJSON artefact kinds (the QuPath
     extension's import convention; env overrides as in the JAX package)."""
@@ -108,29 +104,53 @@ def get_slide_resolution(slide) -> tuple[float, float] | None:
     return None
 
 
-def get_device(device: str | None) -> torch.device:
-    """Parse a ``--device`` flag: ``None``/``""``, ``cuda``, ``gpu`` or
-    ``cuda:N`` (``gpu:N``) is the card, ``cpu`` the CPU. A CUDA choice
-    on a machine without CUDA raises; it never falls back to the CPU.
-    ``tpu*`` and more than one index (``cuda:0,1``) raise."""
-    spec = (device or "cuda").strip().lower()
+def get_devices(device: str | None) -> list[torch.device]:
+    """Parse a ``--device`` flag into the list of devices to run on, by
+    the JAX package's ``get_device`` rules on CUDA cards: ``None``/``""``
+    is the first card; ``cuda`` or ``gpu`` without an index every visible
+    card; ``cuda:0,1`` (``gpu:0,1``) those cards, in that order; ``cpu``
+    (or ``cpu:0``) the CPU. An index past ``torch.cuda.device_count()``,
+    a card named twice, another CPU index (torch has one CPU device),
+    ``tpu*`` and an unknown platform raise ``ValueError``. A CUDA choice
+    on a machine without CUDA raises ``RuntimeError``: it never falls
+    back to the CPU."""
+    spec = (device or "cuda:0").strip().lower()
     platform, _, idx_str = spec.partition(":")
-    indices = [int(i) for i in idx_str.split(",") if i.strip()]
-    if platform == "cpu" and not indices:
-        return torch.device("cpu")
+    try:
+        indices = [int(i) for i in idx_str.split(",") if i.strip()]
+    except ValueError:
+        raise ValueError(f"bad device indices in --device {device!r}")
+    if len(set(indices)) != len(indices):
+        raise ValueError(f"--device {device}: a card is named twice")
+    if platform == "cpu":
+        if indices not in ([], [0]):
+            raise ValueError(f"--device {device}: torch has one CPU device "
+                             "(cpu or cpu:0)")
+        return [torch.device("cpu")]
     if platform in ("tpu", "accelerator"):
         raise ValueError(f"--device {device}: this package runs on CUDA "
                          "cards or the CPU, not on a TPU")
     if platform not in ("cuda", "gpu"):
         raise ValueError(f"unknown --device {device!r}")
-    if len(indices) > 1:
-        raise NotImplementedError(
-            f"--device {device}: several cards wait for {MULTI_CARD_ITEM}")
     if not torch.cuda.is_available():
         raise RuntimeError(f"--device {device or 'cuda'} asks for a CUDA "
                            "card and this machine has none; pass --device "
                            "cpu to run on the CPU")
-    return torch.device("cuda", indices[0] if indices else 0)
+    count = torch.cuda.device_count()
+    if not indices:
+        indices = list(range(count))
+    bad = [i for i in indices if not 0 <= i < count]
+    if bad:
+        raise ValueError(f"--device {device}: no card {bad[0]}; this "
+                         f"machine has {count} (0 to {count - 1})")
+    return [torch.device("cuda", i) for i in indices]
+
+
+def get_device(device: str | None) -> torch.device:
+    """The first device of :func:`get_devices`: the one device of the
+    single-card entry points (evaluate, detect-tissue/artefacts,
+    parity-check, the WSI model's first replica)."""
+    return get_devices(device)[0]
 
 
 def make_sparse(labels: np.ndarray, keep_fraction: float,

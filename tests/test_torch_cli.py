@@ -1,7 +1,7 @@
 """The port's ``classpose-predict-wsi`` against the JAX package's: the
-same argparse surface (the QuPath contract), the flags that wait raising
-before any slide is opened, and ``get_device`` never falling back to the
-CPU."""
+same argparse surface (the QuPath contract), the flags that wait and the
+device lists that name no card of the machine raising before any slide
+is opened, and ``get_device`` never falling back to the CPU."""
 
 import numpy as np
 import pytest
@@ -13,7 +13,7 @@ from classpose_tpu_torch.entrypoints.predict_wsi import (
     build_parser,
     main_with_args,
 )
-from classpose_tpu_torch.utils import get_device
+from classpose_tpu_torch.utils import get_device, get_devices
 from test_qupath_contract import REFERENCE_FLAGS
 
 
@@ -51,18 +51,39 @@ def setup(tmp_path, monkeypatch):
     return tmp_path, base
 
 
-@pytest.mark.parametrize("extra,match", [
+def _cards(monkeypatch, count: int) -> None:
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
+
+
+@pytest.mark.parametrize("extra,count,match", [
     # the GrandQC flags no longer wait (tests/test_torch_grandqc_pipeline.py)
-    pytest.param(["--device", "cuda:0,1"], "multi-card",
+    # and several cards run (tests/test_torch_multicard.py): a list naming
+    # a card the machine lacks, a card twice or a second CPU is refused
+    pytest.param(["--device", "cuda:0,1"], 1, "has 1",
                  id="extra2-multi-card"),
-    pytest.param(["--device", "gpu:0,1,2"], "multi-card",
+    pytest.param(["--device", "gpu:0,1,2"], 2, "has 2",
                  id="extra3-multi-card"),
+    pytest.param(["--device", "cuda:1,1"], 2, "twice", id="repeated-card"),
+    pytest.param(["--device", "cpu:0,1"], 2, "one CPU", id="several-cpus"),
 ])
-def test_waiting_flags_raise_before_slide(setup, extra, match):
+def test_waiting_flags_raise_before_slide(setup, monkeypatch, extra, count,
+                                          match):
     tmp_path, base = setup
-    with pytest.raises(NotImplementedError, match=match):
+    _cards(monkeypatch, count)
+    with pytest.raises(ValueError, match=match):
         main_with_args(base + extra)
     assert not (tmp_path / "out").exists()
+
+
+@pytest.mark.parametrize("spec", ["cuda:0,1", "gpu:1,0", "cuda"])
+def test_card_list_is_not_refused(setup, monkeypatch, spec):
+    """A list of cards the machine has passes the checks: the run goes on
+    to the fixture's missing weights."""
+    _, base = setup
+    _cards(monkeypatch, 2)
+    with pytest.raises(FileNotFoundError, match="missing.npz"):
+        main_with_args(base + ["--device", spec])
 
 
 @pytest.mark.parametrize("reader", ["tiff", "czi", "czi-zeiss",
@@ -101,15 +122,17 @@ def test_get_device_without_cuda_raises(monkeypatch):
 
 def test_get_device_parses(monkeypatch):
     assert get_device("cpu") == torch.device("cpu")
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    _cards(monkeypatch, 2)
     assert get_device(None) == torch.device("cuda", 0)
     assert get_device("gpu") == torch.device("cuda", 0)
     assert get_device("cuda:1") == torch.device("cuda", 1)
     for bad in ("tpu", "tpu:0,1", "npu"):
         with pytest.raises(ValueError):
             get_device(bad)
-    with pytest.raises(NotImplementedError):
-        get_device("cuda:0,1")
+    # a list is its first card to the single-card entry points
+    assert get_device("cuda:1,0") == torch.device("cuda", 1)
+    assert get_devices("cuda:0,1") == [torch.device("cuda", 0),
+                                       torch.device("cuda", 1)]
 
 
 def test_download_refuses_plain_http(tmp_path):

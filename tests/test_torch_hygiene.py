@@ -1,8 +1,9 @@
 """The port stands alone: no module of ``classpose_tpu_torch``, not
-``chip_smoke.py`` and not ``ab_attention.py`` (which it imports) imports
-JAX, flax or the JAX package, nor a host library the card's machine lacks
-(cv2, PIL, pandas, sklearn, yaml, pydantic, matplotlib, requests, shapely,
-openslide, h5py); its kernel and native sources ship with the package."""
+``chip_smoke.py``, ``ab_attention.py`` (which it imports) or ``ab_wsi.py``
+imports JAX, flax or the JAX package, nor a host library the card's
+machine lacks (cv2, PIL, pandas, sklearn, yaml, pydantic, matplotlib,
+requests, shapely, openslide, h5py); its kernel and native sources ship
+with the package."""
 
 import ast
 import pkgutil
@@ -75,6 +76,8 @@ def test_chip_smoke_imports_no_jax():
     # and the A/B module it takes its timing helpers from
     assert "ab_attention" in names
     names += _imported_names(ROOT / "ab_attention.py")
+    # and the one-card WSI A/B harness
+    names += _imported_names(ROOT / "ab_wsi.py")
     assert not [n for n in names if _forbidden(n)]
     assert not [n for n in names if _forbidden(n, HOST_LIBS)]
 
@@ -145,3 +148,100 @@ def test_native_builds_into_the_build_directory():
     assert native._target().parent == native.BUILD_DIR
     assert native._target().is_file()
     assert not list(native._SRC.parent.glob("*.so"))
+
+
+def _entry_points_with_stream() -> set[str]:
+    """The C entry points that launch work (those that take a stream):
+    the package's bindings and ``ab_attention.py``'s bindings of earlier
+    bodies (``OLD_SIGNATURES``; the argument-less depth queries launch
+    nothing)."""
+    from classpose_tpu_torch import _build
+
+    names = set(_build._SIGNATURES)
+    tree = ast.parse((ROOT / "ab_attention.py").read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "OLD_SIGNATURES"
+                for t in node.targets):
+            for key, val in zip(node.value.keys, node.value.values):
+                if val.elts[1].elts:
+                    names.add(key.value)
+    assert "diffusion_resident_round" in names
+    return names
+
+
+def test_every_launch_goes_through_the_device_setting_helper():
+    """No module outside ``_build.py`` (the package, ``chip_smoke.py``,
+    ``ab_attention.py``) calls a kernel's C entry point, or reads a CUDA
+    stream for one, except through ``_build.call``: the C side launches
+    on the calling thread's current device and sizes its grids and
+    shared-memory limits for it, and ``call`` makes the tensors' card
+    current first."""
+    entry = _entry_points_with_stream()
+    pkg = Path(classpose_tpu_torch.__file__).parent
+    files = [f for f in pkg.rglob("*.py") if f.name != "_build.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "ab_attention.py"]
+    bad, calls = [], {}
+    for f in files:
+        rel = str(f.relative_to(ROOT))
+        for node in ast.walk(ast.parse(f.read_text())):
+            if isinstance(node, ast.Attribute) and node.attr in (
+                    "cuda_stream", "stream_ptr"):
+                bad.append((rel, node.lineno, node.attr))
+            if not isinstance(node, ast.Call):
+                continue
+            fn = node.func
+            if isinstance(fn, ast.Attribute) and fn.attr in entry:
+                bad.append((rel, node.lineno, fn.attr))
+            if isinstance(fn, ast.Call) and getattr(fn.func, "id",
+                                                    None) == "getattr":
+                bad.append((rel, node.lineno, "getattr(...)(...)"))
+            if isinstance(fn, ast.Attribute) and fn.attr == "call" \
+                    and getattr(fn.value, "id", None) == "_build":
+                calls[rel] = calls.get(rel, 0) + 1
+    assert not bad
+    # every wrapper module launches through the helper
+    assert {"classpose_tpu_torch/ops/sample.py": 2,
+            "classpose_tpu_torch/ops/diffusion.py": 2,
+            "classpose_tpu_torch/nn/attention.py": 3,
+            "classpose_tpu_torch/nn/layernorm.py": 1}.items() \
+        <= calls.items()
+
+
+def test_launch_helper_sets_the_device(monkeypatch):
+    """``_build.call`` enters the tensors' device, passes that device's
+    current stream after the arguments and before ``tail``, and raises on
+    an error code."""
+    import contextlib
+
+    import pytest
+    import torch
+
+    from classpose_tpu_torch import _build
+
+    seen = []
+
+    @contextlib.contextmanager
+    def device(d):
+        seen.append(("enter", d))
+        yield
+        seen.append(("exit", d))
+
+    class Stream:
+        def __init__(self, d):
+            self.cuda_stream = 1000 + d.index
+
+    class Lib:
+        @staticmethod
+        def kern(*args):
+            seen.append(("launch", args))
+            return args[0]
+
+    monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(torch.cuda, "current_stream", Stream)
+    card = torch.device("cuda", 1)
+    _build.call(Lib, "kern", card, 0, 7, tail=(9,))
+    assert seen == [("enter", card), ("launch", (0, 7, 1001, 9)),
+                    ("exit", card)]
+    with pytest.raises(RuntimeError, match="CUDA error 5 launching kern"):
+        _build.call(Lib, "kern", card, 5)
