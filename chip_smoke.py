@@ -147,7 +147,21 @@
    ≥ 99% matched); its level 0 decoded whole and run as an ``.npy`` must
    find exactly its cells; it prints the decoder's rate in MP/s on one
    thread and on the loader's reader threads and both runs' pipeline
-   seconds; then the GrandQC phase: a tissue (2 classes) and an
+   seconds; its JPEG-processes step: the golden streams of every JPEG
+   process the decoder reads (progressive with complete and incomplete
+   scripts, arithmetic, CMYK and YCCK, sampling factors 3 and 4,
+   lossless) and the 20 tiles of the committed Aperio SVS
+   (``tests/golden/jpeg_region.svs``: compression 7, the same region,
+   512² tiles of SOF2, SOF10, SOF9 and 4:1:1 baseline at quality 80 and
+   a 2× level) must decode on the card's host to the SHA-256 of the
+   pixels PIL decoded, and the streams PIL refuses must raise naming
+   what they use (``jpeg_golden.json``); the SVS through the CLI with
+   ``WSI_READER`` unset must launch the five kernels and find the cells
+   of the JPEG 2000 step's region ``.npy`` run (within 0.5%, ≥ 99%
+   matched); its level 0 decoded whole and run as an ``.npy`` must find
+   exactly its cells; it prints the decoder's rate in MP/s by process on
+   one thread and on the reader threads and the pipeline seconds; then
+   the GrandQC phase: a tissue (2 classes) and an
    artefact (8 classes) UNet++ of seeded random weights in the smp
    layout, the tissue head's bias set once by rule (``run_grandqc``'s
    docstring), written as ``.pt`` and converted by
@@ -395,6 +409,13 @@ J2K_SVS, J2K_JSON = GOLDEN / "j2k_region.svs", GOLDEN / "j2k_golden.json"
 # its runs read 512² model tiles: a 3×3 grid over the region (at the WSI
 # phase's 1024² the region holds one tile)
 J2K_MODEL_TILE = 512
+# its JPEG-processes step: the committed Aperio SVS (compression 7) of the
+# same region, 16 tiles of 512² whose processes are SOF2, SOF10, SOF9 and
+# 4:1:1 baseline, the golden streams of every process the decoder reads
+# and the refused ones (tests/golden/regenerate_jpeg.py), and the times
+# each tile is decoded for its rate
+JPEG_SVS, JPEG_JSON = GOLDEN / "jpeg_region.svs", GOLDEN / "jpeg_golden.json"
+JPEG_RATE_REPEATS = 8
 # the GrandQC phase: the QC run's --min_area (µm²; 100 px at MPP 10), the
 # artefact patches also run on the CPU, and the batch its rate is timed at
 GRANDQC_MIN_AREA, GRANDQC_CPU_PATCHES, GRANDQC_BATCH = 10000, 4, 8
@@ -2365,7 +2386,8 @@ def run_slide(wsi: dict) -> dict:
         raise AssertionError(f"decoded.npy vs SVS: {len(dec_pts)} vs "
                              f"{len(pts)} cells, {exact} matched")
     j2k = run_slide_j2k(wsi)
-    return dict(j2k=j2k,
+    jpeg_processes = run_slide_jpeg(wsi)
+    return dict(j2k=j2k, jpeg_processes=jpeg_processes,
         tile=SVS_TILE, quality=SVS_QUALITY, write_s=write_s,
         svs_mib=os.path.getsize(f"{work}/slide.svs") / 2 ** 20,
         level0_tiles=n_tiles, level0_psnr_db=psnr,
@@ -2435,49 +2457,61 @@ def run_slide_j2k(wsi: dict) -> dict:
         (decoded.astype(np.float64) - region) ** 2)))
     del decoded, region
 
-    # (b) the region as an array slide, then the SVS with WSI_READER
-    # unset (the MPP from its description)
+    # (b) the region as an array slide, the reference of this step and
+    # of the JPEG-processes step, then the SVS (run_region_svs)
     npy_args = list(wsi["slide_args"])
     npy_args[npy_args.index("--slide_path") + 1] = f"{work}/region.npy"
     npy_args[npy_args.index("--tile_size") + 1] = str(J2K_MODEL_TILE)
     ref, _, _ = wsi["cli"](f"{work}/out_region", args=npy_args)
     ref_pts, ref_names = read_outputs(f"{work}/out_region", "region", labels)
-    svs_args = [a for a in npy_args if a not in (str(WSI_MPP), "--mpp")]
-    svs_args[svs_args.index("--slide_path") + 1] = str(J2K_SVS)
-    os.environ.pop("WSI_READER", None)
-    try:
-        res, wall, launches = wsi["cli"](f"{work}/out_j2k", args=svs_args)
-    finally:
-        os.environ["WSI_READER"] = "array"
-    log(f"J2K SVS launches: {launches}")
-    missing = [k for k in WSI_KERNELS if launches[k] == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the J2K SVS run: "
-                             f"{missing}")
-    pts, names = read_outputs(f"{work}/out_j2k", J2K_SVS.stem, labels)
-    share = matched_share(pts, names, ref_pts, ref_names)
-    count_diff = abs(len(pts) - len(ref_pts)) / len(ref_pts)
-    if res["n_tiles"] != ref["n_tiles"] or count_diff > 0.005 \
-            or share < 0.99:
-        raise AssertionError(f"J2K SVS vs region .npy: {res['n_tiles']} "
-                             f"tiles, {len(pts)} vs {len(ref_pts)} cells, "
-                             f"{share:.4f} matched")
-    # (c) its decoded level 0 as an array slide: exactly its cells
-    dec_args = list(npy_args)
-    dec_args[dec_args.index("--slide_path") + 1] = f"{work}/j2k_decoded.npy"
-    dec, _, _ = wsi["cli"](f"{work}/out_j2k_decoded", args=dec_args)
-    dec_pts, dec_names = read_outputs(f"{work}/out_j2k_decoded",
-                                      "j2k_decoded", labels)
-    exact = matched_share(dec_pts, dec_names, pts, names)
-    if len(dec_pts) != len(pts) or exact != 1.0:
-        raise AssertionError(f"j2k_decoded.npy vs J2K SVS: {len(dec_pts)} "
-                             f"vs {len(pts)} cells, {exact} matched")
+    wsi["region_ref"] = (npy_args, ref, ref_pts, ref_names)
     return dict(
         goldens=len(golden["streams"]), tiles=len(streams), tile=g["tile"],
         rate=g["rate"], svs_kib=len(raw) / 1024, level0_psnr_db=psnr,
         decode_1t_mp_per_s=tile_mp / decode_1t_s,
         decode_threads=n_read, decode_nt_mp_per_s=tile_mp / decode_nt_s,
         decode_1t_s=decode_1t_s, decode_nt_s=decode_nt_s,
+        **run_region_svs(wsi, J2K_SVS, f"{work}/j2k_decoded.npy"))
+
+
+def run_region_svs(wsi: dict, svs: Path, decoded: str) -> dict:
+    """(b) a committed SVS of the slide's region through the CLI with
+    ``WSI_READER`` unset (the MPP from its description) against the run
+    on the region as an array slide; (c) its level 0, decoded whole into
+    ``decoded`` by the caller, as an array slide: exactly its cells."""
+    work, labels = wsi["work"], wsi["labels"]
+    npy_args, ref, ref_pts, ref_names = wsi["region_ref"]
+    svs_args = [a for a in npy_args if a not in (str(WSI_MPP), "--mpp")]
+    svs_args[svs_args.index("--slide_path") + 1] = str(svs)
+    os.environ.pop("WSI_READER", None)
+    try:
+        res, wall, launches = wsi["cli"](f"{work}/out_{svs.stem}",
+                                         args=svs_args)
+    finally:
+        os.environ["WSI_READER"] = "array"
+    log(f"{svs.name} launches: {launches}")
+    missing = [k for k in WSI_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on {svs.name}: "
+                             f"{missing}")
+    pts, names = read_outputs(f"{work}/out_{svs.stem}", svs.stem, labels)
+    share = matched_share(pts, names, ref_pts, ref_names)
+    count_diff = abs(len(pts) - len(ref_pts)) / len(ref_pts)
+    if res["n_tiles"] != ref["n_tiles"] or count_diff > 0.005 \
+            or share < 0.99:
+        raise AssertionError(f"{svs.name} vs region .npy: {res['n_tiles']} "
+                             f"tiles, {len(pts)} vs {len(ref_pts)} cells, "
+                             f"{share:.4f} matched")
+    stem = Path(decoded).stem
+    dec_args = list(npy_args)
+    dec_args[dec_args.index("--slide_path") + 1] = decoded
+    dec, _, _ = wsi["cli"](f"{work}/out_{stem}", args=dec_args)
+    dec_pts, dec_names = read_outputs(f"{work}/out_{stem}", stem, labels)
+    exact = matched_share(dec_pts, dec_names, pts, names)
+    if len(dec_pts) != len(pts) or exact != 1.0:
+        raise AssertionError(f"{stem}.npy vs {svs.name}: {len(dec_pts)} "
+                             f"vs {len(pts)} cells, {exact} matched")
+    return dict(
         cli_wall_s=wall, pipeline_s=res["seconds"],
         stage_seconds=res["stage_seconds"], n_tiles=res["n_tiles"],
         n_cells=res["n_cells"], npy_pipeline_s=ref["seconds"],
@@ -2485,6 +2519,87 @@ def run_slide_j2k(wsi: dict) -> dict:
         matched_share=share, decoded_pipeline_s=dec["seconds"],
         decoded_n_cells=dec["n_cells"], decoded_matched_share=exact,
         launches=launches)
+
+
+def run_slide_jpeg(wsi: dict) -> dict:
+    """The slide phase's JPEG-processes step (see the module docstring,
+    step 6): the golden streams of every process against the hashes of
+    PIL's pixels, the refused streams against their refusals, the
+    committed compression-7 SVS's tiles at both levels against theirs;
+    the SVS through the CLI with ``WSI_READER`` unset against the J2K
+    step's region ``.npy`` run; its decoded level 0 as an array slide; the
+    decoder's host rates by process."""
+    work = wsi["work"]
+    golden = json.loads(JPEG_JSON.read_text())
+    g = golden["svs"]
+    if g["slide"] != dict(width=WSI_SIZE, height=WSI_SIZE, n_cells=4000,
+                          mpp=WSI_MPP, seed=SEED):
+        raise AssertionError(f"the JPEG SVS is of another slide: {g}")
+    # (a) every golden stream, bit for bit as PIL decoded it; every
+    # stream PIL refuses raises, naming what it refuses
+    for name, want in golden["streams"].items():
+        rgb = jpeg.decode((GOLDEN / f"jpeg_{name}.jpg").read_bytes())
+        if list(rgb.shape) != want["shape"] or _sha256(rgb) != want["sha256"]:
+            raise AssertionError(f"golden jpeg_{name} decodes unlike PIL")
+    for name, word in golden["refused"].items():
+        try:
+            jpeg.decode((GOLDEN / f"jpeg_refused_{name}.jpg").read_bytes())
+        except ValueError as e:
+            if word not in str(e):
+                raise AssertionError(f"refused {name}: {e}") from e
+        else:
+            raise AssertionError(f"refused {name} decodes")
+    slide = TiffSlide(str(JPEG_SVS))
+    raw = JPEG_SVS.read_bytes()
+    levels = [[raw[o:o + n] for o, n in zip(p.offsets, p.counts)]
+              for p in slide._levels]
+    if slide._levels[0].compression != 7 \
+            or [len(v) for v in levels] != [len(v) for v in g["levels"]] \
+            or get_slide_resolution(slide) != (WSI_MPP, WSI_MPP):
+        raise AssertionError(f"JPEG SVS: {[len(v) for v in levels]} tiles, "
+                             f"{slide.properties}")
+    for lv, (streams, want) in enumerate(zip(levels, g["levels"])):
+        for k, (st, w) in enumerate(zip(streams, want)):
+            if _sha256(jpeg.decode(st)) != w["sha256"]:
+                raise AssertionError(f"JPEG SVS level {lv} tile {k} decodes "
+                                     f"unlike PIL")
+    # (d) the decoder's rates on the card's host by process, one thread
+    # and the loader's reader threads, each tile decoded
+    # JPEG_RATE_REPEATS times
+    by_process = {name: [] for name in g["processes"]}
+    for st, w in zip(levels[0], g["levels"][0]):
+        by_process[w["process"]].append(st)
+    n_read = SlideLoader.n_read_threads
+    rates = {}
+    for name, streams in [*by_process.items(), ("all", levels[0])]:
+        work_list = streams * JPEG_RATE_REPEATS
+        mp = len(work_list) * g["tile"] ** 2 / 1e6
+        t0 = time.perf_counter()
+        for st in work_list:
+            jpeg.decode(st)
+        one = time.perf_counter() - t0
+        with ThreadPoolExecutor(n_read) as pool:
+            t0 = time.perf_counter()
+            list(pool.map(jpeg.decode, work_list))
+            many = time.perf_counter() - t0
+        rates[name] = dict(tiles=len(streams), mp_per_s_1t=mp / one,
+                           mp_per_s_nt=mp / many)
+    side = g["region"]
+    decoded = slide.read_region((0, 0), 0, (side, side))[..., :3]
+    slide.close()
+    np.save(f"{work}/jpeg_decoded.npy", decoded)
+    region = np.load(f"{work}/region.npy", mmap_mode="r")
+    psnr = float(10 * np.log10(255.0 ** 2 / np.mean(
+        (decoded.astype(np.float64) - region) ** 2)))
+    del decoded, region
+
+    return dict(
+        goldens=len(golden["streams"]), refused=len(golden["refused"]),
+        tiles=[len(v) for v in levels], tile=g["tile"],
+        quality=g["quality"], svs_kib=len(raw) / 1024, level0_psnr_db=psnr,
+        decode_threads=n_read, decode_repeats=JPEG_RATE_REPEATS,
+        decode_rates=rates,
+        **run_region_svs(wsi, JPEG_SVS, f"{work}/jpeg_decoded.npy"))
 
 
 def grandqc_weights(classes: int, seed: int) -> dict[str, torch.Tensor]:
@@ -3121,6 +3236,16 @@ def main() -> int:
             f"(the first run at 512² tiles) and its decoded level 0 as .npy "
             f"{j2k['decoded_pipeline_s']:.3f} s; {j2k['n_cells']} vs "
             f"{j2k['npy_n_cells']} cells, {j2k['matched_share']:.4f} matched")
+        jp = slide_stats["jpeg_processes"]
+        log("slide JPEG processes (host MP/s on 1 thread / on "
+            f"{jp['decode_threads']}): " + ", ".join(
+                f"{k} {v['mp_per_s_1t']:.2f} / {v['mp_per_s_nt']:.2f}"
+                for k, v in jp["decode_rates"].items())
+            + f"; JPEG SVS pipeline {jp['pipeline_s']:.3f} s "
+            f"{jp['stage_seconds']} vs region .npy "
+            f"{jp['npy_pipeline_s']:.3f} s, its decoded level 0 as .npy "
+            f"{jp['decoded_pipeline_s']:.3f} s; {jp['n_cells']} vs "
+            f"{jp['npy_n_cells']} cells, {jp['matched_share']:.4f} matched")
         grandqc_stats = run_grandqc(dev, wsi)
         log(f"grandqc: {json.dumps(grandqc_stats)}")
         log(f"GrandQC (host unless named): thumbnails "

@@ -1,10 +1,15 @@
-"""Baseline JPEG decode and encode on the native codec
-(``native/jpeg.cpp``), for the TIFF slide reader and writer.
+"""JPEG decode and encode on the native codec (``native/jpeg.cpp``), for
+the TIFF slide reader and writer.
 
-:func:`decode` returns what libjpeg's default decompression to RGB
-returns, bit for bit (islow IDCT, fancy upsampling, its colour tables
-and its YCbCr-or-RGB rule); progressive, arithmetic, lossless, 12-bit and
-4-component streams raise ``ValueError`` naming the marker.
+:func:`decode` returns what PIL's ``Image.open(...).convert("RGB")``
+returns (libjpeg-turbo 3.1's default decompression), bit for bit, for
+every stream PIL reads: sequential and progressive Huffman (SOF0-2),
+sequential and progressive arithmetic (SOF9/SOF10), lossless (SOF3),
+grey, YCbCr, RGB, CMYK and YCCK, sampling factors 1 to 4, with
+libjpeg's block smoothing of incomplete progressive scripts. A stream PIL
+refuses raises ``ValueError`` naming the process or feature
+(hierarchical processes, SOF11, DNL, 12- and 16-bit samples, fractional
+sampling, ...).
 :func:`encode` writes a baseline JFIF stream at 4:2:0 with the Annex K
 tables scaled by ``quality`` as ``jpeg_set_quality`` scales them.
 """
@@ -21,7 +26,8 @@ _ERRLEN = 256
 
 
 def info(data: bytes) -> tuple[int, int, int]:
-    """(height, width, components) from the frame header."""
+    """(height, width, components) from the frame header (any process;
+    4 for CMYK and YCCK)."""
     lib = load_jpeg()
     dims = (ctypes.c_int32 * 3)()
     err = ctypes.create_string_buffer(_ERRLEN)
@@ -31,7 +37,8 @@ def info(data: bytes) -> tuple[int, int, int]:
 
 
 def decode(data: bytes) -> np.ndarray:
-    """(H, W, 3) RGB uint8 of a baseline JPEG stream (grey replicated)."""
+    """(H, W, 3) RGB uint8 of a JPEG stream of any process PIL reads
+    (grey replicated, CMYK and YCCK converted as PIL converts them)."""
     lib = load_jpeg()
     h, w, _ = info(data)
     out = np.empty((h, w, 3), np.uint8)

@@ -11,7 +11,8 @@ called with the GIL released).
 Supported: classic and BigTIFF, both byte orders, tiled and striped
 pages, compressions none (1), LZW (5), JPEG (7, merging the page's
 ``JPEGTables``, decoded by :mod:`classpose_tpu_torch.io.jpeg` bit for
-bit as libjpeg decodes), Deflate (8, 32946), Aperio JPEG 2000 (33003,
+bit as PIL's libjpeg-turbo decodes: baseline, progressive, arithmetic and
+lossless tiles, any sampling factors, CMYK), Deflate (8, 32946), Aperio JPEG 2000 (33003,
 33005: raw codestreams decoded by :mod:`classpose_tpu_torch.io.jpeg2000`
 bit for bit as PIL's OpenJPEG decodes them; the components go out as
 coded, so a 33003 tile whose codestream holds Y, Cb, Cr without the MCT

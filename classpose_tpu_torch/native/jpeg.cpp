@@ -1,17 +1,32 @@
-// Baseline JPEG codec for the slide reader and writer.
+// JPEG codec for the slide reader and writer.
 //
-// The decoder follows libjpeg's default decompression path step by step,
-// so its pixels equal libjpeg-turbo's (and so PIL's) bit for bit:
-//   - Huffman decoding of sequential scans (SOF0/SOF1, 8-bit, 1 or 3
-//     components, sampling factors 1 or 2, DRI/RSTn, interleaved or not);
+// The decoder follows libjpeg-turbo 3.1's default decompression path step
+// by step, so its pixels equal libjpeg-turbo's (and so PIL's) bit for bit:
+//   - Huffman decoding of sequential scans (SOF0/SOF1) and of progressive
+//     ones (SOF2, jdphuff.c: DC and AC first and refinement scans, EOB
+//     runs), arithmetic decoding of both (SOF9/SOF10, jdarith.c, with the
+//     DAC conditioning), lossless decoding (SOF3, jdlhuff.c and
+//     jdlossls.c: predictors 1-7, point transform); 8-bit samples, 1, 3 or
+//     4 components, sampling factors 1 to 4 with integral ratios, DRI/RSTn,
+//     interleaved or not, the Annex K tables in Huffman slots 0 and 1 a
+//     stream leaves undefined;
+//   - the block smoothing of a progressive image whose low-frequency
+//     coefficients are not all known (jdcoefct.c decompress_smooth_data);
 //   - the "islow" integer inverse DCT of jidctint.c with its range limit;
 //   - "fancy" triangle upsampling (jdsample.c h2v1, h1v2, h2v2), whose
-//     context rows repeat the first and the last real sample row;
-//   - the fixed-point YCbCr -> RGB tables of jdcolor.c, and libjpeg's rule
+//     context rows repeat the first and the last real sample row, and
+//     box replication for other ratios and for lossless images;
+//   - the fixed-point YCbCr -> RGB tables of jdcolor.c, libjpeg's rule
 //     for whether a 3-component stream is YCbCr or RGB (JFIF APP0, Adobe
-//     APP14 transform flag, component ids).
-// Progressive, arithmetic-coded, lossless, 12-bit and 4-component streams
-// raise with the marker's name.
+//     APP14 transform flag, component ids; RGB for an unmarked lossless
+//     stream), and for 4 components CMYK or YCCK (ycck_cmyk_convert)
+//     followed by what PIL does with them: the samples read as inverted
+//     CMYK and Pillow's cmyk2rgb.
+// What libjpeg-turbo (or PIL) refuses raises with its name: hierarchical
+// and arithmetic-lossless processes (SOF5-7, SOF11, SOF13-15), DNL,
+// precisions other than 8, 2 components, fractional sampling, more than
+// 10 blocks in an interleaved MCU, scan parameters libjpeg rejects, and
+// colour conversion of a lossless stream.
 //
 // The encoder writes what libjpeg writes with its defaults and
 // jpeg_set_quality(q): a JFIF stream at 4:2:0 (jccolor.c colour tables,
@@ -310,6 +325,46 @@ inline uint8_t clamp255(int v) {
   return uint8_t(v < 0 ? 0 : v > 255 ? 255 : v);
 }
 
+// the Annex K Huffman tables: the encoder's, and what libjpeg-turbo loads
+// into the Huffman slots 0 and 1 a stream leaves undefined (jstdhuff.c)
+const uint8_t kDcLumaBits[16] = {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
+const uint8_t kDcChromaBits[16] = {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
+const uint8_t kDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kAcLumaBits[16] = {0, 2, 1, 3, 3, 2, 4, 3,
+                                 5, 5, 4, 4, 0, 0, 1, 0x7d};
+const uint8_t kAcLumaVals[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06,
+    0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08,
+    0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
+    0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
+    0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
+    0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
+    0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9,
+    0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
+    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+const uint8_t kAcChromaBits[16] = {0, 2, 1, 2, 4, 4, 3, 4,
+                                   7, 5, 4, 4, 0, 1, 2, 0x77};
+const uint8_t kAcChromaVals[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41,
+    0x51, 0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91,
+    0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,
+    0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
+    0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
+    0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+    0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
+    0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
+    0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7,
+    0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
 // ------------------------------------------------------------ decoder
 struct HuffDec {
   bool set = false;
@@ -384,6 +439,10 @@ struct BitReader {
     skip(n);
     return v;
   }
+  inline int bits(int n) {  // get() with the buffer refilled first
+    if (nbits < 32) fill();
+    return get(n);
+  }
   void reset() {
     acc = 0;
     nbits = 0;
@@ -412,29 +471,174 @@ inline int extend(int v, int t) {
   return v < (1 << (t - 1)) ? v - (1 << t) + 1 : v;
 }
 
+// jaricom.c: T.81 Table D.2 packed as (Qe << 16) | (Next_Index_MPS << 8) |
+// (Switch_MPS << 7) | Next_Index_LPS; entry 113 is the fixed 0.5 state
+#define ARI(qe, nlps, nmps, sw) \
+  ((int32_t(qe) << 16) | (int32_t(nmps) << 8) | (int32_t(sw) << 7) | (nlps))
+const int32_t kAritab[114] = {
+    ARI(0x5a1d, 1, 1, 1),     ARI(0x2586, 14, 2, 0),
+    ARI(0x1114, 16, 3, 0),    ARI(0x080b, 18, 4, 0),
+    ARI(0x03d8, 20, 5, 0),    ARI(0x01da, 23, 6, 0),
+    ARI(0x00e5, 25, 7, 0),    ARI(0x006f, 28, 8, 0),
+    ARI(0x0036, 30, 9, 0),    ARI(0x001a, 33, 10, 0),
+    ARI(0x000d, 35, 11, 0),   ARI(0x0006, 9, 12, 0),
+    ARI(0x0003, 10, 13, 0),   ARI(0x0001, 12, 13, 0),
+    ARI(0x5a7f, 15, 15, 1),   ARI(0x3f25, 36, 16, 0),
+    ARI(0x2cf2, 38, 17, 0),   ARI(0x207c, 39, 18, 0),
+    ARI(0x17b9, 40, 19, 0),   ARI(0x1182, 42, 20, 0),
+    ARI(0x0cef, 43, 21, 0),   ARI(0x09a1, 45, 22, 0),
+    ARI(0x072f, 46, 23, 0),   ARI(0x055c, 48, 24, 0),
+    ARI(0x0406, 49, 25, 0),   ARI(0x0303, 51, 26, 0),
+    ARI(0x0240, 52, 27, 0),   ARI(0x01b1, 54, 28, 0),
+    ARI(0x0144, 56, 29, 0),   ARI(0x00f5, 57, 30, 0),
+    ARI(0x00b7, 59, 31, 0),   ARI(0x008a, 60, 32, 0),
+    ARI(0x0068, 62, 33, 0),   ARI(0x004e, 63, 34, 0),
+    ARI(0x003b, 32, 35, 0),   ARI(0x002c, 33, 9, 0),
+    ARI(0x5ae1, 37, 37, 1),   ARI(0x484c, 64, 38, 0),
+    ARI(0x3a0d, 65, 39, 0),   ARI(0x2ef1, 67, 40, 0),
+    ARI(0x261f, 68, 41, 0),   ARI(0x1f33, 69, 42, 0),
+    ARI(0x19a8, 70, 43, 0),   ARI(0x1518, 72, 44, 0),
+    ARI(0x1177, 73, 45, 0),   ARI(0x0e74, 74, 46, 0),
+    ARI(0x0bfb, 75, 47, 0),   ARI(0x09f8, 77, 48, 0),
+    ARI(0x0861, 78, 49, 0),   ARI(0x0706, 79, 50, 0),
+    ARI(0x05cd, 48, 51, 0),   ARI(0x04de, 50, 52, 0),
+    ARI(0x040f, 50, 53, 0),   ARI(0x0363, 51, 54, 0),
+    ARI(0x02d4, 52, 55, 0),   ARI(0x025c, 53, 56, 0),
+    ARI(0x01f8, 54, 57, 0),   ARI(0x01a4, 55, 58, 0),
+    ARI(0x0160, 56, 59, 0),   ARI(0x0125, 57, 60, 0),
+    ARI(0x00f6, 58, 61, 0),   ARI(0x00cb, 59, 62, 0),
+    ARI(0x00ab, 61, 63, 0),   ARI(0x008f, 61, 32, 0),
+    ARI(0x5b12, 65, 65, 1),   ARI(0x4d04, 80, 66, 0),
+    ARI(0x412c, 81, 67, 0),   ARI(0x37d8, 82, 68, 0),
+    ARI(0x2fe8, 83, 69, 0),   ARI(0x293c, 84, 70, 0),
+    ARI(0x2379, 86, 71, 0),   ARI(0x1edf, 87, 72, 0),
+    ARI(0x1aa9, 87, 73, 0),   ARI(0x174e, 72, 74, 0),
+    ARI(0x1424, 72, 75, 0),   ARI(0x119c, 74, 76, 0),
+    ARI(0x0f6b, 74, 77, 0),   ARI(0x0d51, 75, 78, 0),
+    ARI(0x0bb6, 77, 79, 0),   ARI(0x0a40, 77, 48, 0),
+    ARI(0x5832, 80, 81, 1),   ARI(0x4d1c, 88, 82, 0),
+    ARI(0x438e, 89, 83, 0),   ARI(0x3bdd, 90, 84, 0),
+    ARI(0x34ee, 91, 85, 0),   ARI(0x2eae, 92, 86, 0),
+    ARI(0x299a, 93, 87, 0),   ARI(0x2516, 86, 71, 0),
+    ARI(0x5570, 88, 89, 1),   ARI(0x4ca9, 95, 90, 0),
+    ARI(0x44d9, 96, 91, 0),   ARI(0x3e22, 97, 92, 0),
+    ARI(0x3824, 99, 93, 0),   ARI(0x32b4, 99, 94, 0),
+    ARI(0x2e17, 93, 86, 0),   ARI(0x56a8, 95, 96, 1),
+    ARI(0x4f46, 101, 97, 0),  ARI(0x47e5, 102, 98, 0),
+    ARI(0x41cf, 103, 99, 0),  ARI(0x3c3d, 104, 100, 0),
+    ARI(0x375e, 99, 93, 0),   ARI(0x5231, 105, 102, 0),
+    ARI(0x4c0f, 106, 103, 0), ARI(0x4639, 107, 104, 0),
+    ARI(0x415e, 103, 99, 0),  ARI(0x5627, 105, 106, 1),
+    ARI(0x50e7, 108, 107, 0), ARI(0x4b85, 109, 103, 0),
+    ARI(0x5597, 110, 109, 0), ARI(0x504f, 111, 107, 0),
+    ARI(0x5a10, 110, 111, 1), ARI(0x5522, 112, 109, 0),
+    ARI(0x59eb, 112, 111, 1), ARI(0x5a1d, 113, 113, 0)};
+#undef ARI
+
+// jdarith.c's decoder: C holds the interval base and the input bits, CT
+// counts the bits left, A the interval size; a marker feeds zeros.
+// libjpeg cannot suspend it, and PIL hands libjpeg a stream in 64 KiB
+// reads, so PIL refuses a scan that reads a byte at or past `limit`: the
+// end of the reads that held its header, or of the stream
+struct ArithReader {
+  const uint8_t* base;  // the stream's first byte
+  const uint8_t* p;
+  const uint8_t* limit;
+  int64_t c = 0, a = 0;
+  int ct = -16;  // -16: two bytes to read before the first decision
+  bool marker = false;
+
+  void reset() {
+    c = 0;
+    a = 0;
+    ct = -16;
+    marker = false;
+  }
+  void reach(const uint8_t* q) const {
+    if (q >= limit)
+      throw Error("unsupported JPEG arithmetic-coded scan: it reads byte " +
+                  std::to_string(q - base) + ", past the 64 KiB read that "
+                  "holds its header (libjpeg cannot suspend an arithmetic "
+                  "decoder there, so PIL refuses it)");
+  }
+  int byte() {
+    if (marker) return 0;
+    reach(p);
+    if (*p != 0xFF) return *p++;
+    const uint8_t* q = p;
+    while (q < limit && *q == 0xFF) ++q;  // fill bytes
+    reach(q);
+    if (*q == 0) {
+      p = q + 1;
+      return 0xFF;  // stuffed zero
+    }
+    marker = true;  // p stays on the marker
+    return 0;
+  }
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        c = (c << 8) | byte();
+        if ((ct += 8) < 0)
+          if (++ct == 0) a = 0x8000;  // got the two initial bytes
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    int32_t qe = kAritab[sv & 0x7F];
+    int nl = qe & 0xFF;
+    qe >>= 8;
+    int nm = qe & 0xFF;
+    qe >>= 8;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {  // conditional LPS exchange
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {  // conditional MPS exchange
+      if (a < qe) {
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = uint8_t((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+};
+
 struct Comp {
   int id, h, v, tq;
   int td = 0, ta = 0;
   int pred = 0;
-  int dw, dh;     // downsampled width and height (real samples)
-  int bw, bh;     // blocks allocated (MCU-padded)
+  int dc_ctx = 0;  // arithmetic DC conditioning category
+  int dw, dh;      // downsampled width and height (real samples)
+  int bw, bh;      // blocks allocated (MCU-padded)
   std::vector<int16_t> coef;
   uint16_t q[64];
   bool latched = false;
   bool scanned = false;
-  std::vector<uint8_t> plane;  // IDCT output, stride pw
+  // progressive: each coefficient's last Al, -1 until a scan sends it
+  // (libjpeg's coef_bits; a complete stream smooths with the final ones)
+  int coef_bits[64];
+  std::vector<uint8_t> plane;  // IDCT (or lossless) output, stride pw
   int pw = 0;
 };
 
 const char* sof_name(int m) {
   switch (m) {
-    case 0xC2: return "SOF2 (progressive)";
-    case 0xC3: return "SOF3 (lossless)";
     case 0xC5: return "SOF5 (differential sequential)";
     case 0xC6: return "SOF6 (differential progressive)";
     case 0xC7: return "SOF7 (differential lossless)";
-    case 0xC9: return "SOF9 (arithmetic sequential)";
-    case 0xCA: return "SOF10 (arithmetic progressive)";
+    case 0xC8: return "JPG (reserved SOF)";
     case 0xCB: return "SOF11 (arithmetic lossless)";
     case 0xCD: return "SOF13 (arithmetic differential sequential)";
     case 0xCE: return "SOF14 (arithmetic differential progressive)";
@@ -450,15 +654,27 @@ struct Decoder {
   uint16_t qt[4][64];
   bool qt_set[4] = {false, false, false, false};
   HuffDec dc[4], ac[4];
+  uint8_t dc_L[16], dc_U[16], ac_K[16];  // arithmetic conditioning (DAC)
   int restart = 0;
   int W = 0, H = 0, nc = 0;
-  Comp comp[3];
+  Comp comp[4];
   int hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
+  bool progressive = false, arith = false, lossless = false;
   bool jfif = false, adobe = false;
   int adobe_transform = 0;
   bool have_frame = false, have_scan = false;
+  // the current scan
+  Comp* sc[4];
+  int ns = 0, Ss = 0, Se = 63, Ah = 0, Al = 0;
+  int eobrun = 0;
+  std::vector<uint8_t> dc_stats, ac_stats;  // 16 x 64 and 16 x 256 bins
+  uint8_t fixed_bin = 113;
 
-  Decoder(const uint8_t* data, size_t len) : d(data), n(len) {}
+  Decoder(const uint8_t* data, size_t len) : d(data), n(len) {
+    memset(dc_L, 0, sizeof(dc_L));
+    memset(dc_U, 1, sizeof(dc_U));
+    memset(ac_K, 5, sizeof(ac_K));
+  }
 
   int u8() {
     if (pos >= n) throw Error("JPEG data ends early");
@@ -493,14 +709,14 @@ struct Decoder {
       int len = u16();
       if (len < 2 || start + len > n) throw Error("bad JPEG marker length");
       size_t seg_end = start + len;
-      if (m == 0xC0 || m == 0xC1) {
-        read_sof();
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC3 || m == 0xC9 ||
+          m == 0xCA) {
+        read_sof(m);
         if (header_only) return;
-      } else if ((m >= 0xC2 && m <= 0xCF) && m != 0xC4 && m != 0xC8 &&
-                 m != 0xCC) {
+      } else if (m >= 0xC5 && m <= 0xCF && m != 0xCC) {
         throw Error(std::string("unsupported JPEG process: ") + sof_name(m));
       } else if (m == 0xCC) {
-        throw Error("unsupported JPEG process: DAC (arithmetic coding)");
+        read_dac(seg_end);
       } else if (m == 0xC4) {
         read_dht(seg_end);
       } else if (m == 0xDB) {
@@ -522,6 +738,12 @@ struct Decoder {
         }
       } else if (m == 0xDC) {
         throw Error("unsupported JPEG marker: DNL");
+      } else if (!(m >= 0xE0 && m <= 0xEF) && m != 0xFE) {
+        // libjpeg reads APPn, COM and the markers above; DHP, EXP, JPGn
+        // and RESn stop it
+        char buf[64];
+        snprintf(buf, sizeof(buf), "unsupported JPEG marker 0x%02X", m);
+        throw Error(buf);
       }
       pos = seg_end;
     }
@@ -529,18 +751,23 @@ struct Decoder {
     if (!header_only && !have_scan) throw Error("JPEG stream has no scan");
   }
 
-  void read_sof() {
+  void read_sof(int m) {
     if (have_frame) throw Error("JPEG stream has two frame headers");
+    progressive = m == 0xC2 || m == 0xCA;
+    arith = m == 0xC9 || m == 0xCA;
+    lossless = m == 0xC3;
     int prec = u8();
     H = u16();
     W = u16();
     nc = u8();
     if (prec != 8)
       throw Error("unsupported JPEG sample precision " +
-                  std::to_string(prec) + " (12-bit)");
+                  std::to_string(prec) + " (" + std::to_string(prec) +
+                  "-bit)");
     if (H == 0) throw Error("unsupported JPEG height 0 (DNL)");
     if (W == 0) throw Error("bad JPEG width 0");
-    if (nc != 1 && nc != 3)
+    if (H > 65500 || W > 65500) throw Error("JPEG image larger than 65500");
+    if (nc != 1 && nc != 3 && nc != 4)
       throw Error("unsupported JPEG with " + std::to_string(nc) +
                   " components");
     for (int i = 0; i < nc; ++i) {
@@ -550,15 +777,26 @@ struct Decoder {
       c.h = hv >> 4;
       c.v = hv & 15;
       c.tq = u8();
-      if (c.h < 1 || c.h > 2 || c.v < 1 || c.v > 2)
-        throw Error("unsupported JPEG sampling factors " +
-                    std::to_string(c.h) + "x" + std::to_string(c.v));
+      if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4)
+        throw Error("bad JPEG sampling factors " + std::to_string(c.h) +
+                    "x" + std::to_string(c.v));
       if (c.tq > 3) throw Error("bad JPEG quantization table index");
       hmax = std::max(hmax, c.h);
       vmax = std::max(vmax, c.v);
+      std::fill(c.coef_bits, c.coef_bits + 64, -1);
     }
-    mcux = (W + 8 * hmax - 1) / (8 * hmax);
-    mcuy = (H + 8 * vmax - 1) / (8 * vmax);
+    // jdsample.c: each component's ratio to the largest factors must be
+    // an integer
+    for (int i = 0; i < nc; ++i)
+      if (hmax % comp[i].h || vmax % comp[i].v)
+        throw Error(
+            "unsupported JPEG sampling factors: fractional sampling (" +
+            std::to_string(comp[i].h) + "x" + std::to_string(comp[i].v) +
+            " against " + std::to_string(hmax) + "x" + std::to_string(vmax) +
+            ")");
+    const int unit = lossless ? 1 : 8;  // samples per block side
+    mcux = (W + unit * hmax - 1) / (unit * hmax);
+    mcuy = (H + unit * vmax - 1) / (unit * vmax);
     for (int i = 0; i < nc; ++i) {
       Comp& c = comp[i];
       c.dw = (W * c.h + hmax - 1) / hmax;
@@ -596,24 +834,61 @@ struct Decoder {
     }
   }
 
+  void read_dac(size_t seg_end) {  // jdmarker.c get_dac
+    while (pos + 1 < seg_end) {
+      int index = u8(), val = u8();
+      if (index >= 32) throw Error("bad JPEG DAC table index");
+      if (index >= 16) {
+        ac_K[index - 16] = uint8_t(val);
+      } else {
+        dc_L[index] = uint8_t(val & 15);
+        dc_U[index] = uint8_t(val >> 4);
+        if (dc_L[index] > dc_U[index]) throw Error("bad JPEG DAC value");
+      }
+    }
+    if (pos != seg_end) throw Error("bad JPEG DAC segment");
+  }
+
   void read_sos_and_decode(size_t seg_end) {
-    int ns = u8();
-    if (ns < 1 || ns > nc) throw Error("bad JPEG scan component count");
-    Comp* sc[3];
+    ns = u8();
+    if (ns < 1 || ns > 4 || ns > nc || seg_end - pos != size_t(2 * ns + 3))
+      throw Error("bad JPEG scan header");
     for (int i = 0; i < ns; ++i) {
       int id = u8(), t = u8();
       Comp* c = nullptr;
       for (int j = 0; j < nc; ++j)
         if (comp[j].id == id) c = &comp[j];
       if (!c) throw Error("JPEG scan names an unknown component");
+      for (int j = 0; j < i; ++j)
+        if (sc[j] == c) throw Error("JPEG scan names a component twice");
       c->td = t >> 4;
       c->ta = t & 15;
-      if (c->td > 3 || c->ta > 3) throw Error("bad JPEG Huffman index");
-      if (!dc[c->td].set || !ac[c->ta].set)
-        throw Error("JPEG scan uses an undefined Huffman table");
       sc[i] = c;
     }
-    pos = seg_end;  // Ss, Se, Ah/Al: sequential scans use the whole block
+    Ss = u8();
+    Se = u8();
+    int a = u8();
+    Ah = a >> 4;
+    Al = a & 15;
+    pos = seg_end;
+    have_scan = true;
+    if (ns > 1) {  // jdinput.c: an interleaved MCU holds at most 10 blocks
+      int blocks = 0;
+      for (int i = 0; i < ns; ++i) blocks += sc[i]->h * sc[i]->v;
+      if (blocks > 10)
+        throw Error("JPEG sampling factors too large for an interleaved "
+                    "scan (" + std::to_string(blocks) + " blocks in an MCU)");
+    }
+    if (!arith) {  // libjpeg-turbo's default tables fill empty slots 0, 1
+      if (!dc[0].set) build_huff(dc[0], kDcLumaBits, kDcVals, 12);
+      if (!dc[1].set) build_huff(dc[1], kDcChromaBits, kDcVals, 12);
+      if (!ac[0].set) build_huff(ac[0], kAcLumaBits, kAcLumaVals, 162);
+      if (!ac[1].set) build_huff(ac[1], kAcChromaBits, kAcChromaVals, 162);
+    }
+    if (lossless) {
+      decode_lossless_scan();
+      return;
+    }
     for (int i = 0; i < ns; ++i) {
       Comp& c = *sc[i];
       if (!c.latched) {
@@ -623,22 +898,54 @@ struct Decoder {
         c.latched = true;
       }
       if (c.coef.empty()) c.coef.assign(size_t(c.bw) * c.bh * 64, 0);
-      c.pred = 0;
       c.scanned = true;
     }
-    BitReader br{d + pos, d + n};
+    if (progressive) start_progressive_scan();
+    if (arith) {  // 16 conditioning slots: any 4-bit index is one
+      decode_arith_scan();
+      return;
+    }
+    const bool need_dc = !progressive || (Ss == 0 && Ah == 0);
+    const bool need_ac = !progressive || Ss > 0;
+    for (int i = 0; i < ns; ++i) {
+      const Comp& c = *sc[i];
+      if ((need_dc && (c.td > 3 || !dc[c.td].set)) ||
+          (need_ac && (c.ta > 3 || !ac[c.ta].set)))
+        throw Error("JPEG scan uses an undefined Huffman table");
+    }
+    decode_huffman_scan();
+  }
+
+  // jdphuff.c start_pass_phuff_decoder (jdarith.c's is the same): the
+  // checks of Ss, Se, Ah, Al and the progression status of each
+  // coefficient
+  void start_progressive_scan() {
+    bool bad = false;
+    if (Ss == 0) {
+      if (Se != 0) bad = true;
+    } else {
+      if (Ss > Se || Se > 63) bad = true;
+      if (ns != 1) bad = true;
+    }
+    if (Ah != 0 && Al != Ah - 1) bad = true;
+    if (Al > 13) bad = true;
+    if (bad)
+      throw Error("bad JPEG progression parameters Ss=" +
+                  std::to_string(Ss) + " Se=" + std::to_string(Se) +
+                  " Ah=" + std::to_string(Ah) + " Al=" + std::to_string(Al));
+    for (int i = 0; i < ns; ++i)
+      std::fill(sc[i]->coef_bits + Ss, sc[i]->coef_bits + Se + 1, Al);
+  }
+
+  // Calls block(comp, blk) for every block of the scan in stream order and
+  // at_restart() where a restart interval ends.
+  template <class Block, class Restart>
+  void for_each_block(Block&& block, Restart&& at_restart) {
     int todo = restart;
     auto mcu_start = [&]() {
       if (restart == 0) return;
       if (todo == 0) {
-        // discard the partial byte, find RSTn, restart prediction
-        const uint8_t* p = br.p;
-        while (p + 1 < br.end && !(p[0] == 0xFF && p[1] >= 0xD0 &&
-                                   p[1] <= 0xD7))
-          ++p;
-        br.p = p + 1 < br.end ? p + 2 : br.end;
-        br.reset();
-        for (int i = 0; i < ns; ++i) sc[i]->pred = 0;
+        at_restart();
         todo = restart;
       }
       --todo;
@@ -649,7 +956,7 @@ struct Decoder {
       for (int by = 0; by < nby; ++by)
         for (int bx = 0; bx < nbx; ++bx) {
           mcu_start();
-          decode_block(br, c, &c.coef[(size_t(by) * c.bw + bx) * 64]);
+          block(c, &c.coef[(size_t(by) * c.bw + bx) * 64]);
         }
     } else {
       for (int my = 0; my < mcuy; ++my)
@@ -660,13 +967,53 @@ struct Decoder {
             for (int yy = 0; yy < c.v; ++yy)
               for (int xx = 0; xx < c.h; ++xx) {
                 size_t by = size_t(my) * c.v + yy, bx = size_t(mx) * c.h + xx;
-                decode_block(br, c, &c.coef[(by * c.bw + bx) * 64]);
+                block(c, &c.coef[(by * c.bw + bx) * 64]);
               }
           }
         }
     }
+  }
+
+  // the position just past the next RSTn marker at or after p
+  const uint8_t* skip_to_restart(const uint8_t* p) const {
+    const uint8_t* end = d + n;
+    while (p + 1 < end && !(p[0] == 0xFF && p[1] >= 0xD0 && p[1] <= 0xD7))
+      ++p;
+    return p + 1 < end ? p + 2 : end;
+  }
+
+  void decode_huffman_scan() {
+    BitReader br{d + pos, d + n};
+    for (int i = 0; i < ns; ++i) sc[i]->pred = 0;
+    eobrun = 0;
+    auto at_restart = [&]() {
+      // discard the partial byte, find RSTn, restart prediction
+      br.p = skip_to_restart(br.p);
+      br.reset();
+      for (int i = 0; i < ns; ++i) sc[i]->pred = 0;
+      eobrun = 0;
+    };
+    if (!progressive) {
+      for_each_block([&](Comp& c, int16_t* b) { decode_block(br, c, b); },
+                     at_restart);
+    } else if (Ss == 0 && Ah == 0) {
+      for_each_block([&](Comp& c, int16_t* b) { dc_first(br, c, b); },
+                     at_restart);
+    } else if (Ss == 0) {
+      const int p1 = 1 << Al;
+      for_each_block(
+          [&](Comp&, int16_t* b) {
+            if (br.bits(1)) b[0] = int16_t(b[0] | p1);
+          },
+          at_restart);
+    } else if (Ah == 0) {
+      for_each_block([&](Comp& c, int16_t* b) { ac_first(br, c, b); },
+                     at_restart);
+    } else {
+      for_each_block([&](Comp& c, int16_t* b) { ac_refine(br, c, b); },
+                     at_restart);
+    }
     pos = size_t(br.p - d);
-    have_scan = true;
   }
 
   inline void decode_block(BitReader& br, Comp& c, int16_t* blk) {
@@ -695,13 +1042,551 @@ struct Decoder {
     }
   }
 
+  // jdphuff.c decode_mcu_DC_first, one block
+  void dc_first(BitReader& br, Comp& c, int16_t* blk) {
+    int s = decode_sym(br, dc[c.td]);
+    if (s) {
+      if (s > 16) throw Error("corrupt JPEG data: bad DC category");
+      s = extend(br.bits(s), s);
+    }
+    c.pred = int(unsigned(c.pred) + unsigned(s));
+    blk[0] = int16_t(unsigned(c.pred) << Al);
+  }
+
+  // decode_mcu_AC_first: one band of one block, or one block of an EOB run
+  void ac_first(BitReader& br, Comp& c, int16_t* blk) {
+    if (eobrun > 0) {
+      --eobrun;
+      return;
+    }
+    const HuffDec& ha = ac[c.ta];
+    for (int k = Ss; k <= Se; ++k) {
+      int rs = decode_sym(br, ha);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        int v = extend(br.bits(s), s);
+        blk[kNatural[k]] = int16_t(unsigned(v) << Al);
+      } else if (r == 15) {
+        k += 15;  // ZRL
+      } else {    // EOBr: 2^r + r appended bits blocks end here
+        eobrun = 1 << r;
+        if (r) eobrun += br.bits(r);
+        --eobrun;
+        break;
+      }
+    }
+  }
+
+  // decode_mcu_AC_refine: one more bit of the band's nonzero coefficients,
+  // and the coefficients that become nonzero (+-1 << Al)
+  void ac_refine(BitReader& br, Comp& c, int16_t* blk) {
+    const int p1 = 1 << Al, m1 = -p1;
+    const HuffDec& ha = ac[c.ta];
+    auto correct = [&](int16_t* t) {
+      if (br.bits(1) && (*t & p1) == 0)
+        *t = int16_t(*t >= 0 ? *t + p1 : *t + m1);
+    };
+    int k = Ss;
+    if (eobrun == 0) {
+      for (; k <= Se; ++k) {
+        int rs = decode_sym(br, ha);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          s = br.bits(1) ? p1 : m1;
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) eobrun += br.bits(r);
+          break;
+        }
+        // pass over nonzero coefficients (correcting them) and r zeros
+        do {
+          int16_t* t = blk + kNatural[k];
+          if (*t != 0) {
+            correct(t);
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= Se);
+        if (s) blk[kNatural[k]] = int16_t(s);
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= Se; ++k) {
+        int16_t* t = blk + kNatural[k];
+        if (*t != 0) correct(t);
+      }
+      --eobrun;
+    }
+  }
+
+  // ----------------------------------------------- arithmetic (jdarith.c)
+  void decode_arith_scan() {
+    // PIL's reads are 65536 bytes from the stream's start
+    const size_t reads_end = (pos + 65535) / 65536 * 65536;
+    ArithReader ar{d, d + pos, d + std::min(reads_end, n)};
+    dc_stats.resize(16 * 64);
+    ac_stats.resize(16 * 256);
+    const bool need_dc = !progressive || (Ss == 0 && Ah == 0);
+    const bool need_ac = !progressive || Ss > 0;
+    auto reset_stats = [&]() {
+      for (int i = 0; i < ns; ++i) {
+        Comp& c = *sc[i];
+        if (need_dc) {
+          memset(&dc_stats[c.td * 64], 0, 64);
+          c.pred = 0;
+          c.dc_ctx = 0;
+        }
+        if (need_ac) memset(&ac_stats[c.ta * 256], 0, 256);
+      }
+    };
+    reset_stats();
+    auto at_restart = [&]() {
+      const uint8_t* next = skip_to_restart(ar.p);
+      if (!ar.marker) ar.reach(next - 1);  // libjpeg reads up to the RSTn
+      ar.p = next;
+      ar.reset();
+      reset_stats();
+    };
+    if (!progressive) {
+      for_each_block(
+          [&](Comp& c, int16_t* b) {
+            b[0] = int16_t(arith_dc(ar, c));
+            arith_ac(ar, c, b, 1, 63, 0);
+          },
+          at_restart);
+    } else if (Ss == 0 && Ah == 0) {
+      for_each_block(
+          [&](Comp& c, int16_t* b) {
+            b[0] = int16_t(unsigned(arith_dc(ar, c)) << Al);
+          },
+          at_restart);
+    } else if (Ss == 0) {
+      const int p1 = 1 << Al;
+      for_each_block(
+          [&](Comp&, int16_t* b) {
+            if (ar.decode(&fixed_bin)) b[0] = int16_t(b[0] | p1);
+          },
+          at_restart);
+    } else if (Ah == 0) {
+      for_each_block(
+          [&](Comp& c, int16_t* b) { arith_ac(ar, c, b, Ss, Se, Al); },
+          at_restart);
+    } else {
+      for_each_block(
+          [&](Comp& c, int16_t* b) { arith_ac_refine(ar, c, b); },
+          at_restart);
+    }
+    pos = size_t(ar.p - d);
+  }
+
+  // Figures F.19 to F.24: one DC difference; returns the new prediction
+  // (16 bits, as libjpeg keeps it)
+  int arith_dc(ArithReader& ar, Comp& c) {
+    uint8_t* stats = &dc_stats[c.td * 64];
+    uint8_t* st = stats + c.dc_ctx;
+    if (ar.decode(st) == 0) {
+      c.dc_ctx = 0;
+      return c.pred;
+    }
+    int sign = ar.decode(st + 1);
+    st += 2 + sign;
+    int m = ar.decode(st);
+    if (m) {
+      st = stats + 20;
+      while (ar.decode(st)) {
+        if ((m <<= 1) == 0x8000)
+          throw Error("corrupt JPEG data: bad arithmetic code");
+        ++st;
+      }
+    }
+    if (m < int((1L << dc_L[c.td]) >> 1))
+      c.dc_ctx = 0;
+    else if (m > int((1L << dc_U[c.td]) >> 1))
+      c.dc_ctx = 12 + sign * 4;
+    else
+      c.dc_ctx = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ar.decode(st)) v |= m;
+    v += 1;
+    if (sign) v = -v;
+    c.pred = (c.pred + v) & 0xFFFF;
+    return c.pred;
+  }
+
+  // Figure F.20: the AC coefficients k0..k1 of a block, scaled by << al
+  void arith_ac(ArithReader& ar, Comp& c, int16_t* blk, int k0, int k1,
+                int al) {
+    uint8_t* stats = &ac_stats[c.ta * 256];
+    for (int k = k0; k <= k1; ++k) {
+      uint8_t* st = stats + 3 * (k - 1);
+      if (ar.decode(st)) break;  // EOB
+      while (ar.decode(st + 1) == 0) {
+        st += 3;
+        if (++k > k1) throw Error("corrupt JPEG data: bad arithmetic code");
+      }
+      int sign = ar.decode(&fixed_bin);
+      st += 2;
+      int m = ar.decode(st);
+      if (m && ar.decode(st)) {
+        m <<= 1;
+        st = stats + (k <= ac_K[c.ta] ? 189 : 217);
+        while (ar.decode(st)) {
+          if ((m <<= 1) == 0x8000)
+            throw Error("corrupt JPEG data: bad arithmetic code");
+          ++st;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar.decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      blk[kNatural[k]] = int16_t(unsigned(v) << al);
+    }
+  }
+
+  // decode_mcu_AC_refine of jdarith.c
+  void arith_ac_refine(ArithReader& ar, Comp& c, int16_t* blk) {
+    uint8_t* stats = &ac_stats[c.ta * 256];
+    const int p1 = 1 << Al, m1 = -p1;
+    int kex = Se;  // the previous stage's end of block
+    for (; kex > 0; --kex)
+      if (blk[kNatural[kex]]) break;
+    for (int k = Ss; k <= Se; ++k) {
+      uint8_t* st = stats + 3 * (k - 1);
+      if (k > kex && ar.decode(st)) break;  // EOB
+      for (;;) {
+        int16_t* t = blk + kNatural[k];
+        if (*t) {  // previously nonzero
+          if (ar.decode(st + 2)) *t = int16_t(*t < 0 ? *t + m1 : *t + p1);
+          break;
+        }
+        if (ar.decode(st + 1)) {  // newly nonzero
+          *t = int16_t(ar.decode(&fixed_bin) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > Se) throw Error("corrupt JPEG data: bad arithmetic code");
+      }
+    }
+  }
+
+  // ------------------------------------- lossless (jdlhuff.c, jdlossls.c)
+  void decode_lossless_scan() {
+    // jdlossls.c: Ss is the predictor, Al the point transform
+    if (Ss < 1 || Ss > 7 || Se != 0 || Ah != 0 || Al >= 8)
+      throw Error("bad JPEG lossless parameters Ss=" + std::to_string(Ss) +
+                  " Se=" + std::to_string(Se) + " Ah=" + std::to_string(Ah) +
+                  " Al=" + std::to_string(Al));
+    for (int i = 0; i < ns; ++i) {
+      Comp& c = *sc[i];
+      if (c.td > 3 || !dc[c.td].set)
+        throw Error("JPEG scan uses an undefined Huffman table");
+      c.pw = c.bw;
+      if (c.plane.empty()) c.plane.assign(size_t(c.bw) * c.bh, 0);
+      c.scanned = true;
+    }
+    const int per_row = ns > 1 ? mcux : sc[0]->dw;  // MCUs in an MCU row
+    if (restart % per_row)
+      throw Error("bad JPEG restart interval " + std::to_string(restart) +
+                  " for a lossless scan of " + std::to_string(per_row) +
+                  " MCUs a row");
+    // differences, then the undifferenced rows of the current iMCU row
+    std::vector<int> diff[4], undiff[4];
+    for (int i = 0; i < ns; ++i) {
+      diff[i].assign(size_t(sc[i]->bw) * sc[i]->v, 0);
+      undiff[i].assign(size_t(sc[i]->bw) * (sc[i]->v + 1), 0);
+    }
+    BitReader br{d + pos, d + n};
+    bool first_row = true;
+    int rows_to_go = restart / per_row;
+    auto diff_of = [&](const HuffDec& h) {
+      int s = decode_sym(br, h);
+      if (s == 16) return 32768;
+      if (s > 16) throw Error("corrupt JPEG data: bad difference category");
+      return s ? extend(br.bits(s), s) : 0;
+    };
+    const int initial = 1 << (8 - Al - 1);
+    for (int r = 0; r < mcuy; ++r) {
+      // an iMCU row: one MCU row of an interleaved scan, v sample rows of
+      // a one-component scan
+      int mcu_rows = 1;
+      if (ns == 1) {
+        int v = sc[0]->v, left = sc[0]->dh - r * v;
+        mcu_rows = std::min(v, left);
+        if (mcu_rows <= 0) break;
+      }
+      for (int yo = 0; yo < mcu_rows; ++yo) {
+        if (restart) {
+          if (rows_to_go == 0) {
+            br.p = skip_to_restart(br.p);
+            br.reset();
+            first_row = true;
+            rows_to_go = restart / per_row;
+          }
+          --rows_to_go;
+        }
+        if (ns == 1) {
+          int* row = &diff[0][size_t(yo) * sc[0]->bw];
+          const HuffDec& h = dc[sc[0]->td];
+          for (int x = 0; x < per_row; ++x) row[x] = diff_of(h);
+        } else {
+          for (int mx = 0; mx < mcux; ++mx)
+            for (int i = 0; i < ns; ++i) {
+              Comp& c = *sc[i];
+              const HuffDec& h = dc[c.td];
+              for (int yy = 0; yy < c.v; ++yy)
+                for (int xx = 0; xx < c.h; ++xx)
+                  diff[i][size_t(yy) * c.bw + mx * c.h + xx] = diff_of(h);
+            }
+        }
+      }
+      // undifference the real rows and columns (jddiffct.c decompress_data)
+      for (int i = 0; i < ns; ++i) {
+        Comp& c = *sc[i];
+        int rows = std::min(c.v, c.dh - r * c.v);
+        for (int yy = 0; yy < rows; ++yy) {
+          const int* df = &diff[i][size_t(yy) * c.bw];
+          int* out = &undiff[i][size_t(yy + 1) * c.bw];
+          const int* prev = &undiff[i][size_t(yy) * c.bw];  // row 0: last row
+          if (first_row && yy == 0)
+            undifference_first(df, out, c.dw, initial);
+          else
+            undifference(df, prev, out, c.dw, Ss);
+          uint8_t* o = &c.plane[size_t(r * c.v + yy) * c.pw];
+          for (int x = 0; x < c.dw; ++x) o[x] = uint8_t(out[x] << Al);
+        }
+        if (rows > 0)  // keep the last row as the next iMCU row's row 0
+          memcpy(&undiff[i][0], &undiff[i][size_t(rows) * c.bw],
+                 sizeof(int) * c.bw);
+      }
+      first_row = false;
+    }
+    pos = size_t(br.p - d);
+  }
+
+  static void undifference_first(const int* df, int* out, int w, int init) {
+    int ra = (df[0] + init) & 0xFFFF;
+    out[0] = ra;
+    for (int x = 1; x < w; ++x) out[x] = ra = (df[x] + ra) & 0xFFFF;
+  }
+
+  static void undifference(const int* df, const int* prev, int* out, int w,
+                           int psv) {
+    int64_t rb = prev[0];
+    int64_t ra = (df[0] + rb) & 0xFFFF;
+    out[0] = int(ra);
+    for (int x = 1; x < w; ++x) {
+      int64_t rc = rb;
+      rb = prev[x];
+      int64_t p;
+      switch (psv) {
+        case 1: p = ra; break;
+        case 2: p = rb; break;
+        case 3: p = rc; break;
+        case 4: p = ra + rb - rc; break;
+        case 5: p = ra + ((rb - rc) >> 1); break;
+        case 6: p = rb + ((ra - rc) >> 1); break;
+        default: p = (ra + rb) >> 1; break;
+      }
+      ra = (df[x] + int(p)) & 0xFFFF;
+      out[x] = int(ra);
+    }
+  }
+
+  // ------------------------------------------------------------ output
+  // jdcoefct.c smoothing_ok: smooth a progressive image when every
+  // component's DC is at least partly known, the first ten quantizers are
+  // nonzero and some of the first nine AC coefficients are unsent or
+  // unrefined
+  bool smoothing_ok() const {
+    if (!progressive) return false;
+    static const int kQPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+    bool useful = false;
+    for (int i = 0; i < nc; ++i) {
+      const Comp& c = comp[i];
+      if (!c.latched) return false;
+      for (int k = 0; k < 10; ++k)
+        if (c.q[kQPos[k]] == 0) return false;
+      if (c.coef_bits[0] < 0) return false;
+      for (int k = 1; k < 10; ++k)
+        if (c.coef_bits[k] != 0) useful = true;
+    }
+    return useful;
+  }
+
+  // jdcoefct.c decompress_smooth_data for one component: each block's
+  // unknown low-frequency coefficients estimated from the DC values of a
+  // 5x5 block neighbourhood (and, with no AC data at all, its DC too),
+  // then the IDCT
+  void idct_smooth(Comp& c) {
+    const int nbx = (c.dw + 7) / 8, nby = (c.dh + 7) / 8;
+    const int* cb = c.coef_bits;
+    const bool change_dc = cb[1] == -1 && cb[2] == -1 && cb[3] == -1 &&
+                           cb[4] == -1 && cb[5] == -1 && cb[6] == -1 &&
+                           cb[7] == -1 && cb[8] == -1 && cb[9] == -1;
+    const int64_t Q00 = c.q[0], Q01 = c.q[1], Q10 = c.q[8], Q20 = c.q[16],
+                  Q11 = c.q[9], Q02 = c.q[2], Q03 = c.q[3], Q12 = c.q[10],
+                  Q21 = c.q[17], Q30 = c.q[24];
+    const int T = mcuy, v = c.v;
+    int16_t ws[64];
+    // the estimate of one coefficient: num / (Q << 8), rounded, limited to
+    // what the unsent bits can hold
+    auto estimate = [](int64_t num, int64_t q, int al) {
+      int pred;
+      if (num >= 0) {
+        pred = int(((q << 7) + num) / (q << 8));
+        if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+      } else {
+        pred = int(((q << 7) - num) / (q << 8));
+        if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+        pred = -pred;
+      }
+      return int16_t(pred);
+    };
+    for (int r = 0; r < T; ++r) {
+      int block_rows = v;
+      if (r == T - 1) {
+        block_rows = nby % v;
+        if (block_rows == 0) block_rows = v;
+      }
+      for (int b = 0; b < block_rows; ++b) {
+        // libjpeg's row neighbours, clamped as its buffer pointers are
+        const int cur = r * v + b;
+        const int ibr = r * block_rows + b, ibrs = block_rows * T;
+        const int prev = ibr > 0 ? cur - 1 : cur;
+        const int pprev = ibr > 1 ? cur - 2 : prev;
+        const int next = ibr < ibrs - 1 ? cur + 1 : cur;
+        const int nnext = ibr < ibrs - 2 ? cur + 2 : next;
+        const int rows[5] = {pprev, prev, cur, next, nnext};
+        auto dcv = [&](int ri, int bx) {
+          return int(c.coef[(size_t(rows[ri]) * c.bw + bx) * 64]);
+        };
+        for (int bx = 0; bx < nbx; ++bx) {
+          memcpy(ws, &c.coef[(size_t(cur) * c.bw + bx) * 64], sizeof(ws));
+          int x[5];
+          for (int k = 0; k < 5; ++k)
+            x[k] = std::min(std::max(bx + k - 2, 0), nbx - 1);
+          int DC[26];
+          for (int ri = 0; ri < 5; ++ri)
+            for (int k = 0; k < 5; ++k) DC[1 + 5 * ri + k] = dcv(ri, x[k]);
+#define D(i) int64_t(DC[i])
+          int al;
+          if ((al = cb[1]) != 0 && ws[1] == 0) {
+            int64_t num =
+                Q00 *
+                (change_dc
+                     ? (-D(1) - D(2) + D(4) + D(5) - 3 * D(6) + 13 * D(7) -
+                        13 * D(9) + 3 * D(10) - 3 * D(11) + 38 * D(12) -
+                        38 * D(14) + 3 * D(15) - 3 * D(16) + 13 * D(17) -
+                        13 * D(19) + 3 * D(20) - D(21) - D(22) + D(24) +
+                        D(25))
+                     : (-7 * D(11) + 50 * D(12) - 50 * D(14) + 7 * D(15)));
+            ws[1] = estimate(num, Q01, al);
+          }
+          if ((al = cb[2]) != 0 && ws[8] == 0) {
+            int64_t num =
+                Q00 *
+                (change_dc
+                     ? (-D(1) - 3 * D(2) - 3 * D(3) - 3 * D(4) - D(5) -
+                        D(6) + 13 * D(7) + 38 * D(8) + 13 * D(9) - D(10) +
+                        D(16) - 13 * D(17) - 38 * D(18) - 13 * D(19) +
+                        D(20) + D(21) + 3 * D(22) + 3 * D(23) + 3 * D(24) +
+                        D(25))
+                     : (-7 * D(3) + 50 * D(8) - 50 * D(18) + 7 * D(23)));
+            ws[8] = estimate(num, Q10, al);
+          }
+          if ((al = cb[3]) != 0 && ws[16] == 0) {
+            int64_t num =
+                Q00 * (change_dc
+                           ? (D(3) + 2 * D(7) + 7 * D(8) + 2 * D(9) -
+                              5 * D(12) - 14 * D(13) - 5 * D(14) +
+                              2 * D(17) + 7 * D(18) + 2 * D(19) + D(23))
+                           : (-D(3) + 13 * D(8) - 24 * D(13) + 13 * D(18) -
+                              D(23)));
+            ws[16] = estimate(num, Q20, al);
+          }
+          if ((al = cb[4]) != 0 && ws[9] == 0) {
+            int64_t num =
+                Q00 * (change_dc
+                           ? (-D(1) + D(5) + 9 * D(7) - 9 * D(9) -
+                              9 * D(17) + 9 * D(19) + D(21) - D(25))
+                           : (D(10) + D(16) - 10 * D(17) + 10 * D(19) -
+                              D(2) - D(20) + D(22) - D(24) + D(4) - D(6) +
+                              10 * D(7) - 10 * D(9)));
+            ws[9] = estimate(num, Q11, al);
+          }
+          if ((al = cb[5]) != 0 && ws[2] == 0) {
+            int64_t num =
+                Q00 * (change_dc
+                           ? (2 * D(7) - 5 * D(8) + 2 * D(9) + D(11) +
+                              7 * D(12) - 14 * D(13) + 7 * D(14) + D(15) +
+                              2 * D(17) - 5 * D(18) + 2 * D(19))
+                           : (-D(11) + 13 * D(12) - 24 * D(13) +
+                              13 * D(14) - D(15)));
+            ws[2] = estimate(num, Q02, al);
+          }
+          if (change_dc) {
+            if ((al = cb[6]) != 0 && ws[3] == 0)
+              ws[3] = estimate(Q00 * (D(7) - D(9) + 2 * D(12) - 2 * D(14) +
+                                      D(17) - D(19)),
+                               Q03, al);
+            if ((al = cb[7]) != 0 && ws[10] == 0)
+              ws[10] = estimate(Q00 * (D(7) - 3 * D(8) + D(9) - D(17) +
+                                       3 * D(18) - D(19)),
+                                Q12, al);
+            if ((al = cb[8]) != 0 && ws[17] == 0)
+              ws[17] = estimate(Q00 * (D(7) - D(9) - 3 * D(12) + 3 * D(14) +
+                                       D(17) - D(19)),
+                                Q21, al);
+            if ((al = cb[9]) != 0 && ws[24] == 0)
+              ws[24] = estimate(Q00 * (D(7) + 2 * D(8) + D(9) - D(17) -
+                                       2 * D(18) - D(19)),
+                                Q30, al);
+            int64_t num =
+                Q00 * (-2 * D(1) - 6 * D(2) - 8 * D(3) - 6 * D(4) -
+                       2 * D(5) - 6 * D(6) + 6 * D(7) + 42 * D(8) +
+                       6 * D(9) - 6 * D(10) - 8 * D(11) + 42 * D(12) +
+                       152 * D(13) + 42 * D(14) - 8 * D(15) - 6 * D(16) +
+                       6 * D(17) + 42 * D(18) + 6 * D(19) - 6 * D(20) -
+                       2 * D(21) - 6 * D(22) - 8 * D(23) - 6 * D(24) -
+                       2 * D(25));
+            ws[0] = estimate(num, Q00, 0);
+          }
+#undef D
+          idct_islow(ws, c.q, &c.plane[size_t(cur) * 8 * c.pw + bx * 8],
+                     c.pw);
+        }
+      }
+    }
+  }
+
   void idct_all() {
+    const bool smooth = smoothing_ok();
     for (int i = 0; i < nc; ++i) {
       Comp& c = comp[i];
-      if (!c.scanned) throw Error("JPEG component was never scanned");
+      if (lossless) {
+        if (!c.scanned) throw Error("JPEG component was never scanned");
+        continue;
+      }
       int nbx = (c.dw + 7) / 8, nby = (c.dh + 7) / 8;
       c.pw = nbx * 8;
       c.plane.assign(size_t(c.pw) * nby * 8, 0);
+      if (!c.scanned) {
+        // never in a scan: libjpeg's coefficients start at zero and its
+        // IDCT table stays zero without a quantization table: 128
+        memset(c.plane.data(), 128, c.plane.size());
+        continue;
+      }
+      if (smooth) {
+        idct_smooth(c);
+        continue;
+      }
       for (int by = 0; by < nby; ++by)
         for (int bx = 0; bx < nbx; ++bx)
           idct_islow(&c.coef[(size_t(by) * c.bw + bx) * 64], c.q,
@@ -712,9 +1597,21 @@ struct Decoder {
   // one full-resolution row y of component c into out[0..W)
   void upsample_row(const Comp& c, int y, uint8_t* out,
                     std::vector<int>& colsum) const {
-    bool h2 = c.h < hmax, v2 = c.v < vmax;
+    const int rh = hmax / c.h, rv = vmax / c.v;
     const uint8_t* plane = c.plane.data();
     int pw = c.pw, dw = c.dw, dh = c.dh;
+    // int_upsample (box replication) for any other integral ratio, and
+    // for every ratio where libjpeg has no fancy upsampling: a lossless
+    // image, whose DCT "blocks" are one sample
+    if (rh > 2 || rv > 2 || (lossless && (rh > 1 || rv > 1))) {
+      const uint8_t* row = plane + size_t(y / rv) * pw;
+      if (rh == 1)
+        memcpy(out, row, W);
+      else
+        for (int x = 0; x < W; ++x) out[x] = row[x / rh];
+      return;
+    }
+    bool h2 = rh == 2, v2 = rv == 2;
     if (!v2) {
       const uint8_t* row = plane + size_t(y) * pw;
       if (!h2) {
@@ -769,10 +1666,20 @@ struct Decoder {
   bool is_rgb() const {  // jdapimin.c default_decompress_parms
     if (jfif) return false;
     if (adobe) return adobe_transform == 0;
+    if (lossless) return true;  // libjpeg-turbo 3 assumes RGB there
     return comp[0].id == 'R' && comp[1].id == 'G' && comp[2].id == 'B';
   }
 
+  // 4 components: CMYK unless an Adobe marker says otherwise (transform
+  // 0 is CMYK, any other YCCK)
+  bool is_ycck() const { return adobe && adobe_transform != 0; }
+
   void output(uint8_t* out) {
+    // libjpeg-turbo 3.1 converts no colours in a lossless stream
+    if (lossless && ((nc == 3 && !is_rgb()) || (nc == 4 && is_ycck())))
+      throw Error(std::string("unsupported JPEG colour conversion: ") +
+                  (nc == 3 ? "YCbCr" : "YCCK") + " in a lossless (SOF3) "
+                  "stream");
     idct_all();
     std::vector<int> colsum;
     if (nc == 1) {
@@ -784,7 +1691,36 @@ struct Decoder {
       }
       return;
     }
-    std::vector<uint8_t> a(W), b(W), c(W);
+    std::vector<uint8_t> a(W), b(W), c(W), k(W);
+    if (nc == 4) {
+      const bool ycck = is_ycck();
+      for (int y = 0; y < H; ++y) {
+        upsample_row(comp[0], y, a.data(), colsum);
+        upsample_row(comp[1], y, b.data(), colsum);
+        upsample_row(comp[2], y, c.data(), colsum);
+        upsample_row(comp[3], y, k.data(), colsum);
+        uint8_t* o = out + size_t(y) * W * 3;
+        for (int x = 0; x < W; ++x) {
+          int cmy[3] = {a[x], b[x], c[x]};
+          if (ycck) {  // jdcolor.c ycck_cmyk_convert
+            int yy = a[x], cb = b[x], cr = c[x];
+            cmy[0] = clamp255(255 - (yy + kYcc.cr_r[cr]));
+            cmy[1] = clamp255(255 - (yy + int((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >>
+                                              kScaleBits)));
+            cmy[2] = clamp255(255 - (yy + kYcc.cb_b[cb]));
+          }
+          // PIL reads the samples as "CMYK;I" (inverted), then its
+          // cmyk2rgb: out = nk - nk * c / 255, nk = 255 - k, rounded as
+          // MULDIV255
+          int nk = k[x];  // 255 - (255 - K)
+          for (int j = 0; j < 3; ++j) {
+            int t = (255 - cmy[j]) * nk + 128;
+            o[3 * x + j] = clamp255(nk - (((t >> 8) + t) >> 8));
+          }
+        }
+      }
+      return;
+    }
     bool rgb = is_rgb();
     for (int y = 0; y < H; ++y) {
       upsample_row(comp[0], y, a.data(), colsum);
@@ -821,44 +1757,6 @@ const uint8_t kStdChromaQ[64] = {
     24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
     99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
     99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99};
-
-const uint8_t kDcLumaBits[16] = {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
-const uint8_t kDcChromaBits[16] = {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
-const uint8_t kDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
-const uint8_t kAcLumaBits[16] = {0, 2, 1, 3, 3, 2, 4, 3,
-                                 5, 5, 4, 4, 0, 0, 1, 0x7d};
-const uint8_t kAcLumaVals[162] = {
-    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06,
-    0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08,
-    0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
-    0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
-    0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
-    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
-    0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
-    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
-    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
-    0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
-    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9,
-    0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
-    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4,
-    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
-const uint8_t kAcChromaBits[16] = {0, 2, 1, 2, 4, 4, 3, 4,
-                                   7, 5, 4, 4, 0, 1, 2, 0x77};
-const uint8_t kAcChromaVals[162] = {
-    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41,
-    0x51, 0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91,
-    0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,
-    0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
-    0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
-    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
-    0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
-    0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
-    0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
-    0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
-    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7,
-    0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
-    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
-    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
 
 struct HuffEnc {
   uint16_t code[256];

@@ -218,6 +218,16 @@ def write_j2k_tiff(path, level0: np.ndarray, tile: int, mpp: float,
     desc = (f"Aperio Image Library v12.0.15\r\n{levels[0].shape[1]}x"
             f"{levels[0].shape[0]} ({tile}x{tile}) J2K|AppMag = 20|"
             f"MPP = {mpp}")
+    write_tiff(path, pages, tile, desc, compression,
+               6 if compression == 33003 else 2)
+    return pages[0][2]
+
+
+def write_tiff(path, pages, tile: int, desc: str, compression: int,
+               photometric: int):
+    """A classic little-endian tiled TIFF in Aperio's layout: ``pages`` as
+    (width, height, tile streams in row-major order), RGB, the
+    description on the first page."""
     out = bytearray(b"II*\0\0\0\0\0")
     ifds = []
     for i, (w, h, streams) in enumerate(pages):
@@ -237,7 +247,7 @@ def write_j2k_tiff(path, level0: np.ndarray, tile: int, mpp: float,
         n = len(streams)
         tags = [(256, 4, 1, w), (257, 4, 1, h), (258, 3, 3, at["bps"]),
                 (259, 3, 1, compression),
-                (262, 3, 1, 6 if compression == 33003 else 2),
+                (262, 3, 1, photometric),
                 (270, 2, len(d), at["desc"]), (277, 3, 1, 3),
                 (284, 3, 1, 1), (322, 3, 1, tile), (323, 3, 1, tile),
                 (324, 4, n, at["offs"] if n > 1 else offsets[0]),
@@ -254,7 +264,6 @@ def write_j2k_tiff(path, level0: np.ndarray, tile: int, mpp: float,
         nxt = a + 2 + 12 * struct.unpack_from("<H", out, a)[0]
         struct.pack_into("<I", out, nxt, b)
     Path(path).write_bytes(bytes(out))
-    return pages[0][2]
 
 
 def main():

@@ -1,6 +1,7 @@
 """The port's slide I/O against PIL and the JAX package: the native JPEG
-decoder bit for bit against PIL (libjpeg-turbo) on every sequential
-stream a slide carries, the encoder against PIL's own streams, and the
+decoder bit for bit against PIL (libjpeg-turbo) on the baseline streams
+a slide carries (the other processes: ``test_torch_jpeg_processes.py``),
+the encoder against PIL's own streams, and the
 port's ``TiffSlide`` bit for bit against the JAX ``TiffSlide`` on every
 file the JAX I/O tests build, on Aperio JPEG 2000 pyramids (33003 and
 33005, 240² tiles with partial edge tiles), plus hand-made files for what
@@ -129,9 +130,17 @@ def test_decoder_abbreviated_stream_with_tiff_tables(tmp_path):
 
 
 def test_decoder_refuses_progressive():
+    """The decoder once refused progressive streams; it reads SOF2 now as
+    PIL does, and refuses the hierarchical (differential) progressive
+    process SOF6, which PIL refuses too."""
     data = _pil_jpeg(_image(37, 53), quality=80, progressive=True)
-    with pytest.raises(ValueError, match="SOF2"):
-        jpeg.decode(data)
+    np.testing.assert_array_equal(jpeg.decode(data), _pil_rgb(data))
+    sof6 = bytearray(data)
+    sof6[data.index(b"\xff\xc2") + 1] = 0xC6
+    with pytest.raises(Exception):
+        _pil_rgb(bytes(sof6))
+    with pytest.raises(ValueError, match="SOF6"):
+        jpeg.decode(bytes(sof6))
 
 
 def test_decoder_refuses_what_is_not_jpeg():
