@@ -64,7 +64,15 @@
    without layer-drop, checks that every attention parameter got a
    finite non-zero gradient, and compares loss and gradients with the
    same step with the plain versions swapped in; then the same check for
-   one step at batch 8 of 224² crops (28 × 28 tokens); then the training
+   one step at batch 8 of 224² crops (28 × 28 tokens); then the reader
+   step: the committed ``tests/golden/hdf5_latest.h5`` (h5py under
+   ``libver="latest"``: fixed- and extensible-array chunk indexes,
+   shuffle, deflate, fletcher32, lzf, szip, compact and big-endian
+   datasets, dense links) read by the package's own reader, every dataset
+   to h5py's digest (``hdf5_golden.json``), then 2 train steps at batch 2
+   on its ``ClassposeHDF5Dataset`` items, full ViT-L width in bf16 (the
+   trainer's kernel route): ``depth`` launches of kernels 1 and 5 a step,
+   finite losses; then the training
    CLI phase on the same 16 images written as ``images.npy`` /
    ``labels.npy``: ``classpose-dataset-to-hdf5-torch``
    (``dataset_to_hdf5.main_with_args``, targets by kernel 4 on the card,
@@ -160,7 +168,13 @@
    of the JPEG 2000 step's region ``.npy`` run (within 0.5%, ≥ 99%
    matched); its level 0 decoded whole and run as an ``.npy`` must find
    exactly its cells; it prints the decoder's rate in MP/s by process on
-   one thread and on the reader threads and the pipeline seconds; then
+   one thread and on the reader threads beside PR 15's and the pipeline
+   seconds; two damaged copies of that SVS (``tests/golden/
+   jpeg_damage.py``): a tile with a byte of entropy-coded data edited must
+   decode to PIL's digest (``jpeg_damaged.json``), and the SVS with a
+   tile cut by its EOI must stop the CLI with ``RuntimeError("slide
+   reader thread failed")`` caused by the decoder's ``ValueError``, as
+   PIL's "image file is truncated" stops the JAX reader; then
    the GrandQC phase: a tissue (2 classes) and an
    artefact (8 classes) UNet++ of seeded random weights in the smp
    layout, the tissue head's bias set once by rule (``run_grandqc``'s
@@ -416,6 +430,23 @@ J2K_MODEL_TILE = 512
 # each tile is decoded for its rate
 JPEG_SVS, JPEG_JSON = GOLDEN / "jpeg_region.svs", GOLDEN / "jpeg_golden.json"
 JPEG_RATE_REPEATS = 8
+# its damaged copies of that SVS (tests/golden/jpeg_damage.py): one tile
+# cut by its EOI, one tile with a byte of entropy-coded data edited, and
+# PIL's digest of the edited tile
+JPEG_DAMAGED_JSON = GOLDEN / "jpeg_damaged.json"
+# the decoder's rates in PR 15's proof run on these tiles (H100 80GB HBM3
+# host at 700 W; MP/s on 1 thread, then on the reader threads); SOF0 is
+# the slide step's own baseline SVS
+PR15_DECODE_RATES = {"SOF0": (70.61, 242.45), "SOF2": (57.56, 166.70),
+                     "SOF10": (29.14, 94.12), "SOF9": (28.41, 109.55),
+                     "SOF0 4:1:1": (50.71, 210.03)}
+# the training phase's reader step: the committed training set written by
+# h5py past its defaults (tests/golden/regenerate_hdf5.py: libver
+# "latest", fixed-array and extensible-array chunk indexes, shuffle,
+# deflate, fletcher32, lzf, szip, a compact and a big-endian dataset,
+# dense links) with h5py's digests, and the train steps taken on it
+H5_GOLDEN, H5_JSON = GOLDEN / "hdf5_latest.h5", GOLDEN / "hdf5_golden.json"
+H5_BATCH, H5_STEPS = 2, 2
 # the GrandQC phase: the QC run's --min_area (µm²; 100 px at MPP 10), the
 # artefact patches also run on the CPU, and the batch its rate is timed at
 GRANDQC_MIN_AREA, GRANDQC_CPU_PATCHES, GRANDQC_BATCH = 10000, 4, 8
@@ -1630,6 +1661,65 @@ def median_ms(fn, calls: int = AUG_CALLS) -> float:
     return statistics.median(times)
 
 
+def run_golden_h5_training(dev) -> dict:
+    """The training phase's reader step (see the module docstring, step
+    5): the committed ``hdf5_latest.h5`` read by the package's own reader
+    to h5py's digest of every dataset, then ``H5_STEPS`` train steps at
+    batch ``H5_BATCH`` of full ViT-L width on its items, with the
+    attention kernels (1 forward, 5 backward) counted."""
+    spec = json.loads(H5_JSON.read_text())
+    t0 = time.perf_counter()
+    with hdf5.File(H5_GOLDEN) as f:
+        if set(f) != set(spec["datasets"]):
+            raise AssertionError(f"{H5_GOLDEN.name}: datasets {sorted(f)}")
+        for name, want in spec["datasets"].items():
+            a = np.asarray(f[name][()])
+            if (a.dtype.str != want["dtype"] or list(a.shape) != want["shape"]
+                    or _sha256(a) != want["sha256"]):
+                raise AssertionError(f"{H5_GOLDEN.name} {name}: {a.dtype} "
+                                     f"{a.shape}, not h5py's digest")
+        filters = {k: [f[k].compression, f[k].shuffle, f[k].fletcher32]
+                   for k in ("images", "labels", "instance_counts")}
+    read_s = time.perf_counter() - t0
+    ds = ClassposeHDF5Dataset(str(H5_GOLDEN), bsize=256, seed=SEED)
+    n_classes = ds.n_classes
+    t0 = time.perf_counter()
+    items = [ds[i] for i in range(H5_BATCH)]
+    items_s = time.perf_counter() - t0
+    # bf16: the trainer's kernel route (at fp32 its attention is plain
+    # autograd and launches neither kernel)
+    cfg = ClassTransformerConfig(n_cell_classes=n_classes,
+                                 dtype="bfloat16")
+    model = ClassposeModel(cfg=cfg, precision="bf16", device=dev, seed=SEED)
+    X = torch.from_numpy(np.stack([x for x, _ in items])).to(dev)
+    lbl = torch.from_numpy(np.stack([y for _, y in items])).to(dev)
+    lv = torch.zeros(3, device=dev)
+    opt = make_optimizer(model.net, lv, 0.1, None, True)
+    step = make_train_step(model.net, opt, lv, np.full(H5_STEPS, 1e-5),
+                           n_classes, use_uncertainty_weighting=True,
+                           class_weights=ds.class_weights, rdrop=False)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    losses = [float(step(X, lbl)["total"]) for _ in range(H5_STEPS)]
+    torch.cuda.synchronize()
+    steps_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    for k in ("attention_fwd", "attention_bwd"):
+        if launches[k] != cfg.depth * H5_STEPS:
+            raise AssertionError(f"{k}: {launches[k]} launches on the "
+                                 f"golden .h5's steps")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"golden .h5 step losses {losses}")
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return dict(datasets=len(spec["datasets"]), read_s=read_s,
+                filters=filters, n_classes=n_classes, batch=H5_BATCH,
+                items_s=items_s, steps=H5_STEPS, steps_s=steps_s,
+                losses=losses,
+                launches={k: launches[k] for k in ("attention_fwd",
+                                                   "attention_bwd")})
+
+
 def run_training_cli(dev, work: str, targets: dict) -> dict:
     """The training CLI phase (see the module docstring, step 5): npy
     arrays → ``dataset_to_hdf5`` on the card → ``.h5`` → the augmentation
@@ -2584,6 +2674,7 @@ def run_slide_jpeg(wsi: dict) -> dict:
             many = time.perf_counter() - t0
         rates[name] = dict(tiles=len(streams), mp_per_s_1t=mp / one,
                            mp_per_s_nt=mp / many)
+    damaged = run_damaged_svs(wsi, raw)
     side = g["region"]
     decoded = slide.read_region((0, 0), 0, (side, side))[..., :3]
     slide.close()
@@ -2598,8 +2689,58 @@ def run_slide_jpeg(wsi: dict) -> dict:
         tiles=[len(v) for v in levels], tile=g["tile"],
         quality=g["quality"], svs_kib=len(raw) / 1024, level0_psnr_db=psnr,
         decode_threads=n_read, decode_repeats=JPEG_RATE_REPEATS,
-        decode_rates=rates,
+        decode_rates=rates, damaged=damaged,
         **run_region_svs(wsi, JPEG_SVS, f"{work}/jpeg_decoded.npy"))
+
+
+def run_damaged_svs(wsi: dict, raw: bytes) -> dict:
+    """(e) the damaged copies of the JPEG SVS: the edited tile decodes to
+    PIL's digest; the tile cut by its EOI raises, and the SVS holding it
+    stops the WSI CLI (``WSI_READER`` unset) with the reader thread's
+    ``RuntimeError`` caused by that ``ValueError``, where the JAX reader
+    stops on PIL's "image file is truncated"."""
+    sys.path.insert(0, str(GOLDEN))
+    import jpeg_damage
+
+    spec = json.loads(JPEG_DAMAGED_JSON.read_text())
+    if spec["damages"] != jpeg_damage.DAMAGES:
+        raise AssertionError(f"{JPEG_DAMAGED_JSON.name}: other damages")
+    e = spec["damages"]["edited"]
+    rgb = jpeg.decode(jpeg_damage.tile_stream(
+        jpeg_damage.damaged(raw, "edited"), e["ifd"], e["tile"]))
+    if _sha256(rgb) != spec["pil"]["edited"]["sha256"]:
+        raise AssertionError("the edited JPEG tile decodes unlike PIL")
+    t = spec["damages"]["truncated"]
+    cut = jpeg_damage.damaged(raw, "truncated")
+    try:
+        jpeg.decode(jpeg_damage.tile_stream(cut, t["ifd"], t["tile"]))
+    except ValueError as err:
+        if "truncated" not in str(err):
+            raise
+    else:
+        raise AssertionError("the JPEG tile cut by its EOI decodes")
+    work = wsi["work"]
+    path = Path(work) / "jpeg_truncated.svs"
+    path.write_bytes(cut)
+    args = [a for a in wsi["region_ref"][0]
+            if a not in (str(WSI_MPP), "--mpp")]
+    args[args.index("--slide_path") + 1] = str(path)
+    os.environ.pop("WSI_READER", None)
+    t0 = time.perf_counter()
+    try:
+        wsi["cli"](f"{work}/out_truncated", args=args)
+    except RuntimeError as err:
+        if str(err) != "slide reader thread failed" or \
+                not isinstance(err.__cause__, ValueError) or \
+                "truncated" not in str(err.__cause__):
+            raise
+        cause = str(err.__cause__)
+    else:
+        raise AssertionError("the WSI CLI ran through a truncated tile")
+    finally:
+        os.environ["WSI_READER"] = "array"
+    return dict(edited_sha256=_sha256(rgb), truncated_stop_s=
+                time.perf_counter() - t0, truncated_cause=cause)
 
 
 def grandqc_weights(classes: int, seed: int) -> dict[str, torch.Tensor]:
@@ -3178,6 +3319,8 @@ def main() -> int:
         train_launches, train_stats, targets = run_training(dev, out_dir)
     replay = targets.pop("replay")
     log(f"training: {json.dumps(train_stats)}")
+    h5_stats = run_golden_h5_training(dev)
+    log(f"golden .h5: {json.dumps(h5_stats)}")
     with tempfile.TemporaryDirectory() as work:
         cli_stats = run_training_cli(dev, work, targets)
     with tempfile.TemporaryDirectory() as work:
@@ -3246,6 +3389,16 @@ def main() -> int:
             f"{jp['npy_pipeline_s']:.3f} s, its decoded level 0 as .npy "
             f"{jp['decoded_pipeline_s']:.3f} s; {jp['n_cells']} vs "
             f"{jp['npy_n_cells']} cells, {jp['matched_share']:.4f} matched")
+        rates = {"SOF0": dict(
+            mp_per_s_1t=slide_stats["decode_1t_mp_per_s"],
+            mp_per_s_nt=slide_stats["decode_nt_mp_per_s"]),
+            **jp["decode_rates"]}
+        log("decode MP/s on 1 thread / on the reader threads, PR 15's "
+            "proof run in brackets: " + ", ".join(
+                f"{k} {rates[k]['mp_per_s_1t']:.2f} / "
+                f"{rates[k]['mp_per_s_nt']:.2f} [{a} / {b}]"
+                for k, (a, b) in PR15_DECODE_RATES.items()))
+        log(f"damaged JPEG SVS: {json.dumps(jp['damaged'])}")
         grandqc_stats = run_grandqc(dev, wsi)
         log(f"grandqc: {json.dumps(grandqc_stats)}")
         log(f"GrandQC (host unless named): thumbnails "
@@ -3293,7 +3446,7 @@ def main() -> int:
                       "slice": stats, "training": train_stats,
                       "wsi": wsi_stats, "published": published,
                       "slide": slide_stats, "grandqc": grandqc_stats,
-                      "training_cli": cli_stats,
+                      "training_cli": cli_stats, "golden_h5": h5_stats,
                       "several_cards_wsi": multi,
                       "several_ranks_training": ranks_stats,
                       "fast_qc": fast_qc, "evaluate": ev_stats,

@@ -1,41 +1,56 @@
 """HDF5 reader and writer of the package's own, in numpy, ``zlib`` and
-``struct``, for the files the training data path uses: the layout that
-h5py writes at its default settings (HDF5's "earliest" format) and the
-JAX package's ``dataset_to_hdf5`` produces.
+``struct`` (with two filters in C++, ``native/hdf5filters.cpp``), for the
+files the training data path uses: whatever h5py writes for a numeric
+training set, at its defaults and past them, and the JAX package's
+``dataset_to_hdf5`` output.
 
-That layout is:
+The reader takes:
 
-- superblock version 0 (offsets and lengths of 8 bytes);
-- version 1 object headers, whose messages may go on in continuation
-  blocks;
-- groups as symbol tables: a local heap of names, a version 1 B-tree of
-  group nodes, and symbol table nodes (``SNOD``);
-- datasets with a dataspace, a datatype (little-endian IEEE float of 4
-  or 8 bytes, signed or unsigned integer of 1 to 8 bytes), a fill value,
-  a version 3 layout (compact, contiguous or chunked) and, when chunked,
-  an optional filter pipeline of deflate only;
-- the chunks of a chunked dataset indexed by a version 1 B-tree of any
-  depth (a superblock of version 0 fixes its K at 32, so a node holds at
-  most 64 chunks); edge chunks are stored whole and cut on reading.
+- superblock versions 0 to 3 (offsets and lengths of 8 bytes; the
+  lookup3 checksum of versions 2 and 3 checked);
+- object headers of version 1 and 2 (``OHDR``, continuation blocks
+  ``OCHK``, checksums, creation order), attributes skipped unread;
+- old-style groups (a local heap of names, a version 1 B-tree of group
+  nodes, ``SNOD`` nodes) and new-style ones: link messages (hard and soft
+  links, soft links resolved), and dense link storage (a fractal heap of
+  link messages, ``FRHP``/``FHDB``/``FHIB``, indexed by a version 2 B-tree,
+  ``BTHD``/``BTIN``/``BTLF``);
+- dataspaces simple and scalar; datatypes little- and big-endian IEEE
+  floats of 2, 4 and 8 bytes, integers of 1 to 8 bytes, h5py's bool enum
+  (read as ``bool``) and other integer enums (read as their base type),
+  committed (named) datatypes;
+- layouts of version 3 and 4: compact, contiguous, external storage
+  (names resolved as HDF5 resolves them: relative to the working
+  directory), virtual (sources in the same file or another, "all" and
+  regular hyperslab selections, the fill value where nothing maps), and
+  chunked with any index: a version 1 B-tree of any depth, single chunk,
+  implicit, fixed array (paged or not), extensible array and version 2
+  B-tree; edge chunks are stored whole and cut on reading;
+- filters, in pipeline order and per each chunk's filter mask: deflate,
+  shuffle, fletcher32 (checked), lzf, szip and scaleoffset (integer and
+  float D-scale).
 
 :class:`File` opens such a file as a read-only mapping of dataset names
-(at any depth of groups, joined by ``/``) to :class:`Dataset`; a dataset
-reads ``ds[i]``, ``ds[a:b]`` (axis 0) and ``np.asarray(ds)``. Anything
-else raises a ``ValueError`` that names it: superblock versions 2 and 3
-(``libver="latest"``), version 2 object headers, link messages and dense
-link storage, shared messages, filters other than deflate (shuffle,
-fletcher32, szip, ...), big-endian, compound, string, variable-length and
-other datatypes, scalar and null dataspaces, layout versions other than
-3, external and virtual storage.
+(at any depth of groups, joined by ``/``; a soft link is a name of its
+target) to :class:`Dataset`; a dataset reads ``ds[i]``, ``ds[a:b]``
+(axis 0), ``ds[()]`` and ``np.asarray(ds)`` as h5py does, byte order
+included. Anything else raises a ``ValueError`` that names it: the nbit
+filter, shared object header messages, layout versions 1 and 2, external
+links (none of which h5py writes here), null dataspaces, and string,
+compound, variable-length, reference, array, opaque, bitfield and time
+datatypes.
 
-:class:`Writer` writes the same layout: ``create_dataset`` with h5py's
-arguments (``chunks``, ``compression="gzip"``, ``compression_opts``),
-contiguous when unchunked, chunked with a B-tree of as many levels as
-the chunk count needs. h5py reads what it writes, bit for bit.
+:class:`Writer` writes h5py's default layout: ``create_dataset`` with
+h5py's arguments (``chunks``, ``compression="gzip"``,
+``compression_opts``), contiguous when unchunked, chunked with a B-tree of
+as many levels as the chunk count needs. h5py reads what it writes, bit
+for bit.
 """
 
 from __future__ import annotations
 
+import ctypes
+import os
 import struct
 import zlib
 from pathlib import Path
@@ -52,8 +67,11 @@ LEAF_K = 4          # symbol table node K (h5py's default)
 DATASPACE, LINK_INFO, DATATYPE, FILL, LINK, EXTERNAL = 1, 2, 3, 5, 6, 7
 LAYOUT, FILTERS, CONTINUATION, SYMBOL_TABLE = 8, 11, 16, 17
 
-FILTER_NAMES = {1: "deflate", 2: "shuffle", 3: "fletcher32", 4: "szip",
-                5: "nbit", 6: "scaleoffset"}
+DEFLATE, SHUFFLE, FLETCHER32, SZIP, NBIT, SCALEOFFSET, LZF = \
+    1, 2, 3, 4, 5, 6, 32000
+FILTER_NAMES = {DEFLATE: "deflate", SHUFFLE: "shuffle",
+                FLETCHER32: "fletcher32", SZIP: "szip", NBIT: "nbit",
+                SCALEOFFSET: "scaleoffset", LZF: "lzf"}
 CLASS_NAMES = {2: "time", 3: "string", 4: "bitfield", 5: "opaque",
                6: "compound", 7: "reference", 8: "enum",
                9: "variable-length", 10: "array"}
@@ -77,14 +95,76 @@ def _u(b: bytes, off: int, n: int) -> int:
     return int.from_bytes(b[off:off + n], "little")
 
 
+def _lookup3(data: bytes) -> int:
+    """Jenkins' lookup3 ``hashlittle`` with seed 0, HDF5's metadata
+    checksum."""
+    m = 0xFFFFFFFF
+
+    def rot(x, k):
+        return ((x << k) | (x >> (32 - k))) & m
+
+    n = len(data)
+    a = b = c = (0xDEADBEEF + n) & m
+    i = 0
+    while n > 12:
+        a = (a + _u(data, i, 4)) & m
+        b = (b + _u(data, i + 4, 4)) & m
+        c = (c + _u(data, i + 8, 4)) & m
+        a = ((a - c) & m) ^ rot(c, 4)
+        c = (c + b) & m
+        b = ((b - a) & m) ^ rot(a, 6)
+        a = (a + c) & m
+        c = ((c - b) & m) ^ rot(b, 8)
+        b = (b + a) & m
+        a = ((a - c) & m) ^ rot(c, 16)
+        c = (c + b) & m
+        b = ((b - a) & m) ^ rot(a, 19)
+        a = (a + c) & m
+        c = ((c - b) & m) ^ rot(b, 4)
+        b = (b + a) & m
+        n -= 12
+        i += 12
+    if n == 0:
+        return c
+    tail = data[i:] + bytes(12 - n)
+    a = (a + _u(tail, 0, 4)) & m
+    b = (b + _u(tail, 4, 4)) & m
+    c = (c + _u(tail, 8, 4)) & m
+    c = ((c ^ b) - rot(b, 14)) & m
+    a = ((a ^ c) - rot(c, 11)) & m
+    b = ((b ^ a) - rot(a, 25)) & m
+    c = ((c ^ b) - rot(b, 16)) & m
+    a = ((a ^ c) - rot(c, 4)) & m
+    b = ((b ^ a) - rot(a, 14)) & m
+    c = ((c ^ b) - rot(b, 24)) & m
+    return c
+
+
+def _checked(block: bytes, what: str) -> bytes:
+    if _lookup3(block[:-4]) != _u(block, len(block) - 4, 4):
+        raise ValueError(f"HDF5: {what}: checksum mismatch")
+    return block
+
+
+def _signed(rd: _Reader, addr: int, n: int, sig: bytes) -> bytes:
+    b = rd.read(addr, n)
+    if b[:4] != sig:
+        raise ValueError(f"HDF5: no {sig.decode()} at {addr}")
+    return b
+
+
+def _enc_size(n: int) -> int:
+    """Bytes that encode n (H5VM_limit_enc_size)."""
+    return (max(n, 1).bit_length() - 1) // 8 + 1
+
+
 def _messages(rd: _Reader, addr: int) -> list[tuple[int, int, bytes]]:
-    """(type, flags, data) of every message of the version 1 object
-    header at ``addr``, continuation blocks followed."""
+    """(type, flags, data) of every message of the object header at
+    ``addr`` (version 1, or 2 with its ``OCHK`` blocks), continuation
+    blocks followed."""
     head = rd.read(addr, 16)
     if head[:4] == b"OHDR":
-        raise ValueError("HDF5: version 2 object headers are not "
-                         "supported (written under libver='latest' or "
-                         "track_order=True)")
+        return _messages_v2(rd, addr)
     if head[0] != 1:
         raise ValueError(f"HDF5: object header version {head[0]} is not "
                          f"supported")
@@ -100,34 +180,98 @@ def _messages(rd: _Reader, addr: int) -> list[tuple[int, int, bytes]]:
                 body[pos + 4]
             data = body[pos + 8:pos + 8 + msize]
             pos += 8 + msize
-            if flags & 0x02:
-                raise ValueError(f"HDF5: shared message (type {mtype}) is "
-                                 f"not supported")
             if mtype == CONTINUATION:
                 blocks.append((_u(data, 0, 8), _u(data, 8, 8)))
             out.append((mtype, flags, data))
     return out
 
 
+def _messages_v2(rd: _Reader, addr: int) -> list[tuple[int, int, bytes]]:
+    pre = rd.read(addr, 6)
+    if pre[4] != 2:
+        raise ValueError(f"HDF5: object header version {pre[4]} is not "
+                         f"supported")
+    flags = pre[5]
+    pos = 6 + (16 if flags & 0x20 else 0) + (4 if flags & 0x10 else 0)
+    width = 1 << (flags & 3)
+    size = _u(rd.read(addr + pos, width), 0, width)
+    pos += width
+    head = _checked(rd.read(addr, pos + size + 4), "object header")
+    hdr = 6 if flags & 0x04 else 4     # type, size, flags, creation order
+    blocks = [(head, pos, pos + size)]
+    out = []
+    while blocks:
+        body, p, end = blocks.pop(0)
+        while p + hdr <= end:
+            mtype, msize, mflags = body[p], _u(body, p + 1, 2), body[p + 3]
+            data = body[p + hdr:p + hdr + msize]
+            p += hdr + msize
+            if mtype == CONTINUATION:
+                caddr, clen = _u(data, 0, 8), _u(data, 8, 8)
+                block = _checked(_signed(rd, caddr, clen, b"OCHK"),
+                                 "object header continuation")
+                blocks.append((block, 4, clen - 4))
+            out.append((mtype, mflags, data))
+    return out
+
+
+def _shared_address(d: bytes) -> int:
+    """The object header address of a shared message: a committed
+    datatype's."""
+    version, kind = d[0], d[1]
+    if version == 1:
+        return _u(d, 8, 8)
+    if version == 3 and kind != 2:
+        raise ValueError("HDF5: shared object header messages (the shared "
+                         "message heap) are not supported")
+    return _u(d, 2, 8)
+
+
+_IEEE = {2: (10, 5, 0, 10, 15), 4: (23, 8, 0, 23, 127),
+         8: (52, 11, 0, 52, 1023)}
+
+
 def _datatype(d: bytes) -> np.dtype:
     cls, bits, size = d[0] & 0x0F, _u(d, 1, 3), _u(d, 4, 4)
-    if cls in (0, 1) and bits & 0x01:
-        raise ValueError("HDF5: big-endian datatypes are not supported")
     if cls == 0:
         if size not in (1, 2, 4, 8):
             raise ValueError(f"HDF5: integers of {size} bytes are not "
                              f"supported")
-        return np.dtype(f"<{'i' if bits & 0x08 else 'u'}{size}")
+        order = ">" if bits & 0x01 else "<"
+        return np.dtype(f"{order}{'i' if bits & 0x08 else 'u'}{size}")
     if cls == 1:
-        if size not in (4, 8) or (bits >> 8) & 0xFF != size * 8 - 1:
+        layout = (d[12], d[13], d[14], d[15], _u(d, 16, 4))
+        if bits & 0x40 or _IEEE.get(size) != layout or \
+                (bits >> 8) & 0xFF != size * 8 - 1:
             raise ValueError(f"HDF5: floating point of {size} bytes in a "
                              f"layout other than IEEE is not supported")
-        return np.dtype(f"<f{size}")
+        return np.dtype(f"{'>' if bits & 0x01 else '<'}f{size}")
+    if cls == 8:
+        base = _datatype(d[8:])
+        if base.kind not in "iu":
+            raise ValueError("HDF5: enums of a non-integer base are not "
+                             "supported")
+        n, version, pos = bits & 0xFFFF, d[0] >> 4, 8 + 12
+        names = []
+        for _ in range(n):
+            end = d.index(b"\0", pos)
+            names.append(d[pos:end].decode())
+            pos = end + 1
+            if version < 3:
+                pos = 8 + 12 + (pos - 20 + 7) // 8 * 8
+        values = np.frombuffer(d[pos:pos + n * base.itemsize], base)
+        # h5py's bool: an 8-bit enum of FALSE = 0 and TRUE = 1
+        if base.itemsize == 1 and names == ["FALSE", "TRUE"] and \
+                values.tolist() == [0, 1]:
+            return np.dtype(bool)
+        return base
     raise ValueError(f"HDF5: {CLASS_NAMES.get(cls, f'class {cls}')} "
                      f"datatypes are not supported")
 
 
-def _dataspace(d: bytes) -> tuple[int, ...]:
+def _dataspace(d: bytes) -> tuple[tuple, tuple]:
+    """(shape, maxshape) with None for an unlimited dimension; () for a
+    scalar."""
     version, rank, flags = d[0], d[1], d[2]
     if version == 1:
         off = 8
@@ -138,45 +282,409 @@ def _dataspace(d: bytes) -> tuple[int, ...]:
     else:
         raise ValueError(f"HDF5: dataspace message version {version} is "
                          f"not supported")
-    if rank == 0:
-        raise ValueError("HDF5: scalar datasets are not supported")
-    return tuple(_u(d, off + 8 * i, 8) for i in range(rank))
+    dims = tuple(_u(d, off + 8 * i, 8) for i in range(rank))
+    if not flags & 1:
+        return dims, dims
+    maxd = tuple(_u(d, off + 8 * (rank + i), 8) for i in range(rank))
+    return dims, tuple(None if m == UNDEF else m for m in maxd)
 
 
-def _filters(d: bytes) -> list[int]:
-    """The filter ids of a pipeline message; deflate is the only one
-    read."""
+def _filters(d: bytes) -> list[tuple[int, list[int]]]:
+    """(id, client values) of each filter of a pipeline message, in
+    pipeline order."""
     version, n = d[0], d[1]
     pos = 8 if version == 1 else 2
     out = []
     for _ in range(n):
         fid = _u(d, pos, 2)
+        pos += 2
+        name_len = 0
         if version == 1 or fid >= 256:
-            name_len = _u(d, pos + 2, 2)
-            pos += 4
-        else:
-            name_len = 0
+            name_len = _u(d, pos, 2)
             pos += 2
         nvals = _u(d, pos + 2, 2)
         pos += 4
         if version == 1:
             name_len = (name_len + 7) // 8 * 8
-        pos += name_len + 4 * nvals
+        pos += name_len
+        vals = [_u(d, pos + 4 * i, 4) for i in range(nvals)]
+        pos += 4 * nvals
         if version == 1 and nvals % 2:
             pos += 4
-        if fid != 1:
+        if fid not in FILTER_NAMES or fid == NBIT:
             what = (f"the {FILTER_NAMES[fid]} filter" if fid in FILTER_NAMES
                     else f"filter id {fid}")
-            raise ValueError(f"HDF5: {what} is not supported (deflate "
-                             f"only)")
-        out.append(fid)
+            raise ValueError(f"HDF5: {what} is not supported")
+        out.append((fid, vals))
     return out
 
 
-def _chunk_index(rd: _Reader, addr: int, ndims: int
-                 ) -> dict[tuple[int, ...], tuple[int, int, int]]:
-    """Chunk offset (in elements) → (address, stored bytes, filter mask)
-    over the version 1 chunk B-tree at ``addr``, every level walked."""
+def _link(d: bytes) -> tuple[str, str, object]:
+    """(name, "hard" or "soft", address or path) of a link message."""
+    flags, pos, kind = d[1], 2, 0
+    if flags & 0x08:
+        kind = d[pos]
+        pos += 1
+    if flags & 0x04:
+        pos += 8
+    if flags & 0x10:
+        pos += 1
+    width = 1 << (flags & 3)
+    n = _u(d, pos, width)
+    pos += width
+    name = d[pos:pos + n].decode()
+    pos += n
+    if kind == 0:
+        return name, "hard", _u(d, pos, 8)
+    if kind == 1:
+        return name, "soft", d[pos + 2:pos + 2 + _u(d, pos, 2)].decode()
+    if kind == 64:
+        raise ValueError(f"HDF5: external links are not supported ({name})")
+    raise ValueError(f"HDF5: user-defined links (type {kind}) are not "
+                     f"supported ({name})")
+
+
+def _btree2_records(rd: _Reader, addr: int) -> tuple[int, list[bytes]]:
+    """(record type, every record) of the version 2 B-tree at ``addr``."""
+    h = _checked(_signed(rd, addr, 38, b"BTHD"), "v2 B-tree header")
+    kind, node_size, rec = h[5], _u(h, 6, 4), _u(h, 10, 2)
+    depth, root, nroot = _u(h, 12, 2), _u(h, 16, 8), _u(h, 24, 2)
+    # H5B2__hdr_init: records a node holds, and the widths of the counts
+    # in the pointers to each level's nodes
+    leaf_max = (node_size - 10) // rec
+    nrec_size = _enc_size(leaf_max)
+    cum, cum_size = [leaf_max], [0]
+    for lvl in range(1, depth + 1):
+        ptr = 8 + nrec_size + (cum_size[lvl - 1] if lvl > 1 else 0)
+        mx = (node_size - (10 + ptr)) // (rec + ptr)
+        cum.append((mx + 1) * cum[lvl - 1] + mx)
+        cum_size.append(_enc_size(cum[lvl]))
+    out = []
+
+    def node(a: int, n: int, lvl: int) -> None:
+        if lvl == 0:
+            b = _signed(rd, a, 6 + n * rec, b"BTLF")
+            out.extend(b[6 + i * rec:6 + (i + 1) * rec] for i in range(n))
+            return
+        ptr = 8 + nrec_size + (cum_size[lvl - 1] if lvl > 1 else 0)
+        b = _signed(rd, a, 6 + n * rec + (n + 1) * ptr, b"BTIN")
+        recs = [b[6 + i * rec:6 + (i + 1) * rec] for i in range(n)]
+        for i in range(n + 1):
+            p = 6 + n * rec + i * ptr
+            node(_u(b, p, 8), _u(b, p + 8, nrec_size), lvl - 1)
+            if i < n:
+                out.append(recs[i])
+
+    if root != UNDEF:
+        node(root, nroot, depth)
+    return kind, out
+
+
+class _FractalHeap:
+    """The managed and tiny objects of the fractal heap at ``addr``."""
+
+    def __init__(self, rd: _Reader, addr: int):
+        h = _signed(rd, addr, 146, b"FRHP")
+        self._rd = rd
+        self.id_len, filter_len = _u(h, 5, 2), _u(h, 7, 2)
+        if filter_len:
+            raise ValueError("HDF5: filtered fractal heaps are not "
+                             "supported")
+        self.max_managed = _u(h, 10, 4)
+        self.width = _u(h, 110, 2)
+        self.start = _u(h, 112, 8)
+        self.max_direct = _u(h, 120, 8)
+        self.heap_bits = _u(h, 128, 2)
+        self.root = _u(h, 132, 8)
+        self.rows = _u(h, 140, 2)
+        self.off_size = (self.heap_bits + 7) // 8
+        self.len_size = min((self.max_direct.bit_length() + 6) // 8,
+                            _enc_size(self.max_managed))
+        self.direct_rows = (self.max_direct // self.start).bit_length() + 1
+
+    def _block_size(self, row: int) -> int:
+        return self.start if row < 2 else self.start << (row - 1)
+
+    def get(self, hid: bytes) -> bytes:
+        kind = (hid[0] >> 4) & 3
+        if kind == 2:                       # tiny: in the ID itself
+            return hid[1:1 + (hid[0] & 0x0F) + 1]
+        if kind != 0:
+            raise ValueError("HDF5: huge fractal heap objects are not "
+                             "supported")
+        off = _u(hid, 1, self.off_size)
+        n = _u(hid, 1 + self.off_size, self.len_size)
+        if self.rows == 0:                  # the root is a direct block
+            return self._rd.read(self.root + off, n)
+        return self._indirect(self.root, self.rows, 0, off, n)
+
+    def _indirect(self, addr: int, rows: int, base: int, off: int,
+                  n: int) -> bytes:
+        pos = base
+        for row in range(rows):
+            size = self._block_size(row)
+            if off < pos + size * self.width:
+                col = (off - pos) // size
+                start = pos + col * size
+                hdr = 5 + 8 + self.off_size
+                if row < self.direct_rows:
+                    p = hdr + 8 * (row * self.width + col)
+                    child = _u(self._rd.read(addr + p, 8), 0, 8)
+                    return self._rd.read(child + off - start, n)
+                k = min(rows, self.direct_rows) * self.width + \
+                    (row - self.direct_rows) * self.width + col
+                child = _u(self._rd.read(addr + hdr + 8 * k, 8), 0, 8)
+                sub = (size // (self.start * self.width)).bit_length()
+                return self._indirect(child, sub, start, off, n)
+            pos += size * self.width
+        raise ValueError(f"HDF5: fractal heap offset {off} out of range")
+
+
+def _global_heap_object(rd: _Reader, addr: int, index: int) -> bytes:
+    h = _signed(rd, addr, 16, b"GCOL")
+    col = rd.read(addr, _u(h, 8, 8))
+    pos = 16
+    while pos + 16 <= len(col):
+        idx, size = _u(col, pos, 2), _u(col, pos + 8, 8)
+        if idx == index:
+            return col[pos + 16:pos + 16 + size]
+        if idx == 0:
+            break
+        pos += 16 + (size + 7) // 8 * 8
+    raise ValueError(f"HDF5: no object {index} in the global heap at "
+                     f"{addr}")
+
+
+def _selection(d: bytes, pos: int, shape: tuple) -> tuple[list, int]:
+    """The index lists (one a dimension, row-major product) of an encoded
+    "all" or regular hyperslab selection, and the position past it."""
+    kind, version = _u(d, pos, 4), _u(d, pos + 4, 4)
+    if kind == 3:                                   # all
+        return [list(range(n)) for n in shape], pos + 16
+    if kind != 2:
+        what = {0: "empty", 1: "point"}.get(kind, f"type {kind}")
+        raise ValueError(f"HDF5: virtual dataset {what} selections are not "
+                         f"supported")
+    if version == 2:
+        flags, pos, width = d[pos + 8], pos + 13, 8
+    elif version == 3:
+        flags, width, pos = d[pos + 8], d[pos + 9], pos + 10
+    else:
+        flags = 0
+    if version not in (2, 3) or not flags & 1:
+        raise ValueError("HDF5: virtual dataset selections other than "
+                         "regular hyperslabs are not supported")
+    rank = _u(d, pos, 4)
+    pos += 4
+    out = []
+    unlimited = (1 << (8 * width)) - 1
+    for _ in range(rank):
+        start, stride, count, block = (_u(d, pos + width * i, width)
+                                       for i in range(4))
+        pos += 4 * width
+        if count == unlimited or block == unlimited:
+            raise ValueError("HDF5: unlimited virtual dataset selections "
+                             "are not supported")
+        out.append([start + i * stride + j for i in range(count)
+                    for j in range(block)])
+    return out, pos
+
+
+# ------------------------------------------------------------ filters
+
+def _native(name: str, raw: bytes, cap: int, *args) -> bytes:
+    from classpose_tpu_torch.native import load_hdf5filters
+
+    lib = load_hdf5filters()
+    out = np.empty(max(cap, 1), np.uint8)
+    if name == "lzf":
+        n = lib.h5_lzf_decode(raw, len(raw), out.ctypes.data, cap)
+        if n < 0:
+            raise ValueError("HDF5: lzf chunk is corrupt")
+    else:
+        err = ctypes.create_string_buffer(256)
+        n = lib.h5_szip_decode(raw, len(raw), out.ctypes.data, cap, *args,
+                               err, 256)
+        if n < 0:
+            raise ValueError(f"HDF5: {err.value.decode()}")
+    return out[:n].tobytes()
+
+
+def _unshuffle(raw: bytes, size: int) -> bytes:
+    n = len(raw) // size
+    if size <= 1 or n <= 1:
+        return raw
+    body = np.frombuffer(raw, np.uint8, n * size).reshape(size, n)
+    return body.T.tobytes() + raw[n * size:]
+
+
+def _fletcher32(data: bytes) -> int:
+    """H5_checksum_fletcher32: big-endian 16-bit words (an odd last byte
+    the high byte of one), sums kept in ones' complement."""
+    w = np.frombuffer(data[:len(data) // 2 * 2], ">u2").astype(np.int64)
+    if len(data) % 2:
+        w = np.append(w, np.int64(data[-1]) << 8)
+    n = len(w)
+    s1 = int(w.sum() % 65535)
+    s2 = int(((np.arange(n, 0, -1, dtype=np.int64) % 65535) * w).sum()
+             % 65535)
+    nonzero = bool(w.any())
+
+    def fold(s):
+        return (s or 65535) if nonzero else 0
+
+    return (fold(s2) << 16) | fold(s1)
+
+
+def _scaleoffset(raw: bytes, vals: list[int], dtype: np.dtype,
+                 count: int) -> bytes:
+    """H5Zscaleoffset.c's decompression: minbits, minval, the packed
+    values (MSB first), then the integer or float D-scale
+    postprocessing with the fill value."""
+    scale_type, factor, cls, size = vals[0], vals[1], vals[3], vals[4]
+    if cls == 1 and scale_type != 0:
+        raise ValueError("HDF5: scaleoffset E-scaling is not supported")
+    minbits = _u(raw, 0, 4)
+    msize = min(8, raw[4])
+    minval = _u(raw, 5, msize)
+    native = dtype.newbyteorder("=")
+    if minbits == size * 8:
+        out = np.frombuffer(raw[21:21 + count * size], native)
+        return out.astype(dtype).tobytes()
+    ints = np.dtype(f"<{'u' if cls == 0 else 'i'}{size}")
+    if minbits:
+        nbits = count * minbits
+        bits = np.unpackbits(np.frombuffer(raw[21:21 + (nbits + 7) // 8],
+                                           np.uint8))[:nbits]
+        packed = bits.reshape(count, minbits).astype(np.uint64)
+        packed = (packed << np.arange(minbits - 1, -1, -1,
+                                      dtype=np.uint64)).sum(1,
+                                                            dtype=np.uint64)
+    else:
+        packed = np.zeros(count, np.uint64)
+    all_ones = (np.uint64(1) << np.uint64(minbits)) - np.uint64(1) \
+        if minbits < 64 else np.uint64(UNDEF)
+    fill_bytes = b"".join(v.to_bytes(4, "little") for v in vals[8:])
+    fill = np.frombuffer(fill_bytes[:size], native)[0] if vals[7] else None
+    is_fill = packed == all_ones
+    if cls == 0:   # wraps as the C integer type does
+        out = (packed + np.uint64(minval)).astype(f"<u{size}").view(
+            f"<{dtype.kind}{size}")
+    else:
+        mn = np.frombuffer(minval.to_bytes(8, "little")[:size],
+                           f"<f{size}")[0]
+        ft = mn.dtype.type
+        out = (packed.astype(ints).astype(ft) / ft(10.0 ** factor)
+               + mn).astype(f"<f{size}")
+    out = out.astype(native)
+    if fill is not None:
+        out = np.where(is_fill, fill, out).astype(native)
+    return out.astype(dtype).tobytes()
+
+
+# ------------------------------------------------------------ chunk indexes
+
+def _grid(dims, chunks) -> list[int]:
+    return [-(-d // c) for d, c in zip(dims, chunks)]
+
+
+def _entry(b: bytes, pos: int, size: int, filtered: bool, full: int):
+    """(address, stored bytes, filter mask) of a chunk index entry."""
+    addr = _u(b, pos, 8)
+    if not filtered:
+        return addr, full, 0
+    return addr, _u(b, pos + 8, size - 12), _u(b, pos + size - 4, 4)
+
+
+def _fixed_array(rd, addr, full):
+    h = _checked(_signed(rd, addr, 28, b"FAHD"), "fixed array header")
+    filtered, esize, page_bits = h[5] == 1, h[6], h[7]
+    n, dblk = _u(h, 8, 8), _u(h, 16, 8)
+    if dblk == UNDEF:
+        return []
+    page = 1 << page_bits
+    out = []
+    if n <= page:
+        b = _signed(rd, dblk, 14 + n * esize, b"FADB")
+        return [_entry(b, 14 + i * esize, esize, filtered, full)
+                for i in range(n)]
+    npages = -(-n // page)
+    bitmap = rd.read(dblk + 14, (npages + 7) // 8)
+    pos = dblk + 14 + len(bitmap) + 4
+    for p in range(npages):
+        k = min(page, n - p * page)
+        if bitmap[p // 8] & (0x80 >> (p % 8)):
+            b = rd.read(pos, k * esize)
+            out += [_entry(b, i * esize, esize, filtered, full)
+                    for i in range(k)]
+        else:
+            out += [(UNDEF, 0, 0)] * k
+        pos += k * esize + 4
+    return out
+
+
+def _extensible_array(rd, addr, full, count):
+    """The first ``count`` entries of the extensible array at ``addr``
+    (H5EA: index block elements, then super blocks of data blocks)."""
+    h = _checked(_signed(rd, addr, 72, b"EAHD"), "extensible array header")
+    filtered, esize, max_bits = h[5] == 1, h[6], h[7]
+    idx_elmts, dblk_min, sblk_min, page_bits = h[8], h[9], h[10], h[11]
+    iblock = _u(h, 60, 8)
+    if iblock == UNDEF:
+        return []
+    off_size = (max_bits + 7) // 8
+    nsblks = 1 + max_bits - (dblk_min.bit_length() - 1)
+    sinfo, start_idx, start_dblk = [], 0, 0
+    for s in range(nsblks):
+        nd, ne = 1 << (s // 2), (1 << ((s + 1) // 2)) * dblk_min
+        sinfo.append((nd, ne, start_idx, start_dblk))
+        start_idx += nd * ne
+        start_dblk += nd
+    ib_sblks = 2 * (sblk_min.bit_length() - 1)
+    ndblk_addrs, nsblk_addrs = 2 * (sblk_min - 1), nsblks - ib_sblks
+    ib = _signed(rd, iblock, 14 + idx_elmts * esize
+                 + 8 * (ndblk_addrs + nsblk_addrs), b"EAIB")
+    out = [_entry(ib, 14 + i * esize, esize, filtered, full)
+           for i in range(min(idx_elmts, count))]
+    daddr = [_u(ib, 14 + idx_elmts * esize + 8 * i, 8)
+             for i in range(ndblk_addrs)]
+    saddr = [_u(ib, 14 + idx_elmts * esize + 8 * (ndblk_addrs + i), 8)
+             for i in range(nsblk_addrs)]
+    blocks = {}
+
+    def dblock(a, ne):
+        if a not in blocks:
+            if ne > (1 << page_bits):
+                raise ValueError("HDF5: paged extensible array data blocks "
+                                 "are not supported")
+            blocks[a] = _signed(rd, a, 14 + off_size + ne * esize, b"EADB")
+        return blocks[a]
+
+    for i in range(idx_elmts, count):
+        j = i - idx_elmts
+        s = (j // dblk_min + 1).bit_length() - 1
+        nd, ne, s_start, s_dblk = sinfo[s]
+        if s < ib_sblks:
+            a = daddr[s_dblk + (j - s_start) // ne]
+        else:
+            sa = saddr[s - ib_sblks]
+            if sa == UNDEF:
+                out.append((UNDEF, 0, 0))
+                continue
+            sb = _signed(rd, sa, 14 + off_size + 8 * nd, b"EASB")
+            a = _u(sb, 14 + off_size + 8 * ((j - s_start) // ne), 8)
+        if a == UNDEF:
+            out.append((UNDEF, 0, 0))
+            continue
+        b = dblock(a, ne)
+        out.append(_entry(b, 14 + off_size + ((j - s_start) % ne) * esize,
+                          esize, filtered, full))
+    return out
+
+
+def _btree1_chunks(rd, addr, ndims):
+    """Chunk origin → (address, stored bytes, filter mask) over the
+    version 1 chunk B-tree at ``addr``, every level walked."""
     entry = np.dtype([("nbytes", "<u4"), ("mask", "<u4"),
                       ("offset", "<u8", (ndims,)), ("child", "<u8")])
     out = {}
@@ -201,23 +709,32 @@ def _chunk_index(rd: _Reader, addr: int, ndims: int
 
 class Dataset:
     """One dataset of an open :class:`File`: ``shape``, ``dtype``,
-    ``chunks`` (None unless chunked), ``ds[i]``/``ds[a:b]`` on axis 0 and
+    ``maxshape``, ``chunks`` (None unless chunked), the filters as h5py
+    names them, ``ds[i]``/``ds[a:b]`` on axis 0, ``ds[()]`` and
     ``np.asarray(ds)``."""
 
-    def __init__(self, rd: _Reader, name: str,
+    def __init__(self, file: "File", name: str,
                  msgs: list[tuple[int, int, bytes]]):
-        self._rd = rd
+        self._file = file
+        self._rd = file._rd
         self.name = name
         self.shape: tuple[int, ...] = ()
+        self.maxshape: tuple = ()
         self.dtype: np.dtype | None = None
         self.chunks: tuple[int, ...] | None = None
-        self._filters: list[int] = []
+        self._filters: list[tuple[int, list[int]]] = []
         self._fill = None
         self._index = None
+        self._external = None
         layout = None
-        for mtype, _, d in msgs:
+        for mtype, flags, d in msgs:
+            if flags & 0x02:
+                if mtype != DATATYPE:
+                    raise ValueError(f"HDF5: shared object header messages "
+                                     f"(type {mtype}) are not supported")
+                d = file._committed_datatype(_shared_address(d))
             if mtype == DATASPACE:
-                self.shape = _dataspace(d)
+                self.shape, self.maxshape = _dataspace(d)
             elif mtype == DATATYPE:
                 self.dtype = _datatype(d)
             elif mtype == FILL:
@@ -227,68 +744,246 @@ class Dataset:
             elif mtype == FILTERS:
                 self._filters = _filters(d)
             elif mtype == EXTERNAL:
-                raise ValueError("HDF5: external storage is not supported")
+                self._external = d
         if layout is None or self.dtype is None:
             raise ValueError(f"HDF5: {name} is not a dataset")
-        if layout[0] != 3:
-            raise ValueError(f"HDF5: layout message version {layout[0]} "
-                             f"is not supported (version 3 only)")
-        self._kind = layout[1]
+        self._layout(layout)
+
+    def _layout(self, d: bytes) -> None:
+        version, self._kind = d[0], d[1]
+        if version not in (3, 4):
+            raise ValueError(f"HDF5: layout message version {version} is "
+                             f"not supported (versions 3 and 4)")
         if self._kind == 0:
-            size = _u(layout, 2, 2)
-            self._compact = layout[4:4 + size]
+            self._compact = d[4:4 + _u(d, 2, 2)]
         elif self._kind == 1:
-            self._addr, self._size = _u(layout, 2, 8), _u(layout, 10, 8)
-        elif self._kind == 2:
-            ndims = layout[2]
-            self._addr = _u(layout, 3, 8)
-            dims = [_u(layout, 11 + 4 * i, 4) for i in range(ndims)]
+            self._addr, self._size = _u(d, 2, 8), _u(d, 10, 8)
+        elif self._kind == 2 and version == 3:
+            ndims = d[2]
+            self._addr = _u(d, 3, 8)
+            dims = [_u(d, 11 + 4 * i, 4) for i in range(ndims)]
             self.chunks = tuple(dims[:-1])
+            self._index_kind, self._index_info = 0, None
+        elif self._kind == 2:
+            flags, ndims, width = d[2], d[3], d[4]
+            dims = [_u(d, 5 + width * i, width) for i in range(ndims)]
+            self.chunks = tuple(dims[:-1])
+            pos = 5 + width * ndims
+            self._index_kind = d[pos]
+            pos += 1
+            info = {1: 12 if flags & 2 else 0, 2: 0, 3: 1, 4: 5, 5: 6}
+            if self._index_kind not in info:
+                raise ValueError(f"HDF5: chunk index type "
+                                 f"{self._index_kind} is not supported")
+            self._index_info = d[pos:pos + info[self._index_kind]]
+            self._addr = _u(d, pos + info[self._index_kind], 8)
+        elif self._kind == 3:
+            self._vds = (_u(d, 2, 8), _u(d, 10, 4))
         else:
-            raise ValueError("HDF5: virtual datasets are not supported")
+            raise ValueError(f"HDF5: layout class {self._kind} is not "
+                             f"supported")
 
     def __len__(self) -> int:
+        if not self.shape:
+            raise TypeError("a scalar dataset has no length")
         return self.shape[0]
+
+    # h5py's names of the pipeline
+    def _has(self, fid: int) -> bool:
+        return any(f == fid for f, _ in self._filters)
 
     @property
     def compression(self) -> str | None:
-        return "gzip" if self._filters else None
+        for fid, name in ((DEFLATE, "gzip"), (LZF, "lzf"), (SZIP, "szip")):
+            if self._has(fid):
+                return name
+        return None
+
+    @property
+    def compression_opts(self):
+        for fid, vals in self._filters:
+            if fid == DEFLATE:
+                return vals[0] if vals else None
+            if fid == SZIP:
+                return ("nn" if vals[0] & 32 else "ec", vals[1])
+        return None
+
+    @property
+    def shuffle(self) -> bool:
+        return self._has(SHUFFLE)
+
+    @property
+    def fletcher32(self) -> bool:
+        return self._has(FLETCHER32)
+
+    @property
+    def scaleoffset(self):
+        for fid, vals in self._filters:
+            if fid == SCALEOFFSET:
+                return vals[1]
+        return None
 
     def _fill_value(self):
         """The fill value where the message defines one, else 0."""
         d = self._fill
         if d is None or d[0] not in (2, 3):
-            return 0
+            return np.zeros((), self.dtype)[()]
         if d[0] == 2:
             if not d[3]:
-                return 0
+                return np.zeros((), self.dtype)[()]
             size, val = _u(d, 4, 4), d[8:]
         else:
             if not d[1] & 0x20:
-                return 0
+                return np.zeros((), self.dtype)[()]
             size, val = _u(d, 2, 4), d[6:]
         if size == 0:
-            return 0
+            return np.zeros((), self.dtype)[()]
         return np.frombuffer(val[:size], self.dtype)[0]
+
+    # ------------------------------------------------------------ reading
+    def _all(self) -> np.ndarray:
+        """The whole dataset, C-ordered."""
+        if not self.shape or self._kind != 2:
+            return self._whole()
+        return self._rows(0, self.shape[0])
+
+    def _whole(self) -> np.ndarray:
+        n = int(np.prod(self.shape, dtype=np.int64))
+        if self._kind == 0:
+            raw = self._compact[:n * self.dtype.itemsize]
+        elif self._kind == 3:
+            return self._virtual()
+        elif self._external is not None:
+            raw = self._external_bytes(n * self.dtype.itemsize)
+        elif self._addr == UNDEF:
+            return np.full(self.shape, self._fill_value(), self.dtype)
+        else:
+            raw = self._rd.read(self._addr, n * self.dtype.itemsize)
+        return np.frombuffer(raw, self.dtype).reshape(self.shape).copy()
+
+    def _external_bytes(self, n: int) -> bytes:
+        """The dataset's bytes from its external files: each slot's name
+        (from the message's local heap), offset and size, in order; a
+        relative name is taken from the working directory, as HDF5 does
+        without an external-file prefix."""
+        d = self._external
+        used, heap = _u(d, 6, 2), _u(d, 8, 8)
+        h = _signed(self._rd, heap, 32, b"HEAP")
+        names = self._rd.read(_u(h, 24, 8), _u(h, 8, 8))
+        out = bytearray()
+        for i in range(used):
+            off = 16 + 24 * i
+            name_off, start, size = (_u(d, off + 8 * k, 8) for k in range(3))
+            name = names[name_off:names.index(b"\0", name_off)].decode()
+            prefix = os.environ.get("HDF5_EXTFILE_PREFIX", "")
+            with open(os.path.join(prefix, name) if prefix else name,
+                      "rb") as fh:
+                fh.seek(start)
+                take = min(size, n - len(out)) if size != UNDEF else \
+                    n - len(out)
+                chunk = fh.read(take)
+            if len(chunk) < take:
+                raise ValueError(f"HDF5: external file {name} is shorter "
+                                 f"than its slot")
+            out += chunk
+            if len(out) >= n:
+                break
+        if len(out) < n:
+            raise ValueError("HDF5: external storage holds fewer bytes than "
+                             "the dataset")
+        return bytes(out)
+
+    def _virtual(self) -> np.ndarray:
+        """H5D virtual: each mapping copies its source selection of a
+        source dataset into its virtual selection, in row-major order; the
+        fill value where none maps or a source is missing."""
+        out = np.full(self.shape, self._fill_value(), self.dtype)
+        addr, index = self._vds
+        d = _global_heap_object(self._rd, addr, index)
+        if d[0] != 0:
+            raise ValueError(f"HDF5: virtual dataset mapping encoding "
+                             f"version {d[0]} is not supported")
+        n, pos = _u(d, 1, 8), 9
+        for _ in range(n):
+            end = d.index(b"\0", pos)
+            src_file = d[pos:end].decode()
+            pos = end + 1
+            end = d.index(b"\0", pos)
+            src_name = d[pos:end].decode()
+            pos = end + 1
+            if "%" in src_file or "%" in src_name:
+                raise ValueError("HDF5: printf-style virtual dataset source "
+                                 "names are not supported")
+            src = self._file._source(src_file, src_name)
+            sshape = src.shape if src is not None else ()
+            ssel, pos = _selection(d, pos, sshape)
+            vsel, pos = _selection(d, pos, self.shape)
+            if src is None:
+                continue
+            vals = np.asarray(src)[np.ix_(*ssel)].reshape(-1)
+            out[np.ix_(*vsel)] = vals.reshape([len(v) for v in vsel])
+        return out
+
+    def _chunk_index(self) -> dict:
+        c = self.chunks
+        full = int(np.prod(c, dtype=np.int64)) * self.dtype.itemsize
+        kind, info = self._index_kind, self._index_info
+        if self._addr == UNDEF:
+            return {}
+        if kind == 0:
+            return _btree1_chunks(self._rd, self._addr, len(c) + 1)
+        if kind == 1:                               # single chunk
+            if info:
+                return {(0,) * len(c): (self._addr, _u(info, 0, 8),
+                                        _u(info, 8, 4))}
+            return {(0,) * len(c): (self._addr, full, 0)}
+        if kind == 5:                               # v2 B-tree
+            rtype, recs = _btree2_records(self._rd, self._addr)
+            out = {}
+            for r in recs:
+                scaled = [_u(r, len(r) - 8 * (len(c) - i), 8)
+                          for i in range(len(c))]
+                origin = tuple(s * k for s, k in zip(scaled, c))
+                if rtype == 11:
+                    size = len(r) - 8 * len(c)
+                    out[origin] = (_u(r, 0, 8), _u(r, 8, size - 12),
+                                   _u(r, size - 4, 4))
+                else:
+                    out[origin] = (_u(r, 0, 8), full, 0)
+            return out
+        # implicit, fixed and extensible arrays: entries in row-major order
+        # over the chunk grid of the maximum dimensions, an unlimited one
+        # (the extensible array's) first
+        unlim = [i for i, m in enumerate(self.maxshape) if m is None]
+        dims = [self.shape[i] if self.maxshape[i] is None
+                else self.maxshape[i] for i in range(len(c))]
+        order = unlim + [i for i in range(len(c)) if i not in unlim]
+        grid = _grid([dims[i] for i in order], [c[i] for i in order])
+        count = int(np.prod(grid, dtype=np.int64))
+        if kind == 2:
+            entries = [(self._addr + i * full, full, 0) for i in range(count)]
+        elif kind == 3:
+            entries = _fixed_array(self._rd, self._addr, full)
+        else:
+            entries = _extensible_array(self._rd, self._addr, full, count)
+        out = {}
+        for idx, e in zip(np.ndindex(*grid), entries):
+            if e[0] == UNDEF:
+                continue
+            origin = [0] * len(c)
+            for k, i in zip(idx, order):
+                origin[i] = k * c[i]
+            out[tuple(origin)] = e
+        return out
 
     def _rows(self, a: int, b: int) -> np.ndarray:
         """Rows a..b (axis 0) as a C-ordered array."""
         shape = (b - a,) + self.shape[1:]
-        item = self.dtype.itemsize
-        if self._kind == 0:
-            full = np.frombuffer(self._compact, self.dtype).reshape(
-                self.shape)
-            return full[a:b].copy()
-        if self._kind == 1:
-            if self._addr == UNDEF:
-                return np.full(shape, self._fill_value(), self.dtype)
-            row = int(np.prod(self.shape[1:], dtype=np.int64)) * item
-            raw = self._rd.read(self._addr + a * row, (b - a) * row)
-            return np.frombuffer(raw, self.dtype).reshape(shape).copy()
+        if self._kind != 2:
+            return self._all()[a:b].copy()
         out = np.full(shape, self._fill_value(), self.dtype)
         if self._index is None:
-            self._index = ({} if self._addr == UNDEF else _chunk_index(
-                self._rd, self._addr, len(self.chunks) + 1))
+            self._index = self._chunk_index()
         c = self.chunks
         grid = [range(0, n, k) for n, k in zip(self.shape[1:], c[1:])]
         for r0 in range(a // c[0] * c[0], b, c[0]):
@@ -310,16 +1005,42 @@ class Dataset:
 
     def _chunk(self, addr: int, nbytes: int, mask: int) -> np.ndarray:
         raw = self._rd.read(addr, nbytes)
+        count = int(np.prod(self.chunks, dtype=np.int64))
+        full = count * self.dtype.itemsize
         for i in reversed(range(len(self._filters))):
-            if not mask & (1 << i):
+            if mask & (1 << i):
+                continue
+            fid, vals = self._filters[i]
+            if fid == DEFLATE:
                 raw = zlib.decompress(raw)
-        return np.frombuffer(raw, self.dtype).reshape(self.chunks)
+            elif fid == SHUFFLE:
+                raw = _unshuffle(raw, vals[0] if vals else
+                                 self.dtype.itemsize)
+            elif fid == FLETCHER32:
+                body, stored = raw[:-4], _u(raw, len(raw) - 4, 4)
+                s = _fletcher32(body)
+                swapped = ((s & 0xFF00FF00) >> 8) | ((s & 0x00FF00FF) << 8)
+                if stored not in (s, swapped):
+                    raise ValueError(f"HDF5: {self.name}: data error "
+                                     f"detected by Fletcher32 checksum")
+                raw = body
+            elif fid == LZF:
+                raw = _native("lzf", raw, full)
+            elif fid == SZIP:
+                raw = _native("szip", raw, full, *vals[:4])
+            elif fid == SCALEOFFSET:
+                raw = _scaleoffset(raw, vals, self.dtype, count)
+        return np.frombuffer(raw, self.dtype, count).reshape(self.chunks)
 
     def __getitem__(self, key):
         if isinstance(key, tuple):
+            if key == ():
+                return self._all()[()]
             if len(key) != 1:
                 raise IndexError("only axis 0 is indexed")
             key = key[0]
+        if not self.shape:
+            raise IndexError("a scalar dataset takes () or ...")
         if key is Ellipsis:
             key = slice(None)
         if isinstance(key, slice):
@@ -336,7 +1057,7 @@ class Dataset:
         return self._rows(i, i + 1)[0]
 
     def __array__(self, dtype=None, copy=None):
-        out = self._rows(0, self.shape[0])
+        out = self._all()
         return out if dtype is None else out.astype(dtype)
 
 
@@ -347,13 +1068,16 @@ class File:
     def __init__(self, path):
         self.path = str(path)
         self._fh = open(self.path, "rb")
+        self._sources: dict[str, File] = {}
         try:
             self._rd = _Reader(self._fh)
             self._datasets: dict[str, Dataset] = {}
+            self._soft: list[tuple[str, str]] = []
             root = self._superblock()
-            self._group(root, "")
+            self._walk(root, "", set())
+            self._resolve_soft_links()
         except BaseException:
-            self._fh.close()
+            self.close()
             raise
 
     def _superblock(self) -> int:
@@ -361,10 +1085,18 @@ class File:
         if b[:8] != SIGNATURE:
             raise ValueError(f"{self.path}: not an HDF5 file (at offset 0)")
         version = b[8]
+        if version in (2, 3):
+            if b[9] != 8 or b[10] != 8:
+                raise ValueError("HDF5: offsets and lengths of other than "
+                                 "8 bytes are not supported")
+            sb = _checked(self._rd.read(0, 48), "superblock")
+            if _u(sb, 12, 8) != 0:
+                raise ValueError("HDF5: a base address other than 0 is not "
+                                 "supported")
+            return _u(sb, 36, 8)
         if version not in (0, 1):
             raise ValueError(f"HDF5: superblock version {version} is not "
-                             f"supported (versions 2/3 come from "
-                             f"libver='latest'; version 0 or 1 only)")
+                             f"supported")
         if b[13] != 8 or b[14] != 8:
             raise ValueError("HDF5: offsets and lengths of other than 8 "
                              "bytes are not supported")
@@ -375,26 +1107,81 @@ class File:
                              "supported")
         return _u(sb, 32 + 8, 8)     # root entry's object header
 
-    def _group(self, addr: int, prefix: str) -> None:
-        msgs = _messages(self._rd, addr)
+    def _committed_datatype(self, addr: int) -> bytes:
+        for mtype, _, d in _messages(self._rd, addr):
+            if mtype == DATATYPE:
+                return d
+        raise ValueError(f"HDF5: no committed datatype at {addr}")
+
+    def _links(self, msgs) -> list[tuple[str, str, object]] | None:
+        """The links of a group's header, or None for a dataset."""
         types = {m[0] for m in msgs}
-        if LINK_INFO in types or LINK in types:
-            raise ValueError("HDF5: link messages and dense link storage "
-                             "(new-style groups) are not supported; "
-                             "symbol-table groups only")
-        stab = [d for t, _, d in msgs if t == SYMBOL_TABLE]
-        if not stab:
-            self._datasets[prefix.rstrip("/")] = Dataset(
-                self._rd, prefix.rstrip("/"), msgs)
+        if SYMBOL_TABLE in types:
+            d = next(d for t, _, d in msgs if t == SYMBOL_TABLE)
+            btree, heap = _u(d, 0, 8), _u(d, 8, 8)
+            h = _signed(self._rd, heap, 32, b"HEAP")
+            names = self._rd.read(_u(h, 24, 8), _u(h, 8, 8))
+            return [(names[off:names.index(b"\0", off)].decode(), "hard", obj)
+                    for off, obj in self._symbols(btree)]
+        if LINK_INFO not in types and LINK not in types:
+            return None
+        links = [_link(d) for t, _, d in msgs if t == LINK]
+        for t, _, d in msgs:
+            if t != LINK_INFO:
+                continue
+            pos = 2 + (8 if d[1] & 1 else 0)
+            heap, names = _u(d, pos, 8), _u(d, pos + 8, 8)
+            if heap == UNDEF:
+                continue
+            fh = _FractalHeap(self._rd, heap)
+            _, recs = _btree2_records(self._rd, names)
+            links += [_link(fh.get(r[4:4 + fh.id_len])) for r in recs]
+        return links
+
+    def _walk(self, addr: int, prefix: str, seen: set) -> None:
+        msgs = _messages(self._rd, addr)
+        links = self._links(msgs)
+        name = prefix.rstrip("/")
+        if links is None:
+            if any(t == LAYOUT for t, _, _ in msgs):
+                self._datasets[name] = Dataset(self, name, msgs)
+            return                          # a committed datatype
+        if addr in seen:
             return
-        btree, heap = _u(stab[0], 0, 8), _u(stab[0], 8, 8)
-        h = self._rd.read(heap, 32)
-        if h[:4] != b"HEAP":
-            raise ValueError(f"HDF5: no local heap at {heap}")
-        names = self._rd.read(_u(h, 24, 8), _u(h, 8, 8))
-        for name_off, obj in self._symbols(btree):
-            name = names[name_off:names.index(b"\0", name_off)].decode()
-            self._group(obj, f"{prefix}{name}/")
+        seen = seen | {addr}
+        for lname, kind, value in links:
+            if kind == "hard":
+                self._walk(value, f"{prefix}{lname}/", seen)
+            else:
+                self._soft.append((f"{prefix}{lname}", value))
+
+    def _resolve_soft_links(self) -> None:
+        for name, target in self._soft:
+            base = name.rsplit("/", 1)[0] + "/" if "/" in name else ""
+            t = target.strip("/") if target.startswith("/") else \
+                (base + target).strip("/")
+            if t in self._datasets:
+                self._datasets[name] = self._datasets[t]
+            else:                           # a group: its datasets
+                for k, ds in list(self._datasets.items()):
+                    if k.startswith(t + "/"):
+                        self._datasets[name + k[len(t):]] = ds
+
+    def _source(self, src_file: str, name: str) -> Dataset | None:
+        """A virtual dataset's source, or None where it is missing (HDF5
+        fills those): "." is this file; another name is looked up from
+        this file's directory."""
+        try:
+            if src_file == ".":
+                f = self
+            else:
+                path = os.path.join(os.path.dirname(self.path), src_file)
+                if path not in self._sources:
+                    self._sources[path] = File(path)
+                f = self._sources[path]
+            return f[name]
+        except (OSError, KeyError):
+            return None
 
     def _symbols(self, addr: int) -> list[tuple[int, int]]:
         """(name offset in the heap, object header address) of every
@@ -435,6 +1222,8 @@ class File:
         return self._datasets.keys()
 
     def close(self) -> None:
+        for f in self._sources.values():
+            f.close()
         self._fh.close()
 
     def __enter__(self) -> "File":

@@ -9,7 +9,11 @@ grey, YCbCr, RGB, CMYK and YCCK, sampling factors 1 to 4, with
 libjpeg's block smoothing of incomplete progressive scripts. A stream PIL
 refuses raises ``ValueError`` naming the process or feature
 (hierarchical processes, SOF11, DNL, 12- and 16-bit samples, fractional
-sampling, ...).
+sampling, ...). A damaged stream goes as it goes through PIL: one that
+ends before its EOI raises ``ValueError`` where PIL raises "image file is
+truncated", and corrupt entropy-coded data decodes to PIL's pixels
+(libjpeg-turbo's recovery: bad codes, markers inside a scan, restart
+resync, and its x86-64 SIMD inverse DCT's 16-bit limits).
 :func:`encode` writes a baseline JFIF stream at 4:2:0 with the Annex K
 tables scaled by ``quality`` as ``jpeg_set_quality`` scales them.
 """

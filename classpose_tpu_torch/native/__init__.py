@@ -1,16 +1,17 @@
 """The native host cores, built on first use: the geometry core
 (``geomfast.cpp``), the JPEG codec of the slide reader and writer
-(``jpeg.cpp``) and the JPEG 2000 decoder of the slide reader
-(``jpeg2000.cpp``).
+(``jpeg.cpp``), the JPEG 2000 decoder of the slide reader
+(``jpeg2000.cpp``) and the lzf and szip filters of the HDF5 reader
+(``hdf5filters.cpp``).
 
-:func:`load_geomfast`, :func:`load_jpeg` and :func:`load_jpeg2000` compile
-their source with
+:func:`load_geomfast`, :func:`load_jpeg`, :func:`load_jpeg2000` and
+:func:`load_hdf5filters` compile their source with
 ``g++`` into ``classpose_tpu_torch/_build/`` (the kernels' build directory,
 which git ignores), named by a hash of the source and the flags, and load
 it with ``ctypes`` (whose calls release the GIL, so reader threads decode
 in parallel). Nothing happens at import. A build or load failure raises:
 the package has no slower fallback for contours, metrics, containment,
-deduplication, JPEG or JPEG 2000 tiles.
+deduplication, JPEG or JPEG 2000 tiles, or lzf and szip chunks.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ _DIR = Path(__file__).resolve().parent
 _SRC = _DIR / "geomfast.cpp"
 _JPEG_SRC = _DIR / "jpeg.cpp"
 _J2K_SRC = _DIR / "jpeg2000.cpp"
+_H5F_SRC = _DIR / "hdf5filters.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 _FLAGS = ["-O2", "-shared", "-fPIC"]
 # the 9/7 wavelet must round as OpenJPEG does: no fused multiply-adds
@@ -68,6 +70,14 @@ _J2K_SIGNATURES = {
     "j2k_info": (ctypes.c_int, [P, ctypes.c_long, I32, P, ctypes.c_int]),
     "j2k_decode": (ctypes.c_int, [P, ctypes.c_long, P, ctypes.c_long, P,
                                   ctypes.c_int]),
+}
+
+_H5F_SIGNATURES = {
+    "h5_lzf_decode": (ctypes.c_long, [P, ctypes.c_long, P, ctypes.c_long]),
+    "h5_szip_decode": (ctypes.c_long, [P, ctypes.c_long, P, ctypes.c_long,
+                                       ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_int, ctypes.c_int, P,
+                                       ctypes.c_int]),
 }
 
 
@@ -117,3 +127,9 @@ def load_jpeg() -> ctypes.CDLL:
 def load_jpeg2000() -> ctypes.CDLL:
     """The JPEG 2000 decoder, built on first use; raises if it cannot be."""
     return _load(_J2K_SRC, _J2K_SIGNATURES)
+
+
+def load_hdf5filters() -> ctypes.CDLL:
+    """The HDF5 lzf and szip filters, built on first use; raises if they
+    cannot be."""
+    return _load(_H5F_SRC, _H5F_SIGNATURES)

@@ -9,10 +9,11 @@
 //     jdlossls.c: predictors 1-7, point transform); 8-bit samples, 1, 3 or
 //     4 components, sampling factors 1 to 4 with integral ratios, DRI/RSTn,
 //     interleaved or not, the Annex K tables in Huffman slots 0 and 1 a
-//     stream leaves undefined;
+//     sequential stream leaves undefined;
 //   - the block smoothing of a progressive image whose low-frequency
 //     coefficients are not all known (jdcoefct.c decompress_smooth_data);
-//   - the "islow" integer inverse DCT of jidctint.c with its range limit;
+//   - the "islow" integer inverse DCT as libjpeg-turbo's x86-64 SIMD code
+//     computes it (16-bit products and sums that wrap, saturation);
 //   - "fancy" triangle upsampling (jdsample.c h2v1, h1v2, h2v2), whose
 //     context rows repeat the first and the last real sample row, and
 //     box replication for other ratios and for lossless images;
@@ -22,8 +23,17 @@
 //     stream), and for 4 components CMYK or YCCK (ycck_cmyk_convert)
 //     followed by what PIL does with them: the samples read as inverted
 //     CMYK and Pillow's cmyk2rgb.
+// A damaged stream goes as it goes in libjpeg-turbo through PIL: a
+// stream that ends before EOI raises (PIL's "image file is truncated"),
+// unless the frame's one scan was decoded without reading past the end;
+// a bad Huffman code decodes as symbol 0 after 17 bits; a marker inside
+// entropy-coded data feeds zero bits, and once a code needs them, the
+// rest of the restart interval is left as it is; a wrong RSTn is resynced
+// to as jpeg_resync_to_restart does; a bad arithmetic code leaves the rest
+// of its restart interval; a run past coefficient 63 writes coefficient
+// 63; a bad Huffman table refuses only a scan that uses it.
 // What libjpeg-turbo (or PIL) refuses raises with its name: hierarchical
-// and arithmetic-lossless processes (SOF5-7, SOF11, SOF13-15), DNL,
+// and arithmetic-lossless processes (SOF5-7, SOF11, SOF13-15), height 0 (DNL),
 // precisions other than 8, 2 components, fractional sampling, more than
 // 10 blocks in an interleaved MCU, scan parameters libjpeg rejects, and
 // colour conversion of a lossless stream.
@@ -85,50 +95,161 @@ inline int64_t descale(int64_t x, int n) {
   return (x + (int64_t(1) << (n - 1))) >> n;
 }
 
-// jidctint.c's post-IDCT range limit: the output wraps modulo 1024 as a
-// signed 10-bit value, then is clamped to 0..255 after adding 128
-struct RangeLimit {
-  uint8_t t[1024];
-  RangeLimit() {
-    for (int i = 0; i < 1024; ++i) {
-      int v = i < 512 ? i : i - 1024;
-      v += 128;
-      t[i] = uint8_t(v < 0 ? 0 : v > 255 ? 255 : v);
+// One 8x8 block: dequantize, inverse DCT, write 8 rows of 8 samples, as
+// libjpeg-turbo's x86-64 SIMD "islow" IDCT (jidctint-avx2.asm, which the
+// SSE2 one equals) computes it, not as jidctint.c: the products with the
+// quantizers, in0 +- in4 and the odd part's z3 = in7 + in3, z4 = in5 + in1
+// are 16-bit and wrap, each pass's outputs saturate to 16 bits, and the
+// samples saturate to -128..127 before the +128 (the C version wraps them
+// modulo 1024 before its clamp). A clean stream never reaches these limits
+// (the two agree); a corrupt one does. Pass 1 takes a shortcut when every
+// coefficient past the first row is zero: its DC, << 2, wraps.
+inline int16_t sat16(int32_t v) {
+  return int16_t(v < -32768 ? -32768 : v > 32767 ? 32767 : v);
+}
+
+// dodct on one vector of 8 (16-bit inputs): outputs descaled by `shift`,
+// saturated, to out[0], out[os], ... The products with the constants fit
+// 32 bits (vpmaddwd); sums wrap at 32 bits (vpaddd), so they are taken
+// unsigned.
+template <int shift>
+inline void idct_1d(int32_t in0, int32_t in1, int32_t in2, int32_t in3,
+                    int32_t in4, int32_t in5, int32_t in6, int32_t in7,
+                    int16_t* out, int os) {
+  typedef uint32_t u;
+  const u tmp3 = u(in2 * int32_t(FIX_0_541196100 + FIX_0_765366865)) +
+                 u(in6 * int32_t(FIX_0_541196100));
+  const u tmp2 = u(in2 * int32_t(FIX_0_541196100)) +
+                 u(in6 * int32_t(FIX_0_541196100 - FIX_1_847759065));
+  const u t0 = u(int32_t(int16_t(in0 + in4)) * (1 << kConstBits));
+  const u t1 = u(int32_t(int16_t(in0 - in4)) * (1 << kConstBits));
+  const u tmp10 = t0 + tmp3, tmp13 = t0 - tmp3, tmp11 = t1 + tmp2,
+          tmp12 = t1 - tmp2;
+  const int32_t z3 = int16_t(in7 + in3), z4 = int16_t(in5 + in1);
+  const u z3p = u(z3 * int32_t(FIX_1_175875602 - FIX_1_961570560)) +
+                u(z4 * int32_t(FIX_1_175875602));
+  const u z4p = u(z3 * int32_t(FIX_1_175875602)) +
+                u(z4 * int32_t(FIX_1_175875602 - FIX_0_390180644));
+  const u o0 = u(in7 * int32_t(FIX_0_298631336 - FIX_0_899976223)) +
+               u(in1 * int32_t(-FIX_0_899976223)) + z3p;
+  const u o1 = u(in5 * int32_t(FIX_2_053119869 - FIX_2_562915447)) +
+               u(in3 * int32_t(-FIX_2_562915447)) + z4p;
+  const u o2 = u(in5 * int32_t(-FIX_2_562915447)) +
+               u(in3 * int32_t(FIX_3_072711026 - FIX_2_562915447)) + z3p;
+  const u o3 = u(in7 * int32_t(-FIX_0_899976223)) +
+               u(in1 * int32_t(FIX_1_501321110 - FIX_0_899976223)) + z4p;
+  const u rnd = u(1) << (shift - 1);
+  out[0] = sat16(int32_t(tmp10 + o3 + rnd) >> shift);
+  out[7 * os] = sat16(int32_t(tmp10 - o3 + rnd) >> shift);
+  out[os] = sat16(int32_t(tmp11 + o2 + rnd) >> shift);
+  out[6 * os] = sat16(int32_t(tmp11 - o2 + rnd) >> shift);
+  out[2 * os] = sat16(int32_t(tmp12 + o1 + rnd) >> shift);
+  out[5 * os] = sat16(int32_t(tmp12 - o1 + rnd) >> shift);
+  out[3 * os] = sat16(int32_t(tmp13 + o0 + rnd) >> shift);
+  out[4 * os] = sat16(int32_t(tmp13 - o0 + rnd) >> shift);
+}
+
+void idct_islow_simd(const int16_t* in, const uint16_t* q, uint8_t* out,
+                     int stride) {
+  int16_t ws[64];  // pass 1's outputs, row-major
+  bool ac_zero = true;
+  for (int k = 8; k < 64 && ac_zero; ++k) ac_zero = in[k] == 0;
+  // the dequantized coefficient: its low 16 bits (vpmullw)
+  auto dq = [&](int k) { return int32_t(int16_t(in[k] * q[k])); };
+  for (int c = 0; c < 8; ++c) {
+    if (ac_zero) {  // the shortcut: DC << 2 in 16 bits
+      const int16_t v = int16_t(uint16_t(dq(c)) << kPass1Bits);
+      for (int r = 0; r < 8; ++r) ws[8 * r + c] = v;
+    } else if (in[8 + c] == 0 && in[16 + c] == 0 && in[24 + c] == 0 &&
+               in[32 + c] == 0 && in[40 + c] == 0 && in[48 + c] == 0 &&
+               in[56 + c] == 0) {  // what the general path gives
+      const int16_t v = sat16(dq(c) * (1 << kPass1Bits));
+      for (int r = 0; r < 8; ++r) ws[8 * r + c] = v;
+    } else {
+      idct_1d<kConstBits - kPass1Bits>(dq(c), dq(8 + c), dq(16 + c),
+                                       dq(24 + c), dq(32 + c), dq(40 + c),
+                                       dq(48 + c), dq(56 + c), ws + c, 8);
+    }
+  }
+  for (int r = 0; r < 8; ++r) {
+    const int16_t* wp = ws + 8 * r;
+    uint8_t* op = out + r * stride;
+    int16_t res[8];
+    if (wp[1] == 0 && wp[2] == 0 && wp[3] == 0 && wp[4] == 0 &&
+        wp[5] == 0 && wp[6] == 0 && wp[7] == 0) {
+      const int v = (int(wp[0]) + 16) >> 5;
+      const int s = v < -128 ? -128 : v > 127 ? 127 : v;
+      memset(op, s + 128, 8);
+      continue;
+    }
+    idct_1d<kConstBits + kPass1Bits + 3>(wp[0], wp[1], wp[2], wp[3], wp[4],
+                                         wp[5], wp[6], wp[7], res, 1);
+    for (int c = 0; c < 8; ++c)
+      op[c] = uint8_t((res[c] < -128 ? -128 : res[c] > 127 ? 127 : res[c]) +
+                      128);
+  }
+}
+
+// clamp(v, -128, 127) + 128, the SIMD code's sample, for |v| < 8192: past
+// idct_islow's checks a sample's magnitude stays under 8 * 16384 * sqrt(2)
+// / 32 < 5800
+struct SatTable {
+  uint8_t t[16384];
+  SatTable() {
+    for (int i = 0; i < 16384; ++i) {
+      int v = i - 8192;
+      t[i] = uint8_t((v < -128 ? -128 : v > 127 ? 127 : v) + 128);
     }
   }
 };
-const RangeLimit kIdctLimit;
+const SatTable kSat;
 
-// One 8x8 block: dequantize, inverse DCT, write 8 rows of 8 samples.
+// The same block by jidctint.c's arithmetic, which equals the SIMD code's
+// wherever none of its 16-bit values can wrap or saturate: every
+// dequantized coefficient and every pass-1 output within -16384..16383 (so
+// no sum of two of them leaves 16 bits either); the samples saturate as the
+// SIMD code's do. A block past those limits (only a corrupt stream's)
+// goes to idct_islow_simd.
 void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out,
                 int stride) {
   int ws[64];
+  uint32_t wide = 0;  // nonzero once a value leaves -16384..16383
   for (int c = 0; c < 8; ++c) {
     const int16_t* ip = in + c;
     const uint16_t* qp = q + c;
     int* wp = ws + c;
     if (ip[8] == 0 && ip[16] == 0 && ip[24] == 0 && ip[32] == 0 &&
         ip[40] == 0 && ip[48] == 0 && ip[56] == 0) {
-      int dc = (int(ip[0]) * int(qp[0])) * (1 << kPass1Bits);
-      for (int r = 0; r < 8; ++r) wp[8 * r] = dc;
+      const int32_t dc = int32_t(ip[0]) * qp[0];
+      wide |= (uint32_t(dc) + 4096u) >> 13;  // dc << 2 stays in range
+      const int v = dc * (1 << kPass1Bits);
+      for (int r = 0; r < 8; ++r) wp[8 * r] = v;
       continue;
     }
-    int64_t z2 = int64_t(ip[16]) * qp[16];
-    int64_t z3 = int64_t(ip[48]) * qp[48];
+    const int32_t d0 = int32_t(ip[0]) * qp[0], d1 = int32_t(ip[8]) * qp[8],
+                  d2 = int32_t(ip[16]) * qp[16], d3 = int32_t(ip[24]) * qp[24],
+                  d4 = int32_t(ip[32]) * qp[32], d5 = int32_t(ip[40]) * qp[40],
+                  d6 = int32_t(ip[48]) * qp[48], d7 = int32_t(ip[56]) * qp[56];
+    wide |= ((uint32_t(d0) + 16384u) | (uint32_t(d1) + 16384u) |
+             (uint32_t(d2) + 16384u) | (uint32_t(d3) + 16384u) |
+             (uint32_t(d4) + 16384u) | (uint32_t(d5) + 16384u) |
+             (uint32_t(d6) + 16384u) | (uint32_t(d7) + 16384u)) >> 15;
+    int64_t z2 = d2;
+    int64_t z3 = d6;
     int64_t z1 = (z2 + z3) * FIX_0_541196100;
     int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
     int64_t tmp3 = z1 + z2 * FIX_0_765366865;
-    z2 = int64_t(ip[0]) * qp[0];
-    z3 = int64_t(ip[32]) * qp[32];
+    z2 = d0;
+    z3 = d4;
     int64_t tmp0 = (z2 + z3) * (int64_t(1) << kConstBits);
     int64_t tmp1 = (z2 - z3) * (int64_t(1) << kConstBits);
     int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
     int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
 
-    tmp0 = int64_t(ip[56]) * qp[56];
-    tmp1 = int64_t(ip[40]) * qp[40];
-    tmp2 = int64_t(ip[24]) * qp[24];
-    tmp3 = int64_t(ip[8]) * qp[8];
+    tmp0 = d7;
+    tmp1 = d5;
+    tmp2 = d3;
+    tmp3 = d1;
     z1 = tmp0 + tmp3;
     z2 = tmp1 + tmp2;
     z3 = tmp0 + tmp2;
@@ -158,15 +279,18 @@ void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out,
     wp[24] = int(descale(tmp13 + tmp0, sh));
     wp[32] = int(descale(tmp13 - tmp0, sh));
   }
-  const uint8_t* lim = kIdctLimit.t;
+  uint32_t w2 = 0;
+  for (int k = 0; k < 64; ++k) w2 |= uint32_t(ws[k]) + 16384u;
+  if ((wide | (w2 >> 15)) != 0) return idct_islow_simd(in, q, out, stride);
+  const uint8_t* sat = kSat.t + 8192;
+  auto sample = [sat](int64_t v) { return sat[v]; };
   for (int r = 0; r < 8; ++r) {
     const int* wp = ws + 8 * r;
     uint8_t* op = out + r * stride;
     const int sh = kConstBits + kPass1Bits + 3;
     if (wp[1] == 0 && wp[2] == 0 && wp[3] == 0 && wp[4] == 0 &&
         wp[5] == 0 && wp[6] == 0 && wp[7] == 0) {
-      uint8_t v = lim[int(descale(wp[0], kPass1Bits + 3)) & 1023];
-      memset(op, v, 8);
+      memset(op, sample(descale(wp[0], kPass1Bits + 3)), 8);
       continue;
     }
     int64_t z2 = wp[2], z3 = wp[6];
@@ -200,14 +324,14 @@ void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out,
     tmp1 += z2 + z4;
     tmp2 += z2 + z3;
     tmp3 += z1 + z4;
-    op[0] = lim[int(descale(tmp10 + tmp3, sh)) & 1023];
-    op[7] = lim[int(descale(tmp10 - tmp3, sh)) & 1023];
-    op[1] = lim[int(descale(tmp11 + tmp2, sh)) & 1023];
-    op[6] = lim[int(descale(tmp11 - tmp2, sh)) & 1023];
-    op[2] = lim[int(descale(tmp12 + tmp1, sh)) & 1023];
-    op[5] = lim[int(descale(tmp12 - tmp1, sh)) & 1023];
-    op[3] = lim[int(descale(tmp13 + tmp0, sh)) & 1023];
-    op[4] = lim[int(descale(tmp13 - tmp0, sh)) & 1023];
+    op[0] = sample(descale(tmp10 + tmp3, sh));
+    op[7] = sample(descale(tmp10 - tmp3, sh));
+    op[1] = sample(descale(tmp11 + tmp2, sh));
+    op[6] = sample(descale(tmp11 - tmp2, sh));
+    op[2] = sample(descale(tmp12 + tmp1, sh));
+    op[5] = sample(descale(tmp12 - tmp1, sh));
+    op[3] = sample(descale(tmp13 + tmp0, sh));
+    op[4] = sample(descale(tmp13 - tmp0, sh));
   }
 }
 
@@ -366,106 +490,185 @@ const uint8_t kAcChromaVals[162] = {
     0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
 
 // ------------------------------------------------------------ decoder
+// A Huffman table as DHT defines it, and the decoding tables that
+// jdhuff.c's jpeg_make_d_derived_tbl derives from it when a scan uses it
+// (so a bad table refuses only the scan that uses it, as in libjpeg).
 struct HuffDec {
   bool set = false;
+  uint8_t counts[16];
   uint8_t vals[256];
   int32_t maxcode[18];
   int32_t valoff[17];
   uint16_t look[1 << 9];  // (length << 8) | symbol, 0 = longer than 9 bits
 };
 
-void build_huff(HuffDec& h, const uint8_t* counts, const uint8_t* vals,
-                int nvals) {
-  memset(h.look, 0, sizeof(h.look));
+void define_huff(HuffDec& h, const uint8_t* counts, const uint8_t* vals,
+                 int nvals) {
+  memcpy(h.counts, counts, 16);
+  memset(h.vals, 0, sizeof(h.vals));
   memcpy(h.vals, vals, nvals);
+  h.set = true;
+}
+
+// jpeg_make_d_derived_tbl: no code may be all ones, and a DC table's
+// symbols are difference categories (0..15, or 0..16 when lossless)
+void build_huff(HuffDec& h, bool dc, bool lossless) {
+  memset(h.look, 0, sizeof(h.look));
   int32_t code = 0;
   int k = 0;
   for (int l = 1; l <= 16; ++l) {
     h.valoff[l] = k - code;
-    if (counts[l - 1]) {
-      for (int i = 0; i < counts[l - 1]; ++i, ++code, ++k) {
-        if (l <= 9) {
-          int base = code << (9 - l);
-          for (int j = 0; j < (1 << (9 - l)); ++j)
-            h.look[base + j] = uint16_t((l << 8) | vals[k]);
-        }
+    const int cnt = h.counts[l - 1];
+    for (int i = 0; i < cnt; ++i, ++code, ++k) {
+      if (dc && h.vals[k] > (lossless ? 16 : 15))
+        throw Error("bad JPEG Huffman table (DC symbol " +
+                    std::to_string(h.vals[k]) + ")");
+      if (l <= 9) {
+        int base = code << (9 - l);
+        for (int j = 0; j < (1 << (9 - l)); ++j)
+          h.look[base + j] = uint16_t((l << 8) | h.vals[k]);
       }
-      if (code - 1 >= (1 << l)) throw Error("bad Huffman table");
-      h.maxcode[l] = code - 1;
-    } else {
-      h.maxcode[l] = -1;
     }
+    if (cnt && code >= (1 << l)) throw Error("bad JPEG Huffman table");
+    h.maxcode[l] = cnt ? code - 1 : -1;
     code <<= 1;
   }
   h.maxcode[17] = INT32_MAX;
-  h.set = true;
 }
 
-struct BitReader {
-  const uint8_t* p;
-  const uint8_t* end;
-  uint64_t acc = 0;
-  int nbits = 0;
-  bool marker = false;  // stopped at a marker: feed zeros from here
+// A read reached the end of the bytes PIL has handed libjpeg so far (its
+// reads are 64 KiB): libjpeg suspends and redoes the MCU with more.
+struct Suspend {};
+// The stream ended where libjpeg needed more: PIL raises "image file is
+// truncated" (unless the frame's one scan is already decoded)
+struct EndOfData {};
 
-  void fill() {
-    while (nbits <= 56) {
-      unsigned b = 0;
-      if (!marker && p < end) {
-        b = *p;
-        if (b == 0xFF) {
-          unsigned b2 = p + 1 < end ? p[1] : 0xD9;
-          if (b2 == 0) {
-            p += 2;
-          } else {
-            marker = true;
-            b = 0;
+const char* const kTruncated = "JPEG data ends early (truncated stream)";
+
+// jdhuff.c's bit reader, fill for fill: the slow path's
+// jpeg_fill_bit_buffer (to 57 bits; at a marker it stops and, when a
+// request needs more bits than are left, feeds zeros and sets
+// insufficient_data) and decode_mcu_fast's FILL_BIT_BUFFER_FAST (six
+// bytes when 16 bits or fewer are left; at a marker the MCU is redone on
+// the slow path). Which fills happen decides where a short stream runs
+// dry, so both are kept exactly.
+struct BitReader {
+  const uint8_t* d;
+  size_t p, end, n;  // next byte, end of the bytes handed over, stream end
+  uint64_t acc = 0;  // nbits valid bits at the top
+  int nbits = 0;
+  int marker = 0;  // libjpeg's unread_marker, met by the reader
+  bool insufficient = false;
+  bool fast_marker = false;  // the fast path met a marker
+
+  BitReader(const uint8_t* data, size_t pos, size_t end_, size_t len)
+      : d(data), p(pos), end(end_), n(len) {}
+
+  [[noreturn]] void dry() const {
+    if (end >= n) throw Error(kTruncated);
+    throw Suspend{};
+  }
+  void fill(int need) {
+    if (!marker) {
+      while (nbits < 57) {
+        if (p >= end) dry();
+        unsigned c = d[p++];
+        if (c == 0xFF) {
+          do {
+            if (p >= end) dry();
+            c = d[p++];
+          } while (c == 0xFF);
+          if (c != 0) {
+            marker = int(c);
+            break;
           }
-        } else {
-          ++p;
+          c = 0xFF;
         }
+        acc |= uint64_t(c) << (56 - nbits);
+        nbits += 8;
       }
-      acc |= uint64_t(b) << (56 - nbits);
+      if (!marker) return;
+    }
+    if (need > nbits) {  // zeros below the valid bits already
+      insufficient = true;
+      nbits = 57;
+    }
+  }
+  void fill_fast() {
+    for (int i = 0; i < 6; ++i) {
+      unsigned c0 = p < end ? d[p] : 0xFF;
+      unsigned c1 = p + 1 < end ? d[p + 1] : 0xD9;
+      if (c0 == 0xFF && c1 != 0) {
+        fast_marker = true;
+        c0 = 0;
+      } else {
+        p += c0 == 0xFF ? 2 : 1;
+      }
+      acc |= uint64_t(c0) << (56 - nbits);
       nbits += 8;
     }
   }
-  inline unsigned peek(int n) { return unsigned(acc >> (64 - n)); }
-  inline void skip(int n) {
-    acc <<= n;
-    nbits -= n;
+  inline unsigned peek(int k) const { return unsigned(acc >> (64 - k)); }
+  inline void skip(int k) {
+    acc <<= k;
+    nbits -= k;
   }
-  inline int get(int n) {
-    int v = int(acc >> (64 - n));
-    skip(n);
+  inline int get(int k) {
+    int v = int(acc >> (64 - k));
+    skip(k);
     return v;
   }
-  inline int bits(int n) {  // get() with the buffer refilled first
-    if (nbits < 32) fill();
-    return get(n);
+  // the slow path: CHECK_BIT_BUFFER then GET_BITS
+  inline int bits(int k) {
+    if (nbits < k) fill(k);
+    return get(k);
   }
-  void reset() {
-    acc = 0;
-    nbits = 0;
-    marker = false;
+  // jpeg_huff_decode from a code of l bits; 17 bits and symbol 0 when no
+  // code of 16 bits or fewer matches (JWRN_HUFF_BAD_CODE)
+  int decode_from(const HuffDec& h, int l) {
+    int32_t code = bits(l);
+    while (code > h.maxcode[l]) {
+      code = (code << 1) | bits(1);
+      ++l;
+    }
+    return l > 16 ? 0 : h.vals[(h.valoff[l] + code) & 0xFF];
+  }
+  // HUFF_DECODE: an 8-bit lookahead once the buffer holds 8 bits
+  inline int decode(const HuffDec& h) {
+    if (nbits < 8) {
+      fill(0);
+      if (nbits < 8) return decode_from(h, 1);
+    }
+    uint16_t e = h.look[peek(9)];
+    if (e && (e >> 8) <= 8) {
+      skip(e >> 8);
+      return e & 0xFF;
+    }
+    return decode_from(h, 9);
+  }
+  // the fast path: HUFF_DECODE_FAST and its GET_BITS
+  inline int bits_fast(int k) {
+    if (nbits <= 16) fill_fast();
+    return get(k);
+  }
+  inline int decode_fast(const HuffDec& h) {
+    if (nbits <= 16) fill_fast();
+    uint16_t e = h.look[peek(9)];
+    if (e) {
+      skip(e >> 8);
+      return e & 0xFF;
+    }
+    for (int l = 10; l <= 16; ++l) {
+      int32_t code = int32_t(peek(l));
+      if (code <= h.maxcode[l]) {
+        skip(l);
+        return h.vals[(h.valoff[l] + code) & 0xFF];
+      }
+    }
+    skip(17);
+    return 0;
   }
 };
-
-inline int decode_sym(BitReader& br, const HuffDec& h) {
-  if (br.nbits < 32) br.fill();
-  uint16_t e = h.look[br.peek(9)];
-  if (e) {
-    br.skip(e >> 8);
-    return e & 0xFF;
-  }
-  for (int l = 10; l <= 16; ++l) {
-    int32_t code = int32_t(br.peek(l));
-    if (code <= h.maxcode[l]) {
-      br.skip(l);
-      return h.vals[(h.valoff[l] + code) & 0xFF];
-    }
-  }
-  throw Error("corrupt JPEG data: bad Huffman code");
-}
 
 inline int extend(int v, int t) {
   return v < (1 << (t - 1)) ? v - (1 << t) + 1 : v;
@@ -536,43 +739,44 @@ const int32_t kAritab[114] = {
 #undef ARI
 
 // jdarith.c's decoder: C holds the interval base and the input bits, CT
-// counts the bits left, A the interval size; a marker feeds zeros.
-// libjpeg cannot suspend it, and PIL hands libjpeg a stream in 64 KiB
-// reads, so PIL refuses a scan that reads a byte at or past `limit`: the
-// end of the reads that held its header, or of the stream
+// counts the bits left (-1 after a bad code: the rest of the restart
+// interval decodes as zero blocks), A the interval size; a marker feeds
+// zeros. libjpeg cannot suspend it, and PIL hands libjpeg a stream in
+// 64 KiB reads, so PIL refuses a scan that reads a byte at or past
+// `limit`: the end of the reads that held its header, or of the stream
 struct ArithReader {
   const uint8_t* base;  // the stream's first byte
   const uint8_t* p;
   const uint8_t* limit;
+  const uint8_t* end;  // the stream's end
   int64_t c = 0, a = 0;
   int ct = -16;  // -16: two bytes to read before the first decision
-  bool marker = false;
+  int marker = 0;  // libjpeg's unread_marker, met by the decoder
 
   void reset() {
     c = 0;
     a = 0;
     ct = -16;
-    marker = false;
   }
   void reach(const uint8_t* q) const {
-    if (q >= limit)
-      throw Error("unsupported JPEG arithmetic-coded scan: it reads byte " +
-                  std::to_string(q - base) + ", past the 64 KiB read that "
-                  "holds its header (libjpeg cannot suspend an arithmetic "
-                  "decoder there, so PIL refuses it)");
+    if (q < limit) return;
+    if (limit >= end) throw Error(kTruncated);
+    throw Error("unsupported JPEG arithmetic-coded scan: it reads byte " +
+                std::to_string(q - base) + ", past the 64 KiB read that "
+                "holds its header (libjpeg cannot suspend an arithmetic "
+                "decoder there, so PIL refuses it)");
   }
   int byte() {
     if (marker) return 0;
     reach(p);
-    if (*p != 0xFF) return *p++;
-    const uint8_t* q = p;
-    while (q < limit && *q == 0xFF) ++q;  // fill bytes
-    reach(q);
-    if (*q == 0) {
-      p = q + 1;
-      return 0xFF;  // stuffed zero
-    }
-    marker = true;  // p stays on the marker
+    int v = *p++;
+    if (v != 0xFF) return v;
+    do {  // fill bytes
+      reach(p);
+      v = *p++;
+    } while (v == 0xFF);
+    if (v == 0) return 0xFF;  // stuffed zero
+    marker = v;
     return 0;
   }
   int decode(uint8_t* st) {
@@ -629,6 +833,10 @@ struct Comp {
   // progressive: each coefficient's last Al, -1 until a scan sends it
   // (libjpeg's coef_bits; a complete stream smooths with the final ones)
   int coef_bits[64];
+  // the same before the component's latest scan (libjpeg's second half of
+  // coef_bits); smoothing uses them for the iMCU rows past the last one
+  // that the final scan decoded with data
+  int prev_coef_bits[64];
   std::vector<uint8_t> plane;  // IDCT (or lossless) output, stride pw
   int pw = 0;
 };
@@ -663,6 +871,12 @@ struct Decoder {
   bool jfif = false, adobe = false;
   int adobe_transform = 0;
   bool have_frame = false, have_scan = false;
+  int scans = 0;             // SOS markers read (input_scan_number)
+  bool multi_scan = false;   // has_multiple_scans, set by the first scan
+  bool single_done = false;  // the frame's one scan is decoded
+  int unread_marker = 0;     // a marker the entropy decoder stopped at
+  int next_rst = 0;          // the RSTn due next
+  int last_good_row = 0;     // last_good_iMCU_row
   // the current scan
   Comp* sc[4];
   int ns = 0, Ss = 0, Se = 63, Ah = 0, Al = 0;
@@ -677,7 +891,7 @@ struct Decoder {
   }
 
   int u8() {
-    if (pos >= n) throw Error("JPEG data ends early");
+    if (pos >= n) throw EndOfData{};
     return d[pos++];
   }
   int u16() {
@@ -685,67 +899,131 @@ struct Decoder {
     return (hi << 8) | u8();
   }
 
-  // next marker code; skips fill bytes and stray data before it
-  int next_marker() {
+  // jdmarker.c next_marker from p: stray bytes and FF00 pairs are skipped,
+  // then fill bytes; more(q) runs before byte q is read
+  template <class More>
+  int next_marker_from(size_t& p, More&& more) {
     for (;;) {
-      while (pos < n && d[pos] != 0xFF) ++pos;
-      while (pos < n && d[pos] == 0xFF) ++pos;
-      if (pos >= n) return 0xD9;  // no EOI: treat the end as one
-      int m = d[pos++];
-      if (m != 0) return m;
+      more(p);
+      int c = d[p++];
+      while (c != 0xFF) {
+        more(p);
+        c = d[p++];
+      }
+      do {
+        more(p);
+        c = d[p++];
+      } while (c == 0xFF);
+      if (c != 0) return c;
     }
   }
 
+  // jdmarker.c read_restart_marker and jpeg_resync_to_restart: take the
+  // marker the entropy decoder met (or the next one); when it is not the
+  // RSTn due, skip markers below SOF0 and RSTns just passed, stop (and
+  // decode empty segments) at any other marker or at one of the next two
+  // RSTns, and resume at any other RSTn
+  template <class More>
+  void read_restart_marker(int& marker, size_t& p, More&& more) {
+    if (!marker) marker = next_marker_from(p, more);
+    const int want = next_rst;
+    while (marker != 0xD0 + want) {
+      int action;
+      if (marker < 0xC0)
+        action = 2;
+      else if (marker < 0xD0 || marker > 0xD7)
+        action = 3;
+      else if (marker == 0xD0 + ((want + 1) & 7) ||
+               marker == 0xD0 + ((want + 2) & 7))
+        action = 3;
+      else if (marker == 0xD0 + ((want - 1) & 7) ||
+               marker == 0xD0 + ((want - 2) & 7))
+        action = 2;
+      else
+        action = 1;
+      if (action == 1) break;
+      if (action == 3) {
+        next_rst = (next_rst + 1) & 7;
+        return;
+      }
+      marker = next_marker_from(p, more);
+    }
+    marker = 0;
+    next_rst = (next_rst + 1) & 7;
+  }
+
+  // The markers up to EOI, decoding each scan. Where the stream ends
+  // before EOI, PIL raises, unless the frame has one scan and it is
+  // decoded: libjpeg's jpeg_finish_decompress then suspends past the last
+  // row, which PIL accepts.
   void parse(bool header_only) {
     if (n < 2 || d[0] != 0xFF || d[1] != 0xD8)
       throw Error("not a JPEG stream (no SOI marker)");
     pos = 2;
-    for (;;) {
-      int m = next_marker();
-      if (m == 0xD9) break;
-      if (m >= 0xD0 && m <= 0xD7) continue;  // stray RSTn
-      if (m == 0x01) continue;              // TEM
-      size_t start = pos;
-      int len = u16();
-      if (len < 2 || start + len > n) throw Error("bad JPEG marker length");
-      size_t seg_end = start + len;
-      if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC3 || m == 0xC9 ||
-          m == 0xCA) {
-        read_sof(m);
-        if (header_only) return;
-      } else if (m >= 0xC5 && m <= 0xCF && m != 0xCC) {
-        throw Error(std::string("unsupported JPEG process: ") + sof_name(m));
-      } else if (m == 0xCC) {
-        read_dac(seg_end);
-      } else if (m == 0xC4) {
-        read_dht(seg_end);
-      } else if (m == 0xDB) {
-        read_dqt(seg_end);
-      } else if (m == 0xDD) {
-        restart = u16();
-      } else if (m == 0xDA) {
-        if (!have_frame) throw Error("JPEG scan before its frame header");
-        read_sos_and_decode(seg_end);
-        continue;  // pos is past the entropy-coded data
-      } else if (m == 0xE0) {
-        // libjpeg's examine_app0: "JFIF\0" with at least 14 data bytes
-        if (len - 2 >= 14 && memcmp(d + pos, "JFIF\0", 5) == 0) jfif = true;
-      } else if (m == 0xEE) {
-        // examine_app14: "Adobe" with at least 12 data bytes
-        if (len - 2 >= 12 && memcmp(d + pos, "Adobe", 5) == 0) {
-          adobe = true;
-          adobe_transform = d[pos + 11];
+    auto more = [&](size_t q) {
+      if (q >= n) throw EndOfData{};
+    };
+    try {
+      for (;;) {
+        int m = unread_marker;
+        unread_marker = 0;
+        if (!m) m = next_marker_from(pos, more);
+        if (m == 0xD9) break;
+        if (m >= 0xD0 && m <= 0xD7) continue;  // stray RSTn
+        if (m == 0x01) continue;              // TEM
+        // read_markers refuses these before reading a length
+        const bool sof = m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC3 ||
+                         m == 0xC9 || m == 0xCA;
+        if (sof && have_frame)
+          throw Error("JPEG stream has two frame headers");
+        if (m >= 0xC5 && m <= 0xCF && m != 0xCC && !sof)
+          throw Error(std::string("unsupported JPEG process: ") + sof_name(m));
+        if (!sof && m != 0xC4 && m != 0xCC && m != 0xDA && m != 0xDB &&
+            m != 0xDC && m != 0xDD && !(m >= 0xE0 && m <= 0xEF) &&
+            m != 0xFE) {
+          // SOI again, DHP, EXP, JPGn, RESn and codes below SOF0
+          char buf[64];
+          snprintf(buf, sizeof(buf), "unsupported JPEG marker 0x%02X", m);
+          throw Error(buf);
         }
-      } else if (m == 0xDC) {
-        throw Error("unsupported JPEG marker: DNL");
-      } else if (!(m >= 0xE0 && m <= 0xEF) && m != 0xFE) {
-        // libjpeg reads APPn, COM and the markers above; DHP, EXP, JPGn
-        // and RESn stop it
-        char buf[64];
-        snprintf(buf, sizeof(buf), "unsupported JPEG marker 0x%02X", m);
-        throw Error(buf);
+        // a segment is read byte by byte: a refusal inside it stands even
+        // where the stream ends later
+        size_t start = pos;
+        int len = u16();
+        if (len < 2) throw Error("bad JPEG marker length");
+        size_t seg_end = start + len;
+        if (sof) {
+          read_sof(m);
+          if (header_only) return;
+        } else if (m == 0xCC) {
+          read_dac(seg_end);
+        } else if (m == 0xC4) {
+          read_dht(seg_end);
+        } else if (m == 0xDB) {
+          read_dqt(seg_end);
+        } else if (m == 0xDD) {
+          restart = u16();
+        } else if (m == 0xDA) {
+          if (!have_frame) throw Error("JPEG scan before its frame header");
+          read_sos_and_decode(seg_end);
+          if (!multi_scan) single_done = true;
+          continue;  // pos is past the entropy-coded data
+        } else if (m == 0xE0 || m == 0xEE) {
+          // get_interesting_appn reads up to 14 bytes, then examine_app0
+          // ("JFIF\0" in at least 14) or examine_app14 ("Adobe" in 12)
+          if (pos + std::min(len - 2, 14) > n) throw EndOfData{};
+          if (m == 0xE0 && len - 2 >= 14 && memcmp(d + pos, "JFIF\0", 5) == 0)
+            jfif = true;
+          if (m == 0xEE && len - 2 >= 12 && memcmp(d + pos, "Adobe", 5) == 0) {
+            adobe = true;
+            adobe_transform = d[pos + 11];
+          }
+        }  // APPn, COM and DNL (which libjpeg skips) are skipped
+        if (seg_end > n) throw EndOfData{};
+        pos = seg_end;
       }
-      pos = seg_end;
+    } catch (const EndOfData&) {
+      if (header_only || !single_done) throw Error(kTruncated);
     }
     if (!have_frame) throw Error("JPEG stream has no frame header");
     if (!header_only && !have_scan) throw Error("JPEG stream has no scan");
@@ -818,7 +1096,8 @@ struct Decoder {
       for (int i = 0; i < 16; ++i) total += counts[i] = uint8_t(u8());
       if (total > 256 || pos + total > seg_end)
         throw Error("bad JPEG Huffman table");
-      build_huff(tc ? ac[th] : dc[th], counts, d + pos, total);
+      if (pos + total > n) throw EndOfData{};
+      define_huff(tc ? ac[th] : dc[th], counts, d + pos, total);
       pos += total;
     }
   }
@@ -871,7 +1150,13 @@ struct Decoder {
     Ah = a >> 4;
     Al = a & 15;
     pos = seg_end;
+    // jdinput.c consume_markers: JERR_EOI_EXPECTED
+    if (single_done)
+      throw Error("JPEG stream has a second scan after a scan of every "
+                  "component");
     have_scan = true;
+    next_rst = 0;
+    if (++scans == 1) multi_scan = ns < nc || progressive;
     if (ns > 1) {  // jdinput.c: an interleaved MCU holds at most 10 blocks
       int blocks = 0;
       for (int i = 0; i < ns; ++i) blocks += sc[i]->h * sc[i]->v;
@@ -879,11 +1164,13 @@ struct Decoder {
         throw Error("JPEG sampling factors too large for an interleaved "
                     "scan (" + std::to_string(blocks) + " blocks in an MCU)");
     }
-    if (!arith) {  // libjpeg-turbo's default tables fill empty slots 0, 1
-      if (!dc[0].set) build_huff(dc[0], kDcLumaBits, kDcVals, 12);
-      if (!dc[1].set) build_huff(dc[1], kDcChromaBits, kDcVals, 12);
-      if (!ac[0].set) build_huff(ac[0], kAcLumaBits, kAcLumaVals, 162);
-      if (!ac[1].set) build_huff(ac[1], kAcChromaBits, kAcChromaVals, 162);
+    if (!arith && !progressive && !lossless) {
+      // jinit_huff_decoder's std_huff_tables fill empty slots 0 and 1 (the
+      // progressive and lossless decoders have no such default)
+      if (!dc[0].set) define_huff(dc[0], kDcLumaBits, kDcVals, 12);
+      if (!dc[1].set) define_huff(dc[1], kDcChromaBits, kDcVals, 12);
+      if (!ac[0].set) define_huff(ac[0], kAcLumaBits, kAcLumaVals, 162);
+      if (!ac[1].set) define_huff(ac[1], kAcChromaBits, kAcChromaVals, 162);
     }
     if (lossless) {
       decode_lossless_scan();
@@ -913,12 +1200,16 @@ struct Decoder {
           (need_ac && (c.ta > 3 || !ac[c.ta].set)))
         throw Error("JPEG scan uses an undefined Huffman table");
     }
+    for (int i = 0; i < ns; ++i) {
+      if (need_dc) build_huff(dc[sc[i]->td], true, false);
+      if (need_ac) build_huff(ac[sc[i]->ta], false, false);
+    }
     decode_huffman_scan();
   }
 
   // jdphuff.c start_pass_phuff_decoder (jdarith.c's is the same): the
   // checks of Ss, Se, Ah, Al and the progression status of each
-  // coefficient
+  // coefficient, the previous status kept for smoothing
   void start_progressive_scan() {
     bool bad = false;
     if (Ss == 0) {
@@ -933,108 +1224,168 @@ struct Decoder {
       throw Error("bad JPEG progression parameters Ss=" +
                   std::to_string(Ss) + " Se=" + std::to_string(Se) +
                   " Ah=" + std::to_string(Ah) + " Al=" + std::to_string(Al));
-    for (int i = 0; i < ns; ++i)
-      std::fill(sc[i]->coef_bits + Ss, sc[i]->coef_bits + Se + 1, Al);
+    for (int i = 0; i < ns; ++i) {
+      Comp& c = *sc[i];
+      for (int k = std::min(Ss, 1); k <= std::max(Se, 9); ++k)
+        c.prev_coef_bits[k] = scans > 1 ? c.coef_bits[k] : 0;
+      std::fill(c.coef_bits + Ss, c.coef_bits + Se + 1, Al);
+    }
   }
 
-  // Calls block(comp, blk) for every block of the scan in stream order and
-  // at_restart() where a restart interval ends.
-  template <class Block, class Restart>
-  void for_each_block(Block&& block, Restart&& at_restart) {
-    int todo = restart;
-    auto mcu_start = [&]() {
-      if (restart == 0) return;
-      if (todo == 0) {
-        at_restart();
-        todo = restart;
-      }
-      --todo;
-    };
+  // the blocks of one MCU in stream order, and its iMCU row
+  struct MCU {
+    Comp* c[10];
+    int16_t* b[10];
+    int n = 0;
+    int row = 0;
+  };
+
+  // Calls f(mcu) for every MCU of the scan in stream order.
+  template <class F>
+  void for_each_mcu(F&& f) {
+    MCU m;
     if (ns == 1) {
       Comp& c = *sc[0];
       int nbx = (c.dw + 7) / 8, nby = (c.dh + 7) / 8;
-      for (int by = 0; by < nby; ++by)
+      m.n = 1;
+      m.c[0] = &c;
+      for (int by = 0; by < nby; ++by) {
+        m.row = by / c.v;
         for (int bx = 0; bx < nbx; ++bx) {
-          mcu_start();
-          block(c, &c.coef[(size_t(by) * c.bw + bx) * 64]);
+          m.b[0] = &c.coef[(size_t(by) * c.bw + bx) * 64];
+          f(m);
         }
-    } else {
-      for (int my = 0; my < mcuy; ++my)
-        for (int mx = 0; mx < mcux; ++mx) {
-          mcu_start();
-          for (int i = 0; i < ns; ++i) {
-            Comp& c = *sc[i];
-            for (int yy = 0; yy < c.v; ++yy)
-              for (int xx = 0; xx < c.h; ++xx) {
-                size_t by = size_t(my) * c.v + yy, bx = size_t(mx) * c.h + xx;
-                block(c, &c.coef[(by * c.bw + bx) * 64]);
-              }
-          }
+      }
+      return;
+    }
+    for (int my = 0; my < mcuy; ++my) {
+      m.row = my;
+      for (int mx = 0; mx < mcux; ++mx) {
+        m.n = 0;
+        for (int i = 0; i < ns; ++i) {
+          Comp& c = *sc[i];
+          for (int yy = 0; yy < c.v; ++yy)
+            for (int xx = 0; xx < c.h; ++xx) {
+              size_t by = size_t(my) * c.v + yy, bx = size_t(mx) * c.h + xx;
+              m.c[m.n] = &c;
+              m.b[m.n++] = &c.coef[(by * c.bw + bx) * 64];
+            }
         }
+        f(m);
+      }
     }
   }
 
-  // the position just past the next RSTn marker at or after p
-  const uint8_t* skip_to_restart(const uint8_t* p) const {
-    const uint8_t* end = d + n;
-    while (p + 1 < end && !(p[0] == 0xFF && p[1] >= 0xD0 && p[1] <= 0xD7))
-      ++p;
-    return p + 1 < end ? p + 2 : end;
-  }
-
+  // Huffman scans, MCU by MCU as jdhuff.c / jdphuff.c decode_mcu: a
+  // restart first (process_restart: the bit buffer dropped, the marker
+  // read or resynced to, the predictions and the EOB run reset, and
+  // insufficient_data cleared unless a marker is still pending); an MCU
+  // met after the data ran out at a marker is left as it is (zero blocks
+  // in a first scan). A sequential MCU takes libjpeg-turbo's fast path
+  // where no restart interval is set, no marker is pending and PIL's read
+  // holds 512 bytes a block; a fast MCU that meets a marker is redone on
+  // the slow path over what it wrote, and an MCU that runs past PIL's read
+  // is redone with the next read (zeroed first in a one-scan frame).
   void decode_huffman_scan() {
-    BitReader br{d + pos, d + n};
+    const size_t end0 =
+        progressive ? n : std::min((pos + 65535) / 65536 * 65536, n);
+    BitReader br(d, pos, end0, n);
     for (int i = 0; i < ns; ++i) sc[i]->pred = 0;
     eobrun = 0;
+    int togo = restart;
+    auto more = [&](size_t q) {
+      if (q >= n) throw Error(kTruncated);
+      if (q >= br.end) br.end = std::min(br.end + 65536, n);
+    };
     auto at_restart = [&]() {
-      // discard the partial byte, find RSTn, restart prediction
-      br.p = skip_to_restart(br.p);
-      br.reset();
+      br.acc = 0;
+      br.nbits = 0;
+      read_restart_marker(br.marker, br.p, more);
+      if (!br.marker) br.insufficient = false;
       for (int i = 0; i < ns; ++i) sc[i]->pred = 0;
       eobrun = 0;
+      togo = restart;
     };
     if (!progressive) {
-      for_each_block([&](Comp& c, int16_t* b) { decode_block(br, c, b); },
-                     at_restart);
-    } else if (Ss == 0 && Ah == 0) {
-      for_each_block([&](Comp& c, int16_t* b) { dc_first(br, c, b); },
-                     at_restart);
-    } else if (Ss == 0) {
-      const int p1 = 1 << Al;
-      for_each_block(
-          [&](Comp&, int16_t* b) {
-            if (br.bits(1)) b[0] = int16_t(b[0] | p1);
-          },
-          at_restart);
-    } else if (Ah == 0) {
-      for_each_block([&](Comp& c, int16_t* b) { ac_first(br, c, b); },
-                     at_restart);
+      const size_t fast_bytes = size_t(512) * (ns == 1 ? 1 : blocks_in_mcu());
+      int preds[4];
+      for_each_mcu([&](MCU& m) {
+        if (restart && togo == 0) at_restart();
+        if (!br.insufficient) {
+          BitReader keep = br;
+          for (int i = 0; i < ns; ++i) preds[i] = sc[i]->pred;
+          for (;;) {
+            try {
+              if (!restart && !br.marker && br.end - br.p >= fast_bytes) {
+                for (int j = 0; j < m.n; ++j)
+                  decode_block<true>(br, *m.c[j], m.b[j]);
+                if (!br.fast_marker) break;
+                br = keep;
+                for (int i = 0; i < ns; ++i) sc[i]->pred = preds[i];
+              }
+              for (int j = 0; j < m.n; ++j)
+                decode_block<false>(br, *m.c[j], m.b[j]);
+              break;
+            } catch (const Suspend&) {
+              keep.end = std::min(keep.end + 65536, n);
+              br = keep;
+              for (int i = 0; i < ns; ++i) sc[i]->pred = preds[i];
+              if (!multi_scan)
+                for (int j = 0; j < m.n; ++j) memset(m.b[j], 0, 128);
+            }
+          }
+        }
+        if (restart) --togo;
+      });
     } else {
-      for_each_block([&](Comp& c, int16_t* b) { ac_refine(br, c, b); },
-                     at_restart);
+      const int p1 = 1 << Al;
+      for_each_mcu([&](MCU& m) {
+        if (!br.insufficient) last_good_row = m.row;
+        if (restart && togo == 0) at_restart();
+        if (!br.insufficient) {
+          for (int j = 0; j < m.n; ++j) {
+            Comp& c = *m.c[j];
+            int16_t* b = m.b[j];
+            if (Ss == 0 && Ah == 0)
+              dc_first(br, c, b);
+            else if (Ss == 0) {
+              if (br.bits(1)) b[0] = int16_t(b[0] | p1);
+            } else if (Ah == 0)
+              ac_first(br, c, b);
+            else
+              ac_refine(br, c, b);
+          }
+        }
+        if (restart) --togo;
+      });
     }
-    pos = size_t(br.p - d);
+    pos = br.p;
+    unread_marker = br.marker;
   }
 
+  int blocks_in_mcu() const {
+    int blocks = 0;
+    for (int i = 0; i < ns; ++i) blocks += sc[i]->h * sc[i]->v;
+    return blocks;
+  }
+
+  // jdhuff.c decode_mcu_fast / decode_mcu_slow, one block
+  template <bool Fast>
   inline void decode_block(BitReader& br, Comp& c, int16_t* blk) {
     const HuffDec& hd = dc[c.td];
     const HuffDec& ha = ac[c.ta];
-    int s = decode_sym(br, hd);
-    if (s) {
-      if (s > 16) throw Error("corrupt JPEG data: bad DC category");
-      if (br.nbits < 32) br.fill();
-      s = extend(br.get(s), s);
-    }
+    int s = Fast ? br.decode_fast(hd) : br.decode(hd);
+    if (s) s = extend(Fast ? br.bits_fast(s) : br.bits(s), s);
     c.pred = int(unsigned(c.pred) + unsigned(s));  // wraps, as JCOEF does
     blk[0] = int16_t(c.pred);
     for (int k = 1; k < 64; ++k) {
-      int rs = decode_sym(br, ha);
+      int rs = Fast ? br.decode_fast(ha) : br.decode(ha);
       int r = rs >> 4;
       s = rs & 15;
       if (s) {
         k += r;
-        if (br.nbits < 32) br.fill();
-        blk[kNatural[k]] = int16_t(extend(br.get(s), s));
+        int v = Fast ? br.bits_fast(s) : br.bits(s);
+        blk[kNatural[k]] = int16_t(extend(v, s));
       } else {
         if (r != 15) break;
         k += 15;
@@ -1044,11 +1395,8 @@ struct Decoder {
 
   // jdphuff.c decode_mcu_DC_first, one block
   void dc_first(BitReader& br, Comp& c, int16_t* blk) {
-    int s = decode_sym(br, dc[c.td]);
-    if (s) {
-      if (s > 16) throw Error("corrupt JPEG data: bad DC category");
-      s = extend(br.bits(s), s);
-    }
+    int s = br.decode(dc[c.td]);
+    if (s) s = extend(br.bits(s), s);
     c.pred = int(unsigned(c.pred) + unsigned(s));
     blk[0] = int16_t(unsigned(c.pred) << Al);
   }
@@ -1061,7 +1409,7 @@ struct Decoder {
     }
     const HuffDec& ha = ac[c.ta];
     for (int k = Ss; k <= Se; ++k) {
-      int rs = decode_sym(br, ha);
+      int rs = br.decode(ha);
       int r = rs >> 4, s = rs & 15;
       if (s) {
         k += r;
@@ -1090,7 +1438,7 @@ struct Decoder {
     int k = Ss;
     if (eobrun == 0) {
       for (; k <= Se; ++k) {
-        int rs = decode_sym(br, ha);
+        int rs = br.decode(ha);
         int r = rs >> 4, s = rs & 15;
         if (s) {
           s = br.bits(1) ? p1 : m1;
@@ -1125,7 +1473,7 @@ struct Decoder {
   void decode_arith_scan() {
     // PIL's reads are 65536 bytes from the stream's start
     const size_t reads_end = (pos + 65535) / 65536 * 65536;
-    ArithReader ar{d, d + pos, d + std::min(reads_end, n)};
+    ArithReader ar{d, d + pos, d + std::min(reads_end, n), d + n};
     dc_stats.resize(16 * 64);
     ac_stats.resize(16 * 256);
     const bool need_dc = !progressive || (Ss == 0 && Ah == 0);
@@ -1142,82 +1490,86 @@ struct Decoder {
       }
     };
     reset_stats();
-    auto at_restart = [&]() {
-      const uint8_t* next = skip_to_restart(ar.p);
-      if (!ar.marker) ar.reach(next - 1);  // libjpeg reads up to the RSTn
-      ar.p = next;
-      ar.reset();
-      reset_stats();
-    };
-    if (!progressive) {
-      for_each_block(
-          [&](Comp& c, int16_t* b) {
-            b[0] = int16_t(arith_dc(ar, c));
-            arith_ac(ar, c, b, 1, 63, 0);
-          },
-          at_restart);
-    } else if (Ss == 0 && Ah == 0) {
-      for_each_block(
-          [&](Comp& c, int16_t* b) {
-            b[0] = int16_t(unsigned(arith_dc(ar, c)) << Al);
-          },
-          at_restart);
-    } else if (Ss == 0) {
-      const int p1 = 1 << Al;
-      for_each_block(
-          [&](Comp&, int16_t* b) {
-            if (ar.decode(&fixed_bin)) b[0] = int16_t(b[0] | p1);
-          },
-          at_restart);
-    } else if (Ah == 0) {
-      for_each_block(
-          [&](Comp& c, int16_t* b) { arith_ac(ar, c, b, Ss, Se, Al); },
-          at_restart);
-    } else {
-      for_each_block(
-          [&](Comp& c, int16_t* b) { arith_ac_refine(ar, c, b); },
-          at_restart);
-    }
+    int togo = restart;
+    auto more = [&](size_t q) { ar.reach(d + q); };
+    const int p1 = 1 << Al;
+    // decode_mcu of each kind: a restart first; after a bad code (ct = -1)
+    // the rest of the restart interval is left as it is
+    for_each_mcu([&](MCU& m) {
+      last_good_row = m.row;  // jdarith.c never sets insufficient_data
+      if (restart) {
+        if (togo == 0) {
+          size_t p = size_t(ar.p - d);
+          read_restart_marker(ar.marker, p, more);
+          ar.p = d + p;
+          reset_stats();
+          ar.reset();
+          togo = restart;
+        }
+        --togo;
+      }
+      for (int j = 0; j < m.n && ar.ct != -1; ++j) {
+        Comp& c = *m.c[j];
+        int16_t* b = m.b[j];
+        if (!progressive) {
+          if (arith_dc(ar, c, b, 0)) arith_ac(ar, c, b, 1, 63, 0);
+        } else if (Ss == 0 && Ah == 0) {
+          arith_dc(ar, c, b, Al);
+        } else if (Ss == 0) {
+          if (ar.decode(&fixed_bin)) b[0] = int16_t(b[0] | p1);
+        } else if (Ah == 0) {
+          arith_ac(ar, c, b, Ss, Se, Al);
+        } else {
+          arith_ac_refine(ar, c, b);
+        }
+      }
+    });
     pos = size_t(ar.p - d);
+    unread_marker = ar.marker;
   }
 
-  // Figures F.19 to F.24: one DC difference; returns the new prediction
-  // (16 bits, as libjpeg keeps it)
-  int arith_dc(ArithReader& ar, Comp& c) {
+  // Figures F.19 to F.24: one DC difference, the block's DC written as the
+  // new prediction (16 bits, as libjpeg keeps it) << al; false after a
+  // magnitude overflow (JWRN_ARITH_BAD_CODE: ct = -1, the DC unwritten)
+  bool arith_dc(ArithReader& ar, Comp& c, int16_t* blk, int al) {
     uint8_t* stats = &dc_stats[c.td * 64];
     uint8_t* st = stats + c.dc_ctx;
     if (ar.decode(st) == 0) {
       c.dc_ctx = 0;
-      return c.pred;
-    }
-    int sign = ar.decode(st + 1);
-    st += 2 + sign;
-    int m = ar.decode(st);
-    if (m) {
-      st = stats + 20;
-      while (ar.decode(st)) {
-        if ((m <<= 1) == 0x8000)
-          throw Error("corrupt JPEG data: bad arithmetic code");
-        ++st;
+    } else {
+      int sign = ar.decode(st + 1);
+      st += 2 + sign;
+      int m = ar.decode(st);
+      if (m) {
+        st = stats + 20;
+        while (ar.decode(st)) {
+          if ((m <<= 1) == 0x8000) {
+            ar.ct = -1;
+            return false;
+          }
+          ++st;
+        }
       }
+      if (m < int((1L << dc_L[c.td]) >> 1))
+        c.dc_ctx = 0;
+      else if (m > int((1L << dc_U[c.td]) >> 1))
+        c.dc_ctx = 12 + sign * 4;
+      else
+        c.dc_ctx = 4 + sign * 4;
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar.decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      c.pred = (c.pred + v) & 0xFFFF;
     }
-    if (m < int((1L << dc_L[c.td]) >> 1))
-      c.dc_ctx = 0;
-    else if (m > int((1L << dc_U[c.td]) >> 1))
-      c.dc_ctx = 12 + sign * 4;
-    else
-      c.dc_ctx = 4 + sign * 4;
-    int v = m;
-    st += 14;
-    while (m >>= 1)
-      if (ar.decode(st)) v |= m;
-    v += 1;
-    if (sign) v = -v;
-    c.pred = (c.pred + v) & 0xFFFF;
-    return c.pred;
+    blk[0] = int16_t(unsigned(c.pred) << al);
+    return true;
   }
 
-  // Figure F.20: the AC coefficients k0..k1 of a block, scaled by << al
+  // Figure F.20: the AC coefficients k0..k1 of a block, scaled by << al; a
+  // run past k1 or a magnitude overflow sets ct = -1 and stops
   void arith_ac(ArithReader& ar, Comp& c, int16_t* blk, int k0, int k1,
                 int al) {
     uint8_t* stats = &ac_stats[c.ta * 256];
@@ -1226,7 +1578,10 @@ struct Decoder {
       if (ar.decode(st)) break;  // EOB
       while (ar.decode(st + 1) == 0) {
         st += 3;
-        if (++k > k1) throw Error("corrupt JPEG data: bad arithmetic code");
+        if (++k > k1) {
+          ar.ct = -1;
+          return;
+        }
       }
       int sign = ar.decode(&fixed_bin);
       st += 2;
@@ -1235,8 +1590,10 @@ struct Decoder {
         m <<= 1;
         st = stats + (k <= ac_K[c.ta] ? 189 : 217);
         while (ar.decode(st)) {
-          if ((m <<= 1) == 0x8000)
-            throw Error("corrupt JPEG data: bad arithmetic code");
+          if ((m <<= 1) == 0x8000) {
+            ar.ct = -1;
+            return;
+          }
           ++st;
         }
       }
@@ -1271,7 +1628,10 @@ struct Decoder {
           break;
         }
         st += 3;
-        if (++k > Se) throw Error("corrupt JPEG data: bad arithmetic code");
+        if (++k > Se) {
+          ar.ct = -1;
+          return;
+        }
       }
     }
   }
@@ -1287,6 +1647,10 @@ struct Decoder {
       Comp& c = *sc[i];
       if (c.td > 3 || !dc[c.td].set)
         throw Error("JPEG scan uses an undefined Huffman table");
+    }
+    for (int i = 0; i < ns; ++i) {
+      Comp& c = *sc[i];
+      build_huff(dc[c.td], true, true);
       c.pw = c.bw;
       if (c.plane.empty()) c.plane.assign(size_t(c.bw) * c.bh, 0);
       c.scanned = true;
@@ -1302,13 +1666,15 @@ struct Decoder {
       diff[i].assign(size_t(sc[i]->bw) * sc[i]->v, 0);
       undiff[i].assign(size_t(sc[i]->bw) * (sc[i]->v + 1), 0);
     }
-    BitReader br{d + pos, d + n};
+    BitReader br(d, pos, n, n);
+    auto more = [&](size_t q) {
+      if (q >= n) throw Error(kTruncated);
+    };
     bool first_row = true;
     int rows_to_go = restart / per_row;
     auto diff_of = [&](const HuffDec& h) {
-      int s = decode_sym(br, h);
+      int s = br.decode(h);
       if (s == 16) return 32768;
-      if (s > 16) throw Error("corrupt JPEG data: bad difference category");
       return s ? extend(br.bits(s), s) : 0;
     };
     const int initial = 1 << (8 - Al - 1);
@@ -1322,16 +1688,27 @@ struct Decoder {
         if (mcu_rows <= 0) break;
       }
       for (int yo = 0; yo < mcu_rows; ++yo) {
+        // jddiffct.c: a restart, or a row met after the data ran out at a
+        // marker (zero differences), restarts the undifferencing
         if (restart) {
           if (rows_to_go == 0) {
-            br.p = skip_to_restart(br.p);
-            br.reset();
+            br.acc = 0;
+            br.nbits = 0;
+            read_restart_marker(br.marker, br.p, more);
+            if (!br.marker) br.insufficient = false;
             first_row = true;
             rows_to_go = restart / per_row;
           }
           --rows_to_go;
         }
-        if (ns == 1) {
+        if (br.insufficient) {
+          first_row = true;
+          if (ns == 1)
+            std::fill_n(&diff[0][size_t(yo) * sc[0]->bw], per_row, 0);
+          else
+            for (int i = 0; i < ns; ++i)
+              std::fill(diff[i].begin(), diff[i].end(), 0);
+        } else if (ns == 1) {
           int* row = &diff[0][size_t(yo) * sc[0]->bw];
           const HuffDec& h = dc[sc[0]->td];
           for (int x = 0; x < per_row; ++x) row[x] = diff_of(h);
@@ -1367,7 +1744,8 @@ struct Decoder {
       }
       first_row = false;
     }
-    pos = size_t(br.p - d);
+    pos = br.p;
+    unread_marker = br.marker;
   }
 
   static void undifference_first(const int* df, int* out, int w, int init) {
@@ -1426,10 +1804,11 @@ struct Decoder {
   // then the IDCT
   void idct_smooth(Comp& c) {
     const int nbx = (c.dw + 7) / 8, nby = (c.dh + 7) / 8;
-    const int* cb = c.coef_bits;
-    const bool change_dc = cb[1] == -1 && cb[2] == -1 && cb[3] == -1 &&
-                           cb[4] == -1 && cb[5] == -1 && cb[6] == -1 &&
-                           cb[7] == -1 && cb[8] == -1 && cb[9] == -1;
+    // the status latched at the start of output: the final one, and for
+    // iMCU rows past the last that the final scan decoded with data, the
+    // one before each component's latest scan (-1s after one scan)
+    int prev[10];
+    for (int k = 1; k < 10; ++k) prev[k] = scans > 1 ? c.prev_coef_bits[k] : -1;
     const int64_t Q00 = c.q[0], Q01 = c.q[1], Q10 = c.q[8], Q20 = c.q[16],
                   Q11 = c.q[9], Q02 = c.q[2], Q03 = c.q[3], Q12 = c.q[10],
                   Q21 = c.q[17], Q30 = c.q[24];
@@ -1450,6 +1829,10 @@ struct Decoder {
       return int16_t(pred);
     };
     for (int r = 0; r < T; ++r) {
+      const int* cb = r > last_good_row ? prev : c.coef_bits;
+      const bool change_dc = cb[1] == -1 && cb[2] == -1 && cb[3] == -1 &&
+                             cb[4] == -1 && cb[5] == -1 && cb[6] == -1 &&
+                             cb[7] == -1 && cb[8] == -1 && cb[9] == -1;
       int block_rows = v;
       if (r == T - 1) {
         block_rows = nby % v;

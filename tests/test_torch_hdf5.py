@@ -17,7 +17,10 @@ package's, on the CPU.
   ``tests/test_torch_data.py``), and pickling."""
 
 import argparse
+import hashlib
+import json
 import pickle
+from pathlib import Path
 
 import h5py
 import numpy as np
@@ -167,33 +170,387 @@ def _write_big_endian(f):
     f.create_dataset("x", data=np.arange(4, dtype=">f4"))
 
 
-@pytest.mark.parametrize("feature,write,kw,match", [
+def _write_dense_links(f):
+    for i in range(12):
+        f.create_dataset(f"x{i}", data=np.arange(i + 1))
+
+
+def _all_datasets(path):
+    """Every dataset name h5py sees, soft links included."""
+    names = []
+    with h5py.File(path, "r") as f:
+        def visit(name, obj):
+            if isinstance(obj, h5py.Dataset):
+                names.append(name)
+        f.visititems(visit)
+        for k in f:
+            if isinstance(f.get(k, getlink=True), h5py.SoftLink):
+                names.append(k)
+    return names
+
+
+def _reads_as_h5py(path, names=None):
+    """Every dataset read by the port equals h5py's (dtype with its byte
+    order, shape, bytes) through ``ds[()]``, ``np.asarray``, rows and row
+    ranges."""
+    names = names or _all_datasets(path)
+    assert names
+    with h5py.File(path, "r") as ref, hdf5.File(path) as f:
+        for name in names:
+            want = ref[name][()]
+            assert bits_equal(f[name][()], want), name
+            assert bits_equal(np.asarray(f[name]), np.asarray(ref[name])), \
+                name
+            assert f[name].shape == ref[name].shape
+            if want.ndim and len(want) > 2:
+                assert bits_equal(f[name][1:3], ref[name][1:3]), name
+                assert bits_equal(f[name][-1], ref[name][-1]), name
+    return names
+
+
+@pytest.mark.parametrize("feature,write,kw", [
     ("latest", lambda f: f.create_dataset("x", data=np.arange(4)),
-     dict(libver="latest"), "superblock version 3"),
+     dict(libver="latest")),
     ("v2_headers", lambda f: f.create_dataset("x", data=np.arange(4)),
-     dict(track_order=True), "version 2 object headers"),
+     dict(track_order=True)),
     ("shuffle", lambda f: f.create_dataset(
         "x", data=np.ones((4, 10)), chunks=(1, 10), shuffle=True,
-        compression="gzip"), {}, "shuffle filter"),
+        compression="gzip"), {}),
     ("fletcher32", lambda f: f.create_dataset(
-        "x", data=np.ones((4, 10)), chunks=(1, 10), fletcher32=True), {},
-     "fletcher32 filter"),
-    ("big_endian", _write_big_endian, {}, "big-endian"),
+        "x", data=np.ones((4, 10)), chunks=(1, 10), fletcher32=True), {}),
+    ("big_endian", _write_big_endian, {}),
+    ("scalar", lambda f: f.create_dataset("x", data=1.5), {}),
+    ("dense_links", _write_dense_links, dict(libver="latest")),
+])
+def test_reader_reads_past_defaults(tmp_path, feature, write, kw):
+    """What the reader refused before it read h5py's files past their
+    defaults, read as h5py reads it."""
+    path = tmp_path / f"{feature}.h5"
+    with h5py.File(path, "w", **kw) as f:
+        write(f)
+    _reads_as_h5py(path)
+
+
+def _write_vds_irregular(f):
+    """HDF5 takes no point selection in a virtual mapping; an index list
+    that no regular hyperslab covers is the irregular kind."""
+    f["src"] = np.arange(6.0)
+    layout = h5py.VirtualLayout(shape=(4,), dtype="f8")
+    layout[[0, 1, 3]] = h5py.VirtualSource(".", "src", shape=(6,))[[0, 2, 5]]
+    f.create_virtual_dataset("x", layout)
+
+
+def _write_null(f):
+    f.create_dataset("x", data=h5py.Empty("f4"))
+
+
+@pytest.mark.parametrize("feature,write,kw,match", [
     ("compound", lambda f: f.create_dataset(
         "x", data=np.zeros(3, dtype=[("a", "<f4"), ("b", "<i4")])), {},
      "compound datatypes"),
     ("vlen", lambda f: f.create_dataset(
         "x", data=["ab", "c"], dtype=h5py.string_dtype()), {},
      "variable-length datatypes"),
-    ("scalar", lambda f: f.create_dataset("x", data=1.5), {},
-     "scalar datasets"),
+    ("null", _write_null, {}, "null dataspaces"),
+    ("string", lambda f: f.create_dataset("x", data=np.array([b"ab"])), {},
+     "string datatypes"),
+    ("external_link", lambda f: f.__setitem__(
+        "x", h5py.ExternalLink("other.h5", "/y")), dict(libver="latest"),
+     "external links"),
+    ("vds_irregular", _write_vds_irregular, dict(libver="latest"),
+     "other than regular hyperslabs"),
 ])
 def test_reader_refuses(tmp_path, feature, write, kw, match):
     path = tmp_path / f"{feature}.h5"
     with h5py.File(path, "w", **kw) as f:
         write(f)
     with pytest.raises(ValueError, match=match):
-        hdf5.File(path)
+        with hdf5.File(path) as f:
+            np.asarray(f["x"])
+
+
+# ------------------------------------------- past h5py's defaults (B1-B7)
+
+def test_latest_structure(tmp_path):
+    """Superblock 3 (checksum checked), version 2 headers with their
+    continuation blocks, compact and dense links (3000 names: a fractal
+    heap with indirect blocks, a v2 B-tree of depth > 0), soft links to a
+    dataset and to a group, creation order tracked."""
+    path = tmp_path / "latest.h5"
+    rng = np.random.default_rng(0)
+    with h5py.File(path, "w", libver="latest") as f:
+        f["a"] = rng.random(5)
+        g = f.create_group("many")
+        for i in range(3000):
+            g.create_dataset(f"n{i:05d}_{'x' * (i % 37)}", data=[i])
+        t = f.create_group("ordered", track_order=True)
+        for i in range(20):
+            t.create_dataset(f"o{i}", data=np.full(2, i, "u2"))
+        f["soft"] = h5py.SoftLink("/a")
+        f["soft_group"] = h5py.SoftLink("ordered")
+        f["a"].attrs["note"] = "x" * 10000   # a continuation block
+    names = _reads_as_h5py(path, ["a", "soft", "soft_group/o7",
+                                  "many/n02999_" + "x" * (2999 % 37),
+                                  "ordered/o19"])
+    with hdf5.File(path) as f:
+        assert len([k for k in f if k.startswith("many/")]) == 3000
+        assert "soft_group/o0" in f and names
+    raw = bytearray(path.read_bytes())
+    raw[28] ^= 1                              # the end-of-file address
+    bad = tmp_path / "bad.h5"
+    bad.write_bytes(bytes(raw))
+    with pytest.raises(ValueError, match="superblock: checksum"):
+        hdf5.File(bad)
+
+
+@pytest.mark.parametrize("index", ["single", "single_filtered", "implicit",
+                                   "fixed", "fixed_paged", "extensible",
+                                   "extensible_grown", "btree2",
+                                   "btree2_filtered", "contiguous",
+                                   "compact"])
+def test_chunk_indexes(tmp_path, index):
+    """Layout version 4: each chunk index h5py writes under
+    libver="latest", and contiguous and compact storage."""
+    path = tmp_path / f"{index}.h5"
+    rng = np.random.default_rng(1)
+    a = rng.random((9, 10))
+    with h5py.File(path, "w", libver="latest") as f:
+        if index == "single":
+            f.create_dataset("x", data=a, chunks=a.shape)
+        elif index == "single_filtered":
+            f.create_dataset("x", data=a, chunks=a.shape, compression="gzip")
+        elif index == "implicit":
+            dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+            dcpl.set_chunk((2, 3))
+            dcpl.set_alloc_time(h5py.h5d.ALLOC_TIME_EARLY)
+            h5py.h5d.create(f.id, b"x", h5py.h5t.IEEE_F64LE,
+                            h5py.h5s.create_simple(a.shape), dcpl=dcpl).write(
+                h5py.h5s.ALL, h5py.h5s.ALL, a)
+        elif index == "fixed":
+            f.create_dataset("x", data=a, chunks=(2, 3), compression="gzip")
+        elif index == "fixed_paged":         # past 1024 chunks: pages
+            b = rng.integers(0, 99, (2100, 3))
+            d = f.create_dataset("x", shape=b.shape, chunks=(1, 3),
+                                 dtype="i8")
+            d[:1500] = b[:1500]              # later pages uninitialized
+        elif index == "extensible":
+            f.create_dataset("x", data=a, chunks=(2, 3),
+                             maxshape=(None, 10), compression="lzf")
+        elif index == "extensible_grown":    # past the index block and
+            d = f.create_dataset("x", shape=(3, 4), chunks=(1, 4),  # its
+                                 maxshape=(None, 4), dtype="i4")    # data
+            d[:] = 7                                                # blocks
+            d.resize((700, 4))
+            d[400:] = rng.integers(0, 9, (300, 4))
+        elif index == "btree2":
+            f.create_dataset("x", data=a, chunks=(2, 3),
+                             maxshape=(None, None))
+        elif index == "btree2_filtered":
+            f.create_dataset("x", data=a, chunks=(2, 3),
+                             maxshape=(None, None), compression="gzip",
+                             shuffle=True)
+        elif index == "contiguous":
+            f.create_dataset("x", data=a)
+        else:
+            dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+            dcpl.set_layout(h5py.h5d.COMPACT)
+            h5py.h5d.create(f.id, b"x", h5py.h5t.IEEE_F64LE,
+                            h5py.h5s.create_simple(a.shape), dcpl=dcpl).write(
+                h5py.h5s.ALL, h5py.h5s.ALL, a)
+    _reads_as_h5py(path)
+
+
+@pytest.mark.parametrize("pipeline", [
+    dict(shuffle=True, compression="gzip"),
+    dict(fletcher32=True),
+    dict(shuffle=True, compression="gzip", fletcher32=True),
+    dict(compression="lzf"),
+    dict(compression="lzf", shuffle=True),
+    dict(compression="szip"),
+    dict(compression="szip", compression_opts=("ec", 16)),
+    dict(scaleoffset=0),
+    dict(scaleoffset=2),
+], ids=["shuffle", "fletcher32", "shuffle_gzip_fletcher32", "lzf",
+        "lzf_shuffle", "szip_nn", "szip_ec", "scaleoffset_int",
+        "scaleoffset_float"])
+def test_filters(tmp_path, pipeline):
+    """Each filter h5py writes, in pipeline order, on the dtypes it takes
+    (edge chunks, a chunk of constant values, an incompressible chunk that
+    lzf stores unfiltered); the properties h5py reports."""
+    path = tmp_path / "f.h5"
+    rng = np.random.default_rng(2)
+    arrays = {
+        "f4": rng.normal(0, 30, (13, 37)).astype("<f4"),
+        "f8": rng.normal(0, 30, (13, 37)),
+        "i8": rng.integers(-100, 4000, (13, 37)),
+        "i2": rng.integers(-300, 300, (13, 37)).astype("i2"),
+        "u2": rng.integers(0, 60000, (13, 37)).astype("u2"),
+        "be": rng.normal(0, 3, (13, 37)).astype(">f4"),
+        "const": np.full((13, 37), 7, "i4"),
+    }
+    with h5py.File(path, "w") as f:
+        for name, a in arrays.items():
+            if "scaleoffset" in pipeline and (
+                    (pipeline["scaleoffset"] == 0) != (a.dtype.kind in "iu")
+                    or name == "u2"):    # h5py cannot read it back
+                continue
+            f.create_dataset(name, data=a, chunks=(4, 37), **pipeline)
+    names = _reads_as_h5py(path)
+    with h5py.File(path, "r") as ref, hdf5.File(path) as f:
+        for name in names:
+            for prop in ("compression", "compression_opts", "shuffle",
+                         "fletcher32", "scaleoffset", "chunks"):
+                assert getattr(f[name], prop) == getattr(ref[name], prop), \
+                    (name, prop)
+
+
+def test_fletcher32_mismatch_raises_as_h5py(tmp_path):
+    path = tmp_path / "f.h5"
+    with h5py.File(path, "w") as f:
+        f.create_dataset("x", data=np.arange(40.0).reshape(4, 10),
+                         chunks=(1, 10), fletcher32=True)
+        offset = f["x"].id.get_chunk_info(2).byte_offset
+    raw = bytearray(path.read_bytes())
+    raw[offset + 3] ^= 0x10
+    path.write_bytes(bytes(raw))
+    with h5py.File(path, "r") as f:
+        with pytest.raises(OSError):
+            f["x"][()]
+        assert bits_equal(f["x"][:2], np.arange(20.0).reshape(2, 10))
+    with hdf5.File(path) as f:
+        with pytest.raises(ValueError, match="Fletcher32"):
+            np.asarray(f["x"])
+        assert bits_equal(f["x"][:2], np.arange(20.0).reshape(2, 10))
+
+
+def test_datatypes(tmp_path):
+    """Big-endian integers and floats (returned as the same ">" dtypes
+    h5py returns), float16, h5py's bool, an integer enum (its base type),
+    a committed datatype, under both header versions."""
+    rng = np.random.default_rng(3)
+    for kw in ({}, dict(libver="latest")):
+        path = tmp_path / f"t{len(kw)}.h5"
+        with h5py.File(path, "w", **kw) as f:
+            for dt in (">i2", ">u4", ">i8", ">f4", ">f8", "<f2", ">f2"):
+                f.create_dataset(dt, data=(rng.normal(0, 50, 7)).astype(dt))
+            f.create_dataset("bool", data=rng.random(11) > 0.5)
+            f.create_dataset("enum", data=np.array([0, 2, 1, 2], "i2"),
+                             dtype=h5py.enum_dtype({"a": 0, "b": 1, "c": 2},
+                                                   basetype="i2"))
+            f["t"] = np.dtype(">f4")
+            f.create_dataset("committed", data=np.arange(3, dtype=">f4"),
+                             dtype=f["t"])
+            f.create_dataset("bool_chunked", data=rng.random((5, 3)) > 0.5,
+                             chunks=(2, 3), compression="gzip")
+        names = _reads_as_h5py(path)
+        assert {">i2", "bool", "enum", "committed"} <= set(names)
+
+
+def test_scalar_datasets(tmp_path):
+    path = tmp_path / "s.h5"
+    with h5py.File(path, "w", libver="latest") as f:
+        f.create_dataset("f", data=2.5)
+        f.create_dataset("i", data=np.int16(-3))
+        f.create_dataset("be", data=np.array(7, ">u8"))
+    _reads_as_h5py(path)
+    with hdf5.File(path) as f:
+        assert f["f"].shape == () and f["f"][()] == 2.5
+        assert np.asarray(f["i"]).shape == ()
+        with pytest.raises(TypeError):
+            len(f["f"])
+
+
+def test_external_storage(tmp_path, monkeypatch):
+    """Message type 7: the slots' names, offsets and sizes; a relative
+    name is opened from the working directory, as h5py 3.14 / HDF5 1.14
+    open it (both fail from another one)."""
+    a = np.arange(20, dtype="<f4")
+    (tmp_path / "one.bin").write_bytes(a[:8].tobytes())
+    (tmp_path / "two.bin").write_bytes(b"xx" + a[8:].tobytes())
+    path = tmp_path / "e.h5"
+    monkeypatch.chdir(tmp_path)
+    with h5py.File(path, "w") as f:
+        f.create_dataset("x", shape=(20,), dtype="<f4",
+                         external=[("one.bin", 0, 32), ("two.bin", 2, 48)])
+        f.create_dataset("y", shape=(5,), dtype="<i8",
+                         external=[(str(tmp_path / "abs.bin"), 0, 40)])
+    (tmp_path / "abs.bin").write_bytes(np.arange(5).tobytes())
+    _reads_as_h5py(path)
+    other = tmp_path / "elsewhere"
+    other.mkdir()
+    monkeypatch.chdir(other)
+    with h5py.File(path, "r") as f:
+        with pytest.raises(OSError):
+            f["x"][()]
+        assert bits_equal(f["y"][()], np.arange(5))
+    with hdf5.File(path) as f:
+        with pytest.raises(OSError):
+            np.asarray(f["x"])
+        assert bits_equal(f["y"][()], np.arange(5))
+
+
+def test_virtual_datasets(tmp_path, monkeypatch):
+    """Sources in the same file (".") and in another file by a relative
+    path (found next to the virtual file, from any working directory),
+    "all" and regular hyperslab selections (strided and blocked), the
+    fill value where nothing maps or a source is missing."""
+    with h5py.File(tmp_path / "src.h5", "w") as f:
+        f["a"] = np.arange(12.0).reshape(3, 4)
+    path = tmp_path / "v.h5"
+    with h5py.File(path, "w", libver="latest") as f:
+        f["b"] = np.arange(12.0, 24.0).reshape(3, 4)
+        layout = h5py.VirtualLayout(shape=(4, 3, 4), dtype="f8")
+        layout[0] = h5py.VirtualSource("src.h5", "a", shape=(3, 4))
+        layout[1, :2] = h5py.VirtualSource(".", "b", shape=(3, 4))[1:3]
+        layout[2, ::2, 1:3] = h5py.VirtualSource(
+            "src.h5", "a", shape=(3, 4))[0:2, 2:4]
+        layout[3, 1] = h5py.VirtualSource("missing.h5", "a",
+                                          shape=(3, 4))[0]
+        f.create_virtual_dataset("v", layout, fillvalue=-1)
+    monkeypatch.chdir(tmp_path.parent)
+    _reads_as_h5py(path, ["v", "b"])
+
+
+# ------------------------------------------------------------- the golden
+
+GOLDEN = Path(__file__).parent / "golden"
+
+
+def test_golden_latest_file():
+    """``tests/golden/hdf5_latest.h5`` (``regenerate_hdf5.py``): h5py and
+    the port read every dataset to the recorded digest."""
+    spec = json.loads((GOLDEN / "hdf5_golden.json").read_text())
+    path = GOLDEN / spec["file"]
+    assert path.stat().st_size <= 512 * 1024
+    names = _reads_as_h5py(path, sorted(spec["datasets"]))
+    with hdf5.File(path) as f:
+        assert set(f) == set(spec["datasets"]) == set(names)
+        for name, want in spec["datasets"].items():
+            a = np.asarray(f[name][()])
+            assert a.dtype.str == want["dtype"] and \
+                list(a.shape) == want["shape"], name
+            assert hashlib.sha256(a.tobytes()).hexdigest() == \
+                want["sha256"], name
+        assert f["images"].fletcher32 and f["images"].shuffle
+        assert f["labels"].compression == "lzf"
+        assert f["instance_counts"].compression == "szip"
+
+
+def test_golden_dataset_against_jax():
+    """The JAX ``ClassposeHDF5Dataset`` (h5py) and the port's on the
+    golden: counts, diameters (big-endian as stored) and items bitwise."""
+    path = str(GOLDEN / "hdf5_latest.h5")
+    kw = dict(bsize=32, seed=3)
+    a = jax_dataset.ClassposeHDF5Dataset(path, **kw)
+    b = port_dataset.ClassposeHDF5Dataset(path, **kw)
+    assert len(a) == len(b) == 8
+    for name in ("class_counts", "instance_counts", "diameter_array",
+                 "class_weights"):
+        assert bits_equal(getattr(a, name), getattr(b, name)), name
+    a.augment = b.augment = False
+    for i in range(len(a)):
+        for x, y in zip(a[i], b[i]):
+            assert bits_equal(x, y)
 
 
 # ----------------------------------------------------------------- dataset
