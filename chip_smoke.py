@@ -85,7 +85,8 @@
    ``ClassposeHDF5Dataset(..., augmentation_strategy="enhanced")``;
    then ``classpose-train-torch`` (``run_training.main_with_args``) on
    the ``.h5`` with ``--augmentation enhanced``, 2 epochs at batch 4, at
-   its defaults (full ViT-L, fp32, ``--device auto``): every logged loss
+   its defaults (full ViT-L, fp32, ``--device auto``; its ``.npz``
+   written uncompressed, as below): every logged loss
    finite, the weights written and loaded by ``load_checkpoint`` into a
    model whose ``eval`` of a 256² image gives finite outputs; it prints
    the CLI's wall, its steps and the seconds its items took in
@@ -104,7 +105,8 @@
    (``perturbed_structured_params`` with ``attn_ripple``, 6 classes) as a
    published ``conic.pt`` (the published key layout, held against the
    ViT-L manifest) and converts it with ``classpose-convert-weights-torch``
-   to a native ``.npz``; runs the WSI CLI
+   to a native ``.npz`` (written uncompressed: phase 5 times the
+   compressed save, and the later runs load it faster); runs the WSI CLI
    (``entrypoints.predict_wsi.main_with_args``) with
    ``CLASSPOSE_LN_PALLAS=1`` on a ~6144² synthetic slide at 0.4 µm/px
    (25 tiles of 1280² read and resized to 1024² at the config's 0.5 µm/px)
@@ -174,7 +176,23 @@
    decode to PIL's digest (``jpeg_damaged.json``), and the SVS with a
    tile cut by its EOI must stop the CLI with ``RuntimeError("slide
    reader thread failed")`` caused by the decoder's ``ValueError``, as
-   PIL's "image file is truncated" stops the JAX reader; then
+   PIL's "image file is truncated" stops the JAX reader; its CZI step:
+   every CZI golden (``tests/golden/czi_*.czi``: overlapping M-indexed
+   tiles at a negative origin, box-filtered pyramid layers, two scenes,
+   Bgr48 under Zstd1 with hi/lo packing, Bgra32, JpgFile) must read at
+   every level, on edge requests and inside, to the SHA-256 of the JAX
+   ``CZISlide``'s reads over the tests' pylibCZIrw fake
+   (``czi_golden.json``), with its MPP, and the refused ones (JPEG XR,
+   LZW, camera-specific, Gray8, FilePart 1) must raise naming what they
+   use; the committed region CZI (``tests/golden/czi_region.czi``: the
+   same region in 16 tiles of 512² in Zstd1, Zstd0 and one uncompressed,
+   a pyramid layer at zoom 1/2, MPP 0.4 in its metadata) must read at
+   level 0 to the region exactly, and run through the CLI with
+   ``WSI_READER=czi`` must launch the five kernels and find exactly the
+   tiles and cells of the JPEG 2000 step's region ``.npy`` run (matched
+   share 1.0: the subblocks are lossless); it prints the zstd decoder's
+   rate in MB/s on one thread and on the reader threads and both runs'
+   pipeline seconds; then
    the GrandQC phase: a tissue (2 classes) and an
    artefact (8 classes) UNet++ of seeded random weights in the smp
    layout, the tissue head's bias set once by rule (``run_grandqc``'s
@@ -193,7 +211,7 @@
    UNet++ rate at batch 8, the tissue share and the artefact class
    histogram, and the QC run's pipeline seconds beside the plain run's;
 7. runs the evaluate CLI (``entrypoints.run_inference.main_with_args``)
-   at fp32 on 8 RGB images of 448² (3 × 3 crops each) written as
+   at fp32 on 4 RGB images of 448² (3 × 3 crops each) written as
    ``images.npy`` with their design-field ``labels.npy``, with the WSI
    phase's ViT-L checkpoint: checks that ``predictions.npy`` and
    ``metrics.csv`` parse, that the PQ table is printed, that the
@@ -321,7 +339,9 @@ from classpose_tpu_torch.grandqc.tissue import (
     make_unetpp_predict_fn,
     unetpp_logits,
 )
-from classpose_tpu_torch.io import TiffSlide, hdf5, jpeg, jpeg2000
+from classpose_tpu_torch.io import TiffSlide, hdf5, jpeg, jpeg2000, zstd
+from classpose_tpu_torch.io.czi import ZSTD0, ZSTD1, CziFile
+from classpose_tpu_torch.io.czi_reader import CZISlide
 from classpose_tpu_torch.io.array_reader import ArraySlide, synthetic_wsi
 from classpose_tpu_torch.io.tiff_writer import write_tiled_tiff
 from classpose_tpu_torch.io.zarrlite import read_zarr_array
@@ -430,6 +450,13 @@ J2K_MODEL_TILE = 512
 # each tile is decoded for its rate
 JPEG_SVS, JPEG_JSON = GOLDEN / "jpeg_region.svs", GOLDEN / "jpeg_golden.json"
 JPEG_RATE_REPEATS = 8
+# its CZI step: the committed Zeiss CZI of the same region
+# (tests/golden/regenerate_czi.py: 16 tiles of 512² in Zstd1, Zstd0 and
+# one uncompressed, a pyramid layer at zoom 1/2, MPP 0.4 in its metadata)
+# and the hashes of the JAX reader's reads of every CZI golden; the times
+# each zstd subblock is decoded for the decoder's rate
+CZI_REGION, CZI_JSON = GOLDEN / "czi_region.czi", GOLDEN / "czi_golden.json"
+CZI_RATE_REPEATS = 8
 # its damaged copies of that SVS (tests/golden/jpeg_damage.py): one tile
 # cut by its EOI, one tile with a byte of entropy-coded data edited, and
 # PIL's digest of the edited tile
@@ -454,10 +481,13 @@ TRAIN_BATCH, TRAIN_IMAGES, TRAIN_SIZE = 8, 16, 512
 # the training CLI phase: its epochs and batch, the calls each transform
 # is timed over, and the dataset items timed as one batch
 CLI_EPOCHS, CLI_BATCH, AUG_CALLS, AUG_ITEMS = 2, 4, 5, 4
-# the evaluate phase: 8 RGB images of 448² (3 × 3 crops of 256² each;
+# the evaluate phase: RGB images of 448² (3 × 3 crops of 256² each;
 # 448 % 128 != 0, so the QC diffusion takes kernel 7), fp32 as the CLI
-# defaults; its kernels, and those of eval's 3D branch in bf16
+# defaults: 8 for the kernel checks at the path's shapes, 4 through the
+# evaluate CLI (cut from 8 to keep the script within 1200 s);
+# its kernels, and those of eval's 3D branch in bf16
 EVAL_IMAGES, EVAL_SIZE, EVAL_BATCH = 8, 448, 8
+EVAL_CLI_IMAGES = 4
 EVALUATE_KERNELS = ("flash_attention_relpos", "bilinear_sample",
                     "landing_histogram", "diffuse_blocked")
 STACK_SHAPE = (16, 64, 64)  # 16 + 64 + 64 slices, one 256² tile each
@@ -1807,11 +1837,14 @@ def run_training_cli(dev, work: str, targets: dict) -> dict:
     _build.reset_launches()
     try:
         t0 = time.perf_counter()
-        path = run_training_main([
-            "--data_path", str(h5), "--augmentation", "enhanced",
-            "--epochs", str(CLI_EPOCHS), "--batch_size", str(CLI_BATCH),
-            "--seed", "0", "--output_dir", str(work / "models"),
-            "--model_name", "cli"])
+        # its .npz goes uncompressed: phase 5 times the trainer's
+        # compressed save (~65 s of zlib on the host)
+        with mock.patch.object(np, "savez_compressed", np.savez):
+            path = run_training_main([
+                "--data_path", str(h5), "--augmentation", "enhanced",
+                "--epochs", str(CLI_EPOCHS), "--batch_size", str(CLI_BATCH),
+                "--seed", "0", "--output_dir", str(work / "models"),
+                "--model_name", "cli"])
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t0
     finally:
@@ -2140,7 +2173,10 @@ def run_wsi(dev, work: str) -> tuple[dict, dict, dict]:
         pt)
     pt_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    convert_cli(["--input", pt, "--output", f"{work}/vitl.npz"])
+    # its .npz goes uncompressed (phase 5 times a compressed save), which
+    # every later CLI run of the script also loads faster
+    with mock.patch.object(np, "savez_compressed", np.savez):
+        convert_cli(["--input", pt, "--output", f"{work}/vitl.npz"])
     convert_s = time.perf_counter() - t0
     with open(f"{work}/config.yaml", "w") as f:
         f.write(f"path: {work}/vitl.npz\nmpp: {WSI_MODEL_MPP}\n"
@@ -2477,7 +2513,8 @@ def run_slide(wsi: dict) -> dict:
                              f"{len(pts)} cells, {exact} matched")
     j2k = run_slide_j2k(wsi)
     jpeg_processes = run_slide_jpeg(wsi)
-    return dict(j2k=j2k, jpeg_processes=jpeg_processes,
+    czi_stats = run_slide_czi(wsi)
+    return dict(j2k=j2k, jpeg_processes=jpeg_processes, czi=czi_stats,
         tile=SVS_TILE, quality=SVS_QUALITY, write_s=write_s,
         svs_mib=os.path.getsize(f"{work}/slide.svs") / 2 ** 20,
         level0_tiles=n_tiles, level0_psnr_db=psnr,
@@ -2564,16 +2601,21 @@ def run_slide_j2k(wsi: dict) -> dict:
         **run_region_svs(wsi, J2K_SVS, f"{work}/j2k_decoded.npy"))
 
 
-def run_region_svs(wsi: dict, svs: Path, decoded: str) -> dict:
-    """(b) a committed SVS of the slide's region through the CLI with
-    ``WSI_READER`` unset (the MPP from its description) against the run
-    on the region as an array slide; (c) its level 0, decoded whole into
-    ``decoded`` by the caller, as an array slide: exactly its cells."""
+def run_region_svs(wsi: dict, svs: Path, decoded: str | None,
+                   reader: str | None = None) -> dict:
+    """(b) a committed slide of the slide's region through the CLI with
+    ``WSI_READER`` unset (an SVS, the MPP from its description) or set to
+    ``reader``, against the run on the region as an array slide; (c) its
+    level 0, decoded whole into ``decoded`` by the caller, as an array
+    slide: exactly its cells. A lossless slide (``decoded`` None) must
+    find exactly the region run's tiles and cells."""
     work, labels = wsi["work"], wsi["labels"]
     npy_args, ref, ref_pts, ref_names = wsi["region_ref"]
     svs_args = [a for a in npy_args if a not in (str(WSI_MPP), "--mpp")]
     svs_args[svs_args.index("--slide_path") + 1] = str(svs)
     os.environ.pop("WSI_READER", None)
+    if reader is not None:
+        os.environ["WSI_READER"] = reader
     try:
         res, wall, launches = wsi["cli"](f"{work}/out_{svs.stem}",
                                          args=svs_args)
@@ -2587,11 +2629,21 @@ def run_region_svs(wsi: dict, svs: Path, decoded: str) -> dict:
     pts, names = read_outputs(f"{work}/out_{svs.stem}", svs.stem, labels)
     share = matched_share(pts, names, ref_pts, ref_names)
     count_diff = abs(len(pts) - len(ref_pts)) / len(ref_pts)
+    lossless = decoded is None
     if res["n_tiles"] != ref["n_tiles"] or count_diff > 0.005 \
-            or share < 0.99:
+            or share < 0.99 or (lossless and (len(pts) != len(ref_pts)
+                                              or share != 1.0)):
         raise AssertionError(f"{svs.name} vs region .npy: {res['n_tiles']} "
                              f"tiles, {len(pts)} vs {len(ref_pts)} cells, "
                              f"{share:.4f} matched")
+    common = dict(
+        cli_wall_s=wall, pipeline_s=res["seconds"],
+        stage_seconds=res["stage_seconds"], n_tiles=res["n_tiles"],
+        n_cells=res["n_cells"], npy_pipeline_s=ref["seconds"],
+        npy_stage_seconds=ref["stage_seconds"], npy_n_cells=len(ref_pts),
+        matched_share=share, launches=launches)
+    if lossless:
+        return common
     stem = Path(decoded).stem
     dec_args = list(npy_args)
     dec_args[dec_args.index("--slide_path") + 1] = decoded
@@ -2601,14 +2653,8 @@ def run_region_svs(wsi: dict, svs: Path, decoded: str) -> dict:
     if len(dec_pts) != len(pts) or exact != 1.0:
         raise AssertionError(f"{stem}.npy vs {svs.name}: {len(dec_pts)} "
                              f"vs {len(pts)} cells, {exact} matched")
-    return dict(
-        cli_wall_s=wall, pipeline_s=res["seconds"],
-        stage_seconds=res["stage_seconds"], n_tiles=res["n_tiles"],
-        n_cells=res["n_cells"], npy_pipeline_s=ref["seconds"],
-        npy_stage_seconds=ref["stage_seconds"], npy_n_cells=len(ref_pts),
-        matched_share=share, decoded_pipeline_s=dec["seconds"],
-        decoded_n_cells=dec["n_cells"], decoded_matched_share=exact,
-        launches=launches)
+    return dict(common, decoded_pipeline_s=dec["seconds"],
+                decoded_n_cells=dec["n_cells"], decoded_matched_share=exact)
 
 
 def run_slide_jpeg(wsi: dict) -> dict:
@@ -2691,6 +2737,84 @@ def run_slide_jpeg(wsi: dict) -> dict:
         decode_threads=n_read, decode_repeats=JPEG_RATE_REPEATS,
         decode_rates=rates, damaged=damaged,
         **run_region_svs(wsi, JPEG_SVS, f"{work}/jpeg_decoded.npy"))
+
+
+def run_slide_czi(wsi: dict) -> dict:
+    """The slide phase's CZI step (see the module docstring, step 6): (a)
+    every CZI golden's reads against the hashes of the JAX reader's (made
+    over the tests' pylibCZIrw fake), and the refused goldens against
+    their refusals; (b) the committed region CZI through the CLI with
+    ``WSI_READER=czi`` (the MPP from its metadata): exactly the tiles and
+    cells of the J2K step's region ``.npy`` run; (c) the zstd decoder's
+    rate on the card's host on one thread and on the reader threads, and
+    both runs' pipeline seconds."""
+    work = wsi["work"]
+    t_step = time.perf_counter()
+    golden = json.loads(CZI_JSON.read_text())
+    g = golden["region"]
+    if g["slide"] != dict(width=WSI_SIZE, height=WSI_SIZE, n_cells=4000,
+                          mpp=WSI_MPP, seed=SEED):
+        raise AssertionError(f"the region CZI is of another slide: {g}")
+    n_reads = 0
+    for name, f in golden["files"].items():
+        slide = CZISlide(str(GOLDEN / f"{name}.czi"))
+        if list(slide.dimensions) != f["dimensions"] or \
+                slide.properties.get("openslide.mpp-x") != f["mpp"]:
+            raise AssertionError(f"CZI {name}: {slide.dimensions}, "
+                                 f"{slide.properties}")
+        for x, y, lv, w, h, sha in f["reads"]:
+            if _sha256(slide.read_region((x, y), lv, (w, h))) != sha:
+                raise AssertionError(f"CZI {name} read {(x, y, lv, w, h)} "
+                                     f"unlike the JAX reader's")
+            n_reads += 1
+        slide.close()
+    for name, word in golden["refused"].items():
+        try:
+            CZISlide(str(GOLDEN / f"{name}.czi"))
+        except ValueError as e:
+            if word not in str(e):
+                raise AssertionError(f"refused CZI {name}: {e}") from e
+        else:
+            raise AssertionError(f"refused CZI {name} opens")
+    # the region's level 0 is the region's pixels, exactly
+    slide = CZISlide(str(CZI_REGION))
+    side = g["region"]
+    region = np.load(f"{work}/region.npy", mmap_mode="r")
+    if not np.array_equal(
+            slide.read_region((0, 0), 0, (side, side))[..., :3], region):
+        raise AssertionError("the region CZI's level 0 is not the region")
+    del region
+    # (c) the zstd subblocks, their data read once, decoded on one thread
+    # and on the loader's reader threads
+    cf = CziFile(str(CZI_REGION))
+    blocks = [b for b in cf.subblocks if b.compression in (ZSTD0, ZSTD1)]
+    jobs = []
+    for b in blocks:
+        data = cf._data(b)
+        w, h = b.stored
+        start = data[0] if b.compression == ZSTD1 else 0
+        jobs.append((data[start:], w * h * 3))
+    cf.close()
+    slide.close()
+    work_list = jobs * CZI_RATE_REPEATS
+    mb = sum(n for _, n in work_list) / 1e6
+    t0 = time.perf_counter()
+    for data, n in work_list:
+        zstd.decompress(data, n)
+    one = time.perf_counter() - t0
+    n_read = SlideLoader.n_read_threads
+    with ThreadPoolExecutor(n_read) as pool:
+        t0 = time.perf_counter()
+        list(pool.map(lambda j: zstd.decompress(*j), work_list))
+        many = time.perf_counter() - t0
+    cli = run_region_svs(wsi, CZI_REGION, None, reader="czi")
+    return dict(
+        goldens=len(golden["files"]), golden_reads=n_reads,
+        refused=len(golden["refused"]), zstd_subblocks=len(blocks),
+        czi_kib=CZI_REGION.stat().st_size / 1024,
+        decode_threads=n_read, decode_repeats=CZI_RATE_REPEATS,
+        zstd_mb_per_s_1t=mb / one, zstd_mb_per_s_nt=mb / many,
+        step_s=time.perf_counter() - t_step, **cli)
 
 
 def run_damaged_svs(wsi: dict, raw: bytes) -> dict:
@@ -2989,9 +3113,9 @@ def design_dataset(rng) -> tuple[np.ndarray, np.ndarray]:
     inst = np.where(inside, (yy // PERIOD) * (S // PERIOD) + xx // PERIOD
                     + 1, 0).astype(np.float32)
     lab = np.stack([inst, (inst > 0).astype(np.float32)])
-    imgs = 200 + rng.normal(0, 8, (EVAL_IMAGES, 3, S, S)) - 60 * inside
+    imgs = 200 + rng.normal(0, 8, (EVAL_CLI_IMAGES, 3, S, S)) - 60 * inside
     return (np.clip(imgs, 0, 255).astype(np.float32),
-            np.repeat(lab[None], EVAL_IMAGES, axis=0))
+            np.repeat(lab[None], EVAL_CLI_IMAGES, axis=0))
 
 
 def pq_rows_equal(a: list[dict], b: list[dict], keys) -> None:
@@ -3034,7 +3158,7 @@ def run_evaluate(dev, work: str) -> tuple[dict, dict]:
         preds = np.load(f"{out}/predictions.npy")
         with open(f"{out}/metrics.csv") as f:
             rows = list(csv.DictReader(f))
-        if preds.shape != (EVAL_IMAGES, EVAL_SIZE, EVAL_SIZE, 2) \
+        if preds.shape != (EVAL_CLI_IMAGES, EVAL_SIZE, EVAL_SIZE, 2) \
                 or preds.dtype != np.int32 or "pq" not in printed.getvalue():
             raise AssertionError(f"evaluate outputs {preds.shape} "
                                  f"{preds.dtype}")
@@ -3043,7 +3167,7 @@ def run_evaluate(dev, work: str) -> tuple[dict, dict]:
 
     res, wall, launches, preds, table = cli(f"{work}/eval")
     log(f"evaluate launches: {launches}\n{table}")
-    want = cfg.depth * chunks * EVAL_IMAGES
+    want = cfg.depth * chunks * EVAL_CLI_IMAGES
     if launches["flash_attention_relpos"] != want:
         raise AssertionError(f"head-major attention launches "
                              f"{launches['flash_attention_relpos']}, want "
@@ -3133,9 +3257,10 @@ def run_evaluate(dev, work: str) -> tuple[dict, dict]:
     del model3
 
     stats = dict(
-        images=EVAL_IMAGES, size=EVAL_SIZE, crops_per_image=grid.ny * grid.nx,
+        images=EVAL_CLI_IMAGES, size=EVAL_SIZE,
+        crops_per_image=grid.ny * grid.nx,
         cli_wall_s=wall, inference_s=res["inference_s"],
-        images_per_s=EVAL_IMAGES / res["inference_s"],
+        images_per_s=EVAL_CLI_IMAGES / res["inference_s"],
         pq_s=res["metrics_s"], metrics_cli_s=metrics_cli_s,
         pq_class1=cls1["pq"], instances=counts, n_design=n_design,
         plain_cli_wall_s=plain_wall,
@@ -3389,6 +3514,16 @@ def main() -> int:
             f"{jp['npy_pipeline_s']:.3f} s, its decoded level 0 as .npy "
             f"{jp['decoded_pipeline_s']:.3f} s; {jp['n_cells']} vs "
             f"{jp['npy_n_cells']} cells, {jp['matched_share']:.4f} matched")
+        cz = slide_stats["czi"]
+        log(f"slide CZI: {cz['golden_reads']} golden reads and "
+            f"{cz['refused']} refusals as the JAX reader's; zstd "
+            f"{cz['zstd_mb_per_s_1t']:.2f} MB/s on 1 thread, "
+            f"{cz['zstd_mb_per_s_nt']:.2f} MB/s on {cz['decode_threads']} "
+            f"(host); CZI pipeline {cz['pipeline_s']:.3f} s "
+            f"{cz['stage_seconds']} vs region .npy "
+            f"{cz['npy_pipeline_s']:.3f} s; {cz['n_cells']} vs "
+            f"{cz['npy_n_cells']} cells, {cz['matched_share']:.4f} matched; "
+            f"the step {cz['step_s']:.1f} s")
         rates = {"SOF0": dict(
             mp_per_s_1t=slide_stats["decode_1t_mp_per_s"],
             mp_per_s_nt=slide_stats["decode_nt_mp_per_s"]),

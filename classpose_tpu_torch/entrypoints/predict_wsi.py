@@ -11,15 +11,15 @@ choices and ``nargs``), which the QuPath extension drives. A built-in
 native ``.npz``. ``--device`` defaults to the first card; ``cpu`` runs on
 the CPU. A ``.svs``/``.tif`` slide is read by the package's own TIFF reader
 (the default, or ``WSI_READER=tiff``); a ``.npy`` slide takes
-``WSI_READER=array``. ``--tissue_detection_model_path`` and
+``WSI_READER=array``; a Zeiss ``.czi`` takes ``WSI_READER=czi`` (the
+package's own reader: uncompressed, JpgFile, Zstd0 and Zstd1 subblocks;
+JPEG XR raises). ``--tissue_detection_model_path`` and
 ``--artefact_detection_model_path`` take GrandQC ``.npz`` files
 (``classpose-convert-weights-torch --kind grandqc``), run on the first
 card. ``--device cuda:0,1`` (or ``cuda``, every visible card) runs the
 tiles on several cards, one model copy each, as QuPath's "Device ids"
 field asks; a card this machine lacks, a card named twice and
-``cpu:0,1`` raise ``ValueError`` before any slide is read, as
-``WSI_READER=czi`` (not ported yet, ``ROADMAP.md`` queue 1) raises
-``NotImplementedError``.
+``cpu:0,1`` raise ``ValueError`` before any slide is read.
 """
 
 from __future__ import annotations

@@ -10,8 +10,10 @@
 - ``array``: the in-memory
   :class:`~classpose_tpu_torch.io.array_reader.ArraySlide`, which also
   reads ``.npy`` paths.
-- ``czi``/``czi-zeiss`` raise: the CZI reader needs pylibCZIrw's JPEG-XR
-  decoder.
+- ``czi``/``czi-zeiss``: :class:`~classpose_tpu_torch.io.czi_reader.CZISlide`,
+  the package's own Zeiss CZI reader (uncompressed, JpgFile, Zstd0 and
+  Zstd1 subblocks; JPEG XR, LZW, camera-specific compressions and
+  multi-file CZIs raise, ``READERS_ITEM``).
 """
 
 from __future__ import annotations
@@ -19,11 +21,12 @@ from __future__ import annotations
 import os
 
 from classpose_tpu_torch.io.array_reader import ArraySlide
+from classpose_tpu_torch.io.czi_reader import CZISlide
 from classpose_tpu_torch.io.tiff_reader import TiffSlide
 
 READERS_ITEM = 'ROADMAP.md queue 1, "slide readers"'
 
-__all__ = ["ArraySlide", "TiffSlide", "WSIReader", "get_wsi_reader"]
+__all__ = ["ArraySlide", "CZISlide", "TiffSlide", "WSIReader", "get_wsi_reader"]
 
 
 def get_wsi_reader():
@@ -32,10 +35,7 @@ def get_wsi_reader():
     if reader == "array":
         return ArraySlide
     if reader in ("czi", "czi-zeiss"):
-        raise NotImplementedError(
-            f"WSI_READER={reader}: the CZI reader needs pylibCZIrw (a "
-            f"JPEG-XR decoder), which this package does not have; "
-            f"{READERS_ITEM} lists what still raises")
+        return CZISlide
     return TiffSlide
 
 

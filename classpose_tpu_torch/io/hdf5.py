@@ -12,9 +12,11 @@ The reader takes:
   ``OCHK``, checksums, creation order), attributes skipped unread;
 - old-style groups (a local heap of names, a version 1 B-tree of group
   nodes, ``SNOD`` nodes) and new-style ones: link messages (hard and soft
-  links, soft links resolved), and dense link storage (a fractal heap of
-  link messages, ``FRHP``/``FHDB``/``FHIB``, indexed by a version 2 B-tree,
-  ``BTHD``/``BTIN``/``BTLF``);
+  links, soft links resolved; external links followed when their name is
+  read, the target file found as HDF5 finds it and read by this reader,
+  chains of them up to HDF5's limit of 16 links), and dense link storage
+  (a fractal heap of link messages, ``FRHP``/``FHDB``/``FHIB``, indexed by
+  a version 2 B-tree, ``BTHD``/``BTIN``/``BTLF``);
 - dataspaces simple and scalar; datatypes little- and big-endian IEEE
   floats of 2, 4 and 8 bytes, integers of 1 to 8 bytes, h5py's bool enum
   (read as ``bool``) and other integer enums (read as their base type),
@@ -27,18 +29,19 @@ The reader takes:
   implicit, fixed array (paged or not), extensible array and version 2
   B-tree; edge chunks are stored whole and cut on reading;
 - filters, in pipeline order and per each chunk's filter mask: deflate,
-  shuffle, fletcher32 (checked), lzf, szip and scaleoffset (integer and
-  float D-scale).
+  shuffle, fletcher32 (checked), lzf, szip, scaleoffset (integer and
+  float D-scale) and nbit at full precision (its bytes pass through).
 
 :class:`File` opens such a file as a read-only mapping of dataset names
 (at any depth of groups, joined by ``/``; a soft link is a name of its
 target) to :class:`Dataset`; a dataset reads ``ds[i]``, ``ds[a:b]``
 (axis 0), ``ds[()]`` and ``np.asarray(ds)`` as h5py does, byte order
 included. Anything else raises a ``ValueError`` that names it: the nbit
-filter, shared object header messages, layout versions 1 and 2, external
-links (none of which h5py writes here), null dataspaces, and string,
+filter at reduced precision (which h5py cannot create), shared object
+header messages, layout versions 1 and 2, null dataspaces, and string,
 compound, variable-length, reference, array, opaque, bitfield and time
-datatypes.
+datatypes; so does an external link whose file or object is missing, when
+its name is read (a file that never reads it opens).
 
 :class:`Writer` writes h5py's default layout: ``create_dataset`` with
 h5py's arguments (``chunks``, ``compression="gzip"``,
@@ -72,6 +75,7 @@ DEFLATE, SHUFFLE, FLETCHER32, SZIP, NBIT, SCALEOFFSET, LZF = \
 FILTER_NAMES = {DEFLATE: "deflate", SHUFFLE: "shuffle",
                 FLETCHER32: "fletcher32", SZIP: "szip", NBIT: "nbit",
                 SCALEOFFSET: "scaleoffset", LZF: "lzf"}
+NUM_LINKS = 16      # HDF5's limit on links followed in one lookup
 CLASS_NAMES = {2: "time", 3: "string", 4: "bitfield", 5: "opaque",
                6: "compound", 7: "reference", 8: "enum",
                9: "variable-length", 10: "array"}
@@ -311,10 +315,16 @@ def _filters(d: bytes) -> list[tuple[int, list[int]]]:
         pos += 4 * nvals
         if version == 1 and nvals % 2:
             pos += 4
-        if fid not in FILTER_NAMES or fid == NBIT:
-            what = (f"the {FILTER_NAMES[fid]} filter" if fid in FILTER_NAMES
-                    else f"filter id {fid}")
-            raise ValueError(f"HDF5: {what} is not supported")
+        if fid not in FILTER_NAMES:
+            raise ValueError(f"HDF5: filter id {fid} is not supported")
+        if fid == NBIT and (len(vals) < 2 or vals[1] != 1):
+            # cd_values[1] is H5Znbit's "need not compress" flag: set where
+            # every precision is the type's own, and the chunks pass
+            # through; reduced precision packs bits, which no writer here
+            # makes
+            raise ValueError("HDF5: the nbit filter with reduced precision "
+                             "is not supported (only full precision, which "
+                             "passes the bytes through)")
         out.append((fid, vals))
     return out
 
@@ -338,8 +348,9 @@ def _link(d: bytes) -> tuple[str, str, object]:
         return name, "hard", _u(d, pos, 8)
     if kind == 1:
         return name, "soft", d[pos + 2:pos + 2 + _u(d, pos, 2)].decode()
-    if kind == 64:
-        raise ValueError(f"HDF5: external links are not supported ({name})")
+    if kind == 64:              # flags byte, file name, object path
+        file, path = d[pos + 3:pos + 2 + _u(d, pos, 2)].split(b"\0")[:2]
+        return name, "external", (file.decode(), path.decode())
     raise ValueError(f"HDF5: user-defined links (type {kind}) are not "
                      f"supported ({name})")
 
@@ -1030,6 +1041,7 @@ class Dataset:
                 raw = _native("szip", raw, full, *vals[:4])
             elif fid == SCALEOFFSET:
                 raw = _scaleoffset(raw, vals, self.dtype, count)
+            # NBIT at full precision passes the bytes through
         return np.frombuffer(raw, self.dtype, count).reshape(self.chunks)
 
     def __getitem__(self, key):
@@ -1073,6 +1085,7 @@ class File:
             self._rd = _Reader(self._fh)
             self._datasets: dict[str, Dataset] = {}
             self._soft: list[tuple[str, str]] = []
+            self._external: dict[str, tuple[str, str]] = {}
             root = self._superblock()
             self._walk(root, "", set())
             self._resolve_soft_links()
@@ -1152,8 +1165,10 @@ class File:
         for lname, kind, value in links:
             if kind == "hard":
                 self._walk(value, f"{prefix}{lname}/", seen)
-            else:
+            elif kind == "soft":
                 self._soft.append((f"{prefix}{lname}", value))
+            else:
+                self._external[f"{prefix}{lname}"] = value
 
     def _resolve_soft_links(self) -> None:
         for name, target in self._soft:
@@ -1162,6 +1177,8 @@ class File:
                 (base + target).strip("/")
             if t in self._datasets:
                 self._datasets[name] = self._datasets[t]
+            elif t in self._external:
+                self._external[name] = self._external[t]
             else:                           # a group: its datasets
                 for k, ds in list(self._datasets.items()):
                     if k.startswith(t + "/"):
@@ -1206,23 +1223,76 @@ class File:
                     for j in range(n)]
         return out
 
+    def _extern_file(self, name: str, file: str) -> "File":
+        """The file an external link names, found as HDF5 1.14 finds it
+        (without ``HDF5_EXT_PREFIX``): an absolute name as is, then (by
+        its last component if that failed) beside this file and from the
+        working directory; opened once."""
+        tries = [file] if os.path.isabs(file) else []
+        base = os.path.basename(file) if tries else file
+        tries += [os.path.join(os.path.dirname(self.path), base), base]
+        for path in tries:
+            key = os.path.abspath(path)
+            if key in self._sources:
+                return self._sources[key]
+            if os.path.isfile(path):
+                self._sources[key] = File(path)
+                return self._sources[key]
+        raise ValueError(f"HDF5: {name} is an external link to {file}, "
+                         f"which was not found (external links are looked "
+                         f"up as given, beside {self.path} and from the "
+                         f"working directory)")
+
+    def _get(self, name: str, depth: int) -> Dataset:
+        name = name.strip("/")
+        if name in self._datasets:
+            return self._datasets[name]
+        for link, (file, path) in self._external.items():
+            if name != link and not name.startswith(link + "/"):
+                continue
+            if depth >= NUM_LINKS:
+                raise ValueError(f"HDF5: {name}: too many links (more than "
+                                 f"{NUM_LINKS} external links followed)")
+            target = self._extern_file(name, file)
+            inner = path.strip("/") + name[len(link):]
+            try:
+                return target._get(inner, depth + 1)
+            except KeyError:
+                raise ValueError(f"HDF5: {name} is an external link to "
+                                 f"{file}:{path}, and {inner or '/'} is not "
+                                 f"a dataset there") from None
+        raise KeyError(name)
+
     def __getitem__(self, name: str) -> Dataset:
-        return self._datasets[name.strip("/")]
+        """The dataset of that name; an external link is followed here,
+        when its name is read, as h5py follows it."""
+        return self._get(name, 0)
 
     def __contains__(self, name) -> bool:
-        return str(name).strip("/") in self._datasets
+        name = str(name).strip("/")
+        if name in self._datasets or name in self._external:
+            return True
+        try:                                # under an external group
+            self._get(name, 0)
+        except (KeyError, ValueError):
+            return False
+        return True
 
     def __iter__(self):
-        return iter(self._datasets)
+        return iter(self.keys())
 
     def __len__(self) -> int:
-        return len(self._datasets)
+        return len(self.keys())
 
     def keys(self):
-        return self._datasets.keys()
+        """Dataset names, then the names of external links (not followed:
+        h5py lists a link whether or not its target can be read)."""
+        return list(self._datasets) + [k for k in self._external
+                                       if k not in self._datasets]
 
     def close(self) -> None:
-        for f in self._sources.values():
+        sources, self._sources = self._sources, {}
+        for f in sources.values():
             f.close()
         self._fh.close()
 

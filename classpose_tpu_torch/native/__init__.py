@@ -1,17 +1,19 @@
 """The native host cores, built on first use: the geometry core
 (``geomfast.cpp``), the JPEG codec of the slide reader and writer
 (``jpeg.cpp``), the JPEG 2000 decoder of the slide reader
-(``jpeg2000.cpp``) and the lzf and szip filters of the HDF5 reader
-(``hdf5filters.cpp``).
+(``jpeg2000.cpp``), the lzf and szip filters of the HDF5 reader
+(``hdf5filters.cpp``) and the zstd decoder of the CZI reader
+(``zstd.cpp``).
 
-:func:`load_geomfast`, :func:`load_jpeg`, :func:`load_jpeg2000` and
-:func:`load_hdf5filters` compile their source with
+:func:`load_geomfast`, :func:`load_jpeg`, :func:`load_jpeg2000`,
+:func:`load_hdf5filters` and :func:`load_zstd` compile their source with
 ``g++`` into ``classpose_tpu_torch/_build/`` (the kernels' build directory,
 which git ignores), named by a hash of the source and the flags, and load
 it with ``ctypes`` (whose calls release the GIL, so reader threads decode
 in parallel). Nothing happens at import. A build or load failure raises:
 the package has no slower fallback for contours, metrics, containment,
-deduplication, JPEG or JPEG 2000 tiles, or lzf and szip chunks.
+deduplication, JPEG or JPEG 2000 tiles, lzf and szip chunks, or zstd
+subblocks.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ _SRC = _DIR / "geomfast.cpp"
 _JPEG_SRC = _DIR / "jpeg.cpp"
 _J2K_SRC = _DIR / "jpeg2000.cpp"
 _H5F_SRC = _DIR / "hdf5filters.cpp"
+_ZSTD_SRC = _DIR / "zstd.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 _FLAGS = ["-O2", "-shared", "-fPIC"]
 # the 9/7 wavelet must round as OpenJPEG does: no fused multiply-adds
@@ -78,6 +81,12 @@ _H5F_SIGNATURES = {
                                        ctypes.c_int, ctypes.c_int,
                                        ctypes.c_int, ctypes.c_int, P,
                                        ctypes.c_int]),
+}
+
+_ZSTD_SIGNATURES = {
+    "zstd_decompress": (ctypes.c_long, [P, ctypes.c_long, P, ctypes.c_long,
+                                        ctypes.POINTER(P), P, ctypes.c_int]),
+    "zstd_free": (None, [P]),
 }
 
 
@@ -133,3 +142,8 @@ def load_hdf5filters() -> ctypes.CDLL:
     """The HDF5 lzf and szip filters, built on first use; raises if they
     cannot be."""
     return _load(_H5F_SRC, _H5F_SIGNATURES)
+
+
+def load_zstd() -> ctypes.CDLL:
+    """The zstd decoder, built on first use; raises if it cannot be."""
+    return _load(_ZSTD_SRC, _ZSTD_SIGNATURES)

@@ -39,8 +39,7 @@ Weights are a published ``.pt`` (the built-in configs) or a native
 ``.npz``. ``--fast_qc`` runs ``eval_batch`` with ``qc_downsample=2`` and
 ``percentile_subsample=2``. Slides are read by the reader ``WSI_READER``
 selects (by default the package's TIFF/SVS reader; ``array`` for
-``.npy``). What waits (``ROADMAP.md`` queue 1) raises before a slide is
-read: the CZI reader.
+``.npy``; ``czi`` for Zeiss ``.czi``).
 """
 
 from __future__ import annotations
@@ -354,11 +353,9 @@ class ProgressReporter:
 
 
 def check_supported(args) -> None:
-    """Raise before any slide is read or any model built: for what this
-    package does not run yet (``WSI_READER=czi``: ``NotImplementedError``
-    from ``get_wsi_reader``) and for a ``--device`` that names no card of
-    this machine, a card twice or another CPU (``ValueError`` from
-    ``get_devices``)."""
+    """Raise before any slide is read or any model built: for a
+    ``--device`` that names no card of this machine, a card twice or
+    another CPU (``ValueError`` from ``get_devices``)."""
     get_wsi_reader()
     get_devices(getattr(args, "device", None))
 

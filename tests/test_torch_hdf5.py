@@ -489,6 +489,132 @@ def test_external_storage(tmp_path, monkeypatch):
         assert bits_equal(f["y"][()], np.arange(5))
 
 
+def _nbit_file(path, dtype, a):
+    """h5py's nbit filter on a full-precision type: cd_values[1] = 1,
+    "need not compress"."""
+    with h5py.File(path, "w") as f:
+        dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+        dcpl.set_chunk((4,) + a.shape[1:])
+        dcpl.set_filter(h5py.h5z.FILTER_NBIT)
+        h5py.h5d.create(f.id, b"x", dtype, h5py.h5s.create_simple(a.shape),
+                        dcpl=dcpl).write(h5py.h5s.ALL, h5py.h5s.ALL, a)
+        return f["x"].id.get_create_plist().get_filter(0)[2]
+
+
+@pytest.mark.parametrize("dtype,np_dtype", [
+    (h5py.h5t.STD_I16LE, "<i2"), (h5py.h5t.IEEE_F32LE, "<f4"),
+    (h5py.h5t.STD_U8LE, "u1"), (h5py.h5t.IEEE_F64BE, ">f8")],
+    ids=["i2", "f4", "u1", "f8_big_endian"])
+def test_nbit_full_precision(tmp_path, dtype, np_dtype):
+    """The nbit filter as h5py writes it passes the chunk bytes through;
+    the same file with the "need not compress" flag cleared (reduced
+    precision, which h5py cannot create) raises by name."""
+    path = tmp_path / "nbit.h5"
+    a = (np.random.default_rng(4).normal(0, 50, (11, 3)) + 60
+         ).astype(np_dtype)
+    cd = _nbit_file(path, dtype, a)
+    assert cd[0] == 8 and cd[1] == 1
+    _reads_as_h5py(path)
+    raw = path.read_bytes()
+    packed = np.array(cd, "<u4").tobytes()
+    assert raw.count(packed) == 1
+    at = raw.index(packed) + 4
+    path.write_bytes(raw[:at] + b"\0\0\0\0" + raw[at + 4:])
+    with pytest.raises(ValueError, match="nbit filter with reduced "
+                                         "precision"):
+        hdf5.File(path)
+
+
+def _external_pair(tmp_path, where):
+    """A parent ``p.h5`` in ``tmp_path/sub`` whose "x" is an external link
+    to ``t.h5:/d``; ``where`` says which copies of ``t.h5`` exist (each
+    holds a different array)."""
+    sub = tmp_path / "sub"
+    sub.mkdir()
+    copies = {"beside": sub / "t.h5", "cwd": tmp_path / "t.h5",
+              "absolute": tmp_path / "abs" / "t.h5"}
+    for i, (key, path) in enumerate(copies.items()):
+        if key in where:
+            path.parent.mkdir(exist_ok=True)
+            with h5py.File(path, "w") as f:
+                f["d"] = np.arange(3 + i, dtype="<i4") * (i + 1)
+                f.create_group("g")["e"] = np.full(2, i, "u2")
+    target = str(copies["absolute"]) if "absolute" in where else "t.h5"
+    with h5py.File(sub / "p.h5", "w") as f:
+        f["x"] = h5py.ExternalLink(target, "/d")
+        f["grp"] = h5py.ExternalLink(target, "/g")
+        f["own"] = np.arange(4.0)
+    return sub / "p.h5"
+
+
+@pytest.mark.parametrize("where", [("beside",), ("cwd",), ("beside", "cwd"),
+                                   ("absolute",), ("absolute", "beside")],
+                         ids=["beside", "cwd", "both", "absolute",
+                              "absolute_gone_beside"])
+def test_external_links(tmp_path, monkeypatch, where):
+    """h5py's ExternalLink, to a dataset and into a group, its target found
+    as HDF5 1.14 finds it: an absolute name as is, else beside the parent
+    file, then from the working directory (with both present, the copy
+    beside the parent, as h5py reads it)."""
+    path = _external_pair(tmp_path, where)
+    if where == ("absolute", "beside"):    # the absolute copy is gone
+        (tmp_path / "abs" / "t.h5").unlink()
+    monkeypatch.chdir(tmp_path)
+    _reads_as_h5py(path, ["x", "grp/e", "own"])
+    with hdf5.File(path) as f:
+        assert {"x", "grp", "own"} <= set(f) and "grp/e" in f
+
+
+def test_external_link_chains_and_faults(tmp_path, monkeypatch):
+    """A chain of links across three files reads as h5py reads it; a
+    missing file or object raises by name when read (the file opens and
+    its other names read); a cycle stops at HDF5's limit of 16 links."""
+    monkeypatch.chdir(tmp_path)
+    with h5py.File("c.h5", "w") as f:
+        f["d"] = np.arange(6, dtype="<f8").reshape(2, 3)
+    with h5py.File("b.h5", "w") as f:
+        f["hop"] = h5py.ExternalLink("c.h5", "/d")
+        f["loop"] = h5py.ExternalLink("a.h5", "/loop")
+    with h5py.File("a.h5", "w", libver="latest") as f:
+        f["chain"] = h5py.ExternalLink("b.h5", "/hop")
+        f["loop"] = h5py.ExternalLink("b.h5", "/loop")
+        f["gone"] = h5py.ExternalLink("missing.h5", "/d")
+        f["nopath"] = h5py.ExternalLink("c.h5", "/nope")
+        f["ok"] = np.arange(3)
+    _reads_as_h5py("a.h5", ["chain", "ok"])
+    with h5py.File("a.h5", "r") as ref, hdf5.File("a.h5") as f:
+        for name, match in (("gone", "missing.h5"), ("nopath", "nope"),
+                            ("loop", "too many links")):
+            with pytest.raises(KeyError):
+                ref[name]
+            with pytest.raises(ValueError, match=match):
+                f[name]
+        assert bits_equal(f["ok"][()], ref["ok"][()])
+
+
+def test_external_link_dataset_against_jax(jax_file, tmp_path):
+    """The JAX ``ClassposeHDF5Dataset`` (h5py follows the links) and the
+    port's on a file whose arrays are all external links into the JAX
+    ``dataset_to_hdf5`` output: the same counts and items."""
+    path = tmp_path / "links.h5"
+    with h5py.File(jax_file, "r") as f:
+        names = list(f)
+    with h5py.File(path, "w") as f:
+        for name in names:
+            f[name] = h5py.ExternalLink(str(jax_file), "/" + name)
+    kw = dict(bsize=32, seed=3)
+    a = jax_dataset.ClassposeHDF5Dataset(str(path), **kw)
+    b = port_dataset.ClassposeHDF5Dataset(str(path), **kw)
+    assert len(a) == len(b) == 70
+    for name in ("class_counts", "instance_counts", "diameter_array",
+                 "class_weights"):
+        assert bits_equal(getattr(a, name), getattr(b, name)), name
+    a.augment = b.augment = False
+    for i in (0, 9, 69):
+        for x, y in zip(a[i], b[i]):
+            assert bits_equal(x, y)
+
+
 def test_virtual_datasets(tmp_path, monkeypatch):
     """Sources in the same file (".") and in another file by a relative
     path (found next to the virtual file, from any working directory),

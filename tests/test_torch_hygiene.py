@@ -2,8 +2,8 @@
 ``chip_smoke.py``, ``ab_attention.py`` (which it imports) or ``ab_wsi.py``
 imports JAX, flax or the JAX package, nor a host library the card's
 machine lacks (cv2, PIL, pandas, sklearn, yaml, pydantic, matplotlib,
-requests, shapely, openslide, h5py); its kernel and native sources ship
-with the package."""
+requests, shapely, openslide, h5py, zstandard, pylibCZIrw); its kernel
+and native sources ship with the package."""
 
 import ast
 import pkgutil
@@ -16,7 +16,8 @@ import classpose_tpu_torch
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "classpose_tpu")
 HOST_LIBS = ("cv2", "PIL", "pandas", "sklearn", "yaml", "pydantic",
-             "matplotlib", "requests", "shapely", "openslide", "h5py")
+             "matplotlib", "requests", "shapely", "openslide", "h5py",
+             "zstandard", "pylibCZIrw")
 
 
 def _forbidden(name: str, names=FORBIDDEN) -> bool:

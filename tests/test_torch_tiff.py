@@ -479,8 +479,11 @@ def test_facade_maps_readers(monkeypatch, value, name):
 
 @pytest.mark.parametrize("value", ["czi", "czi-zeiss", "CZI-Zeiss"])
 def test_facade_refuses_czi(monkeypatch, value):
-    from classpose_tpu_torch.io import get_wsi_reader
+    """``czi``/``czi-zeiss`` (any case) select the package's own CZI
+    reader, which refuses a file that is not a CZI."""
+    from classpose_tpu_torch.io import WSIReader, get_wsi_reader
 
     monkeypatch.setenv("WSI_READER", value)
-    with pytest.raises(NotImplementedError, match="pylibCZIrw"):
-        get_wsi_reader()
+    assert get_wsi_reader().__name__ == "CZISlide"
+    with pytest.raises(ValueError, match="not a CZI file"):
+        WSIReader(str(GOLDEN / "jpeg_golden.jpg"))
