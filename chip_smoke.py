@@ -177,21 +177,30 @@
    tile cut by its EOI must stop the CLI with ``RuntimeError("slide
    reader thread failed")`` caused by the decoder's ``ValueError``, as
    PIL's "image file is truncated" stops the JAX reader; its CZI step:
-   every CZI golden (``tests/golden/czi_*.czi``: overlapping M-indexed
-   tiles at a negative origin, box-filtered pyramid layers, two scenes,
-   Bgr48 under Zstd1 with hi/lo packing, Bgra32, JpgFile) must read at
-   every level, on edge requests and inside, to the SHA-256 of the JAX
-   ``CZISlide``'s reads over the tests' pylibCZIrw fake
-   (``czi_golden.json``), with its MPP, and the refused ones (JPEG XR,
-   LZW, camera-specific, Gray8, FilePart 1) must raise naming what they
-   use; the committed region CZI (``tests/golden/czi_region.czi``: the
-   same region in 16 tiles of 512² in Zstd1, Zstd0 and one uncompressed,
-   a pyramid layer at zoom 1/2, MPP 0.4 in its metadata) must read at
-   level 0 to the region exactly, and run through the CLI with
-   ``WSI_READER=czi`` must launch the five kernels and find exactly the
-   tiles and cells of the JPEG 2000 step's region ``.npy`` run (matched
-   share 1.0: the subblocks are lossless); it prints the zstd decoder's
-   rate in MB/s on one thread and on the reader threads and both runs'
+   every JPEG XR golden (``tests/golden/jxr_*.jxr``, written by the
+   test-side encoder of ``tests/golden/regenerate_jxr.py``) must decode
+   to the SHA-256 of that encoder's pixels (``jxr_golden.json``) and the
+   refused ones must raise naming their pixel format and, in the
+   codestream, the header field; every CZI golden
+   (``tests/golden/czi_*.czi``: overlapping M-indexed tiles at a negative
+   origin, box-filtered pyramid layers, two scenes, Bgr48 under Zstd1
+   with hi/lo packing, Bgra32, JpgFile, JpgXrFile in Bgr24, Bgr48 and
+   Bgra32 and as pyramid layers) must read at every level, on edge
+   requests and inside, to the SHA-256 of the JAX ``CZISlide``'s reads
+   over the tests' pylibCZIrw fake (``czi_golden.json``), with its MPP,
+   and the refused ones (a JpgXr stream cut short, a JpgXr pixel format
+   foreign to its pixel type, LZW, camera-specific, Gray8, FilePart 1)
+   must raise naming what they use; the committed region CZI
+   (``tests/golden/czi_region.czi``: the same region in 16 tiles of 512²,
+   8 of them lossless JpgXr in spatial and frequency order at overlap 0,
+   1 and 2 with soft and hard tiles, the rest Zstd1, Zstd0 and one
+   uncompressed, a pyramid layer at zoom 1/2, MPP 0.4 in its metadata)
+   must read at level 0 to the region exactly, and run through the CLI
+   with ``WSI_READER=czi`` must launch the five kernels and find exactly
+   the tiles and cells of the JPEG 2000 step's region ``.npy`` run
+   (matched share 1.0: the subblocks are lossless); it prints the JPEG XR
+   decoder's rate in MP/s and the zstd decoder's in MB/s on one thread
+   and on the reader threads and both runs'
    pipeline seconds; then
    the GrandQC phase: a tissue (2 classes) and an
    artefact (8 classes) UNet++ of seeded random weights in the smp
@@ -262,6 +271,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 from pathlib import Path
 from unittest import mock
 
@@ -339,8 +349,15 @@ from classpose_tpu_torch.grandqc.tissue import (
     make_unetpp_predict_fn,
     unetpp_logits,
 )
-from classpose_tpu_torch.io import TiffSlide, hdf5, jpeg, jpeg2000, zstd
-from classpose_tpu_torch.io.czi import ZSTD0, ZSTD1, CziFile
+from classpose_tpu_torch.io import (
+    TiffSlide,
+    hdf5,
+    jpeg,
+    jpeg2000,
+    jpegxr,
+    zstd,
+)
+from classpose_tpu_torch.io.czi import JPGXR, ZSTD0, ZSTD1, CziFile
 from classpose_tpu_torch.io.czi_reader import CZISlide
 from classpose_tpu_torch.io.array_reader import ArraySlide, synthetic_wsi
 from classpose_tpu_torch.io.tiff_writer import write_tiled_tiff
@@ -451,12 +468,15 @@ J2K_MODEL_TILE = 512
 JPEG_SVS, JPEG_JSON = GOLDEN / "jpeg_region.svs", GOLDEN / "jpeg_golden.json"
 JPEG_RATE_REPEATS = 8
 # its CZI step: the committed Zeiss CZI of the same region
-# (tests/golden/regenerate_czi.py: 16 tiles of 512² in Zstd1, Zstd0 and
-# one uncompressed, a pyramid layer at zoom 1/2, MPP 0.4 in its metadata)
-# and the hashes of the JAX reader's reads of every CZI golden; the times
-# each zstd subblock is decoded for the decoder's rate
+# (tests/golden/regenerate_czi.py: 16 tiles of 512², 8 lossless JpgXr, the
+# rest Zstd1, Zstd0 and one uncompressed, a pyramid layer at zoom 1/2, MPP
+# 0.4 in its metadata) and the hashes of the JAX reader's reads of every
+# CZI golden; the times each zstd and JpgXr subblock is decoded for the
+# decoders' rates; the JPEG XR goldens and the hashes of the pixels of the
+# encoder that wrote them (tests/golden/regenerate_jxr.py)
 CZI_REGION, CZI_JSON = GOLDEN / "czi_region.czi", GOLDEN / "czi_golden.json"
 CZI_RATE_REPEATS = 8
+JXR_JSON = GOLDEN / "jxr_golden.json"
 # its damaged copies of that SVS (tests/golden/jpeg_damage.py): one tile
 # cut by its EOI, one tile with a byte of entropy-coded data edited, and
 # PIL's digest of the edited tile
@@ -2755,6 +2775,7 @@ def run_slide_czi(wsi: dict) -> dict:
     if g["slide"] != dict(width=WSI_SIZE, height=WSI_SIZE, n_cells=4000,
                           mpp=WSI_MPP, seed=SEED):
         raise AssertionError(f"the region CZI is of another slide: {g}")
+    jxr = run_jxr_goldens()
     n_reads = 0
     for name, f in golden["files"].items():
         slide = CZISlide(str(GOLDEN / f"{name}.czi"))
@@ -2769,13 +2790,20 @@ def run_slide_czi(wsi: dict) -> dict:
             n_reads += 1
         slide.close()
     for name, word in golden["refused"].items():
+        path = str(GOLDEN / f"{name}.czi")
+        if name.startswith("czi_refused_jpgxr"):
+            # a JpgXr stream is refused when decoded: the file opens
+            step, what = partial(CZISlide(path).read_region, (0, 0), 0,
+                                 (16, 16)), "reads"
+        else:
+            step, what = partial(CZISlide, path), "opens"
         try:
-            CZISlide(str(GOLDEN / f"{name}.czi"))
+            step()
         except ValueError as e:
             if word not in str(e):
                 raise AssertionError(f"refused CZI {name}: {e}") from e
         else:
-            raise AssertionError(f"refused CZI {name} opens")
+            raise AssertionError(f"refused CZI {name} {what}")
     # the region's level 0 is the region's pixels, exactly
     slide = CZISlide(str(CZI_REGION))
     side = g["region"]
@@ -2784,8 +2812,8 @@ def run_slide_czi(wsi: dict) -> dict:
             slide.read_region((0, 0), 0, (side, side))[..., :3], region):
         raise AssertionError("the region CZI's level 0 is not the region")
     del region
-    # (c) the zstd subblocks, their data read once, decoded on one thread
-    # and on the loader's reader threads
+    # (c) the zstd and JpgXr subblocks, their data read once, decoded on
+    # one thread and on the loader's reader threads
     cf = CziFile(str(CZI_REGION))
     blocks = [b for b in cf.subblocks if b.compression in (ZSTD0, ZSTD1)]
     jobs = []
@@ -2794,6 +2822,10 @@ def run_slide_czi(wsi: dict) -> dict:
         w, h = b.stored
         start = data[0] if b.compression == ZSTD1 else 0
         jobs.append((data[start:], w * h * 3))
+    xr_blocks = [b for b in cf.subblocks if b.compression == JPGXR]
+    xr_jobs = [cf._data(b) for b in xr_blocks]
+    xr_mp = sum(b.stored[0] * b.stored[1] for b in xr_blocks) \
+        * CZI_RATE_REPEATS / 1e6
     cf.close()
     slide.close()
     work_list = jobs * CZI_RATE_REPEATS
@@ -2807,14 +2839,53 @@ def run_slide_czi(wsi: dict) -> dict:
         t0 = time.perf_counter()
         list(pool.map(lambda j: zstd.decompress(*j), work_list))
         many = time.perf_counter() - t0
+    xr_rates = {}
+    for threads in sorted({1, 4, n_read}):
+        with ThreadPoolExecutor(threads) as pool:
+            t0 = time.perf_counter()
+            list(pool.map(jpegxr.decode, xr_jobs * CZI_RATE_REPEATS))
+            xr_rates[threads] = xr_mp / (time.perf_counter() - t0)
     cli = run_region_svs(wsi, CZI_REGION, None, reader="czi")
     return dict(
         goldens=len(golden["files"]), golden_reads=n_reads,
         refused=len(golden["refused"]), zstd_subblocks=len(blocks),
+        jpgxr_subblocks=len(xr_blocks), jxr=jxr,
         czi_kib=CZI_REGION.stat().st_size / 1024,
         decode_threads=n_read, decode_repeats=CZI_RATE_REPEATS,
         zstd_mb_per_s_1t=mb / one, zstd_mb_per_s_nt=mb / many,
+        jxr_mp_per_s={str(k): v for k, v in xr_rates.items()},
         step_s=time.perf_counter() - t_step, **cli)
+
+
+def run_jxr_goldens() -> dict:
+    """Every JPEG XR golden decodes to the hash of its encoder's pixels;
+    every refused one raises naming its pixel format, and its codestream
+    naming the header field."""
+    golden = json.loads(JXR_JSON.read_text())
+    for name, f in golden["files"].items():
+        data = (GOLDEN / f"{name}.jxr").read_bytes()
+        px = jpegxr.decode(data)
+        if list(px.shape) != f["shape"] or str(px.dtype) != f["dtype"] \
+                or _sha256(px) != f["sha256"]:
+            raise AssertionError(f"JPEG XR {name} decodes unlike its "
+                                 f"encoder's record")
+    for name, f in golden["refused"].items():
+        data = (GOLDEN / f"{name}.jxr").read_bytes()
+        for fn, arg, word in ((jpegxr.decode, data, f["format"]),
+                              (jpegxr.decode_codestream,
+                               jpegxr.container(data).image,
+                               f["codestream"])):
+            try:
+                fn(arg)
+            except ValueError as e:
+                if word not in str(e):
+                    raise AssertionError(f"refused JPEG XR {name}: {e}") \
+                        from e
+            else:
+                raise AssertionError(f"refused JPEG XR {name} decodes")
+    return dict(goldens=len(golden["files"]),
+                lossless=sum(f["lossless"] for f in golden["files"].values()),
+                refused=len(golden["refused"]))
 
 
 def run_damaged_svs(wsi: dict, raw: bytes) -> dict:
@@ -3515,6 +3586,12 @@ def main() -> int:
             f"{jp['decoded_pipeline_s']:.3f} s; {jp['n_cells']} vs "
             f"{jp['npy_n_cells']} cells, {jp['matched_share']:.4f} matched")
         cz = slide_stats["czi"]
+        log(f"slide JPEG XR: {cz['jxr']['goldens']} goldens as their "
+            f"encoder's pixels ({cz['jxr']['lossless']} lossless), "
+            f"{cz['jxr']['refused']} refusals by name; the region CZI's "
+            f"{cz['jpgxr_subblocks']} JpgXr subblocks decode at " + ", ".join(
+                f"{v:.2f} MP/s on {k} thread{'s' if k != '1' else ''}"
+                for k, v in cz["jxr_mp_per_s"].items()) + " (host)")
         log(f"slide CZI: {cz['golden_reads']} golden reads and "
             f"{cz['refused']} refusals as the JAX reader's; zstd "
             f"{cz['zstd_mb_per_s_1t']:.2f} MB/s on 1 thread, "

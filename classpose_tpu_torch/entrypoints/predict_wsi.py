@@ -12,8 +12,8 @@ native ``.npz``. ``--device`` defaults to the first card; ``cpu`` runs on
 the CPU. A ``.svs``/``.tif`` slide is read by the package's own TIFF reader
 (the default, or ``WSI_READER=tiff``); a ``.npy`` slide takes
 ``WSI_READER=array``; a Zeiss ``.czi`` takes ``WSI_READER=czi`` (the
-package's own reader: uncompressed, JpgFile, Zstd0 and Zstd1 subblocks;
-JPEG XR raises). ``--tissue_detection_model_path`` and
+package's own reader: uncompressed, JpgFile, JpgXrFile, Zstd0 and Zstd1
+subblocks). ``--tissue_detection_model_path`` and
 ``--artefact_detection_model_path`` take GrandQC ``.npz`` files
 (``classpose-convert-weights-torch --kind grandqc``), run on the first
 card. ``--device cuda:0,1`` (or ``cuda``, every visible card) runs the

@@ -11,9 +11,10 @@
   :class:`~classpose_tpu_torch.io.array_reader.ArraySlide`, which also
   reads ``.npy`` paths.
 - ``czi``/``czi-zeiss``: :class:`~classpose_tpu_torch.io.czi_reader.CZISlide`,
-  the package's own Zeiss CZI reader (uncompressed, JpgFile, Zstd0 and
-  Zstd1 subblocks; JPEG XR, LZW, camera-specific compressions and
-  multi-file CZIs raise, ``READERS_ITEM``).
+  the package's own Zeiss CZI reader (uncompressed, JpgFile, JpgXrFile
+  (JPEG XR, on the package's own decoder), Zstd0 and Zstd1 subblocks;
+  LZW, camera-specific compressions and multi-file CZIs raise,
+  ``READERS_ITEM``).
 """
 
 from __future__ import annotations

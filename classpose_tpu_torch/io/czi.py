@@ -20,10 +20,16 @@ offsets. :class:`CziFile` reads
 :meth:`CziFile.pixels` decodes a subblock to (stored height, stored width,
 channels) in the file's channel order (BGR, as libCZI returns it):
 uncompressed, JpgFile (the package's ``native/jpeg.cpp``, RGB reversed),
-Zstd0 and Zstd1 (the package's ``native/zstd.cpp``; Zstd1's header byte
-and its hi/lo byte packing of 16-bit planes). LZW, JpgXrFile and
-camera-specific compressions raise a ``ValueError`` that names them. File
-reads go through ``os.pread``, so reader threads share one descriptor.
+JpgXrFile (the package's ``native/jpegxr.cpp``: a JPEG XR file whose
+pixel format belongs with the pixel type, 24bppBGR for Bgr24, 48bppRGB
+for Bgr48, 32bppBGRA for Bgra32, its channels in the order stored; the
+decoder is held to a test-side encoder written from recall, not yet to a
+ZEN-written stream, see :mod:`classpose_tpu_torch.io.jpegxr`), Zstd0
+and Zstd1 (the package's ``native/zstd.cpp``; Zstd1's header byte and its
+hi/lo byte packing of 16-bit planes). LZW and camera-specific
+compressions raise a ``ValueError`` that names them, as does a JpgXr
+stream the decoder refuses. File reads go through ``os.pread``, so reader
+threads share one descriptor.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from classpose_tpu_torch.io import jpeg, zstd
+from classpose_tpu_torch.io import jpeg, jpegxr, zstd
 
 SEGMENT_HEADER = 32
 DV_SIZE, DIM_SIZE = 32, 20
@@ -52,7 +58,9 @@ PIXEL_TYPES = {
 UNCOMPRESSED, JPG, LZW, JPGXR, ZSTD0, ZSTD1 = 0, 1, 2, 4, 5, 6
 COMPRESSIONS = {UNCOMPRESSED: "uncompressed", JPG: "JpgFile", LZW: "LZW",
                 JPGXR: "JpgXrFile (JPEG XR)", ZSTD0: "Zstd0", ZSTD1: "Zstd1"}
-DECODED = (UNCOMPRESSED, JPG, ZSTD0, ZSTD1)
+DECODED = (UNCOMPRESSED, JPG, JPGXR, ZSTD0, ZSTD1)
+# pixel type -> the JPEG XR pixel format its JpgXr subblocks hold
+JPGXR_FORMATS = {3: "24bppBGR", 4: "48bppRGB", 9: "32bppBGRA"}
 
 
 def compression_name(c: int) -> str:
@@ -255,6 +263,18 @@ class CziFile:
                 raise ValueError(f"CZI: a JpgFile subblock of {rgb.shape} "
                                  f"where the directory says {shape}")
             return np.ascontiguousarray(rgb[..., ::-1])
+        if sb.compression == JPGXR:
+            f = jpegxr.container(data)
+            if JPGXR_FORMATS.get(sb.pixel_type) != f.pixel_format:
+                raise ValueError(
+                    f"CZI: a JpgXrFile subblock of {f.pixel_format} for "
+                    f"{pixel_type_name(sb.pixel_type)} (which takes "
+                    f"{JPGXR_FORMATS.get(sb.pixel_type, 'no JPEG XR format')})")
+            px = jpegxr.decode(f)
+            if px.shape != shape:
+                raise ValueError(f"CZI: a JpgXrFile subblock of {px.shape} "
+                                 f"where the directory says {shape}")
+            return px
         if sb.compression == UNCOMPRESSED:
             if len(data) < nbytes:
                 raise ValueError("CZI: an uncompressed subblock shorter "

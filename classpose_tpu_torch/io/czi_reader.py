@@ -1,6 +1,7 @@
 """Zeiss CZI reader with an OpenSlide-like interface (counterpart of
-``classpose_tpu/io/czi_reader.py``), on the package's own ZISRAW parser
-(``io/czi.py``) instead of pylibCZIrw.
+``classpose_tpu/io/czi_reader.py``, the JAX package's "Zeiss CZI (JPEG-XR)
+reader"), on the package's own ZISRAW parser (``io/czi.py``) and JPEG XR
+decoder (``io/jpegxr.py``) instead of pylibCZIrw.
 
 The JAX class's semantics: a 5-level synthetic pyramid with downsamples
 (1, 2, 4, 8, 16) over reads at zoom ``1 / downsample``, the document
@@ -35,6 +36,7 @@ import numpy as np
 from classpose_tpu_torch.io import pil_resize
 from classpose_tpu_torch.io.czi import (
     DECODED,
+    JPGXR,
     CziFile,
     compression_name,
     pixel_type_name,
@@ -136,6 +138,12 @@ class CZISlide:
             if b.compression not in DECODED:
                 raise ValueError(f"CZI: {compression_name(b.compression)} "
                                  f"subblocks are not supported")
+        if any(b.compression == JPGXR for b in plane):
+            logger.warning(
+                "CZI: JpgXrFile subblocks are read by the package's JPEG XR "
+                "decoder, which is held to a test-side encoder and not yet "
+                "to ZEN- or jxrlib-written streams: a stream it misreads "
+                "mostly raises, but may decode to other pixels")
         by_factor: dict[int, list] = {}
         for b in plane:
             (sw, _), w = b.stored, b.rect[2]

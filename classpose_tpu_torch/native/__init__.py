@@ -2,18 +2,19 @@
 (``geomfast.cpp``), the JPEG codec of the slide reader and writer
 (``jpeg.cpp``), the JPEG 2000 decoder of the slide reader
 (``jpeg2000.cpp``), the lzf and szip filters of the HDF5 reader
-(``hdf5filters.cpp``) and the zstd decoder of the CZI reader
-(``zstd.cpp``).
+(``hdf5filters.cpp``), and the zstd and JPEG XR decoders of the CZI
+reader (``zstd.cpp``, ``jpegxr.cpp``).
 
 :func:`load_geomfast`, :func:`load_jpeg`, :func:`load_jpeg2000`,
-:func:`load_hdf5filters` and :func:`load_zstd` compile their source with
+:func:`load_hdf5filters`, :func:`load_zstd` and :func:`load_jpegxr`
+compile their source with
 ``g++`` into ``classpose_tpu_torch/_build/`` (the kernels' build directory,
 which git ignores), named by a hash of the source and the flags, and load
 it with ``ctypes`` (whose calls release the GIL, so reader threads decode
 in parallel). Nothing happens at import. A build or load failure raises:
 the package has no slower fallback for contours, metrics, containment,
 deduplication, JPEG or JPEG 2000 tiles, lzf and szip chunks, or zstd
-subblocks.
+and JPEG XR subblocks.
 """
 
 from __future__ import annotations
@@ -31,12 +32,15 @@ _JPEG_SRC = _DIR / "jpeg.cpp"
 _J2K_SRC = _DIR / "jpeg2000.cpp"
 _H5F_SRC = _DIR / "hdf5filters.cpp"
 _ZSTD_SRC = _DIR / "zstd.cpp"
+_JXR_SRC = _DIR / "jpegxr.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 _FLAGS = ["-O2", "-shared", "-fPIC"]
 # the 9/7 wavelet must round as OpenJPEG does: no fused multiply-adds
 # (GCC fuses them by default on aarch64), and integer lifting of corrupt
 # streams wraps instead of being undefined
-_EXTRA_FLAGS = {_J2K_SRC: ["-ffp-contract=off", "-fwrapv"]}
+_EXTRA_FLAGS = {_J2K_SRC: ["-ffp-contract=off", "-fwrapv"],
+                # the lapped transform of a corrupt stream wraps likewise
+                _JXR_SRC: ["-fwrapv"]}
 
 _libs: dict[Path, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -87,6 +91,12 @@ _ZSTD_SIGNATURES = {
     "zstd_decompress": (ctypes.c_long, [P, ctypes.c_long, P, ctypes.c_long,
                                         ctypes.POINTER(P), P, ctypes.c_int]),
     "zstd_free": (None, [P]),
+}
+
+_JXR_SIGNATURES = {
+    "jxr_info": (ctypes.c_int, [P, ctypes.c_long, I32, P, ctypes.c_int]),
+    "jxr_decode": (ctypes.c_int, [P, ctypes.c_long, P, ctypes.c_long, P,
+                                  ctypes.c_int]),
 }
 
 
@@ -147,3 +157,8 @@ def load_hdf5filters() -> ctypes.CDLL:
 def load_zstd() -> ctypes.CDLL:
     """The zstd decoder, built on first use; raises if it cannot be."""
     return _load(_ZSTD_SRC, _ZSTD_SIGNATURES)
+
+
+def load_jpegxr() -> ctypes.CDLL:
+    """The JPEG XR decoder, built on first use; raises if it cannot be."""
+    return _load(_JXR_SRC, _JXR_SIGNATURES)

@@ -17,17 +17,29 @@ neither zstandard nor PIL nor JAX).
 - ``czi_bgr48.czi``: Bgr48 under Zstd1 with hi/lo byte packing.
 - ``czi_bgra32.czi``: Bgra32, uncompressed and Zstd0.
 - ``czi_jpeg.czi``: JpgFile tiles (PIL, quality 90).
-- ``czi_refused_*.czi``: JpgXrFile, LZW and camera-specific subblocks, a
-  Gray8 slide and FilePart 1, each of which the port refuses by name.
+- ``czi_jpgxr.czi``, ``czi_jpgxr_bgr48.czi``, ``czi_jpgxr_bgra32.czi``
+  and ``czi_jpgxr_pyramid.czi``: JpgXrFile subblocks written by the
+  test-side JPEG XR encoder (``tests/golden/regenerate_jxr.py``):
+  lossless and lossy, spatial and frequency order, overlap 0-2, tiles,
+  4:2:0; Bgr48 (48bppRGB); Bgra32 with an interleaved and a planar alpha;
+  a Zstd0 layer 0 under JpgXr pyramid layers.
+- ``czi_refused_*.czi``: a JpgXrFile subblock cut short, one of a pixel
+  format that does not belong with its pixel type, LZW and
+  camera-specific subblocks, a Gray8 slide and FilePart 1, each of which
+  the port refuses by name.
 - ``czi_region.czi``: the ``[0:2048, 0:2048]`` region of
   ``synthetic_wsi(6144, 6144, n_cells=4000, mpp=0.4, seed=0)`` (the WSI
-  phase's slide of ``chip_smoke.py``) in 16 tiles of 512² (Zstd1, Zstd0
-  and one uncompressed, zstd level 19) with one pyramid layer at zoom 1/2,
-  MPP 0.4 in its metadata, at a document origin of (9000, -3000).
+  phase's slide of ``chip_smoke.py``) in 16 tiles of 512² (8 lossless
+  JpgXr in spatial and frequency order, at overlap 0, 1 and 2, with soft
+  and hard tiles; Zstd1, Zstd0 and one uncompressed at zstd level 19)
+  with one pyramid layer at zoom 1/2, MPP 0.4 in its metadata, at a
+  document origin of (9000, -3000).
 - ``czi_golden.json``: for every file but the refused ones, the SHA-256 of
   the JAX ``CZISlide``'s ``read_region`` (over the test's pylibCZIrw fake,
   ``tests/test_torch_czi.py``) at each level, on edge requests and inside,
-  with its MPP property; the refusals' expected messages.
+  with its MPP property; the refusals' expected messages; for each JpgXr
+  subblock (by the SHA-256 of its bytes) the golden and tile it comes
+  from, whence the fake takes the encoder's recorded pixels.
 
 Run: python tests/golden/regenerate_czi.py
 """
@@ -43,6 +55,11 @@ from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
+
+try:                                  # imported as golden.regenerate_czi
+    from . import regenerate_jxr as jxr
+except ImportError:                   # run as a script
+    import regenerate_jxr as jxr
 
 HERE = Path(__file__).parent
 JSON_NAME = "czi_golden.json"
@@ -72,6 +89,9 @@ class Tile:
     zstd1_header: int = 3                    # 1 or 3
     hilo: bool = False
     level: int = 3
+    jxr: object = None                       # JpgXr: the encoder's Params
+    cut: bool = False                        # JpgXr: its last quarter cut
+    encoded: bytes = b""                     # the subblock's data, once
 
 
 def _segment(sid: str, data: bytes) -> bytes:
@@ -95,6 +115,22 @@ def _dv(t: Tile, position: int) -> bytes:
         b += name.encode().ljust(4, b"\0") + struct.pack(
             "<iifi", start, size, float(start), stored)
     return b
+
+
+# the SHA-256 of a JpgXr subblock's bytes -> the pixels its encoder
+# recorded (filled as subblocks are encoded; ``jxr_pixels`` rebuilds the
+# committed goldens' entries)
+JXR_RECORD: dict[str, np.ndarray] = {}
+JXR_FORMAT = {BGR24: "24bppBGR", BGR48: "48bppRGB", BGRA32: "32bppBGRA"}
+
+
+def jxr_params(ptype: int = BGR24, **kw) -> jxr.Params:
+    """JPEG XR settings for a subblock of ``ptype``: lossless unless a
+    plane is given; Bgra32 with an interleaved alpha plane unless
+    ``planar_alpha``."""
+    if ptype == BGRA32 and "planar_alpha" not in kw and "alpha" not in kw:
+        kw["alpha"] = jxr.Plane(fmt="Y")
+    return jxr.Params(pixel_format=JXR_FORMAT[ptype], **kw)
 
 
 def _zstd(raw: bytes, level: int) -> bytes:
@@ -123,6 +159,12 @@ def encode(t: Tile) -> bytes:
         buf = io.BytesIO()
         Image.fromarray(px[..., ::-1]).save(buf, "JPEG", quality=90)
         return buf.getvalue()
+    if t.compression == JPGXR and t.jxr is not None:
+        data, rec = jxr.encode(px, t.jxr)
+        if t.cut:
+            return data[:len(data) * 3 // 4]
+        JXR_RECORD[sha256_bytes(data)] = rec
+        return data
     return b"\x00not decodable here\x00" * 8
 
 
@@ -154,7 +196,7 @@ def write_czi(path, tiles: list[Tile], xml: str, *, file_part: int = 0,
     entries = []
     for t in tiles:
         pos = len(out)
-        data = encode(t)
+        data = t.encoded = encode(t)
         entry = _dv(t, pos)
         meta = b"<METADATA><Tags><AcquisitionTime/></Tags></METADATA>"
         head = struct.pack("<iiq", len(meta), 0, len(data)) + entry
@@ -273,6 +315,51 @@ def goldens() -> dict[str, tuple[list[Tile], str, dict]]:
     files["czi_bgra32"] = (tiles, scaling_xml(0.3), {})
     tiles = grid(_smooth(rng, 64, 128), 7, 0, 64, 64, compression=JPG)
     files["czi_jpeg"] = (tiles, scaling_xml(0.45), {})
+    files.update(jpgxr_goldens(rng))
+    return files
+
+
+def jpgxr_goldens(rng) -> dict[str, tuple[list[Tile], str, dict]]:
+    """The JpgXr goldens: every subblock's settings differ."""
+    lossy420 = jxr.Plane(fmt="420", scaled=True, dc=("image", (0, (4,))),
+                         lp=("image", (1, (8, 20))),
+                         hp=("image", (2, (10, 30, 40))))
+    files = {}
+    tiles = grid(_smooth(rng, 64, 96), 5, -6, 32, 32, compression=JPGXR)
+    for t, kw in zip(tiles, [
+            dict(), dict(overlap=2, frequency=True, tile_w=(1,)),
+            dict(plane=lossy420, overlap=2), dict(overlap=0), None,
+            dict(trim=2, plane=jxr.Plane(scaled=True,
+                                         hp=("image", (0, (6,)))))]):
+        if kw is None:
+            t.compression = ZSTD1
+        else:
+            t.jxr = jxr_params(**kw)
+    files["czi_jpgxr"] = (tiles, scaling_xml(0.35), {})
+    px = np.stack([_smooth(rng, 40, 90)[..., i].astype(np.uint16) * 257 + i
+                   for i in range(3)], -1)
+    tiles = grid(px, 3, 4, 45, 40, ptype=BGR48, compression=JPGXR)
+    tiles[0].jxr = jxr_params(BGR48, overlap=2)
+    tiles[1].jxr = jxr_params(BGR48, frequency=True, shift_bits=2,
+                              plane=jxr.Plane(dc=("image", (0, (5,)))))
+    files["czi_jpgxr_bgr48"] = (tiles, scaling_xml(0.2), {})
+    px = np.concatenate([_smooth(rng, 30, 80), _smooth(rng, 30, 80)[..., :1]],
+                        -1)
+    tiles = grid(px, 0, 0, 40, 30, ptype=BGRA32, compression=JPGXR)
+    tiles[0].jxr = jxr_params(BGRA32)
+    tiles[1].jxr = jxr_params(BGRA32, planar_alpha=jxr.Plane(fmt="Y"),
+                              overlap=2)
+    files["czi_jpgxr_bgra32"] = (tiles, scaling_xml(0.3), {})
+    base = _smooth(rng, 96, 128)
+    tiles = grid(base, 10, 20, 64, 48)
+    for i, t in enumerate(tiles):
+        t.m = i
+    for factor, kw in ((2, dict(overlap=2)), (4, dict(frequency=True))):
+        for t in pyramid_layer(base, factor, 10, 20, 64, 48,
+                               compression=JPGXR):
+            t.jxr = jxr_params(**kw)
+            tiles.append(t)
+    files["czi_jpgxr_pyramid"] = (tiles, scaling_xml(0.5), {})
     return files
 
 
@@ -280,9 +367,12 @@ def goldens() -> dict[str, tuple[list[Tile], str, dict]]:
 def refused() -> dict[str, tuple[list[Tile], dict, str]]:
     rng = np.random.default_rng(3)
     px = _noise(rng, 16, 16)
+    cut = Tile(0, 0, px, compression=JPGXR, jxr=jxr_params(), cut=True)
+    wide = Tile(0, 0, px, compression=JPGXR, jxr=jxr_params(BGR48))
     return {
-        "czi_refused_jpgxr": ([Tile(0, 0, px, compression=JPGXR)], {},
-                              "JpgXrFile"),
+        "czi_refused_jpgxr": ([cut], {}, "JPEG XR"),
+        "czi_refused_jpgxr_pixel_format": (
+            [wide], {}, "JpgXrFile subblock of 48bppRGB for Bgr24"),
         "czi_refused_lzw": ([Tile(0, 0, px, compression=LZW)], {}, "LZW"),
         "czi_refused_camera": ([Tile(0, 0, px, compression=1001)], {},
                                "camera-specific compression 1001"),
@@ -293,11 +383,27 @@ def refused() -> dict[str, tuple[list[Tile], dict, str]]:
     }
 
 
+# the region's lossless JpgXr tiles (by index in the 4 × 4 grid): spatial
+# and frequency order, overlap 0, 1 and 2, one tile, soft and hard tiles
+REGION_JXR = {
+    1: dict(overlap=0),
+    2: dict(overlap=1),
+    4: dict(overlap=2),
+    7: dict(overlap=1, frequency=True),
+    8: dict(overlap=2, frequency=True, tile_w=(16,), tile_h=(16,)),
+    11: dict(overlap=2, tile_w=(10,), tile_h=(20,), hard=True),
+    13: dict(overlap=2, frequency=True, tile_w=(8, 8, 8),
+             tile_h=(8, 8, 8), hard=True),
+    14: dict(overlap=1, tile_w=(5, 20), tile_h=(12,)),
+}
+
+
 def region_tiles(region: np.ndarray, tile: int = REGION_TILE,
-                 level: int = 19) -> list[Tile]:
-    """The region in tiles of ``tile``² (RGB → BGR), Zstd1 and Zstd0 in
-    turn and the sixth uncompressed, with a zoom-1/2 pyramid layer, at
-    zstd ``level``."""
+                 level: int = 19, jpgxr: dict | None = None) -> list[Tile]:
+    """The region in tiles of ``tile``² (RGB → BGR): lossless JpgXr where
+    ``jpgxr`` (index -> encoder settings; ``REGION_JXR`` by default) says,
+    the sixth uncompressed, Zstd1 and Zstd0 in turn otherwise, with a
+    zoom-1/2 pyramid layer, at zstd ``level``."""
     bgr = np.ascontiguousarray(region[..., ::-1])
     x0, y0 = REGION_ORIGIN
     tiles = grid(bgr, x0, y0, tile, tile, level=level)
@@ -306,6 +412,10 @@ def region_tiles(region: np.ndarray, tile: int = REGION_TILE,
         t.compression = (ZSTD1, ZSTD0)[i % 2]
         t.zstd1_header = (1, 3)[(i // 2) % 2]
     tiles[5].compression = UNCOMPRESSED
+    for i, kw in (REGION_JXR if jpgxr is None else jpgxr).items():
+        if i < len(tiles):
+            tiles[i].compression = JPGXR
+            tiles[i].jxr = jxr_params(**kw)
     tiles += pyramid_layer(bgr, 2, x0, y0, tile, tile, level=level)
     return tiles
 
@@ -330,22 +440,70 @@ def sha256(a: np.ndarray) -> str:
     return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
 
 
+def sha256_bytes(b: bytes) -> str:
+    return hashlib.sha256(b).hexdigest()
+
+
+def region_source() -> np.ndarray:
+    """The slide region of ``czi_region.czi`` (RGB)."""
+    sys.path.insert(0, str(HERE.parents[1]))
+    from classpose_tpu_torch.io.array_reader import synthetic_wsi
+    slide, _ = synthetic_wsi(**SLIDE)
+    return slide._level0[:REGION, :REGION]
+
+
+_TILES: dict[str, list[Tile]] = {}
+
+
+def jxr_pixels(digest: str) -> np.ndarray:
+    """The pixels the encoder recorded for the JpgXr subblock whose bytes
+    have SHA-256 ``digest``: from this process's encodings, else from the
+    golden and tile that ``czi_golden.json`` names (rebuilt from their
+    seeds; lossy ones encoded again); KeyError for any other."""
+    if digest in JXR_RECORD:
+        return JXR_RECORD[digest]
+    name, index = json.loads((HERE / JSON_NAME).read_text())["jpgxr"][digest]
+    if name not in _TILES:
+        _TILES[name] = region_tiles(region_source()) \
+            if name == Path(REGION_NAME).stem else goldens()[name][0]
+    t = _TILES[name][index]
+    if jxr.lossless(t.jxr):       # the encoder checked it kept the source
+        rec = np.ascontiguousarray(t.pixels)
+    else:
+        data, rec = jxr.encode(np.ascontiguousarray(t.pixels), t.jxr)
+        if sha256_bytes(data) != digest:
+            raise AssertionError(f"{name} tile {index} encodes otherwise "
+                                 f"now")
+    JXR_RECORD[digest] = rec
+    return rec
+
+
 def main():
     sys.path.insert(0, str(HERE.parent))
     sys.path.insert(0, str(HERE.parents[1]))
+    # the fake reads JpgXr subblocks through this module's record
+    sys.modules.setdefault("golden.regenerate_czi", sys.modules[__name__])
     from classpose_tpu_torch.io.array_reader import synthetic_wsi
     from test_torch_czi import jax_czi_slide
 
-    golden = {"files": {}, "refused": {}}
+    golden = {"files": {}, "refused": {}, "jpgxr": {}}
+
+    def record(name, tiles):
+        for i, t in enumerate(tiles):
+            if t.compression == JPGXR:
+                golden["jpgxr"][sha256_bytes(t.encoded)] = [name, i]
+
     for name, (tiles, xml, kw) in goldens().items():
         write_czi(HERE / f"{name}.czi", tiles, xml, **kw)
+        record(name, tiles)
     for name, (tiles, kw, match) in refused().items():
         write_czi(HERE / f"{name}.czi", tiles, scaling_xml(0.5), **kw)
         golden["refused"][name] = match
     slide, _ = synthetic_wsi(**SLIDE)
     region = slide._level0[:REGION, :REGION]
-    write_czi(HERE / REGION_NAME, region_tiles(region),
-              scaling_xml(REGION_MPP))
+    tiles = region_tiles(region)
+    write_czi(HERE / REGION_NAME, tiles, scaling_xml(REGION_MPP))
+    record(Path(REGION_NAME).stem, tiles)
     for name in list(goldens()) + [Path(REGION_NAME).stem]:
         with jax_czi_slide(HERE / f"{name}.czi") as s:
             rs = REGION_READS if name == Path(REGION_NAME).stem else \

@@ -16,13 +16,17 @@ zoom)``.
 - every golden of ``tests/golden/regenerate_czi.py``: ``read_region``
   bitwise against the JAX reader at levels 0-4, on edge requests (which
   the JAX reader resizes with PIL) and inside, against the hashes in
-  ``czi_golden.json``, and the MPP properties;
-- the refusals by name; a file without a directory (walked segment by
-  segment); reads from several threads;
+  ``czi_golden.json``, and the MPP properties; JpgXr subblocks reach the
+  fake as the pixels the test-side JPEG XR encoder recorded for their
+  bytes (``regenerate_czi.jxr_pixels``), never through the port;
+- the refusals by name (a JpgXr stream cut short and one of a pixel
+  format foreign to its pixel type raise when read); a file without a
+  directory (walked segment by segment); reads from several threads;
 - ``io/pil_resize.py`` against Pillow's ``resize`` bitwise;
 - JAX ``main`` against the port's ``main`` with ``WSI_READER=czi`` on a
-  small CZI and the tiny checkpoint of ``tests/test_torch_pipeline.py``:
-  the same tiles and cells, centroids and classes."""
+  small CZI with lossless JpgXr subblocks among its Zstd ones and the
+  tiny checkpoint of ``tests/test_torch_pipeline.py``: the same tiles and
+  cells, centroids and classes."""
 
 from __future__ import annotations
 
@@ -127,6 +131,15 @@ class FakeCziReader:
         if comp == 1:
             rgb = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
             return rgb[..., ::-1]
+        if comp == 4:
+            # the pixels the test-side JPEG XR encoder recorded for these
+            # bytes (KeyError for bytes it never wrote)
+            from golden.regenerate_czi import jxr_pixels
+            rec = jxr_pixels(hashlib.sha256(data).hexdigest())
+            if rec.shape != (sh, sw, ch) or rec.dtype != dtype:
+                raise NotImplementedError(f"a JpgXr subblock of {rec.shape} "
+                                          f"{rec.dtype}")
+            return rec
         if comp == 0:
             raw = data[:n]
         elif comp in (5, 6):
@@ -230,7 +243,9 @@ def _sha(a) -> str:
 
 @pytest.mark.parametrize("name", ["czi_mosaic", "czi_pyramid", "czi_scenes",
                                   "czi_bgr48", "czi_bgra32", "czi_jpeg",
-                                  "czi_region"])
+                                  "czi_region", "czi_jpgxr",
+                                  "czi_jpgxr_bgr48", "czi_jpgxr_bgra32",
+                                  "czi_jpgxr_pyramid"])
 def test_golden_against_jax(name):
     """Every golden read, bitwise against the JAX reader over the fake and
     against the committed hash; dimensions, levels and MPP alike."""
@@ -274,18 +289,28 @@ def test_pyramid_layers_are_read():
     s.close()
 
 
-@pytest.mark.parametrize("name", ["czi_refused_jpgxr", "czi_refused_lzw",
-                                  "czi_refused_camera", "czi_refused_gray8",
+@pytest.mark.parametrize("name", ["czi_refused_jpgxr",
+                                  "czi_refused_jpgxr_pixel_format",
+                                  "czi_refused_lzw", "czi_refused_camera",
+                                  "czi_refused_gray8",
                                   "czi_refused_filepart"])
 def test_refusals(name):
-    """JpgXrFile, LZW, camera-specific compressions, grey slides and
-    multi-file CZIs raise a ValueError that names each, when opened; the
-    fake cannot read them either."""
+    """LZW, camera-specific compressions, grey slides and multi-file CZIs
+    raise a ValueError that names each when opened; a JpgXr stream cut
+    short, and one whose pixel format does not belong with its pixel
+    type, when read. The fake cannot read them either."""
     from classpose_tpu_torch.io import CZISlide
 
     match = _golden()["refused"][name]
-    with pytest.raises(ValueError, match=match):
-        CZISlide(str(GOLDEN / f"{name}.czi"))
+    path = str(GOLDEN / f"{name}.czi")
+    if name.startswith("czi_refused_jpgxr"):
+        slide = CZISlide(path)
+        with pytest.raises(ValueError, match=match):
+            slide.read_region((0, 0), 0, (16, 16))
+        slide.close()
+    else:
+        with pytest.raises(ValueError, match=match):
+            CZISlide(path)
     if name != "czi_refused_filepart":
         with pytest.raises((NotImplementedError, TypeError, KeyError)):
             with jax_czi_slide(GOLDEN / f"{name}.czi") as ref:
@@ -402,7 +427,11 @@ def _czi_runs(tmp):
 
     slide, _ = synthetic_wsi(width=700, height=600, n_cells=60, seed=4,
                              mpp=0.4)
-    tiles = region_tiles(slide._level0, tile=256, level=1)
+    # lossless JpgXr in both orders, at overlap 1 and 2, on an edge tile
+    tiles = region_tiles(slide._level0, tile=256, level=1, jpgxr={
+        2: dict(overlap=2), 4: dict(overlap=1, frequency=True),
+        7: dict(overlap=2, tile_w=(4,), hard=True)})
+    assert [t.compression for t in tiles[:9]].count(4) == 3
     write_czi(tmp / "slide.czi", tiles, scaling_xml(0.4))
     cfg = JaxCfg(**CFG)
     save_params(perturbed_structured_params(cfg, ripple=0.5, seed=0),
