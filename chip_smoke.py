@@ -155,9 +155,17 @@
    five kernels and find the cells of the CLI run on that region cut from
    ``slide.npy`` (within 0.5%,
    ≥ 99% matched); its level 0 decoded whole and run as an ``.npy`` must
-   find exactly its cells; it prints the decoder's rate in MP/s on one
-   thread and on the loader's reader threads and both runs' pipeline
-   seconds; its JPEG-processes step: the golden streams of every JPEG
+   find exactly its cells; the ``j2k_ext_*`` goldens (component
+   precisions to 20 bits, JP2 files, PPM and PPT) must decode to their
+   hashes and the streams still refused raise naming what they use; the
+   lossless ``tests/golden/j2k_ext_region.svs`` (the same region, its
+   tiles in turn 12-bit, JP2-boxed, with PPM and with PPT headers) must
+   decode to its hashes and, through the CLI with ``WSI_READER`` unset,
+   launch the five kernels and find exactly the region run's tiles and
+   cells; it prints the decoder's rate in MP/s on one thread and on the
+   loader's reader threads, for the 9/7 tiles and for each kind of the
+   lossless SVS, and the runs' pipeline seconds; its JPEG-processes
+   step: the golden streams of every JPEG
    process the decoder reads (progressive with complete and incomplete
    scripts, arithmetic, CMYK and YCCK, sampling factors 3 and 4,
    lossless) and the 20 tiles of the committed Aperio SVS
@@ -457,6 +465,10 @@ GOLDEN = Path(__file__).resolve().parent / "tests" / "golden"
 # of 512² at rate 60) of the slide's [0:2048, 0:2048] region, and the PIL
 # hashes of it and of the golden codestreams (tests/golden/regenerate_j2k.py)
 J2K_SVS, J2K_JSON = GOLDEN / "j2k_region.svs", GOLDEN / "j2k_golden.json"
+# and the lossless Aperio SVS of the same region whose 16 tiles are, in
+# turn, 12-bit, JP2-boxed, with PPM and with PPT headers, beside the
+# j2k_ext_* goldens (decoded) and refused streams (raising by name)
+J2K_EXT_SVS = GOLDEN / "j2k_ext_region.svs"
 # its runs read 512² model tiles: a 3×3 grid over the region (at the WSI
 # phase's 1024² the region holds one tile)
 J2K_MODEL_TILE = 512
@@ -2612,13 +2624,68 @@ def run_slide_j2k(wsi: dict) -> dict:
     ref, _, _ = wsi["cli"](f"{work}/out_region", args=npy_args)
     ref_pts, ref_names = read_outputs(f"{work}/out_region", "region", labels)
     wsi["region_ref"] = (npy_args, ref, ref_pts, ref_names)
+    svs = run_region_svs(wsi, J2K_SVS, f"{work}/j2k_decoded.npy")
     return dict(
         goldens=len(golden["streams"]), tiles=len(streams), tile=g["tile"],
         rate=g["rate"], svs_kib=len(raw) / 1024, level0_psnr_db=psnr,
         decode_1t_mp_per_s=tile_mp / decode_1t_s,
         decode_threads=n_read, decode_nt_mp_per_s=tile_mp / decode_nt_s,
         decode_1t_s=decode_1t_s, decode_nt_s=decode_nt_s,
-        **run_region_svs(wsi, J2K_SVS, f"{work}/j2k_decoded.npy"))
+        ext=run_slide_j2k_ext(wsi, golden), **svs)
+
+
+def run_slide_j2k_ext(wsi: dict, golden: dict) -> dict:
+    """The JPEG 2000 step's streams past Aperio's 8-bit raw codestreams:
+    the ``j2k_ext_*`` goldens against PIL's hashes and the refused ones
+    against their words; the lossless SVS's tiles against theirs, their
+    decode rates by kind, and the SVS through the CLI with ``WSI_READER``
+    unset, which must find exactly the region run's cells."""
+    for name, want in golden["ext_streams"].items():
+        rgb = jpeg2000.decode((GOLDEN / name).read_bytes())
+        if list(rgb.shape) != want["shape"] or _sha256(rgb) != want["sha256"]:
+            raise AssertionError(f"golden {name} decodes unlike PIL")
+    for name, word in golden["refused"].items():
+        try:
+            jpeg2000.decode((GOLDEN / name).read_bytes())
+        except ValueError as e:
+            if word not in str(e):
+                raise AssertionError(f"{name} refused as {e!r}, not {word}")
+        else:
+            raise AssertionError(f"{name} decoded; it must raise ({word})")
+    g = golden["ext_svs"]
+    slide = TiffSlide(str(J2K_EXT_SVS))
+    p = slide._levels[0]
+    slide.close()
+    raw = J2K_EXT_SVS.read_bytes()
+    streams = [raw[o:o + n] for o, n in zip(p.offsets, p.counts)]
+    if p.compression != 33005 or len(streams) != len(g["tiles"]):
+        raise AssertionError(f"J2K ext SVS: compression {p.compression}, "
+                             f"{len(streams)} tiles")
+    for k, (st, want) in enumerate(zip(streams, g["tiles"])):
+        if _sha256(jpeg2000.decode(st)) != want:
+            raise AssertionError(f"J2K ext SVS tile {k} decodes unlike PIL")
+    # the decoder's rates by kind: one thread, then the loader's threads
+    # on each kind's tiles repeated to as many as the threads
+    n_read = SlideLoader.n_read_threads
+    tile_mp = golden["svs"]["tile"] ** 2 / 1e6
+    rates = {}
+    with ThreadPoolExecutor(n_read) as pool:
+        for i, kind in enumerate(g["kinds"]):
+            group = streams[i::len(g["kinds"])]
+            t0 = time.perf_counter()
+            for st in group:
+                jpeg2000.decode(st)
+            one = time.perf_counter() - t0
+            many = group * max(1, n_read // len(group) * 2)
+            t0 = time.perf_counter()
+            list(pool.map(jpeg2000.decode, many))
+            nt = time.perf_counter() - t0
+            rates[kind] = dict(mp_per_s_1t=len(group) * tile_mp / one,
+                               mp_per_s_nt=len(many) * tile_mp / nt)
+    return dict(goldens=len(golden["ext_streams"]),
+                refused=len(golden["refused"]), svs_kib=len(raw) / 1024,
+                decode_threads=n_read, decode_rates=rates,
+                **run_region_svs(wsi, J2K_EXT_SVS, None))
 
 
 def run_region_svs(wsi: dict, svs: Path, decoded: str | None,
@@ -3575,6 +3642,17 @@ def main() -> int:
             f"(the first run at 512² tiles) and its decoded level 0 as .npy "
             f"{j2k['decoded_pipeline_s']:.3f} s; {j2k['n_cells']} vs "
             f"{j2k['npy_n_cells']} cells, {j2k['matched_share']:.4f} matched")
+        ext = j2k["ext"]
+        log(f"slide J2K ext: {ext['goldens']} goldens as PIL's pixels, "
+            f"{ext['refused']} refusals by name; lossless SVS decode (host "
+            f"MP/s on 1 thread / on {ext['decode_threads']}): " + ", ".join(
+                f"{k} {v['mp_per_s_1t']:.2f} / {v['mp_per_s_nt']:.2f}"
+                for k, v in ext["decode_rates"].items())
+            + f" beside the 8-bit 9/7 tiles' {j2k['decode_1t_mp_per_s']:.2f}"
+            f" / {j2k['decode_nt_mp_per_s']:.2f}; pipeline "
+            f"{ext['pipeline_s']:.3f} s {ext['stage_seconds']}; "
+            f"{ext['n_cells']} vs {ext['npy_n_cells']} cells, "
+            f"{ext['matched_share']:.4f} matched")
         jp = slide_stats["jpeg_processes"]
         log("slide JPEG processes (host MP/s on 1 thread / on "
             f"{jp['decode_threads']}): " + ", ".join(

@@ -1,13 +1,18 @@
-"""JPEG 2000 Part-1 codestream decoding on the native decoder
+"""JPEG 2000 Part-1 decoding on the native decoder
 (``native/jpeg2000.cpp``), for the Aperio tiles (TIFF compressions 33003
-and 33005) of the TIFF slide reader.
+and 33005) of the TIFF slide reader: raw codestreams and JP2 files.
 
 :func:`decode` returns what ``Image.open(...).convert("RGB")`` returns
-with PIL's OpenJPEG 2.5, bit for bit: one or two components are
-replicated, a fourth is dropped, signed components are shifted by 128.
-Raw codestreams only: a JP2-boxed file raises ``ValueError``, as do the
-features the decoder refuses (listed in its source) and truncated or
-corrupt streams.
+with PIL 12 and its OpenJPEG 2.5, bit for bit: component precisions 1 to
+31 bits (signed or not, mixed), reduced to 8 bits as PIL's unpackers do
+(16 for a one-component image above 8 bits, then clipped), one or two
+components replicated, a fourth dropped; in a JP2 file PIL's mode and
+OpenJPEG's colour space (sRGB, greyscale, sYCC through PIL's YCbCr
+tables, CMYK, a palette); packet headers in the packets or packed in PPM
+or PPT segments. Where PIL raises, and for the features the decoder
+refuses (listed in its source: component subsampling, HTJ2K, Part 2,
+more than four components) and truncated or corrupt streams, it raises
+``ValueError`` naming what it refuses.
 """
 
 from __future__ import annotations

@@ -1,18 +1,33 @@
-// JPEG 2000 Part-1 codestream decoder for the slide reader (Aperio SVS
-// tiles, TIFF compressions 33003 and 33005).
+// JPEG 2000 Part-1 decoder for the slide reader (Aperio SVS tiles, TIFF
+// compressions 33003 and 33005): raw codestreams and JP2 files.
 //
-// It follows the decoding path of OpenJPEG 2.5 step by step, so its
-// pixels equal OpenJPEG's (and so PIL's) bit for bit:
-//   - main and tile-part headers: SIZ, COD, COC, QCD, QCC, RGN, POC, COM,
-//     TLM, PLM, PLT, CRG, SOT/SOD/EOC, several tiles and tile-parts, image
-//     and tile offsets; COD/COC/QCD/QCC precedence as in Annex A, a
+// It follows the decoding path of OpenJPEG 2.5 step by step, and PIL 12's
+// unpacking of what OpenJPEG gives it, so its pixels equal those of
+// PIL's Image.open(...).convert("RGB") bit for bit:
+//   - the JP2 file format: the signature, ftyp, jp2h (ihdr, bpcc, colr,
+//     pclr, cmap, cdef; res and other boxes skipped), jp2c and skipped
+//     top-level boxes, XLBox lengths and LBox 0; OpenJPEG's checks
+//     (box order and sizes, ihdr against SIZ, one pclr, cmap after it,
+//     one cdef), its colour space from the first colr box of method 1 or
+//     2, and PIL's own reading of the first jp2h box (its mode from ihdr,
+//     CMYK from a colr box, a palette from pclr, built as its getcolor
+//     builds it); pclr, cmap and cdef change no sample (PIL decodes tile
+//     by tile, where OpenJPEG applies none of them);
+//   - main and tile-part headers: SIZ (component precisions 1 to 31 bits,
+//     signed or not, mixed), COD, COC, QCD, QCC, RGN, POC, COM, TLM, PLM,
+//     PLT, CRG, PPM, PPT, SOT/SOD/EOC, several tiles and tile-parts,
+//     image and tile offsets; COD/COC/QCD/QCC precedence as in Annex A, a
 //     tile's POC progressions after the main header's;
 //   - tier 2: the five progression orders (the position-driven ones in
 //     the order of Annex B.12) and POC, each packet read once (OpenJPEG's
 //     include table), packet headers with tag trees, Lblock, empty
 //     packets and codeword segments, SOP/EPH markers where the COD says
-//     so; past the end of a tile's data a header reads zero bits (empty
-//     packets), as OpenJPEG's bit reader does;
+//     so; the headers read from the packets, or packed: PPM segments
+//     joined in Zppm order, their Nppm fields dropped and their runs read
+//     on across tile-parts and segments in the order OpenJPEG decodes the
+//     tiles, or a tile's PPT segments joined in Zppt order; past the end
+//     of its source a header reads zero bits (empty packets), as
+//     OpenJPEG's bit reader does;
 //   - tier 1: the MQ decoder (Annex C) with OpenJPEG's 0xFFFF tail on
 //     each segment, the raw segments of the bypass mode, the three coding
 //     passes with the cleanup run mode (Annex D), the code-block style
@@ -23,34 +38,45 @@
 //     to one half (a mid-point);
 //   - dequantization: reversible coefficients are halved with C integer
 //     division; irreversible ones are multiplied by 0.5f times the step
-//     size (1 + mu / 2048) * 2^(8 - eps) of every band (no band gain, as
-//     OpenJPEG's decoder computes it), expounded or derived;
+//     size (1 + mu / 2048) * 2^(R - eps) of every band, R the component's
+//     precision (no band gain, as OpenJPEG's decoder computes it),
+//     expounded or derived;
 //   - the inverse 5/3 (integer) and 9/7 (float32) lifting with symmetric
 //     extension, rows first, then columns, on subband origins of either
 //     parity; the 9/7 scales the low band by K and the high band by
 //     OpenJPEG's 1.625732422f, and leaves a one-sample line as it is;
 //   - inverse RCT (5/3) or ICT (9/7, OpenJPEG's constants), the DC level
-//     shift, lrintf (round to nearest even) and clamping to 8 bits.
+//     shift 2^(R - 1), lrintf (round to nearest even) and clamping to the
+//     component's range;
+//   - PIL's unpackers for its mode (from SIZ, or from ihdr and colr in a
+//     JP2 file), OpenJPEG's colour space and the component count: each
+//     sample as OpenJPEG stores it (1, 2 or 4 bytes), plus the signed
+//     offset and half the dropped range, shifted to 8 bits (16 for I;16)
+//     and cut to them; then convert("RGB"): grey replicated (I;16 clipped
+//     to 255), alpha dropped, sYCC through PIL's YCbCr tables, CMYK
+//     through its cmyk2rgb, palette indices through its palette (black
+//     past its end).
 // Float operations are written one at a time and the source is built with
 // -ffp-contract=off, so no multiply-add is fused on any host.
 //
-// Refused with a message naming the feature: JP2 file format boxes,
-// precision other than 8 bits, component subsampling (PIL reads such
-// planes as if they were full size, so there is no reference to hold),
-// more than four components, PPM and PPT, Part-15 (HTJ2K) and Part-2
-// codestreams (Rsiz, markers, kernels, MCT, quantization, offsets, ROI
-// styles), and a precinct exponent plus decomposition level of 31 or
-// more in a position-driven progression. Truncated or corrupt streams
-// raise; nothing is read outside the buffer.
+// Refused with a message naming the feature: component subsampling (PIL
+// reads such planes as if they were full size, so there is no reference
+// to hold), more than four components, precisions above 31 bits,
+// Part-15 (HTJ2K) and Part-2 codestreams (Rsiz, markers, kernels, MCT,
+// quantization, offsets, ROI styles), a precinct exponent plus
+// decomposition level of 31 or more in a position-driven progression,
+// and what OpenJPEG or PIL refuse: malformed boxes, a colour space with
+// no unpacker for PIL's mode, more than 256 palette colours, PPT beside
+// PPM, an Nppm run past the last PPM segment, a Zppm or Zppt read twice,
+// a tile with no data bytes. Truncated or corrupt streams raise; nothing
+// is read outside the buffer.
 //
 // Entry points (C ABI, loaded with ctypes, which releases the GIL; the
 // decoder keeps no mutable static state, so threads decode in parallel):
 //   j2k_info(data, n, dims[3], err, errlen)   -> 0, or 1 with a message;
-//       dims = (height, width, components)
+//       dims = (height, width, components of the codestream)
 //   j2k_decode(data, n, out, cap, err, errlen) -> 0, or 1 with a message;
-//       out receives (H, W, 3) RGB uint8: one or two components are
-//       replicated, a fourth is dropped, signed components are shifted by
-//       128, as PIL's convert("RGB") gives them
+//       out receives (H, W, 3) RGB uint8 as PIL's convert("RGB") gives it
 
 #include <algorithm>
 #include <climits>
@@ -209,11 +235,36 @@ void parse_quant(Bytes& b, size_t end, Quant& q) {
 // ------------------------------------------------------------- header
 struct CompSiz {
   bool sgnd;
+  int prec;  // 1 to 31 bits
+};
+
+// the marker segments of packed packet headers (PPM, PPT), by their
+// index Zppm or Zppt; OpenJPEG reads each index once and joins them in
+// index order
+struct Packed {
+  std::vector<std::vector<uint8_t>> seg;
+  std::vector<uint8_t> set;
+  bool any = false;
+  void add(const uint8_t* p, size_t n, const char* what) {
+    if (n < 2) fail(std::string(what) + ": bad length");
+    int z = p[0];
+    if (seg.empty()) {
+      seg.resize(256);
+      set.assign(256, 0);
+    }
+    if (set[size_t(z)])
+      fail(std::string(what) + ": index " + std::to_string(z) +
+           " read twice");
+    set[size_t(z)] = 1;
+    seg[size_t(z)].assign(p + 1, p + n);
+    any = true;
+  }
 };
 
 struct TileData {
   std::vector<uint8_t> bytes;
   int nparts = 0;
+  Packed ppt;
   bool has_cod = false, has_qcd = false;
   Cod cod;
   Quant qcd;
@@ -236,6 +287,9 @@ struct Codestream {
   std::vector<Quant> qcc;
   std::vector<Poc> poc;
   std::vector<TileData> tiles;
+  std::vector<int> order;  // the tiles in the order OpenJPEG decodes them
+  Packed ppm_seg;
+  std::vector<uint8_t> ppm;  // the PPM packet headers, Nppm fields out
 
   int height() const { return int(Y - Y0); }
   int width() const { return int(X - X0); }
@@ -243,9 +297,9 @@ struct Codestream {
   static void refuse_marker(unsigned m) {
     switch (m) {
       case 0xFF60:
-        fail("PPM marker (packed packet headers, main) is not supported");
+        fail("PPM marker in a tile-part header");
       case 0xFF61:
-        fail("PPT marker (packed packet headers, tile) is not supported");
+        fail("PPT marker in the main header");
       case 0xFF50: case 0xFF59:
         fail("HTJ2K (Part 15) marker " + hex(m) + " is not supported");
       default:
@@ -291,13 +345,15 @@ struct Codestream {
     for (int c = 0; c < nc; ++c) {
       int ssiz = b.u8();
       int dx = b.u8(), dy = b.u8();
-      if ((ssiz & 0x7F) + 1 != 8)
-        fail("component precision " + std::to_string((ssiz & 0x7F) + 1) +
-             " bits (only 8 is supported)");
+      int prec = (ssiz & 0x7F) + 1;
+      if (prec > 31)
+        fail("component precision " + std::to_string(prec) +
+             " bits (OpenJPEG reads 1 to 31)");
       if (dx != 1 || dy != 1)
         fail("component subsampling (" + std::to_string(dx) + " x " +
              std::to_string(dy) + ") is not supported");
       comp[size_t(c)].sgnd = ssiz & 0x80;
+      comp[size_t(c)].prec = prec;
     }
     if (b.pos != start + size_t(len)) fail("SIZ: bad segment length");
     coc_set.assign(size_t(nc), 0);
@@ -430,12 +486,17 @@ struct Codestream {
         case 0xFF64: case 0xFF55: case 0xFF57: case 0xFF63:  // COM TLM PLM CRG
           b.pos = end;
           break;
+        case 0xFF60:
+          ppm_seg.add(data + b.pos, end - b.pos, "PPM");
+          b.pos = end;
+          break;
         default:
           refuse_marker(m);
       }
     }
     if (!has_cod) fail("main header has no COD");
     if (!has_qcd) fail("main header has no QCD");
+    if (ppm_seg.any) merge_ppm();
     if (header_only) return;
     b.pos -= 2;
     // tile-parts
@@ -448,10 +509,14 @@ struct Codestream {
       int isot = b.u16();
       uint32_t psot = b.u32();
       int tpsot = b.u8();
-      b.u8();  // TNsot
+      int tnsot = b.u8();
       if (isot >= ntx * nty) fail("SOT: tile index out of range");
       TileData& t = tiles[size_t(isot)];
       if (tpsot != t.nparts) fail("tile-parts out of order");
+      if (tnsot && tpsot >= tnsot) fail("SOT: TPsot past TNsot");
+      // OpenJPEG decodes a tile once its last tile-part is read, the
+      // rest at EOC in index order; PPM headers are read in that order
+      if (tnsot && tpsot == tnsot - 1) order.push_back(isot);
       size_t end;
       if (psot == 0) {
         if (n < sot + 14 || data[n - 2] != 0xFF || data[n - 1] != 0xD9)
@@ -486,6 +551,13 @@ struct Codestream {
           case 0xFF64: case 0xFF58:  // COM PLT
             b.pos = send;
             break;
+          case 0xFF61:
+            if (ppm_seg.any)
+              fail("PPT marker in a codestream with PPM (OpenJPEG refuses "
+                   "packet headers in both)");
+            t.ppt.add(data + b.pos, send - b.pos, "PPT");
+            b.pos = send;
+            break;
           default:
             refuse_marker(mm);
         }
@@ -495,9 +567,506 @@ struct Codestream {
       t.nparts++;
       b.pos = end;
     }
-    for (size_t i = 0; i < tiles.size(); ++i)
+    for (size_t i = 0; i < tiles.size(); ++i) {
       if (!tiles[i].nparts) fail("tile " + std::to_string(i) + " is missing");
+      // OpenJPEG keeps no buffer for a tile without data bytes, and does
+      // not decode it
+      if (tiles[i].bytes.empty())
+        fail("tile " + std::to_string(i) + " has no data after its "
+             "tile-part headers");
+    }
+    std::vector<uint8_t> queued(tiles.size(), 0);
+    std::vector<int> first;
+    for (int i : order)
+      if (!queued[size_t(i)]) {
+        queued[size_t(i)] = 1;
+        first.push_back(i);
+      }
+    for (size_t i = 0; i < tiles.size(); ++i)
+      if (!queued[i]) first.push_back(int(i));
+    order = first;
   }
+
+  // opj_j2k_merge_ppm: the segments in Zppm order, each a run of Nppm
+  // (4 bytes) and that many bytes of headers; a run may go on into the
+  // next segment, and the Nppm fields are dropped
+  void merge_ppm() {
+    uint32_t left = 0;  // bytes of a run still to come
+    for (size_t z = 0; z < 256; ++z) {
+      if (!ppm_seg.set[z]) continue;
+      const std::vector<uint8_t>& sg = ppm_seg.seg[z];
+      size_t at = 0;
+      while (at < sg.size()) {
+        if (left) {
+          size_t k = std::min<size_t>(left, sg.size() - at);
+          ppm.insert(ppm.end(), sg.begin() + long(at),
+                     sg.begin() + long(at + k));
+          at += k;
+          left -= uint32_t(k);
+          continue;
+        }
+        if (sg.size() - at < 4) fail("PPM: not enough bytes for Nppm");
+        left = uint32_t(sg[at]) << 24 | uint32_t(sg[at + 1]) << 16 |
+               uint32_t(sg[at + 2]) << 8 | sg[at + 3];
+        at += 4;
+        if (ppm.size() + left > (uint64_t(1) << 31))
+          fail("PPM: Nppm too large");
+      }
+    }
+    if (left) fail("PPM: Nppm runs past the last PPM segment");
+  }
+};
+
+// ---------------------------------------------------- JP2 file format
+// PIL 12 opens a JP2 file twice over: its Python plugin reads the first
+// jp2h box for the image's size and mode (and a palette), and OpenJPEG
+// 2.5 reads every box for its own checks and the colour space. Both are
+// followed here; what either refuses raises.
+enum class Mode { L, I16, LA, RGB, RGBA, CMYK, P, PA };
+enum class Space { Unspecified, Srgb, Gray, Sycc, Eycc, Cmyk };
+
+const char* mode_name(Mode m) {
+  static const char* n[] = {"L", "I;16", "LA", "RGB", "RGBA", "CMYK", "P",
+                            "PA"};
+  return n[int(m)];
+}
+
+const char* space_name(Space s) {
+  static const char* n[] = {"unspecified", "sRGB", "greyscale", "sYCC",
+                            "e-sYCC", "CMYK"};
+  return n[int(s)];
+}
+
+constexpr uint32_t fourcc(const char* s) {
+  return uint32_t(uint8_t(s[0])) << 24 | uint32_t(uint8_t(s[1])) << 16 |
+         uint32_t(uint8_t(s[2])) << 8 | uint32_t(uint8_t(s[3]));
+}
+
+uint32_t be32(const uint8_t* p) {
+  return uint32_t(p[0]) << 24 | uint32_t(p[1]) << 16 | uint32_t(p[2]) << 8 |
+         p[3];
+}
+
+std::string box_name(uint32_t t) {
+  std::string s = "'";
+  for (int k = 24; k >= 0; k -= 8) {
+    char c = char(t >> k & 0xFF);
+    s += c >= 32 && c < 127 ? c : '?';
+  }
+  return s + "'";
+}
+
+struct Box {
+  uint32_t type = 0;
+  size_t start = 0, end = 0;  // the payload
+};
+
+struct Jp2 {
+  // PIL's view
+  Mode mode = Mode::L;
+  int64_t width = 0, height = 0;
+  std::vector<uint8_t> pal;  // the palette's bytes as getcolor built them
+  int pal_entry = 3;         // bytes an entry: 3 (RGB) or 4 (RGBA)
+  // OpenJPEG's view
+  Space space = Space::Unspecified;
+  int64_t ihdr_w = 0, ihdr_h = 0;
+  size_t cs_start = 0;  // the codestream runs from here to the end
+  // OpenJPEG's state while reading the image header boxes
+  bool has_ihdr = false, has_colr = false, has_pclr = false,
+       has_cmap = false, has_cdef = false;
+  int ihdr_nc = 0, pclr_npc = 0;
+
+  // opj_jp2_read_boxhdr_char inside a superbox of `size` bytes at `p`
+  static Box sub_box(const uint8_t* p, size_t pos, size_t size) {
+    if (size - pos < 8) fail("JP2: a box in jp2h is shorter than 8 bytes");
+    uint64_t len = be32(p + pos);
+    size_t hl = 8;
+    if (len == 1) {
+      if (size - pos < 16) fail("JP2: truncated XLBox in jp2h");
+      if (be32(p + pos + 8)) fail("JP2: box of 4 GiB or more");
+      len = be32(p + pos + 12);
+      hl = 16;
+    }
+    if (len == 0) fail("JP2: box of undefined size in jp2h");
+    if (len < hl || len > size - pos)
+      fail("JP2: box length in jp2h is inconsistent");
+    Box b;
+    b.type = be32(p + pos + 4);
+    b.start = pos + hl;
+    b.end = pos + size_t(len);
+    return b;
+  }
+
+  // OpenJPEG's handlers of the image header boxes
+  void image_box(const uint8_t* d, const Box& b) {
+    const uint8_t* p = d + b.start;
+    size_t n = b.end - b.start;
+    switch (b.type) {
+      case fourcc("ihdr"): {
+        if (has_ihdr) return;  // the first counts
+        if (n != 14) fail("JP2: ihdr box of " + std::to_string(n) +
+                          " bytes (14 expected)");
+        ihdr_h = be32(p);
+        ihdr_w = be32(p + 4);
+        ihdr_nc = p[8] << 8 | p[9];
+        if (ihdr_h < 1 || ihdr_w < 1 || ihdr_nc < 1 || ihdr_nc > 16384)
+          fail("JP2: ihdr gives " + std::to_string(ihdr_w) + " x " +
+               std::to_string(ihdr_h) + " x " + std::to_string(ihdr_nc));
+        has_ihdr = true;
+        return;
+      }
+      case fourcc("bpcc"):
+        if (n != size_t(ihdr_nc))
+          fail("JP2: bpcc box of " + std::to_string(n) + " bytes for " +
+               std::to_string(ihdr_nc) + " components");
+        return;
+      case fourcc("colr"): {
+        if (n < 3) fail("JP2: colr box shorter than 3 bytes");
+        if (has_colr) return;  // the first counts
+        int meth = p[0];
+        if (meth != 1 && meth != 2) return;  // ignored
+        if (meth == 2 && n == 3) fail("JP2: colr box with an empty ICC "
+                                      "profile");
+        space = Space::Unspecified;
+        if (meth == 1) {
+          if (n < 7) fail("JP2: colr box shorter than 7 bytes");
+          switch (be32(p + 3)) {
+            case 16: space = Space::Srgb; break;
+            case 17: space = Space::Gray; break;
+            case 18: space = Space::Sycc; break;
+            case 24: space = Space::Eycc; break;
+            case 12: space = Space::Cmyk; break;
+            default: break;  // PIL guesses from the component count
+          }
+        }  // a restricted ICC profile (2) leaves the space unspecified
+        has_colr = true;
+        return;
+      }
+      case fourcc("pclr"): {
+        if (has_pclr) fail("JP2: a second pclr box");
+        if (n < 3) fail("JP2: pclr box shorter than 3 bytes");
+        int ne = p[0] << 8 | p[1], npc = p[2];
+        if (ne == 0 || ne > 1024)
+          fail("JP2: pclr box with " + std::to_string(ne) + " entries");
+        if (npc == 0) fail("JP2: pclr box with no columns");
+        if (n < 3 + size_t(npc)) fail("JP2: truncated pclr box");
+        size_t need = 3 + size_t(npc);
+        for (int i = 0; i < npc; ++i)
+          need += size_t(std::min(4, ((p[3 + i] & 0x7F) + 8) >> 3)) * ne;
+        if (n < need) fail("JP2: truncated pclr box");
+        has_pclr = true;
+        pclr_npc = npc;
+        return;
+      }
+      case fourcc("cmap"):
+        if (!has_pclr) fail("JP2: cmap box before its pclr box");
+        if (has_cmap) fail("JP2: a second cmap box");
+        if (n < size_t(pclr_npc) * 4) fail("JP2: truncated cmap box");
+        has_cmap = true;
+        return;
+      case fourcc("cdef"): {
+        if (has_cdef) fail("JP2: a second cdef box");
+        if (n < 2) fail("JP2: truncated cdef box");
+        int k = p[0] << 8 | p[1];
+        if (k == 0) fail("JP2: cdef box with no channels");
+        if (n < 2 + 6 * size_t(k)) fail("JP2: truncated cdef box");
+        has_cdef = true;
+        return;
+      }
+      default:
+        return;  // res and any other box inside jp2h: skipped
+    }
+  }
+
+  static bool is_image_box(uint32_t t) {
+    return t == fourcc("ihdr") || t == fourcc("colr") ||
+           t == fourcc("bpcc") || t == fourcc("pclr") ||
+           t == fourcc("cmap") || t == fourcc("cdef");
+  }
+
+  // opj_jp2_read_header_procedure: the top-level boxes up to jp2c
+  void read_openjpeg(const uint8_t* d, size_t n) {
+    bool sig = false, ftyp = false, header = false;
+    size_t pos = 0;
+    for (;;) {
+      if (n - pos < 8) fail("JP2: no codestream box (jp2c)");
+      uint64_t len = be32(d + pos);
+      uint32_t type = be32(d + pos + 4);
+      size_t hl = 8;
+      if (len == 1) {
+        if (n - pos < 16) fail("JP2: truncated XLBox");
+        if (be32(d + pos + 8)) fail("JP2: box of 4 GiB or more");
+        len = be32(d + pos + 12);
+        hl = 16;
+        if (len == 0) fail("JP2: box of undefined size");
+      } else if (len == 0) {
+        len = n - pos;  // to the end
+      }
+      if (type == fourcc("jp2c")) {
+        if (!header) fail("JP2: codestream box before the header box jp2h");
+        cs_start = pos + hl;
+        break;
+      }
+      if (len < hl) fail("JP2: box " + box_name(type) + " has a bad length");
+      if (len > n - pos)
+        fail("JP2: box " + box_name(type) + " runs past the end");
+      Box b{type, pos + hl, pos + size_t(len)};
+      if (type == fourcc("jP  ")) {
+        if (sig || ftyp || header)
+          fail("JP2: the signature box must be the first box");
+        if (b.end - b.start != 4 || be32(d + b.start) != 0x0D0A870A)
+          fail("JP2: bad signature box");
+        sig = true;
+      } else if (type == fourcc("ftyp")) {
+        if (!sig || ftyp || header)
+          fail("JP2: the ftyp box must be the second box");
+        size_t m = b.end - b.start;
+        if (m < 8 || (m - 8) % 4) fail("JP2: bad ftyp box size");
+        ftyp = true;
+      } else if (type == fourcc("jp2h")) {
+        if (!ftyp) fail("JP2: jp2h box before the ftyp box");
+        size_t sz = b.end - b.start;
+        bool ihdr_here = false;
+        for (size_t q = 0; q < sz;) {
+          Box s = sub_box(d + b.start, q, sz);
+          s.start += b.start;
+          s.end += b.start;
+          image_box(d, s);
+          ihdr_here |= s.type == fourcc("ihdr");
+          q = s.end - b.start;
+        }
+        if (!ihdr_here) fail("JP2: jp2h box without an ihdr box");
+        header = true;
+      } else if (is_image_box(type)) {
+        if (header) image_box(d, b);  // misplaced: read once jp2h is
+      } else {
+        if (!sig) fail("JP2: the signature box must be the first box");
+        if (!ftyp) fail("JP2: the ftyp box must be the second box");
+      }
+      pos = b.end;
+    }
+  }
+
+  // ImagePalette.getcolor, entry by entry: a colour met before takes its
+  // first index; a new one goes at len(palette) // entry size, over what
+  // lies there
+  void add_colour(const std::vector<uint8_t>& c,
+                  std::vector<std::vector<uint8_t>>& seen) {
+    for (const auto& s : seen)
+      if (s == c) return;
+    size_t index = pal.size() / size_t(pal_entry);
+    if (index >= 256) fail("JP2: palette of more than 256 colours (PIL "
+                           "refuses it)");
+    seen.push_back(c);
+    size_t at = index * size_t(pal_entry);
+    if (at < pal.size()) {
+      std::vector<uint8_t> next(pal.begin(), pal.begin() + long(at));
+      next.insert(next.end(), c.begin(), c.end());
+      if (at + size_t(pal_entry) < pal.size())
+        next.insert(next.end(), pal.begin() + long(at + size_t(pal_entry)),
+                    pal.end());
+      pal.swap(next);
+    } else {
+      pal.insert(pal.end(), c.begin(), c.end());
+    }
+  }
+
+  // Jpeg2KImagePlugin._parse_jp2_header: the first jp2h box
+  void read_pil(const uint8_t* d, size_t n) {
+    size_t pos = 12;  // past the signature box
+    Box h;
+    for (;;) {
+      if (n - pos < 8) fail("JP2: no jp2h box");
+      uint64_t len = be32(d + pos);
+      size_t hl = 8;
+      if (len == 1) {
+        if (n - pos < 16) fail("JP2: truncated XLBox");
+        len = uint64_t(be32(d + pos + 8)) << 32 | be32(d + pos + 12);
+        hl = 16;
+      }
+      if (len < hl) fail("JP2: box with a bad length before jp2h");
+      uint32_t type = be32(d + pos + 4);
+      if (type == fourcc("ftyp") && len - hl < 4)
+        fail("JP2: ftyp box shorter than its brand");
+      if (type == fourcc("jp2h")) {
+        if (len > n - pos) fail("JP2: jp2h box runs past the end");
+        h = {type, pos + hl, pos + size_t(len)};
+        break;
+      }
+      if (len > n - pos) fail("JP2: no jp2h box");
+      pos += size_t(len);
+    }
+    bool have_size = false, have_mode = false;
+    int nc = 0;
+    size_t sz = h.end - h.start;
+    const uint8_t* base = d + h.start;
+    for (size_t q = 0; q < sz;) {
+      // BoxReader.next_box_type inside a box of known length
+      if (sz - q < 8) fail("JP2: malformed jp2h box");
+      uint64_t len = be32(base + q);
+      size_t hl = 8;
+      if (len == 1) {
+        if (sz - q < 16) fail("JP2: malformed jp2h box");
+        len = uint64_t(be32(base + q + 8)) << 32 | be32(base + q + 12);
+        hl = 16;
+      }
+      if (len < hl || len > sz - q) fail("JP2: malformed jp2h box");
+      uint32_t type = be32(base + q + 4);
+      const uint8_t* p = base + q + hl;
+      size_t m = size_t(len) - hl;
+      if (type == fourcc("ihdr")) {
+        if (m < 11) fail("JP2: ihdr box shorter than 11 bytes");
+        height = be32(p);
+        width = be32(p + 4);
+        nc = p[8] << 8 | p[9];
+        int bpc = p[10];
+        have_size = true;
+        if (nc >= 1 && nc <= 4) {
+          static const Mode by_nc[] = {Mode::L, Mode::LA, Mode::RGB,
+                                       Mode::RGBA};
+          mode = nc == 1 && (bpc & 0x7F) > 8 ? Mode::I16 : by_nc[nc - 1];
+          have_mode = true;
+        }
+      } else if (type == fourcc("colr") && nc == 4) {
+        if (m < 7) fail("JP2: colr box shorter than 7 bytes");
+        if (p[0] == 1 && be32(p + 3) == 12) mode = Mode::CMYK;
+      } else if (type == fourcc("pclr") && have_mode &&
+                 (mode == Mode::L || mode == Mode::LA)) {
+        if (m < 3) fail("JP2: truncated pclr box");
+        int ne = p[0] << 8 | p[1], npc = p[2];
+        if (m < 3 + size_t(npc)) fail("JP2: truncated pclr box");
+        int maxdepth = 0;  // the raw bytes, sign bit and all
+        for (int i = 0; i < npc; ++i) maxdepth = std::max(maxdepth, int(p[3 + i]));
+        if (maxdepth <= 8) {
+          if (m < 3 + size_t(npc) * (1 + size_t(ne)))
+            fail("JP2: truncated pclr box");
+          pal.clear();
+          pal_entry = npc == 4 ? 4 : 3;
+          std::vector<std::vector<uint8_t>> seen;
+          const uint8_t* e = p + 3 + npc;
+          for (int i = 0; i < ne; ++i, e += npc) {
+            std::vector<uint8_t> c(e, e + npc);
+            add_colour(c, seen);
+          }
+          mode = mode == Mode::L ? Mode::P : Mode::PA;
+        }
+      } else if (type == fourcc("res ")) {
+        // its resc box, read for the DPI
+        for (size_t r = 0; r < m;) {
+          if (m - r < 8) fail("JP2: malformed res box");
+          uint64_t rl = be32(p + r);
+          size_t rh = 8;
+          if (rl == 1) {
+            if (m - r < 16) fail("JP2: malformed res box");
+            rl = uint64_t(be32(p + r + 8)) << 32 | be32(p + r + 12);
+            rh = 16;
+          }
+          if (rl < rh || rl > m - r) fail("JP2: malformed res box");
+          if (be32(p + r + 4) == fourcc("resc")) {
+            if (rl - rh < 10) fail("JP2: resc box shorter than 10 bytes");
+            break;
+          }
+          r += size_t(rl);
+        }
+      }
+      q += size_t(len);
+    }
+    if (!have_size || !have_mode) fail("JP2: malformed JP2 header");
+  }
+
+  void parse(const uint8_t* d, size_t n) {
+    read_pil(d, n);
+    read_openjpeg(d, n);
+    if (!has_ihdr) fail("JP2: no ihdr box");
+  }
+};
+
+// ------------------------------------------------------ PIL's unpacking
+// Jpeg2KDecode.c's unpacker for PIL's mode, OpenJPEG's colour space and
+// the component count, and what convert("RGB") makes of its pixels
+enum class Out { Grey, Grey16, Rgb, Ycc, Cmyk, Palette };
+
+Out unpacker(Mode mode, Space space, int nc) {
+  Space cs = space;
+  if (cs == Space::Unspecified) cs = nc <= 2 ? Space::Gray : Space::Srgb;
+  struct Row {
+    Mode m;
+    Space s;
+    int n;
+    Out o;
+  };
+  static const Row rows[] = {
+      {Mode::L, Space::Gray, 1, Out::Grey},
+      {Mode::P, Space::Srgb, 1, Out::Palette},
+      {Mode::PA, Space::Srgb, 2, Out::Palette},
+      {Mode::I16, Space::Gray, 1, Out::Grey16},
+      {Mode::LA, Space::Gray, 2, Out::Grey},
+      {Mode::RGB, Space::Gray, 1, Out::Grey},
+      {Mode::RGB, Space::Gray, 2, Out::Grey},
+      {Mode::RGB, Space::Srgb, 3, Out::Rgb},
+      {Mode::RGB, Space::Sycc, 3, Out::Ycc},
+      {Mode::RGB, Space::Srgb, 4, Out::Rgb},
+      {Mode::RGB, Space::Sycc, 4, Out::Ycc},
+      {Mode::RGBA, Space::Gray, 1, Out::Grey},
+      {Mode::RGBA, Space::Gray, 2, Out::Grey},
+      {Mode::RGBA, Space::Srgb, 3, Out::Rgb},
+      {Mode::RGBA, Space::Sycc, 3, Out::Ycc},
+      {Mode::RGBA, Space::Srgb, 4, Out::Rgb},
+      {Mode::RGBA, Space::Sycc, 4, Out::Ycc},
+      {Mode::CMYK, Space::Cmyk, 4, Out::Cmyk}};
+  for (const Row& r : rows)
+    if (r.m == mode && r.s == cs && r.n == nc) return r.o;
+  fail(std::string("JP2: ") + space_name(space) + " colour space with " +
+       std::to_string(nc) + " component" + (nc > 1 ? "s" : "") +
+       " in PIL mode " + mode_name(mode) + " (PIL has no unpacker for it)");
+}
+
+// Pillow's YCbCr to RGB tables (ConvertYCbCr.c, 6 fraction bits)
+struct YccTables {
+  int r_cr[256], g_cb[256], g_cr[256], b_cb[256];
+  YccTables() {
+    for (int i = 0; i < 256; ++i) {
+      double x = double(i - 128);
+      r_cr[i] = int(1.402 * x * 64.0 + 0.5);
+      g_cb[i] = int(-0.34414 * x * 64.0 + 0.5);
+      g_cr[i] = int(-0.71414 * x * 64.0 + 0.5);
+      b_cb[i] = int(1.772 * x * 64.0 + 0.5);
+    }
+  }
+};
+
+const YccTables& ycc() {
+  static const YccTables t;  // built once, read only afterwards
+  return t;
+}
+
+uint8_t clip8(int v) { return uint8_t(v < 0 ? 0 : v > 255 ? 255 : v); }
+
+// one component as PIL's j2ku_* functions read OpenJPEG's tile buffer:
+// the sample in 1, 2 or 4 bytes (3 round up to 4), plus the signed
+// offset and half the dropped range, shifted to `bits` bits
+struct Unpack {
+  uint32_t mask, off;
+  int shift;
+  Unpack(int prec, bool sgnd, int bits) {
+    int csiz = (prec + 7) >> 3;
+    mask = csiz == 1 ? 0xFFu : csiz == 2 ? 0xFFFFu : 0xFFFFFFFFu;
+    shift = bits - prec;
+    off = sgnd ? uint32_t(1) << (prec - 1) : 0;
+    if (shift < 0) off += uint32_t(1) << (-shift - 1);
+  }
+  uint32_t operator()(int32_t v) const {
+    uint32_t x = off + (uint32_t(v) & mask);
+    return shift < 0 ? x >> -shift : x << shift;
+  }
+};
+
+struct Pil {
+  Mode mode = Mode::RGB;
+  Space space = Space::Unspecified;
+  Out out = Out::Rgb;
+  std::vector<uint8_t> pal;
+  int pal_entry = 3;
 };
 
 // ----------------------------------------------------------- tag tree
@@ -1029,6 +1598,7 @@ struct TileComp {
   Spc spc;
   Quant q;
   bool sgnd = false;
+  int prec = 8;
   int roishift = 0;
   std::vector<Res> res;
   std::vector<int32_t> idata;
@@ -1111,7 +1681,8 @@ void build_comp(TileComp& tc, int64_t& nprec_total) {
         // (1 + mu / 2^11) * 2^(R - eps) in double, cast to float: R is
         // the precision alone, with no band gain, for the irreversible
         // path (OpenJPEG compensates its 9/7 high-band scale there)
-        float st = float((1.0 + mant / 2048.0) * std::pow(2.0, 8 - expn));
+        float st = float((1.0 + mant / 2048.0) *
+                         std::pow(2.0, tc.prec - expn));
         B.step = 0.5f * st;
       }
       B.prec.resize(size_t(np));
@@ -1162,19 +1733,25 @@ int seg_maxpasses(int style, const std::vector<CodewordSegment>& segs) {
   return 109;
 }
 
+// reads each packet's header from the tile's data or, with PPM or PPT,
+// from the packed headers `h` at `*hpos`, and its body from the tile's data
 struct PacketReader {
   const std::vector<uint8_t>& d;
   size_t pos = 0;
+  const std::vector<uint8_t>& h;
+  size_t& hp;
   bool sop, eph;
-  PacketReader(const std::vector<uint8_t>& d_, bool sop_, bool eph_)
-      : d(d_), sop(sop_), eph(eph_) {}
+  PacketReader(const std::vector<uint8_t>& d_, const std::vector<uint8_t>* h_,
+               size_t* hpos, bool sop_, bool eph_)
+      : d(d_), h(h_ ? *h_ : d_), hp(h_ ? *hpos : pos), sop(sop_),
+        eph(eph_) {}
 
   void read(TileComp& tc, int r, int p, int layer) {
     Res& R = tc.res[size_t(r)];
     int style = tc.spc.cbstyle;
     if (sop && d.size() - pos >= 6 && d[pos] == 0xFF && d[pos + 1] == 0x91)
       pos += 6;
-    Bio bio(d.data() + pos, d.size() - pos);
+    Bio bio(h.data() + hp, h.size() - hp);
     struct Part {  // bytes of this packet for one codeword segment
       Cblk* cb;
       size_t seg;
@@ -1235,9 +1812,9 @@ struct PacketReader {
       }
     }
     bio.inalign();
-    pos += bio.pos;
-    if (eph && d.size() - pos >= 2 && d[pos] == 0xFF && d[pos + 1] == 0x92)
-      pos += 2;
+    hp += bio.pos;
+    if (eph && h.size() - hp >= 2 && h[hp] == 0xFF && h[hp + 1] == 0x92)
+      hp += 2;
     for (const Part& pt : parts) {
       if (pt.len > d.size() - pos) fail("truncated packet body");
       CodewordSegment& sg = pt.cb->segs[pt.seg];
@@ -1354,9 +1931,10 @@ struct Progression {
 
 void decode_packets(std::vector<TileComp>& tcs, const Cod& cod,
                     const std::vector<Poc>& poc,
-                    const std::vector<uint8_t>& bytes, int64_t tx0,
-                    int64_t ty0) {
-  PacketReader pr(bytes, cod.sop, cod.eph);
+                    const std::vector<uint8_t>& bytes,
+                    const std::vector<uint8_t>* headers, size_t* hpos,
+                    int64_t tx0, int64_t ty0) {
+  PacketReader pr(bytes, headers, hpos, cod.sop, cod.eph);
   int nc = int(tcs.size());
   int maxres = 0;
   for (auto& tc : tcs) maxres = std::max(maxres, tc.spc.nl + 1);
@@ -1490,7 +2068,10 @@ void idwt(TileComp& tc, std::vector<T>& buf, F line) {
 }
 
 // --------------------------------------------------------------- tile
-void decode_tile(const Codestream& cs, int ti, uint8_t* out) {
+// decodes tile `ti` into `out`, (H, W, 3) RGB; with PPM its packet
+// headers are read from cs.ppm at *ppm_pos
+void decode_tile(const Codestream& cs, int ti, size_t* ppm_pos,
+                 const Pil& pil, uint8_t* out) {
   const TileData& td = cs.tiles[size_t(ti)];
   int p = ti % cs.ntx, q = ti / cs.ntx;
   int64_t tx0 = std::max(cs.TX0 + p * cs.TW, cs.X0);
@@ -1509,6 +2090,7 @@ void decode_tile(const Codestream& cs, int ti, uint8_t* out) {
     tc.x1 = tx1;
     tc.y1 = ty1;
     tc.sgnd = cs.comp[cu].sgnd;
+    tc.prec = cs.comp[cu].prec;
     tc.spc = td.coc_set[cu] ? td.coc[cu]
              : td.has_cod   ? td.cod.spc
              : cs.coc_set[cu] ? cs.coc[cu]
@@ -1522,7 +2104,19 @@ void decode_tile(const Codestream& cs, int ti, uint8_t* out) {
   }
   std::vector<Poc> poc = cs.poc;
   poc.insert(poc.end(), td.poc.begin(), td.poc.end());
-  decode_packets(tcs, cod, poc, td.bytes, tx0, ty0);
+  // packet headers: PPM's, else this tile's PPT segments in Zppt order,
+  // else in the packets
+  std::vector<uint8_t> ppt;
+  size_t ppt_pos = 0;
+  if (td.ppt.any)
+    for (size_t z = 0; z < 256; ++z)
+      if (td.ppt.set[z])
+        ppt.insert(ppt.end(), td.ppt.seg[z].begin(), td.ppt.seg[z].end());
+  const std::vector<uint8_t>* headers = cs.ppm_seg.any ? &cs.ppm
+                                       : td.ppt.any    ? &ppt
+                                                       : nullptr;
+  decode_packets(tcs, cod, poc, td.bytes, headers,
+                 cs.ppm_seg.any ? ppm_pos : &ppt_pos, tx0, ty0);
   T1 t1;
   for (auto& tc : tcs) {
     decode_blocks(tc, t1);
@@ -1565,33 +2159,121 @@ void decode_tile(const Codestream& cs, int ti, uint8_t* out) {
       }
     }
   }
-  // DC level shift, rounding and clamping, then the RGB output
-  int64_t W = cs.width();
-  int64_t ox = tx0 - cs.X0, oy = ty0 - cs.Y0;
-  int64_t tw = tx1 - tx0, th = ty1 - ty0;
-  for (int o = 0; o < 3; ++o) {
-    int c = nc >= 3 ? o : 0;
-    TileComp& tc = tcs[size_t(c)];
-    int lo = tc.sgnd ? -128 : 0, hi = tc.sgnd ? 127 : 255;
-    int shift = tc.sgnd ? 0 : 128;
-    for (int64_t y = 0; y < th; ++y) {
-      uint8_t* dst = out + ((oy + y) * W + ox) * 3 + o;
-      for (int64_t x = 0; x < tw; ++x) {
-        size_t i = size_t(y * tw + x);
+  // DC level shift, rounding and clamping to the component's range
+  // (opj_tcd_dc_level_shift_decode: a reversible sample and its shift
+  // add in 32 bits, an irreversible one in 64)
+  for (TileComp& tc : tcs) {
+    int32_t lo = tc.sgnd ? -(int32_t(1) << (tc.prec - 1)) : 0;
+    int32_t hi = tc.sgnd ? (int32_t(1) << (tc.prec - 1)) - 1
+                         : int32_t((uint32_t(1) << tc.prec) - 1);
+    int32_t shift = tc.sgnd ? 0 : int32_t(1) << (tc.prec - 1);
+    if (tc.spc.qmfbid == 1) {
+      for (int32_t& v : tc.idata) {
+        int32_t s = int32_t(uint32_t(v) + uint32_t(shift));
+        v = std::max(lo, std::min(hi, s));
+      }
+    } else {
+      tc.idata.resize(np);
+      for (size_t i = 0; i < np; ++i) {
+        float f = tc.fdata[i];
         int64_t v;
-        if (tc.spc.qmfbid == 1) {
-          v = int64_t(tc.idata[i]) + shift;
-        } else {
-          float f = tc.fdata[i];
-          if (f > float(INT_MAX)) v = hi;
-          else if (!(f >= float(INT_MIN))) v = lo;
-          else v = int64_t(lrintf(f)) + shift;
-        }
-        v = std::max<int64_t>(lo, std::min<int64_t>(hi, v));
-        dst[x * 3] = uint8_t(tc.sgnd ? v + 128 : v);
+        if (f > float(INT_MAX)) v = hi;
+        else if (!(f >= float(INT_MIN))) v = lo;
+        else v = int64_t(lrintf(f)) + shift;
+        tc.idata[i] = int32_t(std::max<int64_t>(lo, std::min<int64_t>(hi, v)));
       }
     }
   }
+  // PIL's unpacking of the samples, then convert("RGB")
+  int64_t W = cs.width();
+  int64_t ox = tx0 - cs.X0, oy = ty0 - cs.Y0;
+  int64_t tw = tx1 - tx0, th = ty1 - ty0;
+  int bits = pil.out == Out::Grey16 ? 16 : 8;
+  int nu = pil.out == Out::Cmyk ? 4 : pil.out == Out::Rgb ||
+                                          pil.out == Out::Ycc ? 3 : 1;
+  std::vector<Unpack> un;
+  for (int c = 0; c < nu; ++c)
+    un.emplace_back(tcs[size_t(c)].prec, tcs[size_t(c)].sgnd, bits);
+  const int32_t* v0 = tcs[0].idata.data();
+  const int32_t* v1 = nu > 1 ? tcs[1].idata.data() : nullptr;
+  const int32_t* v2 = nu > 1 ? tcs[2].idata.data() : nullptr;
+  const int32_t* v3 = nu > 3 ? tcs[3].idata.data() : nullptr;
+  const YccTables& yt = ycc();
+  size_t npal = pil.pal.size() / size_t(pil.pal_entry);
+  for (int64_t y = 0; y < th; ++y) {
+    uint8_t* dst = out + ((oy + y) * W + ox) * 3;
+    size_t i = size_t(y * tw);
+    for (int64_t x = 0; x < tw; ++x, ++i, dst += 3) {
+      switch (pil.out) {
+        case Out::Grey:
+          dst[0] = dst[1] = dst[2] = uint8_t(un[0](v0[i]));
+          break;
+        case Out::Grey16:  // I;16, clipped to 8 bits
+          dst[0] = dst[1] = dst[2] =
+              uint8_t(std::min<uint32_t>(un[0](v0[i]) & 0xFFFF, 255));
+          break;
+        case Out::Rgb:
+          dst[0] = uint8_t(un[0](v0[i]));
+          dst[1] = uint8_t(un[1](v1[i]));
+          dst[2] = uint8_t(un[2](v2[i]));
+          break;
+        case Out::Ycc: {  // ImagingConvertYCbCr2RGB
+          int l = uint8_t(un[0](v0[i]));
+          int cb = uint8_t(un[1](v1[i])), cr = uint8_t(un[2](v2[i]));
+          dst[0] = clip8(l + (yt.r_cr[cr] >> 6));
+          dst[1] = clip8(l + ((yt.g_cb[cb] + yt.g_cr[cr]) >> 6));
+          dst[2] = clip8(l + (yt.b_cb[cb] >> 6));
+          break;
+        }
+        case Out::Cmyk: {  // cmyk2rgb, rounded as MULDIV255
+          int nk = 255 - uint8_t(un[3](v3[i]));
+          const int32_t* vs[3] = {v0, v1, v2};
+          for (int k = 0; k < 3; ++k) {
+            int t = int(uint8_t(un[size_t(k)](vs[k][i]))) * nk + 128;
+            dst[k] = clip8(nk - (((t >> 8) + t) >> 8));
+          }
+          break;
+        }
+        case Out::Palette: {  // entries past the palette are black
+          size_t e = uint8_t(un[0](v0[i]));
+          if (e < npal) {
+            const uint8_t* c = &pil.pal[e * size_t(pil.pal_entry)];
+            dst[0] = c[0];
+            dst[1] = c[1];
+            dst[2] = c[2];
+          } else {
+            dst[0] = dst[1] = dst[2] = 0;
+          }
+          break;
+        }
+      }
+    }
+  }
+}
+
+// the codestream, raw or boxed as JP2, and how PIL would unpack it
+void open_image(const uint8_t* data, size_t n, bool header_only, Codestream& cs,
+          Pil& pil) {
+  if (n >= 12 && memcmp(data, "\0\0\0\x0cjP  \r\n\x87\n", 12) == 0) {
+    Jp2 j;
+    j.parse(data, n);
+    cs.parse(data + j.cs_start, n - j.cs_start, header_only);
+    if (j.ihdr_w != cs.width() || j.ihdr_h != cs.height() ||
+        j.width != cs.width() || j.height != cs.height())
+      fail("JP2: ihdr gives " + std::to_string(j.width) + " x " +
+           std::to_string(j.height) + ", the codestream's SIZ " +
+           std::to_string(cs.width()) + " x " + std::to_string(cs.height()));
+    pil.mode = j.mode;
+    pil.space = j.space;
+    pil.pal = j.pal;
+    pil.pal_entry = j.pal_entry;
+  } else {
+    cs.parse(data, n, header_only);
+    static const Mode by_nc[] = {Mode::L, Mode::LA, Mode::RGB, Mode::RGBA};
+    pil.mode = cs.nc == 1 && cs.comp[0].prec > 8 ? Mode::I16
+                                                 : by_nc[cs.nc - 1];
+  }
+  pil.out = unpacker(pil.mode, pil.space, cs.nc);
 }
 
 void set_err(char* err, int errlen, const char* msg) {
@@ -1607,7 +2289,8 @@ int j2k_info(const uint8_t* data, long n, int* dims, char* err,
   try {
     if (n < 0) fail("negative length");
     Codestream cs;
-    cs.parse(data, size_t(n), true);
+    Pil pil;
+    open_image(data, size_t(n), true, cs, pil);
     dims[0] = cs.height();
     dims[1] = cs.width();
     dims[2] = cs.nc;
@@ -1623,10 +2306,12 @@ int j2k_decode(const uint8_t* data, long n, uint8_t* out, long cap,
   try {
     if (n < 0) fail("negative length");
     Codestream cs;
-    cs.parse(data, size_t(n), false);
+    Pil pil;
+    open_image(data, size_t(n), false, cs, pil);
     if (int64_t(cs.height()) * cs.width() * 3 > cap)
       fail("output buffer too small");
-    for (int t = 0; t < cs.ntx * cs.nty; ++t) decode_tile(cs, t, out);
+    size_t ppm_pos = 0;
+    for (int t : cs.order) decode_tile(cs, t, &ppm_pos, pil, out);
     return 0;
   } catch (const std::bad_alloc&) {
     set_err(err, errlen, "out of memory");

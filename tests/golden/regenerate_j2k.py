@@ -11,12 +11,26 @@ PIL):
   ``synthetic_wsi(6144, 6144, n_cells=4000, mpp=0.4, seed=0)`` (the WSI
   phase's slide of ``chip_smoke.py``), 16 tiles of 512², irreversible
   9/7 with the ICT at rate 60, MPP 0.4 in its description;
+- ``j2k_ext_*``: small streams past Aperio's 8-bit raw codestreams
+  (:func:`ext_streams`): component precisions up to 20 bits, signed and
+  mixed; JP2 files (PIL's default container, OpenJPEG's sYCC and 12-bit
+  grey, a palette, an ICC profile with cdef and XLBox); packed packet
+  headers (PPM over several segments, PPT over several tile-parts);
+  and the streams the decoder still refuses or PIL refuses too
+  (:func:`refused_streams`);
+- ``j2k_ext_region.svs``: the same region and tiling as
+  ``j2k_region.svs``, every tile lossless 5/3 with the RCT, the tiles in
+  turn (row-major) 12-bit holding the samples times 16, JP2-boxed, with
+  PPM and with PPT headers;
 - ``j2k_golden.json``: the SHA-256 of PIL's RGB decode of every stream
-  and of every tile of the SVS, with their shapes.
+  and of every tile of both SVSs, with their shapes, and the word each
+  refused stream's error names.
 
 :func:`write_j2k_tiff` is also what the tests write their 33003 and 33005
-files with, and :func:`opj_encode` their streams with code-block style
-flags, SOP/EPH, ROI and POC.
+files with, :func:`opj_encode` their streams with code-block style
+flags, SOP/EPH, ROI, POC, precisions and OpenJPEG's JP2 container,
+:func:`pack_headers` their PPM and PPT streams and :func:`wrap_jp2` (with
+the box helpers) their JP2 variants.
 
 Run: python tests/golden/regenerate_j2k.py
 """
@@ -35,6 +49,8 @@ from PIL import Image
 
 HERE = Path(__file__).parent
 SVS_NAME, JSON_NAME = "j2k_region.svs", "j2k_golden.json"
+EXT_SVS_NAME = "j2k_ext_region.svs"
+EXT_KINDS = ("prec12", "jp2", "ppm", "ppt")  # the tiles' kinds, in turn
 SVS_REGION, SVS_TILE, SVS_MPP, SVS_RATE = 2048, 512, 0.4, 60
 SLIDE = dict(width=6144, height=6144, n_cells=4000, mpp=SVS_MPP, seed=0)
 
@@ -117,35 +133,50 @@ def _openjpeg() -> ctypes.CDLL:
 # checked against opj_set_default_encoder_parameters' defaults below
 _P_DISTO, _P_CSTY, _P_POC, _P_POC_SIZE, _P_NUMPOCS = 20, 48, 56, 148, 4792
 _P_LAYERS, _P_RATES, _P_NUMRES, _P_ROI, _P_MCT = 4796, 4800, 5600, 5620, 18698
+_P_TILES, _P_PROG = 0, 52  # tile_size_on, cp_tx0, cp_ty0, cp_tdx, cp_tdy
+_ORDERS = {"LRCP": 0, "RLCP": 1, "RPCL": 2, "PCRL": 3, "CPRL": 4}
+_CODECS = {"j2k": 0, "jp2": 2}  # OPJ_CODEC_J2K, OPJ_CODEC_JP2
+_COLOUR_SPACES = {"srgb": 1, "grey": 2, "sycc": 3}  # OPJ_COLOR_SPACE
 
 
 def opj_encode(img: np.ndarray, path, *, irreversible: bool = False,
                mct: int = 0, numres: int = 6, cblk=(64, 64), csty: int = 0,
                mode: int = 0, rates=(), roi=None, poc=(),
-               signed: bool = False) -> bytes:
-    """A raw codestream of an (H, W[, C]) uint8 image written by OpenJPEG's
-    own encoder through ctypes, for what PIL's ``save`` does not expose:
+               signed=False, prec=8, codec: str = "j2k",
+               colour_space: str = "srgb", tiles=None,
+               order: str = "LRCP") -> bytes:
+    """A codestream of an (H, W[, C]) image written by OpenJPEG's own
+    encoder through ctypes, for what PIL's ``save`` does not expose:
     ``csty`` (2: SOP, 4: EPH), ``mode`` (the code-block style flags: 1
     bypass, 2 reset, 4 termall, 8 vertically causal, 16 predictable
     termination, 32 segmentation symbols), ``roi`` (component, shift),
     ``poc`` ((res0, comp0, layer end, res1, comp1, order), ...) and the
-    layers' ``rates``. The stream goes through the file ``path``."""
+    layers' ``rates``. ``prec`` and ``signed`` are one value or one per
+    component; samples are given unsigned, in [0, 2^prec), and a signed
+    component is stored less 2^(prec - 1). ``codec`` "jp2" boxes the
+    stream in OpenJPEG's JP2 container, whose ``colr`` box names
+    ``colour_space`` ("srgb", "grey" or "sycc"). ``tiles`` is the tile
+    size (width, height) and ``order`` the progression. The stream goes
+    through the file ``path``."""
     o = _openjpeg()
-    img = np.asarray(img, np.uint8)
+    img = np.asarray(img)
     if img.ndim == 2:
         img = img[..., None]
     h, w, nc = img.shape
+    precs = [prec] * nc if np.isscalar(prec) else list(prec)
+    sgnds = [signed] * nc if np.isscalar(signed) else list(signed)
     # opj_image_cmptparm_t: dx, dy, w, h, x0, y0, prec, bpp, sgnd
     parm = (ctypes.c_uint32 * (9 * nc))()
     for c in range(nc):
-        parm[9 * c:9 * c + 9] = [1, 1, w, h, 0, 0, 8, 8, int(signed)]
-    im = o.opj_image_create(nc, parm, 1)
+        parm[9 * c:9 * c + 9] = [1, 1, w, h, 0, 0, precs[c], precs[c],
+                                 int(sgnds[c])]
+    im = o.opj_image_create(nc, parm, _COLOUR_SPACES[colour_space])
     ctypes.memmove(im, struct.pack("<4I", 0, 0, w, h), 16)  # x0 y0 x1 y1
     comps = ctypes.c_void_p.from_address(im + 24).value
     for c in range(nc):  # opj_image_comp_t is 64 bytes, data at 48
         plane = np.ascontiguousarray(img[..., c], np.int32)
-        if signed:
-            plane = plane - 128
+        if sgnds[c]:
+            plane = plane - (1 << (precs[c] - 1))
         data = ctypes.c_void_p.from_address(comps + 64 * c + 48).value
         ctypes.memmove(data, plane.ctypes.data, plane.nbytes)
     p = (ctypes.c_ubyte * 20000)()
@@ -157,6 +188,9 @@ def opj_encode(img: np.ndarray, path, *, irreversible: bool = False,
         struct.pack_into(fmt, p, off, *v)
 
     put(_P_CSTY, "<i", csty)
+    put(_P_PROG, "<i", _ORDERS[order])
+    if tiles:
+        put(_P_TILES, "<5i", 1, 0, 0, *tiles)
     put(_P_NUMRES, "<5i", numres, cblk[0], cblk[1], mode, int(irreversible))
     if roi:
         put(_P_ROI, "<2i", *roi)
@@ -171,7 +205,7 @@ def opj_encode(img: np.ndarray, path, *, irreversible: bool = False,
         put(at, "<5I", r0, c0, l1, r1, c1)
         put(at + 32, "<i", prog)
         put(at + 48, "<I", 1)  # the tile it applies to, from 1
-    codec = o.opj_create_compress(0)  # OPJ_CODEC_J2K
+    codec = o.opj_create_compress(_CODECS[codec])
     ok = o.opj_setup_encoder(codec, p, im)
     stream = o.opj_stream_create_default_file_stream(str(path).encode(), 0)
     ok = (ok and o.opj_start_compress(codec, im, stream)
@@ -185,6 +219,190 @@ def opj_encode(img: np.ndarray, path, *, irreversible: bool = False,
     return Path(path).read_bytes()
 
 
+# ------------------------------------------------- packed packet headers
+
+def _marker_segments(cs: bytes, at: int):
+    """(offset, marker, segment end) of the marker segments from ``at``
+    up to the first SOT or SOD."""
+    while True:
+        m = struct.unpack_from(">H", cs, at)[0]
+        if m in (0xFF90, 0xFF93):
+            return
+        end = at + 2 + struct.unpack_from(">H", cs, at + 2)[0]
+        yield at, m, end
+        at = end
+
+
+def _packets(data: bytes, eph: bytes) -> list[tuple[bytes, bytes, bytes]]:
+    """A tile-part's data written with SOP and EPH as (SOP, header, body)
+    per packet: the header runs from its SOP segment to its EPH, which no
+    header byte can imitate (a byte after 0xFF is below 0x90), and the
+    body to the next SOP."""
+    out, i = [], 0
+    while i < len(data):
+        if data[i:i + 2] != b"\xff\x91":
+            raise ValueError("a packet without SOP")
+        e = data.index(b"\xff\x92", i + 6)
+        nxt = data.find(b"\xff\x91", e + 2)
+        nxt = len(data) if nxt < 0 else nxt
+        out.append((data[i:i + 6], data[i + 6:e] + eph, data[e + 2:nxt]))
+        i = nxt
+    return out
+
+
+def _split(blob: bytes, n: int) -> list[bytes]:
+    """``blob`` in ``n`` pieces of near-equal length."""
+    cuts = [len(blob) * k // n for k in range(n + 1)]
+    return [blob[a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+
+
+def pack_headers(cs: bytes, where: str, *, parts: int = 1,
+                 segments: int = 1, keep_markers: bool = False,
+                 nppm_shift: int = 0, nppm_extra: int = 0) -> bytes:
+    """A codestream OpenJPEG wrote with SOP and EPH (``csty=6``), its
+    packet headers moved into PPM segments of the main header (``where``
+    "ppm") or PPT segments of the tile-part headers ("ppt"); each tile's
+    packets split over ``parts`` tile-parts, the packed headers over
+    ``segments`` segments (PPM: Zppm order, each tile-part's Nppm run
+    going on across segments; PPT: Zppt numbered across a tile's parts,
+    as OpenJPEG reads it; more where a segment would pass its 64 KiB).
+    ``keep_markers`` keeps SOP in the bodies and
+    EPH after each packed header, else both go and the COD no longer
+    announces them. ``nppm_shift`` moves that many header bytes from the
+    first tile-part's Nppm to the second's (the runs then cut the headers
+    elsewhere); ``nppm_extra`` adds to the last Nppm."""
+    first_sot = cs.index(b"\xff\x90")
+    main = bytearray(cs[:first_sot])
+    cod = None
+    for at, m, _ in _marker_segments(cs, 2):
+        if m == 0xFF52:
+            cod = at
+    if cod is None or cs[cod + 4] & 6 != 6:
+        raise ValueError("the stream has no SOP and EPH")
+    if not keep_markers:
+        main[cod + 4] &= ~6 & 0xFF
+    eph = b"\xff\x92" if keep_markers else b""
+    tile_parts = []  # (tile index, tile-part header markers, packets)
+    at = first_sot
+    while cs[at:at + 2] == b"\xff\x90":
+        isot, psot = struct.unpack_from(">HI", cs, at + 4)
+        end = at + psot if psot else len(cs) - 2
+        markers = b"".join(cs[a:e] for a, _, e in
+                           _marker_segments(cs, at + 12))
+        sod = at + 12 + len(markers)
+        assert cs[sod:sod + 2] == b"\xff\x93"
+        pk = _packets(cs[sod + 2:end], eph)
+        chunks = [c for c in _split(pk, parts) if c]
+        for k, c in enumerate(chunks):
+            tile_parts.append((isot, markers if k == 0 else b"", c,
+                               k, len(chunks)))
+        at = end
+    runs, out, zppt = [], bytearray(), {}
+    for isot, markers, pk, k, n in tile_parts:
+        headers = b"".join(h for _, h, _ in pk)
+        body = b"".join((s if keep_markers else b"") + b for s, _, b in pk)
+        if where == "ppt":
+            for piece in _split(headers, max(segments,
+                                             -(-len(headers) // 65000))):
+                z = zppt.setdefault(isot, 0)
+                zppt[isot] = z + 1
+                markers += (b"\xff\x61" + struct.pack(">HB", 3 + len(piece),
+                                                        z) + piece)
+        else:
+            runs.append(headers)
+        psot = 12 + len(markers) + 2 + len(body)
+        out += (b"\xff\x90" + struct.pack(">HHIBB", 10, isot, psot, k, n)
+                + markers + b"\xff\x93" + body)
+    if where == "ppm":
+        lens = [len(r) for r in runs]
+        if nppm_shift:
+            lens[0] -= nppm_shift
+            lens[1] += nppm_shift
+        lens[-1] += nppm_extra
+        blob, fields = b"", []
+        for n, r in zip(lens, _regroup(runs, lens)):
+            fields.append(len(blob))
+            blob += struct.pack(">I", n) + r
+        n = max(segments, -(-len(blob) // 65000))
+        # a segment may cut a run, never its Nppm field
+        cuts = [len(blob) * k // n for k in range(n + 1)]
+        cuts = [next((f for f in fields if f < c < f + 4), c) for c in cuts]
+        pieces = [blob[a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+        for z, piece in enumerate(pieces):
+            main += b"\xff\x60" + struct.pack(">HB", 3 + len(piece), z) + piece
+    return bytes(main) + bytes(out) + b"\xff\xd9"
+
+
+def _regroup(runs: list[bytes], lens: list[int]) -> list[bytes]:
+    """The bytes of ``runs`` joined and cut again at ``lens`` (the last
+    run takes what is left)."""
+    blob, out, at = b"".join(runs), [], 0
+    for k, n in enumerate(lens):
+        out.append(blob[at:] if k == len(lens) - 1 else blob[at:at + n])
+        at += n
+    return out
+
+
+# ---------------------------------------------------------------- JP2
+
+JP2_SIGNATURE = b"\0\0\0\x0cjP  \r\n\x87\n"
+
+
+def box(kind: bytes, payload: bytes, xl: bool = False,
+        to_end: bool = False) -> bytes:
+    """A JP2 box: LBox and TBox, or LBox 1 and a 64-bit XLBox, or LBox 0
+    (the box runs to the end of the file)."""
+    if to_end:
+        return struct.pack(">I4s", 0, kind) + payload
+    if xl:
+        return struct.pack(">I4sQ", 1, kind, 16 + len(payload)) + payload
+    return struct.pack(">I4s", 8 + len(payload), kind) + payload
+
+
+def ihdr(h: int, w: int, nc: int, bpc: int) -> bytes:
+    return box(b"ihdr", struct.pack(">IIHBBBB", h, w, nc, bpc, 7, 0, 0))
+
+
+def colr(enumcs: int | None = None, icc: bytes | None = None) -> bytes:
+    """An enumerated (method 1) or restricted ICC (method 2) colr box."""
+    if icc is not None:
+        return box(b"colr", bytes([2, 0, 0]) + icc)
+    return box(b"colr", bytes([1, 0, 0]) + struct.pack(">I", enumcs))
+
+
+def pclr(entries, depths) -> bytes:
+    """A palette of ``entries`` (tuples, one value a column) whose columns
+    have the raw bit-depth bytes ``depths``."""
+    out = struct.pack(">HB", len(entries), len(depths)) + bytes(depths)
+    for e in entries:
+        for v, d in zip(e, depths):
+            out += int(v).to_bytes(((d & 0x7F) + 8) // 8, "big")
+    return box(b"pclr", out)
+
+
+def cmap(entries) -> bytes:
+    """(component, mapping type, palette column) per channel."""
+    return box(b"cmap", b"".join(struct.pack(">HBB", *e) for e in entries))
+
+
+def cdef(entries) -> bytes:
+    """(channel, type, association) per channel."""
+    return box(b"cdef", struct.pack(">H", len(entries)) + b"".join(
+        struct.pack(">HHH", *e) for e in entries))
+
+
+def wrap_jp2(cs: bytes, header: list[bytes], *, before: bytes = b"",
+             after: bytes = b"", jp2h_xl: bool = False,
+             jp2c: str = "plain") -> bytes:
+    """``cs`` boxed as a JP2 file: the signature, ftyp, the boxes
+    ``before``, a jp2h superbox of ``header``, the boxes ``after`` and the
+    jp2c box (``jp2c`` "plain", "xl" or "to_end")."""
+    ftyp = box(b"ftyp", b"jp2 " + struct.pack(">I", 0) + b"jp2 ")
+    return (JP2_SIGNATURE + ftyp + before
+            + box(b"jp2h", b"".join(header), xl=jp2h_xl) + after
+            + box(b"jp2c", cs, xl=jp2c == "xl", to_end=jp2c == "to_end"))
+
+
 def pil_rgb(data: bytes) -> np.ndarray:
     """What the JAX reader's PIL call gives for a tile."""
     return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
@@ -196,13 +414,14 @@ def sha256(rgb: np.ndarray) -> str:
 
 def write_j2k_tiff(path, level0: np.ndarray, tile: int, mpp: float,
                    compression: int = 33005, n_levels: int = 1,
-                   **kw) -> list[bytes]:
+                   encode_tile=None, **kw) -> list[bytes]:
     """A classic little-endian tiled TIFF in Aperio's layout with JPEG 2000
     tiles encoded by PIL: 2× decimated levels, edge tiles coded at their
     own (partial) size, the MPP in the description. 33005 tiles hold the
     RGB components (``kw`` as PIL's save options); 33003 tiles hold the
     YCbCr values as plain components with no MCT, as Aperio writes them.
-    Returns level 0's tile streams."""
+    ``encode_tile(k, rgb)``, if given, writes tile ``k`` of each level
+    instead. Returns level 0's tile streams."""
     levels = [np.ascontiguousarray(level0, np.uint8)]
     for _ in range(1, n_levels):
         levels.append(np.ascontiguousarray(levels[-1][::2, ::2]))
@@ -211,9 +430,10 @@ def write_j2k_tiff(path, level0: np.ndarray, tile: int, mpp: float,
         h, w = img.shape[:2]
         if compression == 33003:
             img = np.asarray(Image.fromarray(img).convert("YCbCr"))
-        streams = [encode(np.ascontiguousarray(img[y:y + tile, x:x + tile]),
-                          "RGB", **kw)
-                   for y in range(0, h, tile) for x in range(0, w, tile)]
+        crops = [np.ascontiguousarray(img[y:y + tile, x:x + tile])
+                 for y in range(0, h, tile) for x in range(0, w, tile)]
+        streams = [encode_tile(k, c) if encode_tile else
+                   encode(c, "RGB", **kw) for k, c in enumerate(crops)]
         pages.append((w, h, streams))
     desc = (f"Aperio Image Library v12.0.15\r\n{levels[0].shape[1]}x"
             f"{levels[0].shape[0]} ({tile}x{tile}) J2K|AppMag = 20|"
@@ -266,6 +486,125 @@ def write_tiff(path, pages, tile: int, desc: str, compression: int,
     Path(path).write_bytes(bytes(out))
 
 
+def _ext_image(h, w, nc, prec, seed):
+    """``image`` scaled to ``prec`` bits, low bits from the noise."""
+    img = image(h, w, nc, seed).astype(np.int64)
+    rng = np.random.default_rng(seed + 100)
+    if prec >= 8:
+        return (img << (prec - 8)) | rng.integers(0, 1 << (prec - 8),
+                                                  img.shape)
+    return img >> (8 - prec)
+
+
+def _opj(img, **kw) -> bytes:
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        return opj_encode(img, Path(tmp) / "s", **kw)
+
+
+def _pil_jp2(img, mode=None, **kw) -> bytes:
+    buf = io.BytesIO()
+    Image.fromarray(img, mode).save(buf, "JPEG2000", **kw)
+    return buf.getvalue()
+
+
+def _sop_eph(img, **kw) -> bytes:
+    """A stream with SOP and EPH, for ``pack_headers``."""
+    return _opj(img, csty=6, numres=3, cblk=(16, 16), **kw)
+
+
+PALETTE = [(230, 20, 40), (20, 200, 60), (230, 20, 40), (40, 60, 250),
+           (250, 250, 250), (20, 200, 60), (0, 0, 0), (120, 80, 30)]
+
+
+def ext_streams() -> dict[str, bytes]:
+    """The ``j2k_ext_*`` goldens PIL decodes, by file name."""
+    rgb = image(29, 37, 3, seed=30)
+    idx = (image(29, 37, 1, seed=31)[..., 0] // 32).astype(np.int64)
+    return {
+        "j2k_ext_prec12_rct.j2k": _opj(_ext_image(29, 37, 3, 12, 32),
+                                       prec=12, mct=1, numres=3),
+        "j2k_ext_prec16_grey_97.j2k": _opj(
+            _ext_image(29, 37, 1, 16, 33), prec=16, irreversible=True,
+            numres=3, rates=(4,)),
+        "j2k_ext_prec_mixed_signed.j2k": _opj(np.stack(
+            [_ext_image(29, 37, 1, p, 34 + p)[..., 0] for p in (1, 9, 15, 4)],
+            -1), prec=(1, 9, 15, 4), signed=(False, True, False, True),
+            numres=3),
+        "j2k_ext_prec20_signed_97.j2k": _opj(
+            _ext_image(29, 37, 3, 20, 35), prec=20, signed=True,
+            irreversible=True, mct=1, numres=3),
+        "j2k_ext_pil.jp2": _pil_jp2(rgb, mct=1),
+        "j2k_ext_sycc.jp2": _opj(rgb, codec="jp2", colour_space="sycc",
+                                 numres=3),
+        "j2k_ext_grey12.jp2": _opj(_ext_image(29, 37, 1, 12, 36), prec=12,
+                                   codec="jp2", colour_space="grey",
+                                   numres=3),
+        "j2k_ext_pclr.jp2": wrap_jp2(_opj(idx, numres=3), [
+            ihdr(29, 37, 1, 7), colr(16), pclr(PALETTE, [7, 7, 7]),
+            cmap([(0, 1, 0), (0, 1, 1), (0, 1, 2)])]),
+        "j2k_ext_icc_cdef_xl.jp2": wrap_jp2(_opj(rgb, numres=3, mct=1), [
+            ihdr(29, 37, 3, 7), colr(icc=bytes(range(64))),
+            cdef([(0, 0, 3), (1, 0, 2), (2, 0, 1)])],
+            before=box(b"xml ", b"<slide/>"), jp2h_xl=True,
+            jp2c="to_end"),
+        "j2k_ext_ppm.j2k": pack_headers(_sop_eph(
+            image(45, 52, 3, seed=37), mct=1, tiles=(32, 24),
+            order="RPCL", rates=(12, 3)), "ppm", parts=2, segments=3,
+            nppm_shift=3),
+        "j2k_ext_ppt.j2k": pack_headers(_sop_eph(
+            image(45, 52, 3, seed=38), irreversible=True, mct=1,
+            rates=(20, 6)), "ppt", parts=3, segments=2, keep_markers=True),
+    }
+
+
+def _patched(data: bytes, marker: int, at: int, value: bytes) -> bytes:
+    i = data.index(bytes([0xFF, marker])) + at
+    return data[:i] + value + data[i + len(value):]
+
+
+def refused_streams() -> dict[str, tuple[bytes, str]]:
+    """The ``j2k_ext_refused_*`` goldens, by file name, with the word the
+    decoder's error names: what stays refused (component subsampling,
+    whose PIL decode is no reference; HTJ2K; Part 2; more than four
+    components) and what PIL refuses too."""
+    base = _opj(image(16, 20, 3, seed=40), numres=2)
+    ppm = pack_headers(_sop_eph(image(16, 20, 3, seed=41)), "ppm")
+    sot = ppm.index(b"\xff\x90")
+    psot = struct.unpack_from(">I", ppm, sot + 6)[0]
+    ppt = b"\xff\x61\x00\x04\x00\x00"
+    both = (ppm[:sot + 6] + struct.pack(">I", psot + len(ppt))
+            + ppm[sot + 10:sot + 12] + ppt + ppm[sot + 12:])
+    return {
+        "j2k_ext_refused_subsampling.j2k": (
+            _patched(base, 0x51, 44, b"\x02\x02"), "component subsampling"),
+        "j2k_ext_refused_htj2k.j2k": (_patched(base, 0x51, 4, b"\x40\x00"),
+                                      "HTJ2K"),
+        "j2k_ext_refused_part2_mct.j2k": (_patched(base, 0x52, 8, b"\x02"),
+                                          "multiple component transform"),
+        "j2k_ext_refused_five_components.j2k": (
+            _patched(base, 0x51, 38, b"\x00\x05"), "5 components"),
+        "j2k_ext_refused_precision_32.j2k": (
+            _patched(base, 0x51, 40, b"\x1f"), "component precision 32"),
+        "j2k_ext_refused_ppm_and_ppt.j2k": (both, "PPT marker in a "
+                                            "codestream with PPM"),
+        "j2k_ext_refused_ihdr.jp2": (wrap_jp2(base, [
+            ihdr(16, 21, 3, 7), colr(16)]), "JP2: ihdr"),
+    }
+
+
+def ext_tile(k: int, rgb: np.ndarray) -> bytes:
+    """Tile ``k`` of ``j2k_ext_region.svs``: lossless 5/3 with the RCT,
+    as ``EXT_KINDS[k % 4]``."""
+    kind = EXT_KINDS[k % len(EXT_KINDS)]
+    if kind == "prec12":  # PIL gives back (16 v + 8) >> 4 = v
+        return _opj(rgb.astype(np.int64) * 16, prec=12, mct=1)
+    if kind == "jp2":
+        return _pil_jp2(rgb, mct=1)
+    return pack_headers(_opj(rgb, mct=1, csty=6), kind, parts=2,
+                        segments=2)
+
+
 def main():
     import sys
     sys.path.insert(0, str(HERE.parents[1]))
@@ -294,11 +633,29 @@ def main():
     golden["svs"] = {
         "slide": SLIDE, "region": SVS_REGION, "tile": SVS_TILE,
         "rate": SVS_RATE, "tiles": [sha256(pil_rgb(s)) for s in streams]}
+    golden["ext_streams"] = {}
+    for name, data in ext_streams().items():
+        (HERE / name).write_bytes(data)
+        rgb = pil_rgb(data)
+        golden["ext_streams"][name] = {"sha256": sha256(rgb),
+                                       "shape": list(rgb.shape)}
+    golden["refused"] = {}
+    for name, (data, word) in refused_streams().items():
+        (HERE / name).write_bytes(data)
+        golden["refused"][name] = word
+    streams = write_j2k_tiff(HERE / EXT_SVS_NAME, region, SVS_TILE, SVS_MPP,
+                             encode_tile=ext_tile)
+    tiles = [pil_rgb(s) for s in streams]
+    if not np.array_equal(np.concatenate([np.concatenate(
+            tiles[r * 4:r * 4 + 4], 1) for r in range(4)]), region):
+        raise AssertionError("the lossless SVS does not decode to its region")
+    golden["ext_svs"] = {"kinds": list(EXT_KINDS),
+                         "tiles": [sha256(t) for t in tiles]}
     (HERE / JSON_NAME).write_text(json.dumps(golden, indent=1) + "\n")
     total = sum(p.stat().st_size for p in HERE.glob("j2k_*"))
-    print("regenerated:", len(STREAMS) + len(OPJ_STREAMS), "streams,",
-          len(streams),
-          "SVS tiles,", total, "bytes")
+    print("regenerated:", len(STREAMS) + len(OPJ_STREAMS)
+          + len(golden["ext_streams"]) + len(golden["refused"]), "streams,",
+          2 * len(streams), "SVS tiles,", total, "bytes")
 
 
 if __name__ == "__main__":

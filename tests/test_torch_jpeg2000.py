@@ -286,7 +286,8 @@ def test_golden_svs():
             assert regen.sha256(regen.pil_rgb(data)) == h
     finally:
         s.close()
-    total = sum(f.stat().st_size for f in GOLDEN.glob("j2k_*"))
+    total = sum(f.stat().st_size for f in GOLDEN.glob("j2k_*")
+                if f.name != regen.EXT_SVS_NAME)
     assert total <= 512 * 1024
 
 
@@ -330,8 +331,8 @@ def _refusals():
     cod = _cod_at(base)
     qcd = _marker(base, 0x5C)
     out = {
-        "jp2": (None, "JP2 file format"),
-        "precision": (None, "precision 16 bits"),
+        "jp2": (None, "JP2: ihdr gives 17 x 16"),
+        "precision": (None, "component precision 32 bits"),
         "subsampling": (_patch(base, siz + 44, b"\x02\x02"),
                         "component subsampling"),
         "five-components": (_patch(base, siz + 38, struct.pack(">H", 5)),
@@ -351,10 +352,13 @@ def _refusals():
         "poc-33-progressions": (_insert_main(base, b"\xff\x5f" + struct.pack(
             ">H", 2 + 7 * 33) + bytes([0, 0, 0, 1, 1, 3, 0]) * 33),
             "more than 32 progressions"),
-        "ppm": (_insert_main(base, b"\xff\x60\x00\x04\x00\x00"),
-                "PPM marker"),
-        "ppt": (_insert_tile(base, b"\xff\x61\x00\x04\x00\x00"),
-                "PPT marker"),
+        "ppm": (_insert_main(base, b"\xff\x60\x00\x09\x00"
+                             + struct.pack(">I", 100) + b"\x00\x00"),
+                "PPM: Nppm runs past the last PPM segment"),
+        "ppt": (_insert_tile(_insert_main(base, b"\xff\x60\x00\x07\x00"
+                                          + struct.pack(">I", 0)),
+                             b"\xff\x61\x00\x04\x00\x00"),
+                "PPT marker in a codestream with PPM"),
         "style-ht": (_patch(base, cod + 12, b"\x40"), "HT block coding"),
         "style-mixed-ht": (_patch(base, cod + 12, b"\x80"), "HT block coding"),
     }
@@ -364,20 +368,31 @@ def _refusals():
 _REFUSALS = _refusals()
 
 
+# what PIL refuses as well; the other cases stay refused where PIL reads
+# them (subsampling, HTJ2K, Part 2) or fail PIL another way
+_PIL_REFUSES = ("jp2", "precision", "ppm", "ppt", "five-components")
+
+
 @pytest.mark.parametrize("name", list(_REFUSALS))
 def test_refuses_by_name(name):
     data, message = _REFUSALS[name]
-    if name == "jp2":  # PIL's default container
+    if name == "jp2":  # PIL's default container, its ihdr one wider
         buf = io.BytesIO()
         Image.fromarray(regen.image(16, 16, 3, 0)).save(buf, "JPEG2000")
         data = buf.getvalue()
-    elif name == "precision":
+        i = data.index(b"ihdr") + 8
+        data = data[:i] + struct.pack(">I", 17) + data[i + 4:]
+    elif name == "precision":  # 16 bits as PIL writes them, SIZ says 32
         buf = io.BytesIO()
         Image.fromarray(np.arange(256, dtype=np.uint16).reshape(16, 16)
                         * 200).save(buf, "JPEG2000", no_jp2=True)
-        data = buf.getvalue()
+        data = _patch(buf.getvalue(), _marker(buf.getvalue(), 0x51) + 40,
+                      b"\x1f")
     with pytest.raises(ValueError, match=message):
         jpeg2000.decode(data)
+    if name in _PIL_REFUSES:
+        with pytest.raises(Exception):
+            regen.pil_rgb(data)
 
 
 def test_refuses_position_order_with_31_bit_positions():
