@@ -162,9 +162,18 @@
    tiles in turn 12-bit, JP2-boxed, with PPM and with PPT headers) must
    decode to its hashes and, through the CLI with ``WSI_READER`` unset,
    launch the five kernels and find exactly the region run's tiles and
-   cells; it prints the decoder's rate in MP/s on one thread and on the
-   loader's reader threads, for the 9/7 tiles and for each kind of the
-   lossless SVS, and the runs' pipeline seconds; its JPEG-processes
+   cells; the ``j2k_sub_*`` goldens (subsampled components: 4:2:0,
+   4:2:2, 4 × 4, odd sizes, several tiles, precincts, alpha, JP2) must
+   decode to their hashes and those PIL refuses raise naming what they
+   use; ``tests/golden/j2k_sub_region.svs`` (the same region at
+   compression 33003, its chroma 4:2:0 and 4:2:2 in turn, 9/7 at rate
+   60) must decode to its hashes and, through the CLI with
+   ``WSI_READER`` unset, launch the five kernels and find the region
+   run's cells (within 0.5%, ≥ 99% matched), its level 0 decoded whole
+   and run as an ``.npy`` exactly its cells; it prints the decoder's
+   rate in MP/s on one thread and on the loader's reader threads, for
+   the 9/7 tiles and for each kind of the lossless and the subsampled
+   SVS, and the runs' pipeline seconds; its JPEG-processes
    step: the golden streams of every JPEG
    process the decoder reads (progressive with complete and incomplete
    scripts, arithmetic, CMYK and YCCK, sampling factors 3 and 4,
@@ -228,7 +237,7 @@
    UNet++ rate at batch 8, the tissue share and the artefact class
    histogram, and the QC run's pipeline seconds beside the plain run's;
 7. runs the evaluate CLI (``entrypoints.run_inference.main_with_args``)
-   at fp32 on 4 RGB images of 448² (3 × 3 crops each) written as
+   at fp32 on 2 RGB images of 448² (3 × 3 crops each) written as
    ``images.npy`` with their design-field ``labels.npy``, with the WSI
    phase's ViT-L checkpoint: checks that ``predictions.npy`` and
    ``metrics.csv`` parse, that the PQ table is printed, that the
@@ -239,7 +248,7 @@
    the outputs must reproduce the evaluate CLI's numbers; then
    ``ClassposeModel.eval`` on one 448² image under the profiler, on one
    256² image (kernel 4, not kernel 7), and ``eval(do_3D=True)`` in bf16
-   on a 16 × 64 × 64 stack (kernel 1), compared with the plain
+   on a 16 × 32 × 32 stack (kernel 1), compared with the plain
    versions; then ``eval`` with a ViT-L at bsize 224 (28 × 28 tokens) on
    one 480² image in fp32 and bf16, against the plain versions, and with
    a ViT-L at bsize 1024 (128 × 128 tokens, L = 16384) on one 1024² image
@@ -469,6 +478,11 @@ J2K_SVS, J2K_JSON = GOLDEN / "j2k_region.svs", GOLDEN / "j2k_golden.json"
 # turn, 12-bit, JP2-boxed, with PPM and with PPT headers, beside the
 # j2k_ext_* goldens (decoded) and refused streams (raising by name)
 J2K_EXT_SVS = GOLDEN / "j2k_ext_region.svs"
+# and the Aperio SVS of the same region at compression 33003 whose 16
+# tiles hold Y, Cb and Cr as plain components, the chroma subsampled
+# 4:2:0 and 4:2:2 in turn, beside the j2k_sub_* goldens (decoded) and
+# refused streams (raising by name)
+J2K_SUB_SVS = GOLDEN / "j2k_sub_region.svs"
 # its runs read 512² model tiles: a 3×3 grid over the region (at the WSI
 # phase's 1024² the region holds one tile)
 J2K_MODEL_TILE = 512
@@ -515,14 +529,15 @@ TRAIN_BATCH, TRAIN_IMAGES, TRAIN_SIZE = 8, 16, 512
 CLI_EPOCHS, CLI_BATCH, AUG_CALLS, AUG_ITEMS = 2, 4, 5, 4
 # the evaluate phase: RGB images of 448² (3 × 3 crops of 256² each;
 # 448 % 128 != 0, so the QC diffusion takes kernel 7), fp32 as the CLI
-# defaults: 8 for the kernel checks at the path's shapes, 4 through the
-# evaluate CLI (cut from 8 to keep the script within 1200 s);
-# its kernels, and those of eval's 3D branch in bf16
+# defaults: 8 for the kernel checks at the path's shapes, 2 through the
+# evaluate CLI (cut from 8, then 4, to keep the script within its budget);
+# its kernels, and those of eval's 3D branch in bf16 on a stack cut from
+# 16 × 64 × 64 for the same reason
 EVAL_IMAGES, EVAL_SIZE, EVAL_BATCH = 8, 448, 8
-EVAL_CLI_IMAGES = 4
+EVAL_CLI_IMAGES = 2
 EVALUATE_KERNELS = ("flash_attention_relpos", "bilinear_sample",
                     "landing_histogram", "diffuse_blocked")
-STACK_SHAPE = (16, 64, 64)  # 16 + 64 + 64 slices, one 256² tile each
+STACK_SHAPE = (16, 32, 32)  # 16 + 32 + 32 slices, one 256² tile each
 # fault 3: token grids off the 32 x 32 of bsize 256 (bsize 224 and 512 at
 # patch 8, and a non-square one), and the end-to-end checks at bsize 224
 # (28 x 28 tokens, L = 784): eval on one image of 480², whose 3 x 3 crop
@@ -2631,7 +2646,8 @@ def run_slide_j2k(wsi: dict) -> dict:
         decode_1t_mp_per_s=tile_mp / decode_1t_s,
         decode_threads=n_read, decode_nt_mp_per_s=tile_mp / decode_nt_s,
         decode_1t_s=decode_1t_s, decode_nt_s=decode_nt_s,
-        ext=run_slide_j2k_ext(wsi, golden), **svs)
+        ext=run_slide_j2k_ext(wsi, golden),
+        sub=run_slide_j2k_sub(wsi, golden), **svs)
 
 
 def run_slide_j2k_ext(wsi: dict, golden: dict) -> dict:
@@ -2640,18 +2656,7 @@ def run_slide_j2k_ext(wsi: dict, golden: dict) -> dict:
     against their words; the lossless SVS's tiles against theirs, their
     decode rates by kind, and the SVS through the CLI with ``WSI_READER``
     unset, which must find exactly the region run's cells."""
-    for name, want in golden["ext_streams"].items():
-        rgb = jpeg2000.decode((GOLDEN / name).read_bytes())
-        if list(rgb.shape) != want["shape"] or _sha256(rgb) != want["sha256"]:
-            raise AssertionError(f"golden {name} decodes unlike PIL")
-    for name, word in golden["refused"].items():
-        try:
-            jpeg2000.decode((GOLDEN / name).read_bytes())
-        except ValueError as e:
-            if word not in str(e):
-                raise AssertionError(f"{name} refused as {e!r}, not {word}")
-        else:
-            raise AssertionError(f"{name} decoded; it must raise ({word})")
+    check_goldens(golden, "ext_streams", "refused")
     g = golden["ext_svs"]
     slide = TiffSlide(str(J2K_EXT_SVS))
     p = slide._levels[0]
@@ -2664,14 +2669,25 @@ def run_slide_j2k_ext(wsi: dict, golden: dict) -> dict:
     for k, (st, want) in enumerate(zip(streams, g["tiles"])):
         if _sha256(jpeg2000.decode(st)) != want:
             raise AssertionError(f"J2K ext SVS tile {k} decodes unlike PIL")
-    # the decoder's rates by kind: one thread, then the loader's threads
-    # on each kind's tiles repeated to as many as the threads
+    return dict(goldens=len(golden["ext_streams"]),
+                refused=len(golden["refused"]), svs_kib=len(raw) / 1024,
+                decode_threads=SlideLoader.n_read_threads,
+                decode_rates=j2k_rates_by_kind(streams, g["kinds"],
+                                               golden["svs"]["tile"]),
+                **run_region_svs(wsi, J2K_EXT_SVS, None))
+
+
+def j2k_rates_by_kind(streams: list[bytes], kinds: list[str],
+                      tile: int) -> dict:
+    """The decoder's MP/s on the tiles of each kind (the kinds in turn,
+    row-major): one thread, then the loader's reader threads on each
+    kind's tiles repeated to as many as the threads."""
     n_read = SlideLoader.n_read_threads
-    tile_mp = golden["svs"]["tile"] ** 2 / 1e6
+    tile_mp = tile ** 2 / 1e6
     rates = {}
     with ThreadPoolExecutor(n_read) as pool:
-        for i, kind in enumerate(g["kinds"]):
-            group = streams[i::len(g["kinds"])]
+        for i, kind in enumerate(kinds):
+            group = streams[i::len(kinds)]
             t0 = time.perf_counter()
             for st in group:
                 jpeg2000.decode(st)
@@ -2682,10 +2698,63 @@ def run_slide_j2k_ext(wsi: dict, golden: dict) -> dict:
             nt = time.perf_counter() - t0
             rates[kind] = dict(mp_per_s_1t=len(group) * tile_mp / one,
                                mp_per_s_nt=len(many) * tile_mp / nt)
-    return dict(goldens=len(golden["ext_streams"]),
-                refused=len(golden["refused"]), svs_kib=len(raw) / 1024,
-                decode_threads=n_read, decode_rates=rates,
-                **run_region_svs(wsi, J2K_EXT_SVS, None))
+    return rates
+
+
+def check_goldens(golden: dict, decoded: str, refused: str) -> None:
+    """Every stream of ``golden[decoded]`` decodes to PIL's hash and
+    shape, and every one of ``golden[refused]`` raises naming its word."""
+    for name, want in golden[decoded].items():
+        rgb = jpeg2000.decode((GOLDEN / name).read_bytes())
+        if list(rgb.shape) != want["shape"] or _sha256(rgb) != want["sha256"]:
+            raise AssertionError(f"golden {name} decodes unlike PIL")
+    for name, word in golden[refused].items():
+        try:
+            jpeg2000.decode((GOLDEN / name).read_bytes())
+        except ValueError as e:
+            if word not in str(e):
+                raise AssertionError(f"{name} refused as {e!r}, not {word}")
+        else:
+            raise AssertionError(f"{name} decoded; it must raise ({word})")
+
+
+def run_slide_j2k_sub(wsi: dict, golden: dict) -> dict:
+    """The JPEG 2000 step's subsampled components: the ``j2k_sub_*``
+    goldens against PIL's hashes and the refused ones against their
+    words; the 33003 SVS's tiles against theirs, their decode rates by
+    kind (4:2:0, 4:2:2), and the SVS through the CLI with ``WSI_READER``
+    unset against the region run (lossy: cells within 0.5%, ≥ 99%
+    matched), its level 0 decoded whole as an array slide (exactly its
+    cells)."""
+    work = wsi["work"]
+    check_goldens(golden, "sub_streams", "sub_refused")
+    g = golden["sub_svs"]
+    slide = TiffSlide(str(J2K_SUB_SVS))
+    p = slide._levels[0]
+    raw = J2K_SUB_SVS.read_bytes()
+    streams = [raw[o:o + n] for o, n in zip(p.offsets, p.counts)]
+    if p.compression != 33003 or len(streams) != len(g["tiles"]) \
+            or get_slide_resolution(slide) != (WSI_MPP, WSI_MPP):
+        raise AssertionError(f"J2K sub SVS: compression {p.compression}, "
+                             f"{len(streams)} tiles, {slide.properties}")
+    for k, (st, want) in enumerate(zip(streams, g["tiles"])):
+        if _sha256(jpeg2000.decode(st)) != want:
+            raise AssertionError(f"J2K sub SVS tile {k} decodes unlike PIL")
+    rates = j2k_rates_by_kind(streams, g["kinds"], golden["svs"]["tile"])
+    side = golden["svs"]["region"]
+    decoded = slide.read_region((0, 0), 0, (side, side))[..., :3]
+    slide.close()
+    np.save(f"{work}/j2k_sub_decoded.npy", decoded)
+    region = np.load(f"{work}/region.npy", mmap_mode="r")
+    psnr = float(10 * np.log10(255.0 ** 2 / np.mean(
+        (decoded.astype(np.float64) - region) ** 2)))
+    del decoded, region
+    return dict(goldens=len(golden["sub_streams"]),
+                refused=len(golden["sub_refused"]), svs_kib=len(raw) / 1024,
+                level0_psnr_db=psnr, decode_threads=SlideLoader.n_read_threads,
+                decode_rates=rates,
+                **run_region_svs(wsi, J2K_SUB_SVS,
+                                 f"{work}/j2k_sub_decoded.npy"))
 
 
 def run_region_svs(wsi: dict, svs: Path, decoded: str | None,
@@ -3653,6 +3722,17 @@ def main() -> int:
             f"{ext['pipeline_s']:.3f} s {ext['stage_seconds']}; "
             f"{ext['n_cells']} vs {ext['npy_n_cells']} cells, "
             f"{ext['matched_share']:.4f} matched")
+        sub = j2k["sub"]
+        log(f"slide J2K sub: {sub['goldens']} goldens as PIL's pixels, "
+            f"{sub['refused']} refusals by name; 33003 SVS decode (host "
+            f"MP/s on 1 thread / on {sub['decode_threads']}): " + ", ".join(
+                f"{k} {v['mp_per_s_1t']:.2f} / {v['mp_per_s_nt']:.2f}"
+                for k, v in sub["decode_rates"].items())
+            + f"; level 0 {sub['level0_psnr_db']:.2f} dB; pipeline "
+            f"{sub['pipeline_s']:.3f} s {sub['stage_seconds']}, its decoded "
+            f"level 0 as .npy {sub['decoded_pipeline_s']:.3f} s; "
+            f"{sub['n_cells']} vs {sub['npy_n_cells']} cells, "
+            f"{sub['matched_share']:.4f} matched")
         jp = slide_stats["jpeg_processes"]
         log("slide JPEG processes (host MP/s on 1 thread / on "
             f"{jp['decode_threads']}): " + ", ".join(

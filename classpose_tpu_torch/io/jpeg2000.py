@@ -6,13 +6,16 @@ and 33005) of the TIFF slide reader: raw codestreams and JP2 files.
 with PIL 12 and its OpenJPEG 2.5, bit for bit: component precisions 1 to
 31 bits (signed or not, mixed), reduced to 8 bits as PIL's unpackers do
 (16 for a one-component image above 8 bits, then clipped), one or two
-components replicated, a fourth dropped; in a JP2 file PIL's mode and
-OpenJPEG's colour space (sRGB, greyscale, sYCC through PIL's YCbCr
-tables, CMYK, a palette); packet headers in the packets or packed in PPM
-or PPT segments. Where PIL raises, and for the features the decoder
-refuses (listed in its source: component subsampling, HTJ2K, Part 2,
-more than four components) and truncated or corrupt streams, it raises
-``ValueError`` naming what it refuses.
+components replicated, a fourth dropped; subsampled components (Aperio's
+4:2:0 and 4:2:2 YCbCr tiles) read at PIL's offsets and strides, as sYCC
+where Cb or Cr is subsampled; in a JP2 file PIL's mode and OpenJPEG's
+colour space (sRGB, greyscale, sYCC through PIL's YCbCr tables, CMYK, a
+palette); packet headers in the packets or packed in PPM or PPT
+segments. Where PIL raises (one or two components with subsampling
+among them, the component transform over components of different
+sizes), for the features the decoder refuses (listed in its source:
+HTJ2K, Part 2, more than four components) and for truncated or corrupt
+streams, it raises ``ValueError`` naming what it refuses.
 """
 
 from __future__ import annotations

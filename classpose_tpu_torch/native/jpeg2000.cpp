@@ -14,7 +14,9 @@
 //     builds it); pclr, cmap and cdef change no sample (PIL decodes tile
 //     by tile, where OpenJPEG applies none of them);
 //   - main and tile-part headers: SIZ (component precisions 1 to 31 bits,
-//     signed or not, mixed), COD, COC, QCD, QCC, RGN, POC, COM, TLM, PLM,
+//     signed or not, mixed; component subsampling XRsiz, YRsiz of 1 to
+//     255, each tile-component on its own grid, B.3), COD, COC, QCD,
+//     QCC, RGN, POC, COM, TLM, PLM,
 //     PLT, CRG, PPM, PPT, SOT/SOD/EOC, several tiles and tile-parts,
 //     image and tile offsets; COD/COC/QCD/QCC precedence as in Annex A, a
 //     tile's POC progressions after the main header's;
@@ -45,31 +47,38 @@
 //     extension, rows first, then columns, on subband origins of either
 //     parity; the 9/7 scales the low band by K and the high band by
 //     OpenJPEG's 1.625732422f, and leaves a one-sample line as it is;
-//   - inverse RCT (5/3) or ICT (9/7, OpenJPEG's constants), the DC level
-//     shift 2^(R - 1), lrintf (round to nearest even) and clamping to the
+//   - inverse RCT (5/3) or ICT (9/7, OpenJPEG's constants) over components
+//     of one size (OpenJPEG fails the tile otherwise), the DC level shift
+//     2^(R - 1), lrintf (round to nearest even) and clamping to the
 //     component's range;
 //   - PIL's unpackers for its mode (from SIZ, or from ihdr and colr in a
-//     JP2 file), OpenJPEG's colour space and the component count: each
-//     sample as OpenJPEG stores it (1, 2 or 4 bytes), plus the signed
-//     offset and half the dropped range, shifted to 8 bits (16 for I;16)
-//     and cut to them; then convert("RGB"): grey replicated (I;16 clipped
-//     to 255), alpha dropped, sYCC through PIL's YCbCr tables, CMYK
-//     through its cmyk2rgb, palette indices through its palette (black
-//     past its end).
+//     JP2 file), OpenJPEG's colour space, the component count and the
+//     first subsampled component (an unspecified space with 3 or 4
+//     components is sYCC where that is Cb or Cr, else sRGB; grey, LA, L,
+//     I;16 and palette unpackers read no subsampled stream): each sample
+//     as OpenJPEG stores it (1, 2 or 4 bytes), plus the signed offset and
+//     half the dropped range, shifted to 8 bits (16 for I;16) and cut to
+//     them; subsampled planes read at PIL's integer-division offsets and
+//     strides (pil_layout: nearest-neighbour upsampling at sizes the
+//     factors divide, a skewed read elsewhere); then convert("RGB"): grey
+//     replicated (I;16 clipped to 255), alpha dropped, sYCC through PIL's
+//     YCbCr tables, CMYK through its cmyk2rgb, palette indices through its
+//     palette (black past its end).
 // Float operations are written one at a time and the source is built with
 // -ffp-contract=off, so no multiply-add is fused on any host.
 //
-// Refused with a message naming the feature: component subsampling (PIL
-// reads such planes as if they were full size, so there is no reference
-// to hold), more than four components, precisions above 31 bits,
-// Part-15 (HTJ2K) and Part-2 codestreams (Rsiz, markers, kernels, MCT,
-// quantization, offsets, ROI styles), a precinct exponent plus
-// decomposition level of 31 or more in a position-driven progression,
-// and what OpenJPEG or PIL refuse: malformed boxes, a colour space with
-// no unpacker for PIL's mode, more than 256 palette colours, PPT beside
-// PPM, an Nppm run past the last PPM segment, a Zppm or Zppt read twice,
-// a tile with no data bytes. Truncated or corrupt streams raise; nothing
-// is read outside the buffer.
+// Refused with a message naming the feature: more than four components,
+// precisions above 31 bits, Part-15 (HTJ2K) and Part-2 codestreams
+// (Rsiz, markers, kernels, MCT, quantization, offsets, ROI styles), a
+// precinct period XRsiz * 2^(PPx + NL - r) of 2^31 or more in a
+// position-driven progression, and what OpenJPEG or PIL refuse:
+// malformed boxes, a colour space with no unpacker for PIL's mode (one
+// or two components with any subsampling among them), the RCT or ICT
+// over components of different sizes, more than 256 palette colours,
+// PPT beside PPM, an Nppm run past the last PPM segment, a Zppm or Zppt
+// read twice, a tile with no data bytes. Component 0 subsampled is read
+// as PIL reads it: at the SIZ's size, sRGB, by the same rule. Truncated
+// or corrupt streams raise; nothing is read outside the buffer.
 //
 // Entry points (C ABI, loaded with ctypes, which releases the GIL; the
 // decoder keeps no mutable static state, so threads decode in parallel):
@@ -235,7 +244,8 @@ void parse_quant(Bytes& b, size_t end, Quant& q) {
 // ------------------------------------------------------------- header
 struct CompSiz {
   bool sgnd;
-  int prec;  // 1 to 31 bits
+  int prec;    // 1 to 31 bits
+  int dx, dy;  // XRsiz, YRsiz: 1 to 255
 };
 
 // the marker segments of packed packet headers (PPM, PPT), by their
@@ -349,11 +359,12 @@ struct Codestream {
       if (prec > 31)
         fail("component precision " + std::to_string(prec) +
              " bits (OpenJPEG reads 1 to 31)");
-      if (dx != 1 || dy != 1)
-        fail("component subsampling (" + std::to_string(dx) + " x " +
-             std::to_string(dy) + ") is not supported");
+      if (dx == 0 || dy == 0)
+        fail("SIZ: component subsampling 0");
       comp[size_t(c)].sgnd = ssiz & 0x80;
       comp[size_t(c)].prec = prec;
+      comp[size_t(c)].dx = dx;
+      comp[size_t(c)].dy = dy;
     }
     if (b.pos != start + size_t(len)) fail("SIZ: bad segment length");
     coc_set.assign(size_t(nc), 0);
@@ -982,40 +993,56 @@ struct Jp2 {
 };
 
 // ------------------------------------------------------ PIL's unpacking
-// Jpeg2KDecode.c's unpacker for PIL's mode, OpenJPEG's colour space and
-// the component count, and what convert("RGB") makes of its pixels
+// Jpeg2KDecode.c's unpacker for PIL's mode, OpenJPEG's colour space, the
+// component count and the first subsampled component `sub` (-1: none),
+// and what convert("RGB") makes of its pixels
 enum class Out { Grey, Grey16, Rgb, Ycc, Cmyk, Palette };
 
-Out unpacker(Mode mode, Space space, int nc) {
+Out unpacker(Mode mode, Space space, const std::vector<CompSiz>& comp) {
+  int nc = int(comp.size()), sub = -1;
+  for (int c = nc - 1; c >= 0; --c)
+    if (comp[size_t(c)].dx != 1 || comp[size_t(c)].dy != 1) sub = c;
+  // an unspecified space: grey, or sYCC where Cb or Cr is subsampled
   Space cs = space;
-  if (cs == Space::Unspecified) cs = nc <= 2 ? Space::Gray : Space::Srgb;
+  if (cs == Space::Unspecified)
+    cs = nc <= 2 ? Space::Gray
+         : sub == 1 || sub == 2 ? Space::Sycc : Space::Srgb;
   struct Row {
     Mode m;
     Space s;
     int n;
+    bool sub;  // reads subsampled components
     Out o;
   };
   static const Row rows[] = {
-      {Mode::L, Space::Gray, 1, Out::Grey},
-      {Mode::P, Space::Srgb, 1, Out::Palette},
-      {Mode::PA, Space::Srgb, 2, Out::Palette},
-      {Mode::I16, Space::Gray, 1, Out::Grey16},
-      {Mode::LA, Space::Gray, 2, Out::Grey},
-      {Mode::RGB, Space::Gray, 1, Out::Grey},
-      {Mode::RGB, Space::Gray, 2, Out::Grey},
-      {Mode::RGB, Space::Srgb, 3, Out::Rgb},
-      {Mode::RGB, Space::Sycc, 3, Out::Ycc},
-      {Mode::RGB, Space::Srgb, 4, Out::Rgb},
-      {Mode::RGB, Space::Sycc, 4, Out::Ycc},
-      {Mode::RGBA, Space::Gray, 1, Out::Grey},
-      {Mode::RGBA, Space::Gray, 2, Out::Grey},
-      {Mode::RGBA, Space::Srgb, 3, Out::Rgb},
-      {Mode::RGBA, Space::Sycc, 3, Out::Ycc},
-      {Mode::RGBA, Space::Srgb, 4, Out::Rgb},
-      {Mode::RGBA, Space::Sycc, 4, Out::Ycc},
-      {Mode::CMYK, Space::Cmyk, 4, Out::Cmyk}};
+      {Mode::L, Space::Gray, 1, false, Out::Grey},
+      {Mode::P, Space::Srgb, 1, false, Out::Palette},
+      {Mode::PA, Space::Srgb, 2, false, Out::Palette},
+      {Mode::I16, Space::Gray, 1, false, Out::Grey16},
+      {Mode::LA, Space::Gray, 2, false, Out::Grey},
+      {Mode::RGB, Space::Gray, 1, false, Out::Grey},
+      {Mode::RGB, Space::Gray, 2, false, Out::Grey},
+      {Mode::RGB, Space::Srgb, 3, true, Out::Rgb},
+      {Mode::RGB, Space::Sycc, 3, true, Out::Ycc},
+      {Mode::RGB, Space::Srgb, 4, true, Out::Rgb},
+      {Mode::RGB, Space::Sycc, 4, true, Out::Ycc},
+      {Mode::RGBA, Space::Gray, 1, false, Out::Grey},
+      {Mode::RGBA, Space::Gray, 2, false, Out::Grey},
+      {Mode::RGBA, Space::Srgb, 3, true, Out::Rgb},
+      {Mode::RGBA, Space::Sycc, 3, true, Out::Ycc},
+      {Mode::RGBA, Space::Gray, 4, true, Out::Rgb},
+      {Mode::RGBA, Space::Srgb, 4, true, Out::Rgb},
+      {Mode::RGBA, Space::Sycc, 4, true, Out::Ycc},
+      {Mode::CMYK, Space::Cmyk, 4, true, Out::Cmyk}};
   for (const Row& r : rows)
-    if (r.m == mode && r.s == cs && r.n == nc) return r.o;
+    if (r.m == mode && r.s == cs && r.n == nc && (r.sub || sub < 0))
+      return r.o;
+  if (sub >= 0)
+    fail("component subsampling (" + std::to_string(comp[size_t(sub)].dx) +
+         " x " + std::to_string(comp[size_t(sub)].dy) + " in component " +
+         std::to_string(sub) + ") of a " + space_name(cs) + " image with " +
+         std::to_string(nc) + " component" + (nc > 1 ? "s" : "") +
+         " in PIL mode " + mode_name(mode) + " (PIL has no unpacker for it)");
   fail(std::string("JP2: ") + space_name(space) + " colour space with " +
        std::to_string(nc) + " component" + (nc > 1 ? "s" : "") +
        " in PIL mode " + mode_name(mode) + " (PIL has no unpacker for it)");
@@ -1594,7 +1621,8 @@ struct Res {
 };
 
 struct TileComp {
-  int64_t x0, y0, x1, y1;
+  int64_t x0, y0, x1, y1;  // on the component's grid: the tile / (dx, dy)
+  int dx = 1, dy = 1;
   Spc spc;
   Quant q;
   bool sgnd = false;
@@ -1828,7 +1856,7 @@ struct PacketReader {
 };
 
 struct PacketKey {
-  __int128 k0, k1, k2, k3;
+  int64_t k0, k1, k2, k3;
   int c, r, p;
 };
 
@@ -1886,25 +1914,54 @@ struct Progression {
       return;
     }
     // RPCL, PCRL, CPRL: each precinct is met at the first position (x, y)
-    // of the tile's reference grid where Annex B.12's loops reach it
+    // of the tile's reference grid where Annex B.12's loops reach it: a
+    // multiple of XRsiz * 2^(PPx + NL - r), or the tile's x0 where the
+    // resolution's origin is off that grid; likewise for y. OpenJPEG
+    // steps x from x0 over the multiples of the least such period (of
+    // every component and resolution in RPCL and PCRL, of the component's
+    // own in CPRL): a precinct off those steps (with subsampling by other
+    // than a power of two) is never met and has no packets.
+    auto period = [&](int c, bool horizontal) {
+      const TileComp& tc = tcs[size_t(c)];
+      int64_t m = 0;
+      for (int r = 0; r <= tc.spc.nl; ++r) {
+        int e = (horizontal ? tc.spc.ppx[r] : tc.spc.ppy[r]) + tc.spc.nl - r;
+        int64_t v = int64_t(horizontal ? tc.dx : tc.dy) << e;
+        if (v < (int64_t(1) << 31)) m = m ? std::min(m, v) : v;
+      }
+      return m;
+    };
+    int64_t stepx = 0, stepy = 0;
+    if (prog != 4)
+      for (int c = 0; c < int(tcs.size()); ++c) {
+        int64_t sx = period(c, true), sy = period(c, false);
+        if (sx) stepx = stepx ? std::min(stepx, sx) : sx;
+        if (sy) stepy = stepy ? std::min(stepy, sy) : sy;
+      }
     std::vector<PacketKey> keys;
     for (int c = c0; c < c1; ++c) {
       TileComp& tc = tcs[size_t(c)];
+      if (prog == 4) {
+        stepx = period(c, true);
+        stepy = period(c, false);
+      }
       for (int r = r0; r < std::min(r1, tc.spc.nl + 1); ++r) {
         Res& R = tc.res[size_t(r)];
         if (R.pw == 0 || R.ph == 0) continue;
         int lev = tc.spc.nl - r;
-        if (R.pdx + lev >= 31 || R.pdy + lev >= 31)
+        int64_t mx = int64_t(tc.dx) << (R.pdx + lev);
+        int64_t my = int64_t(tc.dy) << (R.pdy + lev);
+        if (mx >= (int64_t(1) << 31) || my >= (int64_t(1) << 31))
           fail("precinct exponent plus decomposition level of 31 or more "
                "in a position-driven progression is not supported");
-        for (int j = 0; j < R.ph; ++j)
+        for (int j = 0; j < R.ph; ++j) {
+          int64_t y = (j == 0 && (R.y0 & ((int64_t(1) << R.pdy) - 1)))
+                          ? ty0 : ((R.y0 >> R.pdy) + j) * my;
+          if (y != ty0 && (!stepy || y % stepy)) continue;
           for (int i = 0; i < R.pw; ++i) {
-            int64_t pxs = ((R.x0 >> R.pdx) + i) << R.pdx;
-            int64_t pys = ((R.y0 >> R.pdy) + j) << R.pdy;
-            __int128 x = (i == 0 && (R.x0 & ((int64_t(1) << R.pdx) - 1)))
-                             ? __int128(tx0) : __int128(pxs) << lev;
-            __int128 y = (j == 0 && (R.y0 & ((int64_t(1) << R.pdy) - 1)))
-                             ? __int128(ty0) : __int128(pys) << lev;
+            int64_t x = (i == 0 && (R.x0 & ((int64_t(1) << R.pdx) - 1)))
+                            ? tx0 : ((R.x0 >> R.pdx) + i) * mx;
+            if (x != tx0 && (!stepx || x % stepx)) continue;
             PacketKey k{0, 0, 0, 0, c, r, j * R.pw + i};
             if (prog == 2) {  // RPCL
               k.k0 = r; k.k1 = y; k.k2 = x; k.k3 = c;
@@ -1915,6 +1972,7 @@ struct Progression {
             }
             keys.push_back(k);
           }
+        }
       }
     }
     std::sort(keys.begin(), keys.end(), [](const PacketKey& a,
@@ -2068,6 +2126,57 @@ void idwt(TileComp& tc, std::vector<T>& buf, F line) {
 }
 
 // --------------------------------------------------------------- tile
+// With subsampled components, PIL reads OpenJPEG's tile buffer as if
+// each component's plane held (w / dx) x (h / dy) samples, w x h the
+// tile's size on the reference grid (Jpeg2KDecode.c, integer division),
+// where OpenJPEG packs each plane one after the other at its own size,
+// which may be larger (B.3): component n is read from the sum of the
+// smaller sizes before it, its sample for pixel (x, y) at
+// (y / dy) * (w / dx) + x / dx, in the component's 1, 2 or 4 bytes. The
+// buffer is PIL's: the tile at full size in every component where that is
+// larger, zero past the planes (where the last component's reads may run
+// at odd tile sizes and offsets). Each tc.idata becomes the w x h plane
+// of what PIL reads.
+void pil_layout(std::vector<TileComp>& tcs, int64_t w, int64_t h) {
+  std::vector<int> csiz;
+  size_t full = 0, packed = 0;
+  for (const TileComp& tc : tcs) {
+    int b = (tc.prec + 7) >> 3;
+    csiz.push_back(b == 3 ? 4 : b);
+    full += size_t(csiz.back()) * size_t(w * h);
+    packed += size_t(csiz.back()) * size_t(tc.width() * tc.height());
+  }
+  std::vector<uint8_t> buf(std::max(full, packed), 0);
+  size_t at = 0;
+  for (size_t c = 0; c < tcs.size(); ++c)  // OpenJPEG's packing
+    for (int32_t v : tcs[c].idata)
+      for (int k = 0; k < csiz[c]; ++k)
+        buf[at++] = uint8_t(uint32_t(v) >> (8 * k));
+  size_t base = 0;
+  for (size_t c = 0; c < tcs.size(); ++c) {
+    const TileComp& tc = tcs[c];
+    int64_t sw = w / tc.dx, sh = h / tc.dy;
+    int b = csiz[c];
+    // the last read ends within the floor sizes' sum, so within `full`
+    int64_t last = ((h - 1) / tc.dy) * sw + (w - 1) / tc.dx;
+    if (base + size_t(b) * size_t(last + 1) > buf.size())
+      fail("component plane read past the tile buffer");
+    std::vector<int32_t> plane(size_t(w * h));
+    for (int64_t y = 0; y < h; ++y) {
+      const uint8_t* row = &buf[base + size_t(b) * size_t((y / tc.dy) * sw)];
+      int32_t* dst = &plane[size_t(y * w)];
+      for (int64_t x = 0; x < w; ++x) {
+        const uint8_t* e = row + size_t(b) * size_t(x / tc.dx);
+        uint32_t v = e[0];
+        for (int k = 1; k < b; ++k) v |= uint32_t(e[k]) << (8 * k);
+        dst[x] = int32_t(v);
+      }
+    }
+    tcs[c].idata.swap(plane);
+    base += size_t(b) * size_t(sw * sh);
+  }
+}
+
 // decodes tile `ti` into `out`, (H, W, 3) RGB; with PPM its packet
 // headers are read from cs.ppm at *ppm_pos
 void decode_tile(const Codestream& cs, int ti, size_t* ppm_pos,
@@ -2085,10 +2194,12 @@ void decode_tile(const Codestream& cs, int ti, size_t* ppm_pos,
   for (int c = 0; c < nc; ++c) {
     TileComp& tc = tcs[size_t(c)];
     size_t cu = size_t(c);
-    tc.x0 = tx0;
-    tc.y0 = ty0;
-    tc.x1 = tx1;
-    tc.y1 = ty1;
+    tc.dx = cs.comp[cu].dx;
+    tc.dy = cs.comp[cu].dy;
+    tc.x0 = ceildiv(tx0, tc.dx);  // Annex B.3
+    tc.y0 = ceildiv(ty0, tc.dy);
+    tc.x1 = ceildiv(tx1, tc.dx);
+    tc.y1 = ceildiv(ty1, tc.dy);
     tc.sgnd = cs.comp[cu].sgnd;
     tc.prec = cs.comp[cu].prec;
     tc.spc = td.coc_set[cu] ? td.coc[cu]
@@ -2125,12 +2236,17 @@ void decode_tile(const Codestream& cs, int ti, size_t* ppm_pos,
     else
       idwt(tc, tc.fdata, idwt97_line);
   }
-  size_t np = size_t((tx1 - tx0) * (ty1 - ty0));
   if (cod.mct && nc >= 3) {
     int qm = tcs[0].spc.qmfbid;
     if (tcs[1].spc.qmfbid != qm || tcs[2].spc.qmfbid != qm)
       fail("multiple component transform over components with different "
            "wavelets is not supported");
+    for (int c = 1; c < 3; ++c)
+      if (tcs[size_t(c)].x0 != tcs[0].x0 || tcs[size_t(c)].x1 != tcs[0].x1 ||
+          tcs[size_t(c)].y0 != tcs[0].y0 || tcs[size_t(c)].y1 != tcs[0].y1)
+        fail("multiple component transform over components of different "
+             "sizes (component subsampling)");
+    size_t np = size_t(tcs[0].width() * tcs[0].height());
     if (qm == 1) {
       int32_t *c0 = tcs[0].idata.data(), *c1 = tcs[1].idata.data(),
               *c2 = tcs[2].idata.data();
@@ -2173,6 +2289,7 @@ void decode_tile(const Codestream& cs, int ti, size_t* ppm_pos,
         v = std::max(lo, std::min(hi, s));
       }
     } else {
+      size_t np = size_t(tc.width() * tc.height());
       tc.idata.resize(np);
       for (size_t i = 0; i < np; ++i) {
         float f = tc.fdata[i];
@@ -2188,6 +2305,11 @@ void decode_tile(const Codestream& cs, int ti, size_t* ppm_pos,
   int64_t W = cs.width();
   int64_t ox = tx0 - cs.X0, oy = ty0 - cs.Y0;
   int64_t tw = tx1 - tx0, th = ty1 - ty0;
+  for (const TileComp& tc : tcs)
+    if (tc.dx != 1 || tc.dy != 1) {
+      pil_layout(tcs, tw, th);
+      break;
+    }
   int bits = pil.out == Out::Grey16 ? 16 : 8;
   int nu = pil.out == Out::Cmyk ? 4 : pil.out == Out::Rgb ||
                                           pil.out == Out::Ycc ? 3 : 1;
@@ -2273,7 +2395,7 @@ void open_image(const uint8_t* data, size_t n, bool header_only, Codestream& cs,
     pil.mode = cs.nc == 1 && cs.comp[0].prec > 8 ? Mode::I16
                                                  : by_nc[cs.nc - 1];
   }
-  pil.out = unpacker(pil.mode, pil.space, cs.nc);
+  pil.out = unpacker(pil.mode, pil.space, cs.comp);
 }
 
 void set_err(char* err, int errlen, const char* msg) {

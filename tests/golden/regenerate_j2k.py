@@ -22,9 +22,18 @@ PIL):
   ``j2k_region.svs``, every tile lossless 5/3 with the RCT, the tiles in
   turn (row-major) 12-bit holding the samples times 16, JP2-boxed, with
   PPM and with PPT headers;
+- ``j2k_sub_*``: small streams with subsampled components
+  (:func:`sub_streams`: 4:2:0, 4:2:2, Cr alone, 4 × 4, odd sizes, alpha,
+  several tiles at odd sizes and offsets, the position-driven orders
+  with precincts, component 0, a JP2 ``colr`` of sYCC and of sRGB) and
+  those PIL raises on too (:func:`sub_refused_streams`);
+- ``j2k_sub_region.svs``: the same region and tiling as
+  ``j2k_region.svs`` at compression 33003 as Aperio writes it: Y, Cb and
+  Cr as plain components (no MCT), Cb and Cr at every second sample,
+  the tiles 4:2:0 and 4:2:2 in turn, irreversible 9/7 at rate 60;
 - ``j2k_golden.json``: the SHA-256 of PIL's RGB decode of every stream
-  and of every tile of both SVSs, with their shapes, and the word each
-  refused stream's error names.
+  and of every tile of the three SVSs, with their shapes, and the word
+  each refused stream's error names.
 
 :func:`write_j2k_tiff` is also what the tests write their 33003 and 33005
 files with, :func:`opj_encode` their streams with code-block style
@@ -51,6 +60,9 @@ HERE = Path(__file__).parent
 SVS_NAME, JSON_NAME = "j2k_region.svs", "j2k_golden.json"
 EXT_SVS_NAME = "j2k_ext_region.svs"
 EXT_KINDS = ("prec12", "jp2", "ppm", "ppt")  # the tiles' kinds, in turn
+SUB_SVS_NAME = "j2k_sub_region.svs"
+# the tiles' chroma sampling, in turn: (dx, dy) of Y, Cb and Cr
+SUB_KINDS = {"4:2:0": ((1, 2, 2), (1, 2, 2)), "4:2:2": ((1, 2, 2), 1)}
 SVS_REGION, SVS_TILE, SVS_MPP, SVS_RATE = 2048, 512, 0.4, 60
 SLIDE = dict(width=6144, height=6144, n_cells=4000, mpp=SVS_MPP, seed=0)
 
@@ -134,6 +146,7 @@ def _openjpeg() -> ctypes.CDLL:
 _P_DISTO, _P_CSTY, _P_POC, _P_POC_SIZE, _P_NUMPOCS = 20, 48, 56, 148, 4792
 _P_LAYERS, _P_RATES, _P_NUMRES, _P_ROI, _P_MCT = 4796, 4800, 5600, 5620, 18698
 _P_TILES, _P_PROG = 0, 52  # tile_size_on, cp_tx0, cp_ty0, cp_tdx, cp_tdy
+_P_RES_SPEC = 5628  # res_spec, then prcw_init[33] and prch_init[33]
 _ORDERS = {"LRCP": 0, "RLCP": 1, "RPCL": 2, "PCRL": 3, "CPRL": 4}
 _CODECS = {"j2k": 0, "jp2": 2}  # OPJ_CODEC_J2K, OPJ_CODEC_JP2
 _COLOUR_SPACES = {"srgb": 1, "grey": 2, "sycc": 3}  # OPJ_COLOR_SPACE
@@ -144,7 +157,8 @@ def opj_encode(img: np.ndarray, path, *, irreversible: bool = False,
                mode: int = 0, rates=(), roi=None, poc=(),
                signed=False, prec=8, codec: str = "j2k",
                colour_space: str = "srgb", tiles=None,
-               order: str = "LRCP") -> bytes:
+               order: str = "LRCP", dx=1, dy=1, origin=(0, 0),
+               tile_origin=(0, 0), precincts=()) -> bytes:
     """A codestream of an (H, W[, C]) image written by OpenJPEG's own
     encoder through ctypes, for what PIL's ``save`` does not expose:
     ``csty`` (2: SOP, 4: EPH), ``mode`` (the code-block style flags: 1
@@ -156,7 +170,13 @@ def opj_encode(img: np.ndarray, path, *, irreversible: bool = False,
     component is stored less 2^(prec - 1). ``codec`` "jp2" boxes the
     stream in OpenJPEG's JP2 container, whose ``colr`` box names
     ``colour_space`` ("srgb", "grey" or "sycc"). ``tiles`` is the tile
-    size (width, height) and ``order`` the progression. The stream goes
+    size (width, height), ``tile_origin`` its offset (XTOsiz, YTOsiz),
+    ``origin`` the image's (XOsiz, YOsiz) and ``order`` the progression;
+    ``precincts`` ((width, height), ...) the precinct sizes from the
+    highest resolution down. ``dx`` and ``dy`` (one value or one per
+    component) subsample a component: its plane holds every dx-th sample
+    of ``img`` from the first reference-grid multiple of dx, at the size
+    OpenJPEG's encoder reads, ceil(W / dx) x ceil(H / dy). The stream goes
     through the file ``path``."""
     o = _openjpeg()
     img = np.asarray(img)
@@ -165,16 +185,26 @@ def opj_encode(img: np.ndarray, path, *, irreversible: bool = False,
     h, w, nc = img.shape
     precs = [prec] * nc if np.isscalar(prec) else list(prec)
     sgnds = [signed] * nc if np.isscalar(signed) else list(signed)
+    dxs = [dx] * nc if np.isscalar(dx) else list(dx)
+    dys = [dy] * nc if np.isscalar(dy) else list(dy)
+    x0, y0 = origin
     # opj_image_cmptparm_t: dx, dy, w, h, x0, y0, prec, bpp, sgnd
     parm = (ctypes.c_uint32 * (9 * nc))()
+    planes = []
     for c in range(nc):
-        parm[9 * c:9 * c + 9] = [1, 1, w, h, 0, 0, precs[c], precs[c],
+        a, b = -x0 % dxs[c], -y0 % dys[c]  # the first sample's position
+        cw, ch = -(-w // dxs[c]), -(-h // dys[c])
+        full = np.pad(img[..., c], ((0, b + ch * dys[c]),
+                                    (0, a + cw * dxs[c])), mode="edge")
+        planes.append(full[b::dys[c], a::dxs[c]][:ch, :cw])
+        parm[9 * c:9 * c + 9] = [dxs[c], dys[c], cw, ch, -(-x0 // dxs[c]),
+                                 -(-y0 // dys[c]), precs[c], precs[c],
                                  int(sgnds[c])]
     im = o.opj_image_create(nc, parm, _COLOUR_SPACES[colour_space])
-    ctypes.memmove(im, struct.pack("<4I", 0, 0, w, h), 16)  # x0 y0 x1 y1
+    ctypes.memmove(im, struct.pack("<4I", x0, y0, x0 + w, y0 + h), 16)
     comps = ctypes.c_void_p.from_address(im + 24).value
     for c in range(nc):  # opj_image_comp_t is 64 bytes, data at 48
-        plane = np.ascontiguousarray(img[..., c], np.int32)
+        plane = np.ascontiguousarray(planes[c], np.int32)
         if sgnds[c]:
             plane = plane - (1 << (precs[c] - 1))
         data = ctypes.c_void_p.from_address(comps + 64 * c + 48).value
@@ -187,10 +217,15 @@ def opj_encode(img: np.ndarray, path, *, irreversible: bool = False,
     def put(off, fmt, *v):
         struct.pack_into(fmt, p, off, *v)
 
-    put(_P_CSTY, "<i", csty)
+    put(_P_CSTY, "<i", csty | (1 if precincts else 0))
+    if precincts:
+        put(_P_RES_SPEC, "<i", len(precincts))
+        for i, (pw, ph) in enumerate(precincts):
+            put(_P_RES_SPEC + 4 + 4 * i, "<i", pw)
+            put(_P_RES_SPEC + 136 + 4 * i, "<i", ph)
     put(_P_PROG, "<i", _ORDERS[order])
     if tiles:
-        put(_P_TILES, "<5i", 1, 0, 0, *tiles)
+        put(_P_TILES, "<5i", 1, *tile_origin, *tiles)
     put(_P_NUMRES, "<5i", numres, cblk[0], cblk[1], mode, int(irreversible))
     if roi:
         put(_P_ROI, "<2i", *roi)
@@ -555,6 +590,11 @@ def ext_streams() -> dict[str, bytes]:
         "j2k_ext_ppt.j2k": pack_headers(_sop_eph(
             image(45, 52, 3, seed=38), irreversible=True, mct=1,
             rates=(20, 6)), "ppt", parts=3, segments=2, keep_markers=True),
+        # SIZ's XRsiz and YRsiz of Cb patched to 2 over data coded at
+        # full size: PIL reads it by its subsampling rule all the same
+        "j2k_ext_patched_subsampling.j2k": _patched(
+            _opj(image(16, 20, 3, seed=40), numres=2), 0x51, 44,
+            b"\x02\x02"),
     }
 
 
@@ -565,9 +605,8 @@ def _patched(data: bytes, marker: int, at: int, value: bytes) -> bytes:
 
 def refused_streams() -> dict[str, tuple[bytes, str]]:
     """The ``j2k_ext_refused_*`` goldens, by file name, with the word the
-    decoder's error names: what stays refused (component subsampling,
-    whose PIL decode is no reference; HTJ2K; Part 2; more than four
-    components) and what PIL refuses too."""
+    decoder's error names: what stays refused (HTJ2K; Part 2; more than
+    four components) and what PIL refuses too."""
     base = _opj(image(16, 20, 3, seed=40), numres=2)
     ppm = pack_headers(_sop_eph(image(16, 20, 3, seed=41)), "ppm")
     sot = ppm.index(b"\xff\x90")
@@ -576,8 +615,6 @@ def refused_streams() -> dict[str, tuple[bytes, str]]:
     both = (ppm[:sot + 6] + struct.pack(">I", psot + len(ppt))
             + ppm[sot + 10:sot + 12] + ppt + ppm[sot + 12:])
     return {
-        "j2k_ext_refused_subsampling.j2k": (
-            _patched(base, 0x51, 44, b"\x02\x02"), "component subsampling"),
         "j2k_ext_refused_htj2k.j2k": (_patched(base, 0x51, 4, b"\x40\x00"),
                                       "HTJ2K"),
         "j2k_ext_refused_part2_mct.j2k": (_patched(base, 0x52, 8, b"\x02"),
@@ -591,6 +628,72 @@ def refused_streams() -> dict[str, tuple[bytes, str]]:
         "j2k_ext_refused_ihdr.jp2": (wrap_jp2(base, [
             ihdr(16, 21, 3, 7), colr(16)]), "JP2: ihdr"),
     }
+
+
+def sub_streams() -> dict[str, bytes]:
+    """The ``j2k_sub_*`` goldens PIL decodes, by file name: components
+    subsampled by OpenJPEG's encoder (each plane at its own size), read
+    by PIL as sYCC where Cb or Cr is subsampled, else as sRGB."""
+    img = image(40, 52, 3, seed=50)
+    return {
+        "j2k_sub_420.j2k": _opj(img, numres=3, dx=(1, 2, 2), dy=(1, 2, 2)),
+        "j2k_sub_422_97.j2k": _opj(img, irreversible=True, numres=3,
+                                   dx=(1, 2, 2), rates=(8,)),
+        "j2k_sub_cr_only.j2k": _opj(img, numres=3, dx=(1, 1, 2),
+                                    dy=(1, 1, 2)),
+        "j2k_sub_44.j2k": _opj(img, numres=3, dx=(1, 4, 4), dy=(1, 4, 4)),
+        "j2k_sub_odd.j2k": _opj(image(53, 37, 3, seed=51), irreversible=True,
+                                numres=3, dx=(1, 2, 2), dy=(1, 2, 2)),
+        "j2k_sub_alpha.j2k": _opj(image(37, 45, 4, seed=52), numres=3,
+                                  dx=(1, 2, 2, 1), dy=(1, 2, 2, 1)),
+        "j2k_sub_alpha_only.j2k": _opj(image(37, 45, 4, seed=53), numres=3,
+                                       dx=(1, 1, 1, 2), dy=(1, 1, 1, 2)),
+        "j2k_sub_tiles.j2k": _opj(image(53, 45, 3, seed=54), numres=2,
+                                  dx=(1, 2, 2), dy=(1, 2, 2), tiles=(17, 11),
+                                  tile_origin=(3, 1), origin=(7, 9)),
+        "j2k_sub_rpcl_97.j2k": _opj(
+            image(61, 70, 3, seed=55), irreversible=True, numres=4,
+            cblk=(8, 8), dx=(1, 2, 2), dy=(1, 2, 2), order="RPCL",
+            precincts=[(16, 16)], rates=(10, 3)),
+        "j2k_sub_pcrl_53.j2k": _opj(
+            image(61, 70, 3, seed=56), numres=4, cblk=(8, 8), dx=(1, 3, 3),
+            dy=(1, 3, 3), order="PCRL", precincts=[(32, 16), (8, 8)],
+            tiles=(40, 33), tile_origin=(1, 2), origin=(3, 5)),
+        "j2k_sub_cprl_97.j2k": _opj(
+            image(61, 70, 3, seed=57), irreversible=True, numres=4,
+            cblk=(8, 8), dx=(1, 2, 2), order="CPRL", precincts=[(16, 16)]),
+        # component 0 subsampled, every component alike: sRGB, the MCT on
+        "j2k_sub_comp0_mct.j2k": _opj(img, numres=3, mct=1, dx=2, dy=2),
+        "j2k_sub_sycc.jp2": _opj(img, numres=3, dx=(1, 2, 2), dy=(1, 2, 2),
+                                 codec="jp2", colour_space="sycc"),
+        "j2k_sub_srgb.jp2": _opj(img, numres=3, dx=(1, 2, 2), dy=(1, 2, 2),
+                                 codec="jp2", colour_space="srgb"),
+    }
+
+
+def sub_refused_streams() -> dict[str, tuple[bytes, str]]:
+    """The ``j2k_sub_refused_*`` goldens, by file name, with the word the
+    decoder's error names; PIL raises on each: one or two components
+    with subsampling (no unpacker of PIL's reads them) and the RCT over
+    components of different sizes (OpenJPEG fails the tile)."""
+    return {
+        "j2k_sub_refused_one.j2k": (_opj(image(16, 20, 1, seed=58)[..., 0],
+                                         numres=2, dx=2, dy=2),
+                                    "component subsampling"),
+        "j2k_sub_refused_two.j2k": (_opj(image(16, 20, 2, seed=59), numres=2,
+                                         dx=(1, 2), dy=(1, 2)),
+                                    "component subsampling"),
+        "j2k_sub_refused_mct.j2k": (_patched(_opj(
+            image(16, 20, 3, seed=60), numres=2, dx=(1, 2, 2), dy=(1, 2, 2)),
+            0x52, 8, b"\x01"), "components of different sizes"),
+    }
+
+
+def sub_tile(k: int, ycc: np.ndarray) -> bytes:
+    """Tile ``k`` of ``j2k_sub_region.svs`` from its YCbCr crop: 9/7 at
+    ``SVS_RATE``, no MCT, the chroma sampled as ``SUB_KINDS``, in turn."""
+    dx, dy = list(SUB_KINDS.values())[k % len(SUB_KINDS)]
+    return _opj(ycc, irreversible=True, rates=(SVS_RATE,), dx=dx, dy=dy)
 
 
 def ext_tile(k: int, rgb: np.ndarray) -> bytes:
@@ -651,11 +754,26 @@ def main():
         raise AssertionError("the lossless SVS does not decode to its region")
     golden["ext_svs"] = {"kinds": list(EXT_KINDS),
                          "tiles": [sha256(t) for t in tiles]}
+    golden["sub_streams"] = {}
+    for name, data in sub_streams().items():
+        (HERE / name).write_bytes(data)
+        rgb = pil_rgb(data)
+        golden["sub_streams"][name] = {"sha256": sha256(rgb),
+                                       "shape": list(rgb.shape)}
+    golden["sub_refused"] = {}
+    for name, (data, word) in sub_refused_streams().items():
+        (HERE / name).write_bytes(data)
+        golden["sub_refused"][name] = word
+    streams = write_j2k_tiff(HERE / SUB_SVS_NAME, region, SVS_TILE, SVS_MPP,
+                             compression=33003, encode_tile=sub_tile)
+    golden["sub_svs"] = {"kinds": list(SUB_KINDS),
+                         "tiles": [sha256(pil_rgb(s)) for s in streams]}
     (HERE / JSON_NAME).write_text(json.dumps(golden, indent=1) + "\n")
     total = sum(p.stat().st_size for p in HERE.glob("j2k_*"))
     print("regenerated:", len(STREAMS) + len(OPJ_STREAMS)
-          + len(golden["ext_streams"]) + len(golden["refused"]), "streams,",
-          2 * len(streams), "SVS tiles,", total, "bytes")
+          + len(golden["ext_streams"]) + len(golden["refused"])
+          + len(golden["sub_streams"]) + len(golden["sub_refused"]),
+          "streams,", 3 * len(streams), "SVS tiles,", total, "bytes")
 
 
 if __name__ == "__main__":

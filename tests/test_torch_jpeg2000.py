@@ -287,7 +287,7 @@ def test_golden_svs():
     finally:
         s.close()
     total = sum(f.stat().st_size for f in GOLDEN.glob("j2k_*")
-                if f.name != regen.EXT_SVS_NAME)
+                if f.name not in (regen.EXT_SVS_NAME, regen.SUB_SVS_NAME))
     assert total <= 512 * 1024
 
 
@@ -333,8 +333,6 @@ def _refusals():
     out = {
         "jp2": (None, "JP2: ihdr gives 17 x 16"),
         "precision": (None, "component precision 32 bits"),
-        "subsampling": (_patch(base, siz + 44, b"\x02\x02"),
-                        "component subsampling"),
         "five-components": (_patch(base, siz + 38, struct.pack(">H", 5)),
                             "5 components"),
         "part2-rsiz": (_patch(base, siz + 4, b"\x80\x00"), "Part-2"),
@@ -369,7 +367,7 @@ _REFUSALS = _refusals()
 
 
 # what PIL refuses as well; the other cases stay refused where PIL reads
-# them (subsampling, HTJ2K, Part 2) or fail PIL another way
+# them (HTJ2K, Part 2) or fail PIL another way
 _PIL_REFUSES = ("jp2", "precision", "ppm", "ppt", "five-components")
 
 
@@ -393,6 +391,17 @@ def test_refuses_by_name(name):
     if name in _PIL_REFUSES:
         with pytest.raises(Exception):
             regen.pil_rgb(data)
+
+
+def test_patched_subsampling_like_pil():
+    """SIZ's XRsiz and YRsiz of Cb patched to 2 over data coded at full
+    size, once refused: PIL reads it by its subsampling rule (Cb's plane
+    read at (y / 2) * (W / 2) + x / 2, the image as sYCC), and so does
+    the port (``tests/test_torch_jpeg2000_sub.py`` holds genuinely
+    subsampled streams)."""
+    base = _base_stream()
+    data = _patch(base, _marker(base, 0x51) + 44, b"\x02\x02")
+    _assert_like_pil(data)
 
 
 def test_refuses_position_order_with_31_bit_positions():

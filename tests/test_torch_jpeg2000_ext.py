@@ -231,7 +231,8 @@ def test_pil_container_like_pil(mode, prec):
 
 @pytest.mark.parametrize("space,nc,prec", [
     ("srgb", 3, 8), ("sycc", 3, 8), ("grey", 1, 8), ("srgb", 3, 12),
-    ("sycc", 3, 12), ("grey", 1, 12), ("srgb", 4, 10)])
+    ("sycc", 3, 12), ("grey", 1, 12), ("srgb", 4, 10), ("grey", 4, 8),
+    ("grey", 3, 8)])
 def test_openjpeg_container_like_pil(space, nc, prec):
     """OpenJPEG's JP2 writer: ihdr, bpcc where precisions vary, colr."""
     img = regen._ext_image(23, 30, nc, prec, seed=prec)
