@@ -58,7 +58,9 @@
    read just after; checks the diffusion ran for the targets, finite
    losses, moved parameters and ``depth`` launches of each attention
    kernel per step; times one batch of augmentation and one save of the
-   final weights (the trainer's host work), the train step at batch 8
+   final weights (the trainer's host work; its ``.npz`` written
+   uncompressed, as every phase writes it: the compressed save took
+   73.6 s of host zlib on the card's host), the train step at batch 8
    (median, imgs/s, peak memory, MFU), and traces one step; then takes
    one step at batch 2
    without layer-drop, checks that every attention parameter got a
@@ -72,7 +74,15 @@
    to h5py's digest (``hdf5_golden.json``), then 2 train steps at batch 2
    on its ``ClassposeHDF5Dataset`` items, full ViT-L width in bf16 (the
    trainer's kernel route): ``depth`` launches of kernels 1 and 5 a step,
-   finite losses; then the training
+   finite losses; then the goldens under that file's ``"more"`` (h5py's
+   defaults with soft links, a dangling one among them, and lzf after
+   scaleoffset in chunks scaleoffset outgrows; shared object header
+   messages indexed by a list and by a B-tree; the nbit filter at reduced
+   precision), every dataset to h5py's digest, each dangling link listed
+   and read as missing, and 2 more steps on the items of
+   ``ClassposeHDF5Dataset`` over the default-layout file, whose
+   ``images`` and ``labels`` are soft links, with the same launch counts;
+   then the training
    CLI phase on the same 16 images written as ``images.npy`` /
    ``labels.npy``: ``classpose-dataset-to-hdf5-torch``
    (``dataset_to_hdf5.main_with_args``, targets by kernel 4 on the card,
@@ -98,15 +108,15 @@
    replayed by rank share), with NCCL on two cards (``torch.distributed.run``) where two
    are visible, else both on ``cuda:0`` over gloo; both ranks' final
    weights must be bitwise equal, rank 0's ``.npz`` (written
-   uncompressed here: the compressed save is timed above) must hold them,
+   uncompressed, as every phase writes it) must hold them,
    and each step's total loss must lie within 1e-4 of the one-process
    run's; it prints the route, each rank's imgs/s and peak memory;
 6. writes a ViT-L checkpoint whose patch embed and attention are live
    (``perturbed_structured_params`` with ``attn_ripple``, 6 classes) as a
    published ``conic.pt`` (the published key layout, held against the
    ViT-L manifest) and converts it with ``classpose-convert-weights-torch``
-   to a native ``.npz`` (written uncompressed: phase 5 times the
-   compressed save, and the later runs load it faster); runs the WSI CLI
+   to a native ``.npz`` (written uncompressed, as every phase writes it:
+   the later runs load it faster); runs the WSI CLI
    (``entrypoints.predict_wsi.main_with_args``) with
    ``CLASSPOSE_LN_PALLAS=1`` on a ~6144² synthetic slide at 0.4 µm/px
    (25 tiles of 1280² read and resized to 1024² at the config's 0.5 µm/px)
@@ -156,8 +166,10 @@
    ``slide.npy`` (within 0.5%,
    ≥ 99% matched); its level 0 decoded whole and run as an ``.npy`` must
    find exactly its cells; the ``j2k_ext_*`` goldens (component
-   precisions to 20 bits, JP2 files, PPM and PPT) must decode to their
-   hashes and the streams still refused raise naming what they use; the
+   precisions to 20 bits, JP2 files, PPM and PPT, and Part 15 signalling
+   over Part 1 code-blocks: Rsiz 0x4000, CAP and CPF) must decode to their
+   hashes and the streams still refused (HT code-blocks among them) raise
+   naming what they use; the
    lossless ``tests/golden/j2k_ext_region.svs`` (the same region, its
    tiles in turn 12-bit, JP2-boxed, with PPM and with PPT headers) must
    decode to its hashes and, through the CLI with ``WSI_READER`` unset,
@@ -453,6 +465,7 @@ from classpose_tpu_torch.transforms import (
 )
 from classpose_tpu_torch.utils import get_slide_resolution
 
+T_START = time.perf_counter()   # the script's wall runs from here
 SEED = 0
 N_TILES, TILE = 8, 1024
 # kernels of the eval_batch path (phase 4); the attention backward runs in
@@ -520,6 +533,9 @@ PR15_DECODE_RATES = {"SOF0": (70.61, 242.45), "SOF2": (57.56, 166.70),
 # dense links) with h5py's digests, and the train steps taken on it
 H5_GOLDEN, H5_JSON = GOLDEN / "hdf5_latest.h5", GOLDEN / "hdf5_golden.json"
 H5_BATCH, H5_STEPS = 2, 2
+# and the smaller goldens under its "more", the train steps repeated on
+# the one at h5py's defaults (its arrays named by soft links)
+H5_DEFAULT = GOLDEN / "hdf5_default.h5"
 # the GrandQC phase: the QC run's --min_area (µm²; 100 px at MPP 10), the
 # artefact patches also run on the CPU, and the batch its rate is timed at
 GRANDQC_MIN_AREA, GRANDQC_CPU_PATCHES, GRANDQC_BATCH = 10000, 4, 8
@@ -1576,7 +1592,10 @@ def run_training(dev, out_dir: str) -> tuple[dict, dict, dict]:
     _build.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with mock.patch.object(port_train, "save_params", timed_save):
+    # the .npz goes uncompressed, as in every phase: the compressed save
+    # was ~70 s of host zlib on the card's host, which no port code runs
+    with mock.patch.object(port_train, "save_params", timed_save), \
+            mock.patch.object(np, "savez_compressed", np.savez):
         path, train_losses, _ = train_class_seg(
             model, recorded, batch_size=TRAIN_BATCH, n_epochs=n_epochs,
             learning_rate=1e-4, save_path=out_dir, model_name="smoke",
@@ -1738,12 +1757,38 @@ def median_ms(fn, calls: int = AUG_CALLS) -> float:
     return statistics.median(times)
 
 
+def check_h5_goldens(spec: dict) -> dict:
+    """The goldens under ``hdf5_golden.json``'s ``"more"``, read by the
+    package's own reader: every dataset to h5py's digest, the names listed
+    as h5py lists them, each dangling soft link listed and read as
+    missing. Returns the datasets checked per file."""
+    out = {}
+    for name, want in spec["more"].items():
+        with hdf5.File(GOLDEN / name) as f:
+            listed = set(want["datasets"]) | set(want["dangling"])
+            if set(f) != listed:
+                raise AssertionError(f"{name}: names {sorted(f)}")
+            for k, d in want["datasets"].items():
+                a = np.asarray(f[k][()])
+                if (a.dtype.str != d["dtype"] or list(a.shape) != d["shape"]
+                        or _sha256(a) != d["sha256"]):
+                    raise AssertionError(f"{name} {k}: {a.dtype} {a.shape}, "
+                                         f"not h5py's digest")
+            for k in want["dangling"]:
+                if k not in f or f.get(k) is not None:
+                    raise AssertionError(f"{name}: dangling link {k} read")
+        out[name] = len(want["datasets"])
+    return out
+
+
 def run_golden_h5_training(dev) -> dict:
     """The training phase's reader step (see the module docstring, step
     5): the committed ``hdf5_latest.h5`` read by the package's own reader
     to h5py's digest of every dataset, then ``H5_STEPS`` train steps at
     batch ``H5_BATCH`` of full ViT-L width on its items, with the
-    attention kernels (1 forward, 5 backward) counted."""
+    attention kernels (1 forward, 5 backward) counted; then the goldens
+    under ``"more"`` read to their digests, and ``H5_STEPS`` more steps
+    on the items of ``H5_DEFAULT``, counted alike."""
     spec = json.loads(H5_JSON.read_text())
     t0 = time.perf_counter()
     with hdf5.File(H5_GOLDEN) as f:
@@ -1758,8 +1803,15 @@ def run_golden_h5_training(dev) -> dict:
         filters = {k: [f[k].compression, f[k].shuffle, f[k].fletcher32]
                    for k in ("images", "labels", "instance_counts")}
     read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    more = check_h5_goldens(spec)
+    more_read_s = time.perf_counter() - t0
     ds = ClassposeHDF5Dataset(str(H5_GOLDEN), bsize=256, seed=SEED)
+    ds_default = ClassposeHDF5Dataset(str(H5_DEFAULT), bsize=256, seed=SEED)
     n_classes = ds.n_classes
+    if ds_default.n_classes != n_classes:
+        raise AssertionError(f"{H5_DEFAULT.name}: {ds_default.n_classes} "
+                             f"classes, {n_classes} in {H5_GOLDEN.name}")
     t0 = time.perf_counter()
     items = [ds[i] for i in range(H5_BATCH)]
     items_s = time.perf_counter() - t0
@@ -1768,33 +1820,47 @@ def run_golden_h5_training(dev) -> dict:
     cfg = ClassTransformerConfig(n_cell_classes=n_classes,
                                  dtype="bfloat16")
     model = ClassposeModel(cfg=cfg, precision="bf16", device=dev, seed=SEED)
-    X = torch.from_numpy(np.stack([x for x, _ in items])).to(dev)
-    lbl = torch.from_numpy(np.stack([y for _, y in items])).to(dev)
     lv = torch.zeros(3, device=dev)
     opt = make_optimizer(model.net, lv, 0.1, None, True)
-    step = make_train_step(model.net, opt, lv, np.full(H5_STEPS, 1e-5),
+    step = make_train_step(model.net, opt, lv, np.full(2 * H5_STEPS, 1e-5),
                            n_classes, use_uncertainty_weighting=True,
                            class_weights=ds.class_weights, rdrop=False)
-    _build.reset_launches()
+
+    def steps(batch, what):
+        X = torch.from_numpy(np.stack([x for x, _ in batch])).to(dev)
+        lbl = torch.from_numpy(np.stack([y for _, y in batch])).to(dev)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t = time.perf_counter()
+        losses = [float(step(X, lbl)["total"]) for _ in range(H5_STEPS)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = {k: _build.LAUNCHES[k] for k in ("attention_fwd",
+                                                   "attention_bwd")}
+        for k, n in launches.items():
+            if n != cfg.depth * H5_STEPS:
+                raise AssertionError(f"{k}: {n} launches on {what}'s steps")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"{what} step losses {losses}")
+        return losses, wall, launches
+
+    losses, steps_s, launches = steps(items, H5_GOLDEN.name)
     t0 = time.perf_counter()
-    losses = [float(step(X, lbl)["total"]) for _ in range(H5_STEPS)]
-    torch.cuda.synchronize()
-    steps_s = time.perf_counter() - t0
-    launches = dict(_build.LAUNCHES)
-    for k in ("attention_fwd", "attention_bwd"):
-        if launches[k] != cfg.depth * H5_STEPS:
-            raise AssertionError(f"{k}: {launches[k]} launches on the "
-                                 f"golden .h5's steps")
-    if not np.isfinite(losses).all():
-        raise AssertionError(f"golden .h5 step losses {losses}")
+    default_items = [ds_default[i] for i in range(H5_BATCH)]
+    default_items_s = time.perf_counter() - t0
+    default_losses, default_steps_s, default_launches = steps(
+        default_items, H5_DEFAULT.name)
     del model, opt, step
     torch.cuda.empty_cache()
     return dict(datasets=len(spec["datasets"]), read_s=read_s,
                 filters=filters, n_classes=n_classes, batch=H5_BATCH,
                 items_s=items_s, steps=H5_STEPS, steps_s=steps_s,
-                losses=losses,
-                launches={k: launches[k] for k in ("attention_fwd",
-                                                   "attention_bwd")})
+                losses=losses, launches=launches,
+                more=dict(datasets=more, read_s=more_read_s,
+                          default_items_s=default_items_s,
+                          default_steps_s=default_steps_s,
+                          default_losses=default_losses,
+                          default_launches=default_launches))
 
 
 def run_training_cli(dev, work: str, targets: dict) -> dict:
@@ -1884,8 +1950,8 @@ def run_training_cli(dev, work: str, targets: dict) -> dict:
     _build.reset_launches()
     try:
         t0 = time.perf_counter()
-        # its .npz goes uncompressed: phase 5 times the trainer's
-        # compressed save (~65 s of zlib on the host)
+        # its .npz goes uncompressed, as in every phase (~65 s of zlib
+        # on the host otherwise)
         with mock.patch.object(np, "savez_compressed", np.savez):
             path = run_training_main([
                 "--data_path", str(h5), "--augmentation", "enhanced",
@@ -2011,8 +2077,8 @@ def train_rank(work: str, backend: str) -> int:
     torch.cuda.reset_peak_memory_stats(ctx.device)
     _build.reset_launches()
     t0 = time.perf_counter()
-    # rank 0's final .npz goes uncompressed: phase 5 times the trainer's
-    # compressed save (~65 s of zlib on the host), and the parent reads
+    # rank 0's final .npz goes uncompressed, as in every phase (~65 s of
+    # zlib on the host otherwise), and the parent reads
     # this one back
     with mock.patch.object(np, "savez_compressed", np.savez):
         path, _, _ = train_class_seg(
@@ -2220,7 +2286,7 @@ def run_wsi(dev, work: str) -> tuple[dict, dict, dict]:
         pt)
     pt_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    # its .npz goes uncompressed (phase 5 times a compressed save), which
+    # its .npz goes uncompressed (as in every phase), which
     # every later CLI run of the script also loads faster
     with mock.patch.object(np, "savez_compressed", np.savez):
         convert_cli(["--input", pt, "--output", f"{work}/vitl.npz"])
@@ -2670,7 +2736,10 @@ def run_slide_j2k_ext(wsi: dict, golden: dict) -> dict:
         if _sha256(jpeg2000.decode(st)) != want:
             raise AssertionError(f"J2K ext SVS tile {k} decodes unlike PIL")
     return dict(goldens=len(golden["ext_streams"]),
-                refused=len(golden["refused"]), svs_kib=len(raw) / 1024,
+                refused=len(golden["refused"]),
+                part15=sorted(n for n in golden["ext_streams"]
+                              if "part15" in n),
+                svs_kib=len(raw) / 1024,
                 decode_threads=SlideLoader.n_read_threads,
                 decode_rates=j2k_rates_by_kind(streams, g["kinds"],
                                                golden["svs"]["tile"]),
@@ -3653,6 +3722,12 @@ def main() -> int:
     log(f"training: {json.dumps(train_stats)}")
     h5_stats = run_golden_h5_training(dev)
     log(f"golden .h5: {json.dumps(h5_stats)}")
+    h5_more = h5_stats["more"]
+    log(f"golden .h5 more: {sum(h5_more['datasets'].values())} datasets of "
+        f"{len(h5_more['datasets'])} files as h5py's digests in "
+        f"{h5_more['read_s']:.3f} s; {H5_STEPS} steps on "
+        f"{H5_DEFAULT.name}'s soft-linked items, launches "
+        f"{h5_more['default_launches']}")
     with tempfile.TemporaryDirectory() as work:
         cli_stats = run_training_cli(dev, work, targets)
     with tempfile.TemporaryDirectory() as work:
@@ -3712,7 +3787,8 @@ def main() -> int:
             f"{j2k['decoded_pipeline_s']:.3f} s; {j2k['n_cells']} vs "
             f"{j2k['npy_n_cells']} cells, {j2k['matched_share']:.4f} matched")
         ext = j2k["ext"]
-        log(f"slide J2K ext: {ext['goldens']} goldens as PIL's pixels, "
+        log(f"slide J2K ext: {ext['goldens']} goldens as PIL's pixels "
+            f"(Part 15 signalling: {', '.join(ext['part15'])}), "
             f"{ext['refused']} refusals by name; lossless SVS decode (host "
             f"MP/s on 1 thread / on {ext['decode_threads']}): " + ", ".join(
                 f"{k} {v['mp_per_s_1t']:.2f} / {v['mp_per_s_nt']:.2f}"
@@ -3810,6 +3886,9 @@ def main() -> int:
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms"]
     by_name = {k["name"]: k for k in kernels}
+    wall = time.perf_counter() - T_START
+    log(f"script wall {wall:.1f} s")
+    print(f"script wall {wall:.1f} s")
     print(smi)
     print(json.dumps({"kernels": [{key: k[key] for key in order}
                                   for k in kernels],

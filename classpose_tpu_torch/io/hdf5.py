@@ -10,17 +10,25 @@ The reader takes:
   lookup3 checksum of versions 2 and 3 checked);
 - object headers of version 1 and 2 (``OHDR``, continuation blocks
   ``OCHK``, checksums, creation order), attributes skipped unread;
+  shared messages: committed datatypes, and the dataspace, datatype, fill
+  value and filter pipeline messages of a file with a shared message
+  table (superblock extension, ``SMTB``; each index's messages in a
+  fractal heap, the index a list or a version 2 B-tree);
 - old-style groups (a local heap of names, a version 1 B-tree of group
-  nodes, ``SNOD`` nodes) and new-style ones: link messages (hard and soft
-  links, soft links resolved; external links followed when their name is
-  read, the target file found as HDF5 finds it and read by this reader,
-  chains of them up to HDF5's limit of 16 links), and dense link storage
-  (a fractal heap of link messages, ``FRHP``/``FHDB``/``FHIB``, indexed by
-  a version 2 B-tree, ``BTHD``/``BTIN``/``BTLF``);
+  nodes, ``SNOD`` nodes; soft links in entries of cache type 2) and
+  new-style ones: link messages (hard and soft links; external links
+  followed when their name is read, the target file found as HDF5 finds
+  it and read by this reader, chains of them up to HDF5's limit of 16
+  links), and dense link storage (a fractal heap of link messages,
+  ``FRHP``/``FHDB``/``FHIB``, indexed by a version 2 B-tree,
+  ``BTHD``/``BTIN``/``BTLF``); soft links resolved as HDF5 follows them,
+  to datasets and to groups, in chains, dangling ones listed;
 - dataspaces simple and scalar; datatypes little- and big-endian IEEE
-  floats of 2, 4 and 8 bytes, integers of 1 to 8 bytes, h5py's bool enum
-  (read as ``bool``) and other integer enums (read as their base type),
-  committed (named) datatypes;
+  floats of 2, 4 and 8 bytes, integers of 1 to 8 bytes, either at a
+  precision below its size (at an offset; floats with other fields),
+  converted to the dtype h5py reads them as, h5py's bool enum (read as
+  ``bool``) and other integer enums (read as their base type), committed
+  (named) datatypes;
 - layouts of version 3 and 4: compact, contiguous, external storage
   (names resolved as HDF5 resolves them: relative to the working
   directory), virtual (sources in the same file or another, "all" and
@@ -30,18 +38,20 @@ The reader takes:
   B-tree; edge chunks are stored whole and cut on reading;
 - filters, in pipeline order and per each chunk's filter mask: deflate,
   shuffle, fletcher32 (checked), lzf, szip, scaleoffset (integer and
-  float D-scale) and nbit at full precision (its bytes pass through).
+  float D-scale) and nbit (at full precision its bytes pass through).
 
 :class:`File` opens such a file as a read-only mapping of dataset names
 (at any depth of groups, joined by ``/``; a soft link is a name of its
 target) to :class:`Dataset`; a dataset reads ``ds[i]``, ``ds[a:b]``
 (axis 0), ``ds[()]`` and ``np.asarray(ds)`` as h5py does, byte order
-included. Anything else raises a ``ValueError`` that names it: the nbit
-filter at reduced precision (which h5py cannot create), shared object
-header messages, layout versions 1 and 2, null dataspaces, and string,
-compound, variable-length, reference, array, opaque, bitfield and time
-datatypes; so does an external link whose file or object is missing, when
-its name is read (a file that never reads it opens).
+included; a dangling soft link is listed and reads as missing
+(``KeyError``; ``get`` gives the default), as in h5py. Anything else
+raises a ``ValueError`` that names it: layout versions 1 and 2, null
+dataspaces, floats wider than float64 or of sizes other than 2, 4 and 8
+bytes, and string, compound, variable-length, reference, array, opaque,
+bitfield and time datatypes (under nbit too); so does an external link
+whose file or object is missing, or a cycle of soft links, when its name
+is read (a file that never reads it opens).
 
 :class:`Writer` writes h5py's default layout: ``create_dataset`` with
 h5py's arguments (``chunks``, ``compression="gzip"``,
@@ -68,7 +78,7 @@ LEAF_K = 4          # symbol table node K (h5py's default)
 
 # object header message types read or written (others are skipped)
 DATASPACE, LINK_INFO, DATATYPE, FILL, LINK, EXTERNAL = 1, 2, 3, 5, 6, 7
-LAYOUT, FILTERS, CONTINUATION, SYMBOL_TABLE = 8, 11, 16, 17
+LAYOUT, FILTERS, SHARED_TABLE, CONTINUATION, SYMBOL_TABLE = 8, 11, 15, 16, 17
 
 DEFLATE, SHUFFLE, FLETCHER32, SZIP, NBIT, SCALEOFFSET, LZF = \
     1, 2, 3, 4, 5, 6, 32000
@@ -219,39 +229,76 @@ def _messages_v2(rd: _Reader, addr: int) -> list[tuple[int, int, bytes]]:
     return out
 
 
-def _shared_address(d: bytes) -> int:
-    """The object header address of a shared message: a committed
-    datatype's."""
+def _shared(d: bytes) -> tuple[bool, object]:
+    """Where a shared message's body is (H5O__shared_decode): (True, the
+    fractal heap ID) in the file's shared message heap (version 3, type
+    1), else (False, the address of the object header that holds it: a
+    committed datatype's, or any message of versions 1 and 2)."""
     version, kind = d[0], d[1]
     if version == 1:
-        return _u(d, 8, 8)
-    if version == 3 and kind != 2:
-        raise ValueError("HDF5: shared object header messages (the shared "
-                         "message heap) are not supported")
-    return _u(d, 2, 8)
+        return False, _u(d, 8, 8)
+    if version not in (2, 3):
+        raise ValueError(f"HDF5: shared message version {version} is not "
+                         f"supported")
+    if version == 3 and kind == 1:
+        return True, d[2:10]
+    return False, _u(d, 2, 8)
 
 
 _IEEE = {2: (10, 5, 0, 10, 15), 4: (23, 8, 0, 23, 127),
          8: (52, 11, 0, 52, 1023)}
+_FLOATS = [(n, np.finfo(f"f{n}")) for n in (2, 4, 8)]
 
 
-def _datatype(d: bytes) -> np.dtype:
+def _datatype(d: bytes) -> tuple[np.dtype, tuple | None]:
+    """(the dtype h5py reads a datatype message as, and where the value
+    sits in the file's bytes when they are not that dtype's: see
+    :func:`_convert`; None when they are)."""
     cls, bits, size = d[0] & 0x0F, _u(d, 1, 3), _u(d, 4, 4)
+    order = ">" if bits & 0x01 else "<"
+    offset, precision = _u(d, 8, 2), _u(d, 10, 2)
+    full = (offset, precision) == (0, 8 * size)
     if cls == 0:
         if size not in (1, 2, 4, 8):
             raise ValueError(f"HDF5: integers of {size} bytes are not "
                              f"supported")
-        order = ">" if bits & 0x01 else "<"
-        return np.dtype(f"{order}{'i' if bits & 0x08 else 'u'}{size}")
+        kind = "i" if bits & 0x08 else "u"
+        dt = np.dtype(f"{order}{kind}{size}")
+        # h5py reads one byte as the machine's order: from big-endian at
+        # offset 0 libhdf5 converts by its byte swap alone
+        # (H5T__conv_order), which keeps the bits past the precision
+        swap_only = size == 1 and order == ">" and offset == 0
+        return dt, None if full or swap_only else (dt, kind, offset,
+                                                   precision)
     if cls == 1:
-        layout = (d[12], d[13], d[14], d[15], _u(d, 16, 4))
-        if bits & 0x40 or _IEEE.get(size) != layout or \
-                (bits >> 8) & 0xFF != size * 8 - 1:
-            raise ValueError(f"HDF5: floating point of {size} bytes in a "
-                             f"layout other than IEEE is not supported")
-        return np.dtype(f"{'>' if bits & 0x01 else '<'}f{size}")
+        sign, layout = (bits >> 8) & 0xFF, (d[12], d[13], d[14], d[15],
+                                            _u(d, 16, 4))
+        if bits & 0x40:
+            raise ValueError("HDF5: floating point in VAX byte order is not "
+                             "supported")
+        if full and _IEEE.get(size) == layout and sign == size * 8 - 1:
+            return np.dtype(f"{order}f{size}"), None
+        if (bits >> 4) & 3 != 2:
+            raise ValueError("HDF5: floating point without an implied "
+                             "mantissa bit is not supported")
+        if size not in _IEEE:
+            raise ValueError(f"HDF5: floating point of {size} bytes is not "
+                             f"supported")
+        epos, esize, mpos, msize, bias = layout
+        # h5py's dtype: the first numpy float as wide as the file's type
+        # that holds its mantissa and exponent range
+        for n, fi in _FLOATS:
+            if n >= size and msize <= fi.nmant and \
+                    2 ** esize - bias - 1 <= fi.maxexp and \
+                    1 - bias >= fi.minexp:
+                return np.dtype(f"{order}f{n}"), (
+                    np.dtype(f"{order}f{size}"), "f", sign, epos, esize,
+                    mpos, msize, bias)
+        raise ValueError(f"HDF5: floating point of fields {layout} needs a "
+                         f"float wider than float64, which is not "
+                         f"supported")
     if cls == 8:
-        base = _datatype(d[8:])
+        base, fields = _datatype(d[8:])
         if base.kind not in "iu":
             raise ValueError("HDF5: enums of a non-integer base are not "
                              "supported")
@@ -266,11 +313,54 @@ def _datatype(d: bytes) -> np.dtype:
         values = np.frombuffer(d[pos:pos + n * base.itemsize], base)
         # h5py's bool: an 8-bit enum of FALSE = 0 and TRUE = 1
         if base.itemsize == 1 and names == ["FALSE", "TRUE"] and \
-                values.tolist() == [0, 1]:
-            return np.dtype(bool)
-        return base
+                values.tolist() == [0, 1] and fields is None:
+            return np.dtype(bool), None
+        return base, fields
     raise ValueError(f"HDF5: {CLASS_NAMES.get(cls, f'class {cls}')} "
                      f"datatypes are not supported")
+
+
+def _convert(raw: bytes, dtype: np.dtype, fields: tuple) -> np.ndarray:
+    """Elements whose value sits in bit fields of their bytes, as HDF5
+    converts them to h5py's dtype (H5T__conv_i_i, H5T__conv_f_f): an
+    integer's ``precision`` bits at ``offset``, sign-extended where
+    signed; a float's sign, exponent and mantissa fields, exactly (the
+    dtype holds their range), an all-ones exponent infinity or, with a
+    mantissa, NaN with every mantissa bit set. Other bits are padding."""
+    raw_dt, kind = fields[0], fields[1]
+    size = raw_dt.itemsize
+    b = np.frombuffer(raw, np.uint8).reshape(-1, size).astype(np.uint64)
+    if raw_dt.byteorder == ">":
+        b = b[:, ::-1]
+    v = (b << (np.arange(size, dtype=np.uint64) * np.uint64(8))).sum(
+        1, dtype=np.uint64)
+
+    def field(pos, n):
+        return (v >> np.uint64(pos)) & np.uint64((1 << n) - 1)
+
+    if kind in "iu":
+        offset, precision = fields[2:]
+        x = field(offset, precision)
+        if kind == "i":             # the sign bit extended
+            high = np.uint64(~((1 << precision) - 1) & 0xFFFFFFFFFFFFFFFF)
+            x = np.where(x >> np.uint64(precision - 1) & np.uint64(1),
+                         x | high, x).view(np.int64)
+        return x.astype(dtype)
+    sign, epos, esize, mpos, msize, bias = fields[2:]
+    neg, e, m = field(sign, 1) == 1, field(epos, esize), field(mpos, msize)
+    special, normal = e == (1 << esize) - 1, e != 0
+    mant = (m | (normal.astype(np.uint64) << np.uint64(msize))).astype(
+        np.float64)
+    x = np.ldexp(mant, np.where(normal & ~special, e, 1).astype(np.int64)
+                 - bias - msize)
+    x = np.where(special & (m == 0), np.inf, x)
+    x = np.where(neg, -x, x).astype(dtype.newbyteorder("="))
+    ints = x.view(f"u{dtype.itemsize}")
+    top = 8 * dtype.itemsize - 1
+    nan = (neg.astype(ints.dtype) << ints.dtype.type(top)) | \
+        ints.dtype.type((1 << top) - 1)
+    ints[special & (m != 0)] = nan[special & (m != 0)]
+    return x.astype(dtype)
 
 
 def _dataspace(d: bytes) -> tuple[tuple, tuple]:
@@ -317,14 +407,12 @@ def _filters(d: bytes) -> list[tuple[int, list[int]]]:
             pos += 4
         if fid not in FILTER_NAMES:
             raise ValueError(f"HDF5: filter id {fid} is not supported")
-        if fid == NBIT and (len(vals) < 2 or vals[1] != 1):
-            # cd_values[1] is H5Znbit's "need not compress" flag: set where
-            # every precision is the type's own, and the chunks pass
-            # through; reduced precision packs bits, which no writer here
-            # makes
-            raise ValueError("HDF5: the nbit filter with reduced precision "
-                             "is not supported (only full precision, which "
-                             "passes the bytes through)")
+        # H5Znbit's cd_values: count, "need not compress" (every precision
+        # the type's own: the chunks pass through), elements, then the
+        # type: class (1: atomic), size, order, precision, offset
+        if fid == NBIT and not vals[1] and vals[3] != 1:
+            raise ValueError("HDF5: the nbit filter over datatypes other "
+                             "than numbers is not supported")
         out.append((fid, vals))
     return out
 
@@ -504,21 +592,53 @@ def _selection(d: bytes, pos: int, shape: tuple) -> tuple[list, int]:
 # ------------------------------------------------------------ filters
 
 def _native(name: str, raw: bytes, cap: int, *args) -> bytes:
+    """lzf into a buffer of ``cap`` bytes, grown by the input's size while
+    it is too small (h5py's lzf filter: what an earlier filter wrote may
+    be larger than the chunk, as scaleoffset's header makes it); szip
+    into the size its first four bytes give (H5Z__filter_szip)."""
     from classpose_tpu_torch.native import load_hdf5filters
 
     lib = load_hdf5filters()
-    out = np.empty(max(cap, 1), np.uint8)
     if name == "lzf":
-        n = lib.h5_lzf_decode(raw, len(raw), out.ctypes.data, cap)
+        while True:
+            out = np.empty(max(cap, 1), np.uint8)
+            n = lib.h5_lzf_decode(raw, len(raw), out.ctypes.data, cap)
+            if n != -2:
+                break
+            cap += max(len(raw), 1)
         if n < 0:
             raise ValueError("HDF5: lzf chunk is corrupt")
     else:
+        cap = _u(raw, 0, 4) if len(raw) >= 4 else 0
+        # zeros where libaec leaves a last, partial pixel unwritten
+        out = np.zeros(max(cap, 1), np.uint8)
         err = ctypes.create_string_buffer(256)
         n = lib.h5_szip_decode(raw, len(raw), out.ctypes.data, cap, *args,
                                err, 256)
         if n < 0:
             raise ValueError(f"HDF5: {err.value.decode()}")
     return out[:n].tobytes()
+
+
+def _nbit(raw: bytes, vals: list[int]) -> bytes:
+    """H5Znbit.c's decompression of an atomic type: each element's
+    ``precision`` bits, packed MSB first one element after another, put
+    back at its ``offset`` in an element of ``size`` bytes of its byte
+    order; every other bit zero."""
+    count, size, big, precision, offset = vals[2], vals[4], vals[5], \
+        vals[6], vals[7]
+    if not 0 < precision <= 8 * size - offset:
+        raise ValueError("HDF5: nbit precision and offset do not fit the "
+                         "datatype")
+    nbits = count * precision
+    if len(raw) * 8 < nbits:
+        raise ValueError("HDF5: nbit chunk is shorter than its elements")
+    bits = np.unpackbits(np.frombuffer(raw, np.uint8, (nbits + 7) // 8))
+    bits = bits[:nbits].reshape(count, precision).astype(np.uint64)
+    v = (bits << np.arange(precision - 1, -1, -1, dtype=np.uint64)).sum(
+        1, dtype=np.uint64) << np.uint64(offset)
+    out = v.astype("<u8").view(np.uint8).reshape(count, 8)[:, :size]
+    return (out[:, ::-1] if big else out).tobytes()
 
 
 def _unshuffle(raw: bytes, size: int) -> bytes:
@@ -734,20 +854,21 @@ class Dataset:
         self.dtype: np.dtype | None = None
         self.chunks: tuple[int, ...] | None = None
         self._filters: list[tuple[int, list[int]]] = []
+        self._fields = None
+        self._itemsize = 0              # bytes an element takes in the file
         self._fill = None
         self._index = None
         self._external = None
         layout = None
         for mtype, flags, d in msgs:
-            if flags & 0x02:
-                if mtype != DATATYPE:
-                    raise ValueError(f"HDF5: shared object header messages "
-                                     f"(type {mtype}) are not supported")
-                d = file._committed_datatype(_shared_address(d))
+            if flags & 0x02 and mtype in (DATASPACE, DATATYPE, FILL,
+                                          FILTERS, EXTERNAL):
+                d = file._shared_message(mtype, d)
             if mtype == DATASPACE:
                 self.shape, self.maxshape = _dataspace(d)
             elif mtype == DATATYPE:
-                self.dtype = _datatype(d)
+                self.dtype, self._fields = _datatype(d)
+                self._itemsize = _u(d, 4, 4)
             elif mtype == FILL:
                 self._fill = d
             elif mtype == LAYOUT:
@@ -849,7 +970,14 @@ class Dataset:
             size, val = _u(d, 2, 4), d[6:]
         if size == 0:
             return np.zeros((), self.dtype)[()]
-        return np.frombuffer(val[:size], self.dtype)[0]
+        return self._decode(val[:size], 1)[0]
+
+    def _decode(self, raw: bytes, count: int) -> np.ndarray:
+        """``count`` elements from the file's bytes, as h5py reads them."""
+        if self._fields is None:
+            return np.frombuffer(raw, self.dtype, count)
+        return _convert(raw[:count * self._itemsize], self.dtype,
+                        self._fields)
 
     # ------------------------------------------------------------ reading
     def _all(self) -> np.ndarray:
@@ -861,16 +989,16 @@ class Dataset:
     def _whole(self) -> np.ndarray:
         n = int(np.prod(self.shape, dtype=np.int64))
         if self._kind == 0:
-            raw = self._compact[:n * self.dtype.itemsize]
+            raw = self._compact[:n * self._itemsize]
         elif self._kind == 3:
             return self._virtual()
         elif self._external is not None:
-            raw = self._external_bytes(n * self.dtype.itemsize)
+            raw = self._external_bytes(n * self._itemsize)
         elif self._addr == UNDEF:
             return np.full(self.shape, self._fill_value(), self.dtype)
         else:
-            raw = self._rd.read(self._addr, n * self.dtype.itemsize)
-        return np.frombuffer(raw, self.dtype).reshape(self.shape).copy()
+            raw = self._rd.read(self._addr, n * self._itemsize)
+        return self._decode(raw, n).reshape(self.shape).copy()
 
     def _external_bytes(self, n: int) -> bytes:
         """The dataset's bytes from its external files: each slot's name
@@ -937,7 +1065,7 @@ class Dataset:
 
     def _chunk_index(self) -> dict:
         c = self.chunks
-        full = int(np.prod(c, dtype=np.int64)) * self.dtype.itemsize
+        full = int(np.prod(c, dtype=np.int64)) * self._itemsize
         kind, info = self._index_kind, self._index_info
         if self._addr == UNDEF:
             return {}
@@ -1017,7 +1145,7 @@ class Dataset:
     def _chunk(self, addr: int, nbytes: int, mask: int) -> np.ndarray:
         raw = self._rd.read(addr, nbytes)
         count = int(np.prod(self.chunks, dtype=np.int64))
-        full = count * self.dtype.itemsize
+        full = count * self._itemsize
         for i in reversed(range(len(self._filters))):
             if mask & (1 << i):
                 continue
@@ -1026,7 +1154,7 @@ class Dataset:
                 raw = zlib.decompress(raw)
             elif fid == SHUFFLE:
                 raw = _unshuffle(raw, vals[0] if vals else
-                                 self.dtype.itemsize)
+                                 self._itemsize)
             elif fid == FLETCHER32:
                 body, stored = raw[:-4], _u(raw, len(raw) - 4, 4)
                 s = _fletcher32(body)
@@ -1040,9 +1168,11 @@ class Dataset:
             elif fid == SZIP:
                 raw = _native("szip", raw, full, *vals[:4])
             elif fid == SCALEOFFSET:
-                raw = _scaleoffset(raw, vals, self.dtype, count)
-            # NBIT at full precision passes the bytes through
-        return np.frombuffer(raw, self.dtype, count).reshape(self.chunks)
+                raw = _scaleoffset(raw, vals, self._fields[0] if self._fields
+                                   else self.dtype, count)
+            elif fid == NBIT and not vals[1]:
+                raw = _nbit(raw, vals)
+        return self._decode(raw, count).reshape(self.chunks)
 
     def __getitem__(self, key):
         if isinstance(key, tuple):
@@ -1084,8 +1214,11 @@ class File:
         try:
             self._rd = _Reader(self._fh)
             self._datasets: dict[str, Dataset] = {}
-            self._soft: list[tuple[str, str]] = []
+            self._groups: set[str] = set()
+            self._soft: dict[str, str] = {}
             self._external: dict[str, tuple[str, str]] = {}
+            self._dangling: dict[str, bool] = {}    # name -> in a cycle
+            self._sohm: dict[int, _FractalHeap] = {}  # type -> its heap
             root = self._superblock()
             self._walk(root, "", set())
             self._resolve_soft_links()
@@ -1106,6 +1239,8 @@ class File:
             if _u(sb, 12, 8) != 0:
                 raise ValueError("HDF5: a base address other than 0 is not "
                                  "supported")
+            if _u(sb, 20, 8) != UNDEF:
+                self._shared_table(_u(sb, 20, 8))
             return _u(sb, 36, 8)
         if version not in (0, 1):
             raise ValueError(f"HDF5: superblock version {version} is not "
@@ -1120,11 +1255,41 @@ class File:
                              "supported")
         return _u(sb, 32 + 8, 8)     # root entry's object header
 
-    def _committed_datatype(self, addr: int) -> bytes:
-        for mtype, _, d in _messages(self._rd, addr):
-            if mtype == DATATYPE:
-                return d
-        raise ValueError(f"HDF5: no committed datatype at {addr}")
+    def _shared_table(self, ext: int) -> None:
+        """The shared message table named in the superblock extension (an
+        object header at ``ext``): each ``SMTB`` index's message types and
+        the fractal heap that holds its messages. An index's list
+        (``SMLI``) or version 2 B-tree of records is not read: a shared
+        message gives its heap ID, and HDF5 reads it from the heap alone
+        (H5SM_get_fheap_addr)."""
+        for mtype, _, d in _messages(self._rd, ext):
+            if mtype != SHARED_TABLE:
+                continue
+            addr, n = _u(d, 1, 8), d[9]
+            t = _checked(_signed(self._rd, addr, 8 + 30 * n, b"SMTB"),
+                         "shared message table")
+            for i in range(n):
+                e = t[4 + 30 * i:4 + 30 * (i + 1)]
+                heap = _FractalHeap(self._rd, _u(e, 22, 8))
+                self._sohm.update({k: heap for k in range(16)
+                                   if _u(e, 2, 2) >> k & 1})
+
+    def _shared_message(self, mtype: int, d: bytes) -> bytes:
+        """The body of a shared message of type ``mtype``: from the shared
+        message heap of the index that takes its type, or from the object
+        header that holds it (a committed datatype's)."""
+        in_heap, where = _shared(d)
+        if in_heap:
+            if mtype not in self._sohm:
+                raise ValueError(f"HDF5: a message of type {mtype} is "
+                                 f"shared, but no shared message index "
+                                 f"takes its type")
+            return self._sohm[mtype].get(where)
+        for t, _, body in _messages(self._rd, where):
+            if t == mtype:
+                return body
+        raise ValueError(f"HDF5: no message of type {mtype} in the object "
+                         f"header at {where}")
 
     def _links(self, msgs) -> list[tuple[str, str, object]] | None:
         """The links of a group's header, or None for a dataset."""
@@ -1134,8 +1299,15 @@ class File:
             btree, heap = _u(d, 0, 8), _u(d, 8, 8)
             h = _signed(self._rd, heap, 32, b"HEAP")
             names = self._rd.read(_u(h, 24, 8), _u(h, 8, 8))
-            return [(names[off:names.index(b"\0", off)].decode(), "hard", obj)
-                    for off, obj in self._symbols(btree)]
+
+            def text(off):
+                return names[off:names.index(b"\0", off)].decode()
+
+            # cache type 2: a soft link, its value at the scratch pad's
+            # offset into the same heap (the header address is UNDEF)
+            return [(text(off), "soft", text(_u(pad, 0, 4))) if cache == 2
+                    else (text(off), "hard", obj)
+                    for off, obj, cache, pad in self._symbols(btree)]
         if LINK_INFO not in types and LINK not in types:
             return None
         links = [_link(d) for t, _, d in msgs if t == LINK]
@@ -1161,28 +1333,74 @@ class File:
             return                          # a committed datatype
         if addr in seen:
             return
+        self._groups.add(name)
         seen = seen | {addr}
         for lname, kind, value in links:
             if kind == "hard":
                 self._walk(value, f"{prefix}{lname}/", seen)
             elif kind == "soft":
-                self._soft.append((f"{prefix}{lname}", value))
+                self._soft[f"{prefix}{lname}"] = value
             else:
                 self._external[f"{prefix}{lname}"] = value
 
     def _resolve_soft_links(self) -> None:
-        for name, target in self._soft:
+        """Soft links as HDF5 follows them: a link to a dataset (or an
+        external link) is another name of it; a link to a group names
+        every dataset and link under it, except where that group is
+        already on the link's path (a cycle of links, which h5py lists
+        but never walks). A link waits while its target is itself a link
+        not yet resolved, so chains resolve in turn. What never resolves
+        stays a dangling name, listed as h5py lists it: its target is
+        missing (``KeyError`` when read, as in h5py) or its chain is a
+        cycle (an error naming it, where h5py raises "too many links")."""
+
+        def target(name):
             base = name.rsplit("/", 1)[0] + "/" if "/" in name else ""
-            t = target.strip("/") if target.startswith("/") else \
-                (base + target).strip("/")
-            if t in self._datasets:
-                self._datasets[name] = self._datasets[t]
-            elif t in self._external:
-                self._external[name] = self._external[t]
-            else:                           # a group: its datasets
-                for k, ds in list(self._datasets.items()):
-                    if k.startswith(t + "/"):
-                        self._datasets[name + k[len(t):]] = ds
+            t = self._soft[name]
+            return (t if t.startswith("/") else base + t).strip("/")
+
+        # pending link -> the groups that links on its path already entered;
+        # the path guard ends every cycle, the bound a pathological file
+        pending = dict.fromkeys(self._soft, frozenset())
+        for _ in range(NUM_LINKS * NUM_LINKS):
+            done = []
+            for name, path in list(pending.items()):
+                t = target(name)
+                if t in self._datasets:
+                    self._datasets[name] = self._datasets[t]
+                elif t in self._external:
+                    self._external[name] = self._external[t]
+                elif t in self._groups:
+                    if not _under(name, t) and t not in path:
+                        self._enter(name, t, path | {t}, pending)
+                elif t not in self._soft:
+                    continue                # missing: dangling
+                else:
+                    continue                # waits for the link it names
+                done.append(name)
+            if not done:
+                break
+            for name in done:
+                pending.pop(name)
+        for name in pending:
+            seen, t = {name}, target(name)
+            while t in self._soft and t not in seen:
+                seen.add(t)
+                t = target(t)
+            self._dangling[name] = t in seen
+
+    def _enter(self, name: str, t: str, path: frozenset,
+               pending: dict) -> None:
+        """The names under group ``t`` again under the link ``name``: its
+        datasets, groups and links (the soft ones to be resolved there)."""
+        for table in (self._datasets, self._external, self._soft):
+            for k, v in list(table.items()):
+                if _under(k, t):
+                    table[name + k[len(t):]] = v
+                    if table is self._soft:
+                        pending[name + k[len(t):]] = path
+        self._groups |= {name + g[len(t):] for g in self._groups
+                         if _under(g, t)}
 
     def _source(self, src_file: str, name: str) -> Dataset | None:
         """A virtual dataset's source, or None where it is missing (HDF5
@@ -1200,9 +1418,10 @@ class File:
         except (OSError, KeyError):
             return None
 
-    def _symbols(self, addr: int) -> list[tuple[int, int]]:
-        """(name offset in the heap, object header address) of every
-        entry under the group B-tree node at ``addr``."""
+    def _symbols(self, addr: int) -> list[tuple[int, int, int, bytes]]:
+        """(name offset in the heap, object header address, cache type,
+        scratch pad) of every entry under the group B-tree node at
+        ``addr``."""
         head = self._rd.read(addr, 24)
         if head[:4] != b"TREE" or head[4] != 0:
             raise ValueError(f"HDF5: no group B-tree node at {addr}")
@@ -1219,7 +1438,8 @@ class File:
                 raise ValueError(f"HDF5: no symbol table node at {child}")
             n = _u(snod, 6, 2)
             ents = self._rd.read(child + 8, 40 * n)
-            out += [(_u(ents, 40 * j, 8), _u(ents, 40 * j + 8, 8))
+            out += [(_u(ents, 40 * j, 8), _u(ents, 40 * j + 8, 8),
+                     _u(ents, 40 * j + 16, 4), ents[40 * j + 24:40 * j + 40])
                     for j in range(n)]
         return out
 
@@ -1247,6 +1467,9 @@ class File:
         name = name.strip("/")
         if name in self._datasets:
             return self._datasets[name]
+        if self._dangling.get(name):
+            raise ValueError(f"HDF5: {name}: too many links (its soft links "
+                             f"form a cycle)")
         for link, (file, path) in self._external.items():
             if name != link and not name.startswith(link + "/"):
                 continue
@@ -1270,7 +1493,8 @@ class File:
 
     def __contains__(self, name) -> bool:
         name = str(name).strip("/")
-        if name in self._datasets or name in self._external:
+        if name in self._datasets or name in self._external or \
+                name in self._dangling:
             return True
         try:                                # under an external group
             self._get(name, 0)
@@ -1285,10 +1509,20 @@ class File:
         return len(self.keys())
 
     def keys(self):
-        """Dataset names, then the names of external links (not followed:
-        h5py lists a link whether or not its target can be read)."""
+        """Dataset names, then the names of external links (not followed)
+        and of dangling soft links: h5py lists a link whether or not its
+        target can be read."""
         return list(self._datasets) + [k for k in self._external
-                                       if k not in self._datasets]
+                                       if k not in self._datasets] + \
+            list(self._dangling)
+
+    def get(self, name: str, default=None):
+        """``f[name]``, or ``default`` where h5py's ``get`` gives it: the
+        name is missing or a dangling soft link."""
+        try:
+            return self[name]
+        except KeyError:
+            return default
 
     def close(self) -> None:
         sources, self._sources = self._sources, {}
@@ -1301,6 +1535,11 @@ class File:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+def _under(name: str, group: str) -> bool:
+    """Whether ``name`` lies under ``group`` ("" is the root)."""
+    return not group or name.startswith(group + "/")
 
 
 def _pad8(b: bytes) -> bytes:

@@ -11,10 +11,11 @@ components replicated, a fourth dropped; subsampled components (Aperio's
 where Cb or Cr is subsampled; in a JP2 file PIL's mode and OpenJPEG's
 colour space (sRGB, greyscale, sYCC through PIL's YCbCr tables, CMYK, a
 palette); packet headers in the packets or packed in PPM or PPT
-segments. Where PIL raises (one or two components with subsampling
-among them, the component transform over components of different
-sizes), for the features the decoder refuses (listed in its source:
-HTJ2K, Part 2, more than four components) and for truncated or corrupt
+segments; Part 15 signalling (Rsiz, CAP, CPF) over Part 1 code-blocks.
+Where PIL raises (one or two components with subsampling among them,
+the component transform over components of different sizes), for the
+features the decoder refuses (listed in its source: HT code-blocks,
+Part 2, more than four components) and for truncated or corrupt
 streams, it raises ``ValueError`` naming what it refuses.
 """
 

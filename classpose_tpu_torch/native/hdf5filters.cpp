@@ -12,7 +12,8 @@
 //     code), the second extension, k-split samples or raw samples.
 //
 // Entry points (C ABI, loaded with ctypes):
-//   h5_lzf_decode(in, n, out, cap)  -> bytes written, or -1
+//   h5_lzf_decode(in, n, out, cap)  -> bytes written, -2 when cap is too
+//       small (liblzf's E2BIG), or -1 when the data is corrupt (EINVAL)
 //   h5_szip_decode(in, n, out, cap, mask, ppb, bpp, pps, err, errlen)
 //       -> bytes written, or -1 with a message
 
@@ -31,6 +32,7 @@ struct Error : std::runtime_error {
 };
 
 // ------------------------------------------------------------------ lzf
+// liblzf's lzf_decompress with CHECK_INPUT, its checks in its order
 long lzf_decode(const uint8_t* ip, long n, uint8_t* op, long cap) {
   const uint8_t* in_end = ip + n;
   uint8_t* out = op;
@@ -39,7 +41,8 @@ long lzf_decode(const uint8_t* ip, long n, uint8_t* op, long cap) {
     unsigned ctrl = *ip++;
     if (ctrl < (1 << 5)) {  // a literal run of ctrl + 1 bytes
       ++ctrl;
-      if (op + ctrl > out_end || ip + ctrl > in_end) return -1;
+      if (op + ctrl > out_end) return -2;
+      if (ip + ctrl > in_end) return -1;
       memcpy(op, ip, ctrl);
       op += ctrl;
       ip += ctrl;
@@ -53,7 +56,8 @@ long lzf_decode(const uint8_t* ip, long n, uint8_t* op, long cap) {
       if (ip >= in_end) return -1;
       back += *ip++;
       len += 2;
-      if (op + len > out_end || back > op - out) return -1;
+      if (op + len > out_end) return -2;
+      if (back > op - out) return -1;
       const uint8_t* ref = op - back;
       for (unsigned i = 0; i < len; ++i) *op++ = *ref++;  // may overlap
     }

@@ -67,11 +67,13 @@
 // Float operations are written one at a time and the source is built with
 // -ffp-contract=off, so no multiply-add is fused on any host.
 //
+// Part 15 signalling over Part 1 code-blocks reads as OpenJPEG 2.5 reads
+// it: Rsiz bit 14, and CAP and CPF segments in the main header, skipped.
 // Refused with a message naming the feature: more than four components,
-// precisions above 31 bits, Part-15 (HTJ2K) and Part-2 codestreams
-// (Rsiz, markers, kernels, MCT, quantization, offsets, ROI styles), a
-// precinct period XRsiz * 2^(PPx + NL - r) of 2^31 or more in a
-// position-driven progression, and what OpenJPEG or PIL refuse:
+// precisions above 31 bits, HT code-blocks (Part 15's block coder), Part-2
+// codestreams (Rsiz, markers, kernels, MCT, quantization, offsets, ROI
+// styles), a precinct period XRsiz * 2^(PPx + NL - r) of 2^31 or more in
+// a position-driven progression, and what OpenJPEG or PIL refuse:
 // malformed boxes, a colour space with no unpacker for PIL's mode (one
 // or two components with any subsampling among them), the RCT or ICT
 // over components of different sizes, more than 256 palette colours,
@@ -311,7 +313,8 @@ struct Codestream {
       case 0xFF61:
         fail("PPT marker in the main header");
       case 0xFF50: case 0xFF59:
-        fail("HTJ2K (Part 15) marker " + hex(m) + " is not supported");
+        fail("Part 15 marker " + hex(m) + " (CAP or CPF) in a tile-part "
+             "header (OpenJPEG reads them in the main header only)");
       default:
         break;
     }
@@ -324,10 +327,10 @@ struct Codestream {
     size_t start = b.pos;
     int len = b.u16();
     int rsiz = b.u16();
+    // Rsiz bit 14 (Part 15) only signals: OpenJPEG picks HT decoding by
+    // each code-block's style, which parse_spc refuses
     if (rsiz & 0x8000) fail("Part-2 extensions (Rsiz " + hex(rsiz) +
                             ") are not supported");
-    if (rsiz & 0x4000) fail("HTJ2K (Part 15, Rsiz " + hex(rsiz) +
-                            ") is not supported");
     X = b.u32();
     Y = b.u32();
     X0 = b.u32();
@@ -494,7 +497,10 @@ struct Codestream {
         case 0xFF5E:
           parse_rgn(b, end, roishift, nullptr);
           break;
-        case 0xFF64: case 0xFF55: case 0xFF57: case 0xFF63:  // COM TLM PLM CRG
+        // COM TLM PLM CRG, and Part 15's CAP and CPF, which OpenJPEG
+        // 2.5 reads in the main header and skips
+        case 0xFF64: case 0xFF55: case 0xFF57: case 0xFF63:
+        case 0xFF50: case 0xFF59:
           b.pos = end;
           break;
         case 0xFF60:

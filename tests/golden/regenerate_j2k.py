@@ -595,6 +595,13 @@ def ext_streams() -> dict[str, bytes]:
         "j2k_ext_patched_subsampling.j2k": _patched(
             _opj(image(16, 20, 3, seed=40), numres=2), 0x51, 44,
             b"\x02\x02"),
+        # Part 15 signalling over Part 1 code-blocks, which OpenJPEG
+        # decodes by each code-block's style: Rsiz 0x4000, then CAP
+        # (Pcap 0x00020000, one Ccap) and CPF segments after SIZ
+        "j2k_ext_part15_rsiz.j2k": part15(_opj(image(16, 20, 3, seed=40),
+                                               numres=2)),
+        "j2k_ext_part15_cap_cpf.j2k": part15(
+            _opj(image(16, 20, 3, seed=40), numres=2), CAP + CPF),
     }
 
 
@@ -603,10 +610,26 @@ def _patched(data: bytes, marker: int, at: int, value: bytes) -> bytes:
     return data[:i] + value + data[i + len(value):]
 
 
+# Part 15's capabilities (Pcap bit 17: one Ccap15, here 0) and
+# corresponding profile (Pcpf 0) marker segments
+CAP = b"\xff\x50" + struct.pack(">HIH", 8, 0x00020000, 0)
+CPF = b"\xff\x59" + struct.pack(">HH", 4, 0)
+
+
+def part15(data: bytes, segments: bytes = b"", rsiz: int = 0x4000) -> bytes:
+    """A Part 1 stream as Part 15 signals it: Rsiz set to ``rsiz``, then
+    ``segments`` put right after SIZ."""
+    data = _patched(data, 0x51, 4, struct.pack(">H", rsiz))
+    i = data.index(b"\xff\x51")
+    end = i + 2 + struct.unpack(">H", data[i + 2:i + 4])[0]
+    return data[:end] + segments + data[end:]
+
+
 def refused_streams() -> dict[str, tuple[bytes, str]]:
     """The ``j2k_ext_refused_*`` goldens, by file name, with the word the
-    decoder's error names: what stays refused (HTJ2K; Part 2; more than
-    four components) and what PIL refuses too."""
+    decoder's error names: what stays refused (HT code-blocks, which PIL
+    fails on Part 1 data too; Part 2; more than four components) and what
+    PIL refuses too."""
     base = _opj(image(16, 20, 3, seed=40), numres=2)
     ppm = pack_headers(_sop_eph(image(16, 20, 3, seed=41)), "ppm")
     sot = ppm.index(b"\xff\x90")
@@ -615,8 +638,9 @@ def refused_streams() -> dict[str, tuple[bytes, str]]:
     both = (ppm[:sot + 6] + struct.pack(">I", psot + len(ppt))
             + ppm[sot + 10:sot + 12] + ppt + ppm[sot + 12:])
     return {
-        "j2k_ext_refused_htj2k.j2k": (_patched(base, 0x51, 4, b"\x40\x00"),
-                                      "HTJ2K"),
+        "j2k_ext_refused_ht_style.j2k": (_patched(part15(base), 0x52, 12,
+                                                  b"\x40"),
+                                         "HT block coding"),
         "j2k_ext_refused_part2_mct.j2k": (_patched(base, 0x52, 8, b"\x02"),
                                           "multiple component transform"),
         "j2k_ext_refused_five_components.j2k": (

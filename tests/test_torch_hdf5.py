@@ -507,8 +507,10 @@ def _nbit_file(path, dtype, a):
     ids=["i2", "f4", "u1", "f8_big_endian"])
 def test_nbit_full_precision(tmp_path, dtype, np_dtype):
     """The nbit filter as h5py writes it passes the chunk bytes through;
-    the same file with the "need not compress" flag cleared (reduced
-    precision, which h5py cannot create) raises by name."""
+    the same file with the "need not compress" flag cleared reads as
+    h5py reads it: the chunk taken as full-precision values packed MSB
+    first (a little-endian type of several bytes comes back with its
+    bytes swapped)."""
     path = tmp_path / "nbit.h5"
     a = (np.random.default_rng(4).normal(0, 50, (11, 3)) + 60
          ).astype(np_dtype)
@@ -520,9 +522,10 @@ def test_nbit_full_precision(tmp_path, dtype, np_dtype):
     assert raw.count(packed) == 1
     at = raw.index(packed) + 4
     path.write_bytes(raw[:at] + b"\0\0\0\0" + raw[at + 4:])
-    with pytest.raises(ValueError, match="nbit filter with reduced "
-                                         "precision"):
-        hdf5.File(path)
+    _reads_as_h5py(path)
+    with h5py.File(path, "r") as f:
+        assert bits_equal(f["x"][()],
+                          a.byteswap() if np_dtype[0] == "<" else a)
 
 
 def _external_pair(tmp_path, where):

@@ -336,7 +336,6 @@ def _refusals():
         "five-components": (_patch(base, siz + 38, struct.pack(">H", 5)),
                             "5 components"),
         "part2-rsiz": (_patch(base, siz + 4, b"\x80\x00"), "Part-2"),
-        "htj2k-rsiz": (_patch(base, siz + 4, b"\x40\x00"), "HTJ2K"),
         "part2-mct": (_patch(base, cod + 8, b"\x02"),
                       "multiple component transform 2"),
         "part2-wavelet": (_patch(base, cod + 13, b"\x02"),
@@ -359,6 +358,11 @@ def _refusals():
                 "PPT marker in a codestream with PPM"),
         "style-ht": (_patch(base, cod + 12, b"\x40"), "HT block coding"),
         "style-mixed-ht": (_patch(base, cod + 12, b"\x80"), "HT block coding"),
+        "part15-cap-in-tile-part": (_insert_tile(regen.part15(base),
+                                                 regen.CAP),
+                                    "in a tile-part header"),
+        "part15-cpf-in-tile-part": (_insert_tile(base, regen.CPF),
+                                    "in a tile-part header"),
     }
     return out
 
@@ -367,8 +371,10 @@ _REFUSALS = _refusals()
 
 
 # what PIL refuses as well; the other cases stay refused where PIL reads
-# them (HTJ2K, Part 2) or fail PIL another way
-_PIL_REFUSES = ("jp2", "precision", "ppm", "ppt", "five-components")
+# them (Part 2) or fail PIL another way
+_PIL_REFUSES = ("jp2", "precision", "ppm", "ppt", "five-components",
+                "style-ht", "part15-cap-in-tile-part",
+                "part15-cpf-in-tile-part")
 
 
 @pytest.mark.parametrize("name", list(_REFUSALS))
@@ -391,6 +397,55 @@ def test_refuses_by_name(name):
     if name in _PIL_REFUSES:
         with pytest.raises(Exception):
             regen.pil_rgb(data)
+
+
+_PART15 = {"rsiz-0x4000": dict(), "rsiz-0x4001": dict(rsiz=0x4001),
+           "rsiz-0x4002": dict(rsiz=0x4002),
+           "cap": dict(segments=regen.CAP),
+           "cap-cpf": dict(segments=regen.CAP + regen.CPF)}
+
+
+@pytest.mark.parametrize("name", list(_PART15))
+def test_part15_signalling_like_pil(name):
+    """Part 15 signalling over Part 1 code-blocks, once refused: Rsiz with
+    bit 14 set, a CAP segment (Pcap 0x00020000) and CAP with CPF after
+    SIZ. OpenJPEG picks HT decoding by each code-block's style, so PIL
+    decodes these to the unpatched stream's pixels, and so does the port;
+    the HT style itself stays refused (``style-ht``)."""
+    base = _base_stream()
+    data = regen.part15(base, **_PART15[name])
+    want = regen.pil_rgb(base)
+    np.testing.assert_array_equal(regen.pil_rgb(data), want)
+    np.testing.assert_array_equal(jpeg2000.decode(data), want)
+
+
+def test_part15_svs_read_region_equals_jax_reader(tmp_path):
+    """An Aperio SVS whose 33005 tiles carry Rsiz 0x4000 and a CAP
+    segment: the port's ``TiffSlide`` reads what the JAX reader (PIL)
+    reads, at both levels and across tile edges."""
+    from classpose_tpu.io.tiff_reader import TiffSlide as JaxTiffSlide
+    from classpose_tpu_torch.io import TiffSlide
+
+    rgb = regen.image(300, 260, 3, seed=21)
+    path = tmp_path / "part15.svs"
+    streams = regen.write_j2k_tiff(
+        path, rgb, tile=128, mpp=0.5, n_levels=2,
+        encode_tile=lambda k, c: regen.part15(
+            regen.encode(c, "RGB", irreversible=True, mct=1), regen.CAP))
+    assert all(st[6:8] == b"\x40\x00" and regen.CAP in st
+               for st in streams)
+    ours, ref = TiffSlide(str(path)), JaxTiffSlide(str(path))
+    try:
+        assert ours.level_dimensions == ref.level_dimensions
+        for level, loc, size in ((0, (0, 0), (260, 300)),
+                                 (0, (100, 90), (70, 80)),
+                                 (1, (0, 0), (130, 150))):
+            np.testing.assert_array_equal(
+                ours.read_region(loc, level, size),
+                np.asarray(ref.read_region(loc, level, size)))
+    finally:
+        ours.close()
+        ref.close()
 
 
 def test_patched_subsampling_like_pil():
