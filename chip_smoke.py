@@ -168,8 +168,8 @@
    find exactly its cells; the ``j2k_ext_*`` goldens (component
    precisions to 20 bits, JP2 files, PPM and PPT, and Part 15 signalling
    over Part 1 code-blocks: Rsiz 0x4000, CAP and CPF) must decode to their
-   hashes and the streams still refused (HT code-blocks among them) raise
-   naming what they use; the
+   hashes and the streams still refused (Part 1 data under the HT style
+   among them) raise naming what they use; the
    lossless ``tests/golden/j2k_ext_region.svs`` (the same region, its
    tiles in turn 12-bit, JP2-boxed, with PPM and with PPT headers) must
    decode to its hashes and, through the CLI with ``WSI_READER`` unset,
@@ -182,7 +182,18 @@
    60) must decode to its hashes and, through the CLI with
    ``WSI_READER`` unset, launch the five kernels and find the region
    run's cells (within 0.5%, ≥ 99% matched), its level 0 decoded whole
-   and run as an ``.npy`` exactly its cells; it prints the decoder's
+   and run as an ``.npy`` exactly its cells; the ``j2k_ht_*`` goldens
+   (HT code-blocks of Part 15: lossless and truncated blocks with their
+   SigProp and MagRef passes, 1, 3 and 4 components at 8 to 16 bits, both
+   wavelets, tiles, layers, a JP2 file) must decode to their hashes and
+   the refused ones (mixed HT, ROI, placeholder passes, malformed blocks)
+   raise naming what they use; the lossless
+   ``tests/golden/j2k_ht_region.svs`` (the same region, 16 tiles of
+   lossless 5/3 HT) must decode to its hashes and, through the CLI with
+   ``WSI_READER`` unset, launch the five kernels and find exactly the
+   region run's tiles and cells; it prints the HT decode rate in MP/s on
+   1 and 4 host threads beside the card's name and power limit, and
+   the decoder's
    rate in MP/s on one thread and on the loader's reader threads, for
    the 9/7 tiles and for each kind of the lossless and the subsampled
    SVS, and the runs' pipeline seconds; its JPEG-processes
@@ -496,6 +507,10 @@ J2K_EXT_SVS = GOLDEN / "j2k_ext_region.svs"
 # 4:2:0 and 4:2:2 in turn, beside the j2k_sub_* goldens (decoded) and
 # refused streams (raising by name)
 J2K_SUB_SVS = GOLDEN / "j2k_sub_region.svs"
+# and the lossless Aperio SVS of the same region (compression 33005) whose
+# 16 tiles hold HT code-blocks (Part 15), beside the j2k_ht_* goldens
+# (decoded) and refused streams (raising by name)
+J2K_HT_SVS = GOLDEN / "j2k_ht_region.svs"
 # its runs read 512² model tiles: a 3×3 grid over the region (at the WSI
 # phase's 1024² the region holds one tile)
 J2K_MODEL_TILE = 512
@@ -2713,7 +2728,8 @@ def run_slide_j2k(wsi: dict) -> dict:
         decode_threads=n_read, decode_nt_mp_per_s=tile_mp / decode_nt_s,
         decode_1t_s=decode_1t_s, decode_nt_s=decode_nt_s,
         ext=run_slide_j2k_ext(wsi, golden),
-        sub=run_slide_j2k_sub(wsi, golden), **svs)
+        sub=run_slide_j2k_sub(wsi, golden),
+        ht=run_slide_j2k_ht(wsi, golden), **svs)
 
 
 def run_slide_j2k_ext(wsi: dict, golden: dict) -> dict:
@@ -2824,6 +2840,39 @@ def run_slide_j2k_sub(wsi: dict, golden: dict) -> dict:
                 decode_rates=rates,
                 **run_region_svs(wsi, J2K_SUB_SVS,
                                  f"{work}/j2k_sub_decoded.npy"))
+
+
+def run_slide_j2k_ht(wsi: dict, golden: dict) -> dict:
+    """The JPEG 2000 step's HT code-blocks: the ``j2k_ht_*`` goldens
+    against PIL's hashes and the refused ones against their words; the
+    lossless HT SVS's tiles against theirs, the HT decode rate in MP/s on
+    1 and on 4 host threads, and the SVS through the CLI with
+    ``WSI_READER`` unset, which must find exactly the region run's
+    cells."""
+    check_goldens(golden, "ht_streams", "ht_refused")
+    slide = TiffSlide(str(J2K_HT_SVS))
+    p = slide._levels[0]
+    slide.close()
+    raw = J2K_HT_SVS.read_bytes()
+    streams = [raw[o:o + n] for o, n in zip(p.offsets, p.counts)]
+    tiles = golden["ht_svs"]["tiles"]
+    if p.compression != 33005 or len(streams) != len(tiles):
+        raise AssertionError(f"J2K HT SVS: compression {p.compression}, "
+                             f"{len(streams)} tiles")
+    for k, (st, want) in enumerate(zip(streams, tiles)):
+        if _sha256(jpeg2000.decode(st)) != want:
+            raise AssertionError(f"J2K HT SVS tile {k} decodes unlike PIL")
+    tile_mp = len(streams) * golden["svs"]["tile"] ** 2 / 1e6
+    rates = {}
+    for n in (1, 4):
+        with ThreadPoolExecutor(n) as pool:
+            t0 = time.perf_counter()
+            list(pool.map(jpeg2000.decode, streams * n))
+            rates[n] = n * tile_mp / (time.perf_counter() - t0)
+    return dict(goldens=len(golden["ht_streams"]),
+                refused=len(golden["ht_refused"]), svs_kib=len(raw) / 1024,
+                decode_mp_per_s={str(k): v for k, v in rates.items()},
+                **run_region_svs(wsi, J2K_HT_SVS, None))
 
 
 def run_region_svs(wsi: dict, svs: Path, decoded: str | None,
@@ -3809,6 +3858,15 @@ def main() -> int:
             f"level 0 as .npy {sub['decoded_pipeline_s']:.3f} s; "
             f"{sub['n_cells']} vs {sub['npy_n_cells']} cells, "
             f"{sub['matched_share']:.4f} matched")
+        ht = j2k["ht"]
+        log(f"slide J2K HT: {ht['goldens']} goldens as PIL's pixels, "
+            f"{ht['refused']} refusals by name; lossless HT SVS "
+            f"({ht['svs_kib']:.0f} KiB) decode "
+            f"{ht['decode_mp_per_s']['1']:.2f} MP/s on 1 host thread, "
+            f"{ht['decode_mp_per_s']['4']:.2f} MP/s on 4 ({smi}); pipeline "
+            f"{ht['pipeline_s']:.3f} s {ht['stage_seconds']} vs region .npy "
+            f"{ht['npy_pipeline_s']:.3f} s; {ht['n_cells']} vs "
+            f"{ht['npy_n_cells']} cells, {ht['matched_share']:.4f} matched")
         jp = slide_stats["jpeg_processes"]
         log("slide JPEG processes (host MP/s on 1 thread / on "
             f"{jp['decode_threads']}): " + ", ".join(

@@ -1,4 +1,4 @@
-"""JPEG 2000 Part-1 decoding on the native decoder
+"""JPEG 2000 Part-1 and HT (Part 15) decoding on the native decoder
 (``native/jpeg2000.cpp``), for the Aperio tiles (TIFF compressions 33003
 and 33005) of the TIFF slide reader: raw codestreams and JP2 files.
 
@@ -11,12 +11,13 @@ components replicated, a fourth dropped; subsampled components (Aperio's
 where Cb or Cr is subsampled; in a JP2 file PIL's mode and OpenJPEG's
 colour space (sRGB, greyscale, sYCC through PIL's YCbCr tables, CMYK, a
 palette); packet headers in the packets or packed in PPM or PPT
-segments; Part 15 signalling (Rsiz, CAP, CPF) over Part 1 code-blocks.
-Where PIL raises (one or two components with subsampling among them,
-the component transform over components of different sizes), for the
-features the decoder refuses (listed in its source: HT code-blocks,
-Part 2, more than four components) and for truncated or corrupt
-streams, it raises ``ValueError`` naming what it refuses.
+segments; Part 15 (HTJ2K): its signalling (Rsiz, CAP, CPF) and HT
+code-blocks, decoded as OpenJPEG decodes them. Where PIL raises (one or
+two components with subsampling among them, the component transform
+over components of different sizes, malformed HT blocks), for the
+features the decoder refuses (listed in its source: mixed HT and Part 1
+code-blocks, Part 2, more than four components) and for truncated or
+corrupt streams, it raises ``ValueError`` naming what it refuses.
 """
 
 from __future__ import annotations

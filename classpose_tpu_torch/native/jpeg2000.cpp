@@ -1,5 +1,6 @@
-// JPEG 2000 Part-1 decoder for the slide reader (Aperio SVS tiles, TIFF
-// compressions 33003 and 33005): raw codestreams and JP2 files.
+// JPEG 2000 Part-1 and HT (Part 15) decoder for the slide reader (Aperio
+// SVS tiles, TIFF compressions 33003 and 33005): raw codestreams and JP2
+// files.
 //
 // It follows the decoding path of OpenJPEG 2.5 step by step, and PIL 12's
 // unpacking of what OpenJPEG gives it, so its pixels equal those of
@@ -67,10 +68,12 @@
 // Float operations are written one at a time and the source is built with
 // -ffp-contract=off, so no multiply-add is fused on any host.
 //
-// Part 15 signalling over Part 1 code-blocks reads as OpenJPEG 2.5 reads
-// it: Rsiz bit 14, and CAP and CPF segments in the main header, skipped.
+// Part 15 (HTJ2K): Rsiz bit 14, and CAP and CPF segments in the main
+// header, skipped; HT code-blocks (style bit 0x40) through the HT block
+// decoder below, as OpenJPEG 2.5 decodes them (its tier-2 rule for their
+// codeword segments, its readers, its malformed-block errors).
 // Refused with a message naming the feature: more than four components,
-// precisions above 31 bits, HT code-blocks (Part 15's block coder), Part-2
+// precisions above 31 bits, mixed HT and Part 1 code-blocks, Part-2
 // codestreams (Rsiz, markers, kernels, MCT, quantization, offsets, ROI
 // styles), a precinct period XRsiz * 2^(PPx + NL - r) of 2^31 or more in
 // a position-driven progression, and what OpenJPEG or PIL refuse:
@@ -194,9 +197,9 @@ void parse_spc(Bytes& b, size_t end, bool custom, Spc& s) {
   if (s.cbw > 10 || s.cbh > 10 || s.cbw + s.cbh > 12)
     fail("COD/COC: code-block size out of range");
   s.cbstyle = b.u8();
-  if (s.cbstyle & 0xC0)
+  if (s.cbstyle & 0x80)
     fail("code-block style " + hex(unsigned(s.cbstyle)) +
-         ": HT block coding (Part 15) is not supported");
+         ": mixed HT and Part 1 code-blocks (HTMIXED) are not supported");
   int t = b.u8();
   if (t > 1) fail("COD/COC: wavelet transform " + std::to_string(t) +
                   " (Part 2 arbitrary kernels) is not supported");
@@ -1412,17 +1415,616 @@ struct Raw {
 };
 
 // code-block style flags; predictable termination (16) changes nothing
-// for a decoder
-enum : int { kBypass = 1, kReset = 2, kTermAll = 4, kVsc = 8, kSegSym = 32 };
+// for a decoder; HT (64) selects Part 15's block coder
+enum : int { kBypass = 1, kReset = 2, kTermAll = 4, kVsc = 8, kSegSym = 32,
+             kHt = 64 };
 
 struct CodewordSegment {
   int maxpasses, passes = 0;
   size_t len = 0;
 };
 
+// ------------------------------------------------------- tier 1: HT
+// HT code-blocks (ITU-T T.814 | ISO/IEC 15444-15, Part 15), decoded as
+// OpenJPEG 2.5's HT block decoder decodes them, so that PIL's pixels
+// follow bit for bit, malformed blocks included:
+//   - the cleanup segment of length Lcup ends in Scup, the length of its
+//     MEL and VLC streams (2 <= Scup <= min(Lcup, 4079)); MagSgn is read
+//     forward from its start (0xFF past its end), MEL forward from
+//     Lcup - Scup (the byte before the last ORed with 0xF, 0xFF past it)
+//     and VLC backward from byte Lcup - 2 (its high nibble first, zeros
+//     past its start); SigProp forward and MagRef backward over the
+//     second segment (zeros past either end);
+//   - each reader's bit stuffing as OpenJPEG's readers apply it: in the
+//     forward streams a byte after 0xFF gives 7 bits, in the backward
+//     ones a byte whose low 7 bits are ones gives 7 after a byte above
+//     0x8F, and the dropped top bit is ORed onto the next byte's first
+//     (it is zero in a well-formed stream), MEL drops it;
+//   - the cleanup pass over quad rows, quads in pairs (a last lone quad
+//     without a partner): MEL events for quads of context 0 and, in the
+//     first row, for pairs whose u_off are both set; the CxtVLC codeword
+//     of each quad from T.814's tables (context from the left quad in
+//     the first row, else from the row above and the left quad); the
+//     U-VLC of the pair (prefix, prefix, suffix, suffix; the first row's
+//     MEL and one-bit rules); kappa from the row above's exponents;
+//     MagSgn values of U_q - e_k bits with e_1 as their top bit;
+//   - SigProp over 4-row stripes in groups of four columns (the group's
+//     significance bits, then its signs; the stripe below ignored under
+//     the vertically causal style), MagRef over the stripes;
+//   - OpenJPEG's values: sign and magnitude with a half-bin below the
+//     last plane, bit planes counted as in tier 1 (p = numbps), then the
+//     same dequantization as the other blocks;
+//   - OpenJPEG's rules: at most 3 passes (placeholder passes raise), Mb
+//     at most 30, the zero bit planes at most Mb - 1 (one pass only where
+//     they are Mb - 1), a second pass with no bytes dropped, U_q at most
+//     the zero bit planes + 2, no significant sample outside the block,
+//     ROI refused, the MEL stream's first bytes checked as OpenJPEG's
+//     aligned reader reads them, no limit of 109 passes.
+
+// T.814's CxtVLC tables, one entry per codeword: (c_q << 23) | (rho << 19)
+// | (u_off << 18) | (e_k << 14) | (e_1 << 10) | (codeword << 3) | length,
+// the codeword's first bit its LSB; the first for the first quad row, the
+// second for the others (as OpenJPEG 2.5.4's lookup tables hold them: the
+// tables built below equal its own)
+constexpr uint32_t kVlcRow0[] = {
+    0x0080034, 0x00c45ff, 0x0100003, 0x0148bff, 0x018008d, 0x01c8aff,
+    0x01cc4ff, 0x0200013, 0x025109e, 0x0280075, 0x02d111e, 0x02d447f,
+    0x030001e, 0x034037f, 0x038017f, 0x03c806e, 0x03c8a7f, 0x0400023,
+    0x04621ee, 0x04800ee, 0x04c016e, 0x050000d, 0x05621ae, 0x0568bbf,
+    0x05801bf, 0x05c404e, 0x05c46bf, 0x06000f5, 0x06710ae, 0x067212e,
+    0x06730bf, 0x068033f, 0x06c453f, 0x06d523f, 0x06f603f, 0x07003df,
+    0x0748a5f, 0x076a02e, 0x07791df, 0x07802df, 0x07e64df, 0x07eeb5f,
+    0x07f88ce, 0x07f9b9f, 0x07fc59f, 0x07fd14e, 0x07fd45f, 0x07fe1ce,
+    0x07ff15f, 0x0800002, 0x0880074, 0x08c44ff, 0x0900034, 0x09489de,
+    0x09800de, 0x09c01ee, 0x0a00054, 0x0a5115e, 0x0a8005e, 0x0ad119e,
+    0x0ad47ff, 0x0b0009e, 0x0b4011e, 0x0b801ff, 0x0bc801e, 0x0bc8aff,
+    0x0c00014, 0x0c620ee, 0x0c8016e, 0x0cc006e, 0x0d001ae, 0x0d620ae,
+    0x0d68b7f, 0x0d8017f, 0x0dc408e, 0x0dc467f, 0x0e0000d, 0x0e6212e,
+    0x0e7102e, 0x0e8007f, 0x0ec44bf, 0x0ed51ce, 0x0ef63bf, 0x0f001bf,
+    0x0f48abf, 0x0f6a0ce, 0x0f7933f, 0x0f8003f, 0x0fe213f, 0x0fe884e,
+    0x0fee14e, 0x0ff918e, 0x0ffc63f, 0x1000002, 0x1080074, 0x10c44de,
+    0x1100034, 0x11489ff, 0x118015e, 0x11c459e, 0x11ccbff, 0x1200054,
+    0x125105e, 0x128000d, 0x12d449e, 0x12d511e, 0x12d557f, 0x130001e,
+    0x13402ff, 0x13800ff, 0x13c8b7f, 0x13cc48e, 0x13dd1bf, 0x1400014,
+    0x146227f, 0x14801ee, 0x14c00ee, 0x150016e, 0x154006e, 0x158007f,
+    0x15c81ae, 0x15c8bbf, 0x16000ae, 0x165112e, 0x16722bf, 0x16800bf,
+    0x16e202e, 0x16f11ce, 0x16f473f, 0x170013f, 0x17480ce, 0x1748bdf,
+    0x178023f, 0x17c444e, 0x17cc83f, 0x17dd18e, 0x17fc54e, 0x17fe1df,
+    0x1800003, 0x1880024, 0x18c45ee, 0x1900065, 0x1948a7f, 0x19800ee,
+    0x19c442e, 0x19ccbff, 0x1a000b5, 0x1a5116e, 0x1a80035, 0x1ad446e,
+    0x1ad51ae, 0x1ad54d5, 0x1b001ff, 0x1b512ff, 0x1b588ff, 0x1b8037f,
+    0x1bd90ae, 0x1bd997f, 0x1bdc52e, 0x1bdc87f, 0x1bdcfbf, 0x1c00055,
+    0x1c6203f, 0x1c801ce, 0x1cc45bf, 0x1ce62bf, 0x1d000ce, 0x1d6214e,
+    0x1d688bf, 0x1d8033f, 0x1dc463f, 0x1dcc84e, 0x1dec53f, 0x1dee3df,
+    0x1e0018e, 0x1e5108e, 0x1e721df, 0x1e802df, 0x1ee64df, 0x1ef450e,
+    0x1ef500e, 0x1ef555f, 0x1ef625f, 0x1ef735f, 0x1f0005f, 0x1f5109f,
+    0x1f721f6, 0x1f7899f, 0x1f7939f, 0x1f8029f, 0x1fea876, 0x1fee71f,
+    0x1ff991f, 0x1ffc4e5, 0x1ffc976, 0x1ffce1f, 0x1ffd015, 0x1ffd4f6,
+    0x1ffe095, 0x1fff01f, 0x2000002, 0x2080074, 0x20c45ff, 0x2100034,
+    0x21488de, 0x218015e, 0x21c89ee, 0x21cc7ff, 0x2200054, 0x22512ff,
+    0x228005e, 0x22c019e, 0x230009e, 0x234011e, 0x23800ff, 0x23d001e,
+    0x23d137f, 0x2400014, 0x24620ee, 0x248008e, 0x24c03bf, 0x250000d,
+    0x256896e, 0x256a06e, 0x256a97f, 0x258027f, 0x25c01ae, 0x25ec87f,
+    0x26000ae, 0x266212e, 0x26711bf, 0x26802bf, 0x26c402e, 0x26c443f,
+    0x27000bf, 0x27511ce, 0x27720ce, 0x2778b3f, 0x278013f, 0x27dc84e,
+    0x27ddbdf, 0x27e454e, 0x27e663f, 0x27ee18e, 0x27fd1df, 0x2800003,
+    0x28800d5, 0x28c47ff, 0x2900055, 0x29488ee, 0x298016e, 0x29cc5ff,
+    0x29cc9ce, 0x29cceff, 0x2a00095, 0x2a510ff, 0x2a8006e, 0x2ad11ae,
+    0x2ad477f, 0x2b000ae, 0x2b4892e, 0x2b5917f, 0x2b8027f, 0x2bd902e,
+    0x2bd9abf, 0x2bdc5bf, 0x2bdcbbf, 0x2bdcc7f, 0x2c00015, 0x2c620ce,
+    0x2c80136, 0x2ce20bf, 0x2ce473f, 0x2d000e5, 0x2d6884e, 0x2d6a18e,
+    0x2d6a94e, 0x2d8013f, 0x2de608e, 0x2de643f, 0x2dec7df, 0x2dec90e,
+    0x2dece3f, 0x2e0000e, 0x2e621f6, 0x2e711df, 0x2e802df, 0x2ee60f6,
+    0x2ee675f, 0x2ef455f, 0x2ef5176, 0x2ef54df, 0x2f0025f, 0x2f5985f,
+    0x2f78876, 0x2f7929f, 0x2f7a1b6, 0x2f7a99f, 0x2f7b39f, 0x2f8009f,
+    0x2fdd71f, 0x2fdd8b6, 0x2fdde1f, 0x2ff641f, 0x2ffc436, 0x2ffc825,
+    0x2ffcfef, 0x2ffd065, 0x2ffe0a5, 0x2ffe9ef, 0x2fff11f, 0x3000003,
+    0x3080024, 0x30c441e, 0x3100065, 0x314886e, 0x31800d5, 0x31cc4ee,
+    0x31cc96e, 0x31ccdee, 0x3200055, 0x32511ff, 0x32801ae, 0x32c44ae,
+    0x32d53ff, 0x330012e, 0x3348aff, 0x33590ff, 0x338037f, 0x33d902e,
+    0x33d9a7f, 0x33dc5b6, 0x33dcbbf, 0x33dcd7f, 0x3400095, 0x346207f,
+    0x34801ce, 0x34c45bf, 0x34e62bf, 0x35000ce, 0x354894e, 0x356a0bf,
+    0x358033f, 0x35e444e, 0x35e663f, 0x35ec98e, 0x35ee3df, 0x35ee93f,
+    0x360008e, 0x36711df, 0x367210e, 0x367303f, 0x36802df, 0x36d500e,
+    0x36d559f, 0x36f20df, 0x36f475f, 0x370015f, 0x374885f, 0x3778a5f,
+    0x377929f, 0x377a1f6, 0x377b39f, 0x378009f, 0x37d98f6, 0x37ee71f,
+    0x37fa976, 0x37fc4e5, 0x37fc815, 0x37fcc76, 0x37fd136, 0x37fd51f,
+    0x37fe036, 0x37ff0b6, 0x3800095, 0x388002e, 0x38c47ff, 0x39001ce,
+    0x39489ff, 0x39802ff, 0x39cc57f, 0x39ccb7f, 0x39cccff, 0x3a0027f,
+    0x3a5107f, 0x3a802bf, 0x3ac44ce, 0x3ad53bf, 0x3b001bf, 0x3b4014e,
+    0x3b800bf, 0x3bd9b3f, 0x3bdc44e, 0x3bdca3f, 0x3bdcd3f, 0x3bdd03f,
+    0x3bdd4df, 0x3c003df, 0x3c621df, 0x3c802df, 0x3cc018e, 0x3d0029f,
+    0x3d4888e, 0x3d6a35f, 0x3d8015f, 0x3de665f, 0x3dec79f, 0x3dec90e,
+    0x3decc5f, 0x3dee09f, 0x3dee99f, 0x3e0031f, 0x3e6211f, 0x3e7121f,
+    0x3e8001f, 0x3ee67ef, 0x3ef440e, 0x3ef51f6, 0x3ef56ef, 0x3ef60ef,
+    0x3ef71ef, 0x3f0036f, 0x3f5996f, 0x3f788f6, 0x3f793af, 0x3f7a076,
+    0x3f7a86f, 0x3f7b26f, 0x3f800af, 0x3ffc404, 0x3ffc864, 0x3ffcc55,
+    0x3ffd044, 0x3ffd4d5, 0x3ffd9b6, 0x3ffdeaf, 0x3ffe024, 0x3ffe576,
+    0x3ffe815, 0x3ffed2f, 0x3fff0b6, 0x3fff5af, 0x3fffb2f, 0x3fffc35
+};
+constexpr uint32_t kVlcRows[] = {
+    0x0080003, 0x00c453e, 0x0100033, 0x01488be, 0x018006d, 0x01c01de,
+    0x0200013, 0x025103e, 0x02800ad, 0x02c015e, 0x030000d, 0x03403ff,
+    0x03800ff, 0x03c00de, 0x0400023, 0x046202d, 0x04800cd, 0x04c009e,
+    0x050004d, 0x056205e, 0x05689ff, 0x05802ff, 0x05c019e, 0x060008d,
+    0x066211e, 0x067137f, 0x068007f, 0x06c001e, 0x070017f, 0x07501ee,
+    0x075127f, 0x07803bf, 0x07c40ee, 0x07c45bf, 0x0800001, 0x088002c,
+    0x08c47ff, 0x090004c, 0x09488ff, 0x09800ed, 0x09c45ff, 0x09ccaff,
+    0x0a0006d, 0x0a511bf, 0x0a8001e, 0x0ac037f, 0x0b0017f, 0x0b4027f,
+    0x0b8007f, 0x0bc03bf, 0x0c0000c, 0x0c620bf, 0x0c8005e, 0x0cc02bf,
+    0x0d0019e, 0x0d4033f, 0x0d8013f, 0x0dc015f, 0x0e0009e, 0x0e4023f,
+    0x0e8003f, 0x0ec03df, 0x0f001df, 0x0f402df, 0x0f800df, 0x0fd011e,
+    0x0fd135f, 0x1000001, 0x108004c, 0x10c47ff, 0x110000c, 0x114891e,
+    0x11801ee, 0x11c89ff, 0x11cc4ff, 0x12000ad, 0x12512ff, 0x128001e,
+    0x12c037f, 0x130017f, 0x134027f, 0x138007f, 0x13c00bf, 0x140002d,
+    0x14623bf, 0x14801bf, 0x14c02bf, 0x15000ee, 0x156896e, 0x156a33f,
+    0x156abdf, 0x158013f, 0x15c003f, 0x15eca3f, 0x160006e, 0x16401df,
+    0x16802df, 0x16c00df, 0x170035f, 0x175025f, 0x175115f, 0x178005f,
+    0x17d139f, 0x17d459f, 0x17dca9f, 0x17fe09f, 0x1800002, 0x1880054,
+    0x18c445e, 0x1900014, 0x194891e, 0x1980075, 0x19cc49e, 0x19cc99e,
+    0x19ccfff, 0x1a000b5, 0x1a511ff, 0x1a8001e, 0x1ac45ee, 0x1ad50ff,
+    0x1b000ee, 0x1b402ff, 0x1b8016e, 0x1bd117f, 0x1bd44f6, 0x1bdcb7f,
+    0x1c00035, 0x1c6227f, 0x1c8006e, 0x1cc01ae, 0x1d000ae, 0x1d4892e,
+    0x1d6a07f, 0x1d8002e, 0x1de21ce, 0x1dec7bf, 0x1dec8ce, 0x1deccbf,
+    0x1e0014e, 0x1e4004e, 0x1e801bf, 0x1ed018e, 0x1ed12bf, 0x1f0033f,
+    0x1f5113f, 0x1f7223f, 0x1f78b5f, 0x1f8008e, 0x1fd983f, 0x1fdcfdf,
+    0x1fea2df, 0x1ffc5f6, 0x1ffc90e, 0x1ffd15f, 0x1ffd4df, 0x1ffe00e,
+    0x1ffe9df, 0x2000001, 0x208006d, 0x20c47ff, 0x21000ad, 0x21489ff,
+    0x21802ff, 0x21c037f, 0x220004c, 0x225111e, 0x228019e, 0x22c00ff,
+    0x230009e, 0x234017f, 0x238027f, 0x23c02bf, 0x240000c, 0x246207f,
+    0x24803bf, 0x24c01bf, 0x25000ee, 0x25400bf, 0x258033f, 0x25c035f,
+    0x260002d, 0x267103f, 0x267223f, 0x267313f, 0x26803df, 0x26c01df,
+    0x27002df, 0x274801e, 0x27488df, 0x278015f, 0x27c465f, 0x27cc1ee,
+    0x27cc85f, 0x2800002, 0x28800f5, 0x28c45de, 0x2900055, 0x29489ff,
+    0x29800de, 0x29c005e, 0x2a00014, 0x2a5115e, 0x2a80075, 0x2ad119e,
+    0x2ad47ff, 0x2b0009e, 0x2b4037f, 0x2b8011e, 0x2bc80ae, 0x2bc8aff,
+    0x2c000b5, 0x2c6201e, 0x2c801ee, 0x2cc00ff, 0x2d000ee, 0x2d4016e,
+    0x2d8006e, 0x2dc41ae, 0x2dc467f, 0x2e00035, 0x2e5112e, 0x2e7217f,
+    0x2e8002e, 0x2ec47bf, 0x2ed51ce, 0x2ef607f, 0x2f000ce, 0x2f48abf,
+    0x2f6a00e, 0x2f791bf, 0x2f800d5, 0x2fdd93f, 0x2fe64bf, 0x2ff573f,
+    0x2ffc54e, 0x2ffc90e, 0x2ffcc3f, 0x2ffd18e, 0x2ffe08e, 0x2ffea3f,
+    0x2fff04e, 0x3000003, 0x3080014, 0x30c441e, 0x3100064, 0x31489ee,
+    0x31800ee, 0x31c886e, 0x31cc7ff, 0x3200024, 0x325116e, 0x3280055,
+    0x32d11ae, 0x32d457f, 0x33000ae, 0x33489ff, 0x33592ff, 0x338012e,
+    0x33c894e, 0x33cc4ff, 0x33dd37f, 0x34000b5, 0x346202e, 0x34801ce,
+    0x34c00ce, 0x3500035, 0x356884e, 0x356a27f, 0x356a87f, 0x3580076,
+    0x35c89bf, 0x35ea2bf, 0x35ec63f, 0x35ecbbf, 0x36000d5, 0x367113f,
+    0x367233f, 0x36730bf, 0x368018e, 0x36d13df, 0x36f21df, 0x36f455f,
+    0x36f503f, 0x370008e, 0x37510df, 0x377899f, 0x37792df, 0x377a10e,
+    0x377ab5f, 0x378000e, 0x37cce5f, 0x37dd85f, 0x37ee69f, 0x37fc51f,
+    0x37fc9f6, 0x37fd176, 0x37fd49f, 0x37fe0f6, 0x37feb9f, 0x37ff31f,
+    0x3800024, 0x388019e, 0x38c449e, 0x390011e, 0x3948bff, 0x398001e,
+    0x39c45ff, 0x39ccb7f, 0x3a0016e, 0x3a512ff, 0x3a800b5, 0x3ac45ee,
+    0x3ad50ff, 0x3b000ee, 0x3b403bf, 0x3b80035, 0x3bd127f, 0x3bdc46e,
+    0x3bdcabf, 0x3bdcc7f, 0x3bdd17f, 0x3c001ae, 0x3c621bf, 0x3c800ae,
+    0x3cc013f, 0x3d0012e, 0x3d4014e, 0x3d800d5, 0x3dc473f, 0x3dcc82e,
+    0x3dec4bf, 0x3dee3df, 0x3e001ce, 0x3e400ce, 0x3e80065, 0x3ec443f,
+    0x3ed504e, 0x3ef463f, 0x3ef60df, 0x3f0018e, 0x3f48adf, 0x3f6a1f6,
+    0x3f789df, 0x3f7905f, 0x3f80003, 0x3fdd90e, 0x3fee4f6, 0x3ffc415,
+    0x3ffc855, 0x3ffcc8e, 0x3ffd0e5, 0x3ffd576, 0x3ffdd5f, 0x3ffe095,
+    0x3ffe80e, 0x3ffee5f, 0x3fff076, 0x3ffff5f
+};
+
+// the tables indexed by (c_q << 7) | the next 7 VLC bits: (e_k << 12) |
+// (e_1 << 8) | (rho << 4) | (u_off << 3) | codeword length
+struct HtLut {
+  uint16_t vlc[2][1024];
+  HtLut() {
+    const uint32_t* src[2] = {kVlcRow0, kVlcRows};
+    size_t n[2] = {sizeof kVlcRow0 / sizeof *kVlcRow0,
+                   sizeof kVlcRows / sizeof *kVlcRows};
+    for (int t = 0; t < 2; ++t) {
+      std::fill(vlc[t], vlc[t] + 1024, uint16_t(0));
+      for (size_t i = 0; i < n[t]; ++i) {
+        uint32_t e = src[t][i];
+        int cq = int(e >> 23), len = int(e & 7), cwd = int(e >> 3 & 127);
+        auto v = uint16_t((e >> 14 & 15) << 12 | (e >> 10 & 15) << 8 |
+                          (e >> 19 & 15) << 4 | (e >> 18 & 1) << 3 |
+                          uint32_t(len));
+        for (int j = 0; j < 1 << (7 - len); ++j)
+          vlc[t][(cq << 7) | (j << len) | cwd] = v;
+      }
+    }
+  }
+};
+
+const HtLut& ht_lut() {
+  static const HtLut lut;  // built once, thread-safe
+  return lut;
+}
+
+// forward streams (MagSgn, SigProp), LSB first
+struct HtFwd {
+  const uint8_t* d = nullptr;
+  int64_t n = 0, i = 0;
+  uint64_t fill = 0, tmp = 0;
+  int bits = 0;
+  bool unstuff = false;
+  void init(const uint8_t* data, int64_t size, uint8_t x) {
+    d = data;
+    n = size;
+    i = 0;
+    fill = x;
+    tmp = 0;
+    bits = 0;
+    unstuff = false;
+  }
+  uint32_t fetch() {
+    while (bits < 32) {
+      uint64_t b = i < n ? d[i] : fill;
+      ++i;
+      tmp |= b << bits;
+      bits += unstuff ? 7 : 8;
+      unstuff = b == 0xFF;
+    }
+    return uint32_t(tmp);
+  }
+  void advance(int k) {
+    tmp >>= k;
+    bits -= k;
+  }
+};
+
+// backward streams (VLC, MagRef), LSB first, from d[pos] down
+struct HtRev {
+  const uint8_t* d = nullptr;
+  int64_t pos = 0, left = 0;
+  uint64_t tmp = 0;
+  int bits = 0;
+  bool unstuff = false;
+  uint32_t fetch() {
+    while (bits < 32) {
+      uint64_t b = 0;
+      if (left > 0) {
+        b = d[pos--];
+        --left;
+      }
+      tmp |= b << bits;
+      bits += unstuff && (b & 0x7F) == 0x7F ? 7 : 8;
+      unstuff = b > 0x8F;
+    }
+    return uint32_t(tmp);
+  }
+  void advance(int k) {
+    tmp >>= k;
+    bits -= k;
+  }
+};
+
+// the MEL stream, MSB first, and its adaptive run decoder; a run is
+// (zeros << 1) | 1 where it ends in an event, else (2^e - 1) << 1 for
+// 2^e zeros (OpenJPEG's encoding of runs)
+struct HtMel {
+  const uint8_t* d = nullptr;
+  int64_t i = 0, left = 0;
+  uint32_t cur = 0;
+  int bits = 0, k = 0;
+  bool unstuff = false;
+  void init(const uint8_t* data, int64_t start, int64_t size) {
+    d = data;
+    i = start;
+    left = size;
+    bits = k = 0;
+    unstuff = false;
+  }
+  int bit() {
+    if (bits == 0) {
+      uint32_t b = left > 0 ? d[i] : 0xFF;
+      if (left == 1) b |= 0xF;
+      if (left > 0) ++i;
+      --left;
+      bits = unstuff ? 7 : 8;
+      cur = b & ((1u << bits) - 1);
+      unstuff = b == 0xFF;
+    }
+    --bits;
+    return int(cur >> bits & 1);
+  }
+  int run() {
+    static constexpr int kExp[13] = {0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 4, 5};
+    int e = kExp[k];
+    if (bit()) {
+      k = std::min(k + 1, 12);
+      return ((1 << e) - 1) << 1;
+    }
+    int r = 0;
+    for (int j = 0; j < e; ++j) r = (r << 1) | bit();
+    k = std::max(k - 1, 0);
+    return (r << 1) + 1;
+  }
+};
+
+// OpenJPEG's mel_init reads the first 4 - (address & 3) bytes of the MEL
+// stream one at a time and fails on one above 0x8F after 0xFF; `addr` is
+// the block's data address mod 4 (the packet's offset in the tile's data
+// for a block in one chunk, 0 for one copied from several)
+bool ht_mel_start_ok(const uint8_t* cd, int64_t start, int64_t size,
+                     int64_t addr) {
+  int num = 4 - int((addr + start) & 3);
+  bool unstuff = false;
+  int64_t pos = start, left = size;
+  for (int j = 0; j < num; ++j) {
+    if (unstuff && cd[pos] > 0x8F) return false;
+    uint32_t b = left > 0 ? cd[pos] : 0xFF;
+    if (left == 1) b |= 0xF;
+    if (left > 0) ++pos;
+    --left;
+    unstuff = b == 0xFF;
+  }
+  return true;
+}
+
+// OpenJPEG's U-VLC prefixes by the next three bits: prefix length, suffix
+// length << 2, u_pfx << 5
+constexpr uint8_t kUvlc[8] = {3 | 5 << 2 | 5 << 5, 1 | 0 << 2 | 1 << 5,
+                              2 | 0 << 2 | 2 << 5, 1 | 0 << 2 | 1 << 5,
+                              3 | 1 << 2 | 3 << 5, 1 | 0 << 2 | 1 << 5,
+                              2 | 0 << 2 | 2 << 5, 1 | 0 << 2 | 1 << 5};
+
+// the pair's U-VLC: u[k] = u_q + 1 of each quad (1 without u_off); mode:
+// u_off bits, 4 for the first row's pair with its MEL event set (u_q -
+// 2 coded); `first`: the first row's one-bit rule; returns the bits used
+int ht_uvlc(uint32_t vlc, int mode, bool first, uint32_t u[2]) {
+  int used = 0;
+  auto prefix = [&]() {
+    uint32_t d = kUvlc[vlc & 7];
+    vlc >>= d & 3;
+    used += int(d & 3);
+    return d;
+  };
+  auto suffix = [&](uint32_t d) {
+    uint32_t n = d >> 2 & 7;
+    uint32_t v = (d >> 5) + (vlc & ((1u << n) - 1));
+    vlc >>= n;
+    used += int(n);
+    return v;
+  };
+  u[0] = u[1] = 1;
+  if (mode == 1 || mode == 2) {
+    u[mode - 1] = suffix(prefix()) + 1;
+  } else if (mode == 3 && first) {
+    uint32_t d1 = prefix();
+    if ((d1 & 3) > 2) {
+      u[1] = (vlc & 1) + 2;
+      vlc >>= 1;
+      ++used;
+      u[0] = suffix(d1) + 1;
+    } else {
+      uint32_t d2 = prefix();
+      u[0] = suffix(d1) + 1;
+      u[1] = suffix(d2) + 1;
+    }
+  } else if (mode >= 3) {
+    uint32_t d1 = prefix(), d2 = prefix();
+    uint32_t add = mode == 4 ? 3 : 1;
+    u[0] = suffix(d1) + add;
+    u[1] = suffix(d2) + add;
+  }
+  return used;
+}
+
+struct HtT1 {
+  int w = 0, h = 0, pw = 0, ph = 0;
+  std::vector<int32_t> data;   // the block, as T1 gives it
+  std::vector<uint32_t> val;   // sign and magnitude, padded to whole quads
+  std::vector<uint8_t> ex;     // exponents E (bit length of 2 mu - 1)
+  std::vector<uint8_t> sig;    // cleanup significance, padded
+  std::vector<uint8_t> nsig;   // SigProp's new significance
+  std::vector<std::pair<int, int>> signs;
+
+  uint8_t s(int y, int x) const {
+    return x < 0 || y < 0 ? 0 : sig[size_t(y) * pw + x];
+  }
+
+  // a block of `numbps` planes below `mb`, its first two codeword
+  // segments' passes and lengths, the bytes of all its chunks (at least
+  // one segment), `addr` as in ht_mel_start_ok
+  void decode(int cw, int ch, int mb, int numbps, int style,
+              const std::vector<CodewordSegment>& segs,
+              const std::vector<uint8_t>& bytes, int64_t addr) {
+    w = cw;
+    h = ch;
+    data.assign(size_t(w) * h, 0);
+    // `bytes` holds every segment's bytes: the first two segments fit
+    int passes = segs[0].passes + (segs.size() > 1 ? segs[1].passes : 0);
+    int64_t len1 = int64_t(segs[0].len);
+    int64_t len2 = passes > 1 && segs.size() > 1 ? int64_t(segs[1].len) : 0;
+    if (passes > 1 && len2 == 0) passes = 1;  // OpenJPEG warns
+    if (passes > 3)
+      fail("HT code-block with " + std::to_string(passes) +
+           " coding passes (placeholder passes: at most 3 are supported)");
+    if (mb > 30)
+      fail("HT code-block with " + std::to_string(mb) +
+           " bit planes (at most 30)");
+    int zbp1 = mb + 1 - numbps;  // the zero bit planes + 1
+    if (zbp1 > mb)
+      fail("malformed HT code-block: " + std::to_string(zbp1 - 1) +
+           " zero bit planes of " + std::to_string(mb));
+    if (zbp1 == mb && passes > 1) passes = 1;  // nothing below the cleanup
+    int p = numbps;
+    if (len1 < 2)
+      fail("malformed HT code-block: a cleanup segment of " +
+           std::to_string(len1) + " bytes");
+    const uint8_t* cd = bytes.data();
+    int64_t lcup = len1;
+    int64_t scup = (int64_t(cd[lcup - 1]) << 4) + (cd[lcup - 2] & 0xF);
+    if (scup < 2 || scup > lcup || scup > 4079)
+      fail("malformed HT code-block: Scup " + std::to_string(scup) +
+           " out of range (2 <= Scup <= min(Lcup, 4079))");
+    if (!ht_mel_start_ok(cd, lcup - scup, scup - 1, addr))
+      fail("malformed HT code-block: incorrect MEL segment sequence");
+    cleanup(cd, lcup, scup, p, zbp1 + 1);
+    if (passes > 1) sigprop(cd + lcup, len2, p, style & kVsc);
+    if (passes > 2) magref(cd, lcup + len2, len2, p);
+    for (int y = 0; y < h; ++y)
+      for (int x = 0; x < w; ++x) {
+        uint32_t v = val[size_t(y) * pw + x];
+        auto mag = int32_t(v & 0x7FFFFFFF);
+        data[size_t(y) * w + x] = v >> 31 ? -mag : mag;
+      }
+  }
+
+  void cleanup(const uint8_t* cd, int64_t lcup, int64_t scup, int p,
+               int umax) {
+    const HtLut& lut = ht_lut();
+    int qw = (w + 1) / 2, qh = (h + 1) / 2;
+    pw = 2 * qw + 1;  // the row above is read up to column qx + 2
+    ph = 2 * qh;
+    val.assign(size_t(pw) * ph, 0);
+    ex.assign(size_t(pw) * ph, 0);
+    sig.assign(size_t(pw) * ph, 0);
+    HtFwd ms;
+    ms.init(cd, lcup - scup, 0xFF);
+    HtMel mel;
+    mel.init(cd, lcup - scup, scup - 1);
+    HtRev vlc;
+    vlc.d = cd;
+    uint32_t b0 = cd[lcup - 2];
+    vlc.tmp = b0 >> 4;
+    vlc.bits = 4 - ((vlc.tmp & 7) == 7);
+    vlc.unstuff = (b0 | 0xF) > 0x8F;
+    vlc.pos = lcup - 3;
+    vlc.left = scup - 2;
+    int run = mel.run();
+    auto mel_event = [&]() {
+      run -= 2;
+      bool one = run == -1;
+      if (run < 0) run = mel.run();
+      return one;
+    };
+    for (int qy = 0; qy < qh; ++qy) {
+      bool first = qy == 0;
+      const uint16_t* tab = lut.vlc[first ? 0 : 1];
+      int y = 2 * qy;
+      uint32_t rho_left = 0;
+      for (int x = 0; x < 2 * qw; x += 4) {
+        int nq = x + 2 < w ? 2 : 1;
+        uint32_t qinf[2] = {0, 0};
+        for (int k = 0; k < nq; ++k) {
+          int qx = x + 2 * k;
+          uint32_t c;
+          if (first) {
+            c = (rho_left & 1) | (rho_left >> 1 & 1) |
+                (rho_left >> 2 & 1) << 1 | (rho_left >> 3 & 1) << 2;
+          } else {
+            c = uint32_t(s(y - 1, qx - 1) | s(y - 1, qx)) |
+                uint32_t(s(y, qx - 1) | s(y + 1, qx - 1)) << 1 |
+                uint32_t(s(y - 1, qx + 1) | s(y - 1, qx + 2)) << 2;
+          }
+          uint32_t t = tab[c << 7 | (vlc.fetch() & 0x7F)];
+          if (c == 0 && !mel_event()) t = 0;
+          vlc.advance(int(t & 7));
+          qinf[k] = t;
+          rho_left = t >> 4 & 15;
+          if (((qx + 1 >= w) && (rho_left & 0xC)) ||
+              ((y + 1 >= h) && (rho_left & 0xA)))
+            fail("malformed HT code-block: significant samples outside the "
+                 "code-block");
+          for (int n = 0; n < 4; ++n)
+            if (rho_left >> n & 1)
+              sig[size_t(y + (n & 1)) * pw + qx + (n >> 1)] = 1;
+        }
+        int mode = int(qinf[0] >> 3 & 1) | int(qinf[1] >> 3 & 1) << 1;
+        if (first && mode == 3 && mel_event()) mode = 4;
+        uint32_t u[2];
+        vlc.advance(ht_uvlc(vlc.fetch(), mode, first, u));
+        for (int k = 0; k < nq; ++k) {
+          int qx = x + 2 * k;
+          uint32_t rho = qinf[k] >> 4 & 15;
+          uint32_t uq = u[k];
+          if (!first) {
+            uint32_t kappa = 1;
+            if (rho & (rho - 1)) {
+              int emax = 0;
+              for (int xx = std::max(0, qx - 1); xx <= qx + 2; ++xx)
+                emax = std::max(emax, int(ex[size_t(y - 1) * pw + xx]));
+              kappa = uint32_t(std::max(1, emax - 1));
+            }
+            uq += kappa - 1;
+          }
+          if (uq > uint32_t(umax))
+            fail("malformed HT code-block: U_q " + std::to_string(uq) +
+                 " above the zero bit planes + 2");
+          for (int n = 0; n < 4; ++n) {
+            if (!(rho >> n & 1)) continue;
+            uint32_t v = ms.fetch();
+            int m = int(uq) - int(qinf[k] >> (12 + n) & 1);
+            ms.advance(m);
+            uint32_t vn = v & ((uint32_t(1) << m) - 1);
+            vn |= (qinf[k] >> (8 + n) & 1) << m;
+            vn |= 1;
+            size_t at = size_t(y + (n & 1)) * pw + qx + (n >> 1);
+            val[at] = v << 31 | (vn + 2) << (p - 1);
+            ex[at] = uint8_t(32 - __builtin_clz(vn));
+          }
+        }
+      }
+    }
+  }
+
+  void sigprop(const uint8_t* seg, int64_t len, int p, bool causal) {
+    HtFwd sp;
+    sp.init(seg, len, 0);
+    nsig.assign(size_t(w) * h, 0);
+    auto next = [&]() {
+      uint32_t v = sp.fetch() & 1;
+      sp.advance(1);
+      return v;
+    };
+    for (int y0 = 0; y0 < h; y0 += 4) {
+      int y1 = std::min(y0 + 4, h);
+      for (int x0 = 0; x0 < w; x0 += 4) {
+        signs.clear();
+        for (int x = x0; x < std::min(x0 + 4, w); ++x)
+          for (int y = y0; y < y1; ++y) {
+            if (sig[size_t(y) * pw + x]) continue;
+            bool member = false;
+            for (int dy = -1; dy <= 1 && !member; ++dy)
+              for (int dx = -1; dx <= 1 && !member; ++dx) {
+                int yy = y + dy, xx = x + dx;
+                if ((dy == 0 && dx == 0) || yy < 0 || xx < 0 || yy >= ph)
+                  continue;
+                if (sig[size_t(yy) * pw + xx] &&
+                    !(causal && yy >= y0 + 4))
+                  member = true;
+                else if (yy < h && xx < w && nsig[size_t(yy) * w + xx])
+                  member = true;
+              }
+            if (member && next()) {
+              nsig[size_t(y) * w + x] = 1;
+              signs.emplace_back(y, x);
+            }
+          }
+        for (auto [y, x] : signs)
+          val[size_t(y) * pw + x] = next() << 31 | 3u << (p - 2);
+      }
+    }
+  }
+
+  void magref(const uint8_t* cd, int64_t end, int64_t len, int p) {
+    HtRev mr;
+    mr.d = cd;
+    mr.pos = end - 1;
+    mr.left = len;
+    mr.unstuff = true;
+    for (int y0 = 0; y0 < h; y0 += 4)
+      for (int x = 0; x < w; ++x)
+        for (int y = y0; y < std::min(y0 + 4, h); ++y) {
+          if (!sig[size_t(y) * pw + x]) continue;
+          uint32_t b = mr.fetch() & 1;
+          mr.advance(1);
+          uint32_t& v = val[size_t(y) * pw + x];
+          v ^= (b ^ 1) << (p - 1);
+          v |= 1u << (p - 2);
+        }
+  }
+};
+
+
 struct T1 {
   int w = 0, h = 0, fs = 0;
   bool vsc = false;
+  HtT1 ht;
   std::vector<int32_t> data;
   std::vector<uint32_t> flags;
   std::vector<uint8_t> seg;
@@ -1601,6 +2203,8 @@ struct Cblk {
   int64_t x0, y0, x1, y1;
   bool included = false;
   int numbps = 0, lblock = 3, passes = 0;
+  int chunks = 0;      // packet parts read, empty ones too
+  int64_t first = 0;   // the first one's offset in the tile's data
   std::vector<CodewordSegment> segs;
   std::vector<uint8_t> bytes;
 };
@@ -1824,7 +2428,7 @@ struct PacketReader {
             if (++C.lblock > 32) fail("corrupt packet header (Lblock)");
           }
           C.passes += np;
-          if (C.passes > 109)
+          if (C.passes > 109 && !(style & kHt))
             fail("corrupt packet header (more than 109 coding passes)");
           // the passes fill the open segment, then new ones; each part
           // has its own length
@@ -1833,7 +2437,10 @@ struct PacketReader {
             C.segs.push_back({seg_maxpasses(style, C.segs)});
           size_t sg = C.segs.size() - 1;
           for (;;) {
-            int nn = std::min(C.segs[sg].maxpasses - C.segs[sg].passes, np);
+            // HT (OpenJPEG's rule): the first segment takes one pass each
+            // time it is open, the next one the rest
+            int nn = style & kHt ? (sg == 0 ? 1 : np)
+                     : std::min(C.segs[sg].maxpasses - C.segs[sg].passes, np);
             int nbits = C.lblock + floorlog2(uint32_t(nn));
             if (nbits > 32) fail("corrupt packet header (length bits)");
             parts.push_back({&C, sg, nn, bio.read(nbits)});
@@ -1852,6 +2459,7 @@ struct PacketReader {
     for (const Part& pt : parts) {
       if (pt.len > d.size() - pos) fail("truncated packet body");
       CodewordSegment& sg = pt.cb->segs[pt.seg];
+      if (pt.cb->chunks++ == 0) pt.cb->first = int64_t(pos);
       pt.cb->bytes.insert(pt.cb->bytes.end(), d.begin() + long(pos),
                           d.begin() + long(pos + pt.len));
       sg.len += pt.len;
@@ -2035,10 +2643,21 @@ void decode_blocks(TileComp& tc, T1& t1) {
           int64_t ox = C.x0 - B.x0 + offx, oy = C.y0 - B.y0 + offy;
           if (ox < 0 || oy < 0 || ox + cw > stride || oy + ch > tc.height())
             fail("code-block outside its tile-component");
-          t1.decode(cw, ch, B.bandno, C.numbps, tc.roishift, tc.spc.cbstyle,
-                    C.segs, C.bytes);
+          const std::vector<int32_t>* out = &t1.data;
+          if (tc.spc.cbstyle & kHt) {
+            if (tc.roishift)
+              fail("ROI in HT code-blocks is not supported (as in OpenJPEG)");
+            // OpenJPEG reads a block of one chunk in place in the tile's
+            // data, several from a copy
+            t1.ht.decode(cw, ch, B.mb, C.numbps, tc.spc.cbstyle, C.segs,
+                         C.bytes, C.chunks == 1 ? C.first & 3 : 0);
+            out = &t1.ht.data;
+          } else {
+            t1.decode(cw, ch, B.bandno, C.numbps, tc.roishift,
+                      tc.spc.cbstyle, C.segs, C.bytes);
+          }
           for (int y = 0; y < ch; ++y) {
-            const int32_t* src = &t1.data[size_t(y) * cw];
+            const int32_t* src = &(*out)[size_t(y) * cw];
             size_t at = size_t((oy + y) * stride + ox);
             if (rev) {
               int32_t* dst = &tc.idata[at];

@@ -627,9 +627,9 @@ def part15(data: bytes, segments: bytes = b"", rsiz: int = 0x4000) -> bytes:
 
 def refused_streams() -> dict[str, tuple[bytes, str]]:
     """The ``j2k_ext_refused_*`` goldens, by file name, with the word the
-    decoder's error names: what stays refused (HT code-blocks, which PIL
-    fails on Part 1 data too; Part 2; more than four components) and what
-    PIL refuses too."""
+    decoder's error names: what stays refused (Part 1 data under the HT
+    style, which PIL fails on too; Part 2; more than four components) and
+    what PIL refuses too."""
     base = _opj(image(16, 20, 3, seed=40), numres=2)
     ppm = pack_headers(_sop_eph(image(16, 20, 3, seed=41)), "ppm")
     sot = ppm.index(b"\xff\x90")
@@ -638,9 +638,11 @@ def refused_streams() -> dict[str, tuple[bytes, str]]:
     both = (ppm[:sot + 6] + struct.pack(">I", psot + len(ppt))
             + ppm[sot + 10:sot + 12] + ppt + ppm[sot + 12:])
     return {
+        # Part 1 data read by the HT block decoder: OpenJPEG refuses its
+        # 19 passes (at most 3: placeholder passes are not supported)
         "j2k_ext_refused_ht_style.j2k": (_patched(part15(base), 0x52, 12,
                                                   b"\x40"),
-                                         "HT block coding"),
+                                         "19 coding passes"),
         "j2k_ext_refused_part2_mct.j2k": (_patched(base, 0x52, 8, b"\x02"),
                                           "multiple component transform"),
         "j2k_ext_refused_five_components.j2k": (
@@ -732,6 +734,157 @@ def ext_tile(k: int, rgb: np.ndarray) -> bytes:
                         segments=2)
 
 
+# ------------------------------------------------------- HT code-blocks
+
+HT_SVS_NAME = "j2k_ht_region.svs"
+
+
+def _ht():
+    try:
+        from golden import htj2k
+    except ImportError:  # run as a script: this directory is on the path
+        import htj2k
+    return htj2k
+
+
+def ht_streams() -> dict[str, bytes]:
+    """The ``j2k_ht_*`` goldens PIL decodes, by file name: HT code-blocks
+    written by ``htj2k.encode`` (lossless ones first: PIL must give back
+    their sources), then truncated blocks (cleanup only, with SigProp,
+    with MagRef), the vertically causal style, several tiles at offsets,
+    several layers, SOP/EPH, Part 1 style bits beside HT, a JP2 file."""
+    ht = _ht()
+    rgb = image(61, 70, 3, seed=70)
+    grey12 = _ext_image(29, 37, 1, 12, 71)[..., 0]
+    rgba16 = _ext_image(33, 45, 4, 16, 72)
+    allp = ht.Plan(plane=lambda rng, mb, bits: min(2, bits - 1),
+                   passes=lambda rng, p: 3)
+    return {
+        "j2k_ht_lossless_rgb.j2k": ht.encode(rgb, nl=5, cblk=(6, 6)),
+        "j2k_ht_lossless_grey12_nl0.j2k": ht.encode(grey12, prec=12, nl=0,
+                                                    cblk=(2, 2)),
+        "j2k_ht_lossless_rgba16.j2k": ht.encode(rgba16, prec=16, nl=3,
+                                                cblk=(4, 5)),
+        "j2k_ht_97_rgba16_layers.j2k": ht.encode(
+            rgba16, prec=16, rev=False, nl=3, cblk=(5, 3), nlayers=2,
+            plan=ht.random_plan(), seed=73),
+        "j2k_ht_97_sigprop_grey.j2k": ht.encode(
+            image(40, 47, 1, seed=74)[..., 0], rev=False, nl=4, cblk=(5, 3),
+            step_shift=2, plan=ht.Plan(
+                plane=lambda rng, mb, bits: min(3, bits - 1),
+                passes=lambda rng, p: 2)),
+        "j2k_ht_three_passes_causal.j2k": ht.encode(
+            image(45, 52, 3, seed=75), nl=2, cblk=(3, 4), causal=True,
+            plan=allp),
+        "j2k_ht_three_passes.j2k": ht.encode(
+            image(45, 52, 3, seed=75), nl=2, cblk=(3, 4), plan=allp),
+        "j2k_ht_tiles_offsets.j2k": ht.encode(
+            image(50, 45, 3, seed=76), nl=2, cblk=(4, 4), tile=(24, 20),
+            origin=(5, 3), tile_origin=(2, 1), nlayers=3,
+            plan=ht.random_plan(), seed=77),
+        "j2k_ht_sop_eph_styles.j2k": _patched(ht.encode(
+            image(37, 45, 3, seed=78), rev=False, nl=3, cblk=(4, 4),
+            sop_eph=True, nlayers=2, plan=ht.random_plan(), seed=79),
+            0x52, 12, b"\x57"),
+        "j2k_ht_lossless.jp2": wrap_jp2(ht.encode(image(29, 37, 3, seed=80),
+                                                  nl=2, cblk=(4, 4)),
+                                        [ihdr(29, 37, 3, 7), colr(16)]),
+    }
+
+
+def _ht_damaged(base: bytes, word: str, seed: int, at=None) -> bytes:
+    """``base`` with one to three bytes of its last tile-part changed (at
+    offsets from its end in ``at``, else anywhere): the first seed on
+    from ``seed`` whose stream PIL refuses and the port's decoder refuses
+    naming ``word``."""
+    from classpose_tpu_torch.io import jpeg2000
+    sod = base.rindex(b"\xff\x93") + 2
+    for s in range(seed, seed + 20000):
+        rng = np.random.default_rng(s)
+        data = bytearray(base)
+        for _ in range(int(rng.integers(1, 4))):
+            i = (len(data) - 2 - int(rng.choice(at)) if at is not None
+                 else int(rng.integers(sod, len(data) - 2)))
+            data[i] = int(rng.integers(0, 256))
+        data = bytes(data)
+        try:
+            jpeg2000.decode(data)
+            continue
+        except ValueError as e:
+            if word not in str(e):
+                continue
+        try:
+            pil_rgb(data)
+        except Exception:
+            return data
+    raise AssertionError(f"no damaged stream raises {word!r}")
+
+
+def ht_refused_streams() -> dict[str, tuple[bytes, str]]:
+    """The ``j2k_ht_refused_*`` goldens, by file name, with the word the
+    decoder's error names; PIL raises on each: mixed HT / Part 1 blocks,
+    ROI, a fourth (placeholder) pass, more than 30 bit planes, more zero
+    bit planes than bit planes, and blocks damaged into each of
+    OpenJPEG's malformed-block errors."""
+    ht = _ht()
+    img = image(29, 37, 3, seed=81)
+    base = ht.encode(img, nl=2, cblk=(4, 4))
+    one = image(15, 13, 1, seed=82)[..., 0]
+    single = ht.encode(one, nl=0, cblk=(4, 4))
+    qcd = base.index(b"\xff\x5c")
+    tail = list(range(1, 4))
+    return {
+        "j2k_ht_refused_mixed.j2k": (_patched(base, 0x52, 12, b"\xc0"),
+                                     "mixed HT and Part 1"),
+        "j2k_ht_refused_roi.j2k": (ht.encode(img, nl=2, cblk=(4, 4),
+                                             roi=(1, 3)), "ROI"),
+        "j2k_ht_refused_placeholder.j2k": (ht.encode(
+            img, nl=2, cblk=(4, 4), plan=ht.Plan(
+                plane=lambda rng, mb, bits: min(2, bits - 1),
+                passes=lambda rng, p: 3, extra=1)), "4 coding passes"),
+        "j2k_ht_refused_bit_planes.j2k": (
+            base[:qcd + 5] + bytes([31 << 3]) + base[qcd + 6:],
+            "31 bit planes"),
+        "j2k_ht_refused_zero_planes.j2k": (
+            base[:qcd + 5] + bytes([1 << 3]) + base[qcd + 6:],
+            "zero bit planes"),
+        "j2k_ht_refused_scup.j2k": (_ht_damaged(single, "Scup", 83, tail),
+                                    "Scup"),
+        "j2k_ht_refused_mel.j2k": (_ht_damaged(single, "MEL", 84),
+                                   "incorrect MEL segment sequence"),
+        "j2k_ht_refused_u_q.j2k": (_ht_damaged(single, "U_q", 85), "U_q"),
+        "j2k_ht_refused_outside.j2k": (_ht_damaged(single, "outside", 86),
+                                       "outside the code-block"),
+    }
+
+
+def ht_tile(k: int, rgb: np.ndarray) -> bytes:
+    """Tile ``k`` of ``j2k_ht_region.svs``: lossless 5/3 with the RCT,
+    HT code-blocks of 64², five levels."""
+    return _ht().encode(rgb, nl=5, cblk=(6, 6))
+
+
+def write_ht(golden: dict, region: np.ndarray) -> None:
+    """The HT goldens, the HT SVS and their entries in ``golden``."""
+    golden["ht_streams"] = {}
+    for name, data in ht_streams().items():
+        (HERE / name).write_bytes(data)
+        rgb = pil_rgb(data)
+        golden["ht_streams"][name] = {"sha256": sha256(rgb),
+                                      "shape": list(rgb.shape)}
+    golden["ht_refused"] = {}
+    for name, (data, word) in ht_refused_streams().items():
+        (HERE / name).write_bytes(data)
+        golden["ht_refused"][name] = word
+    streams = write_j2k_tiff(HERE / HT_SVS_NAME, region, SVS_TILE, SVS_MPP,
+                             encode_tile=ht_tile)
+    tiles = [pil_rgb(s) for s in streams]
+    if not np.array_equal(np.concatenate([np.concatenate(
+            tiles[r * 4:r * 4 + 4], 1) for r in range(4)]), region):
+        raise AssertionError("the HT SVS does not decode to its region")
+    golden["ht_svs"] = {"tiles": [sha256(t) for t in tiles]}
+
+
 def main():
     import sys
     sys.path.insert(0, str(HERE.parents[1]))
@@ -792,6 +945,7 @@ def main():
                              compression=33003, encode_tile=sub_tile)
     golden["sub_svs"] = {"kinds": list(SUB_KINDS),
                          "tiles": [sha256(pil_rgb(s)) for s in streams]}
+    write_ht(golden, region)
     (HERE / JSON_NAME).write_text(json.dumps(golden, indent=1) + "\n")
     total = sum(p.stat().st_size for p in HERE.glob("j2k_*"))
     print("regenerated:", len(STREAMS) + len(OPJ_STREAMS)
@@ -800,5 +954,24 @@ def main():
           "streams,", 3 * len(streams), "SVS tiles,", total, "bytes")
 
 
+def main_ht():
+    """Only the HT goldens and SVS, into the existing ``j2k_golden.json``
+    (and the refused Part 1 stream's word, which the HT decoder names)."""
+    import sys
+    sys.path.insert(0, str(HERE.parents[1]))
+    from classpose_tpu_torch.io.array_reader import synthetic_wsi
+
+    golden = json.loads((HERE / JSON_NAME).read_text())
+    for name, (_, word) in refused_streams().items():
+        golden["refused"][name] = word
+    slide, _ = synthetic_wsi(**SLIDE)
+    write_ht(golden, slide._level0[:SVS_REGION, :SVS_REGION])
+    (HERE / JSON_NAME).write_text(json.dumps(golden, indent=1) + "\n")
+    print("regenerated:", len(golden["ht_streams"]) + len(
+        golden["ht_refused"]), "HT streams,", len(golden["ht_svs"]["tiles"]),
+          "HT SVS tiles")
+
+
 if __name__ == "__main__":
-    main()
+    import sys
+    main_ht() if sys.argv[1:] == ["--ht"] else main()

@@ -25,6 +25,7 @@ from classpose_tpu_torch.nn.vit_sam import (
     ClassTransformer,
     ClassTransformerConfig,
 )
+from golden.jax_native import jax_native_geometry  # noqa: F401
 
 TINY = dict(ps=4, bsize=32, embed_dim=32, depth=2, num_heads=2, neck_dim=16)
 # name → (n_cell_classes, UNet ladder or None)

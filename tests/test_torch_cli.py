@@ -15,6 +15,7 @@ from classpose_tpu_torch.entrypoints.predict_wsi import (
 )
 from classpose_tpu_torch.utils import get_device, get_devices
 from test_qupath_contract import REFERENCE_FLAGS
+from golden.jax_native import jax_native_geometry  # noqa: F401
 
 
 def _options(parser):

@@ -44,6 +44,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from golden.jax_native import jax_native_geometry  # noqa: F401
 
 GOLDEN = Path(__file__).parent / "golden"
 

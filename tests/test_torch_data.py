@@ -30,6 +30,7 @@ from classpose_tpu_torch.train import train_utils as port_tu
 from classpose_tpu_torch.utils import make_sparse
 
 from test_torch_nn import TINY, _random_jax_params
+from golden.jax_native import jax_native_geometry  # noqa: F401
 
 
 def disc_sample(seed, H=96, W=96, n=6, n_classes=4):

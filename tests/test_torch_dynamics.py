@@ -14,6 +14,7 @@ from classpose_tpu.dynamics.flows import masks_to_flows
 from classpose_tpu.nn.synthetic import design_field
 from classpose_tpu_torch.dynamics import masks as tm
 from classpose_tpu_torch.dynamics.flows import grad_from_T
+from golden.jax_native import jax_native_geometry  # noqa: F401
 
 S = 256
 

@@ -23,6 +23,7 @@ from classpose_tpu.nn import convert as jconv
 from classpose_tpu_torch.entrypoints import convert_weights as pcw
 from classpose_tpu_torch.entrypoints import parity_check as ppc
 from test_torch_checkpoints import HEADS, replica, structured_pt
+from golden.jax_native import jax_native_geometry  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -26,6 +26,7 @@ from classpose_tpu_torch.ops.resize import resize
 from classpose_tpu_torch.runner import ClassposeModel
 from classpose_tpu_torch.runner.model import convert_image, dx_to_circ
 from classpose_tpu_torch.runner.run3d import stitch3D
+from golden.jax_native import jax_native_geometry  # noqa: F401
 
 CFG = dict(n_cell_classes=6, ps=4, embed_dim=64, depth=2, num_heads=4,
            neck_dim=64, bsize=64)

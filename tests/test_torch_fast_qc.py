@@ -20,6 +20,7 @@ from classpose_tpu.nn.synthetic import perturbed_structured_params
 from classpose_tpu.runner import ClassposeModel as JaxModel
 from classpose_tpu_torch.runner import ClassposeModel
 from test_torch_checkpoints import CELL_CFG
+from golden.jax_native import jax_native_geometry  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -23,6 +23,7 @@ leaf, so the result is the same.
 import numpy as np
 import pytest
 import torch
+from golden.jax_native import jax_native_geometry  # noqa: F401
 
 cv2 = pytest.importorskip("cv2")
 

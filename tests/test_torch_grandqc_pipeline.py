@@ -36,6 +36,7 @@ from classpose_tpu_torch.pipeline.predict_wsi import main as port_main
 from test_pipeline_qc_integration import _artefact_fn, _tissue_fn
 from test_torch_grandqc import fast_jax_init, smp_state_dict  # noqa: F401
 from test_torch_pipeline import CFG, LABELS, _args
+from golden.jax_native import jax_native_geometry  # noqa: F401
 
 
 def _oracle(path, classes=2, **kw):

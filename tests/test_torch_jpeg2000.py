@@ -267,7 +267,7 @@ def test_golden_stream(name):
 def test_golden_svs():
     """The committed 33005 SVS: 16 tiles of 512² in one level at MPP 0.4,
     each decoding to the hash of PIL's pixels; the goldens stay under
-    512 KiB."""
+    512 KiB (the other SVSs aside: their own tests hold their sizes)."""
     from classpose_tpu_torch.io import TiffSlide
     from classpose_tpu_torch.utils import get_slide_resolution
 
@@ -287,7 +287,8 @@ def test_golden_svs():
     finally:
         s.close()
     total = sum(f.stat().st_size for f in GOLDEN.glob("j2k_*")
-                if f.name not in (regen.EXT_SVS_NAME, regen.SUB_SVS_NAME))
+                if f.name not in (regen.EXT_SVS_NAME, regen.SUB_SVS_NAME,
+                                  regen.HT_SVS_NAME))
     assert total <= 512 * 1024
 
 
@@ -356,8 +357,11 @@ def _refusals():
                                           + struct.pack(">I", 0)),
                              b"\xff\x61\x00\x04\x00\x00"),
                 "PPT marker in a codestream with PPM"),
-        "style-ht": (_patch(base, cod + 12, b"\x40"), "HT block coding"),
-        "style-mixed-ht": (_patch(base, cod + 12, b"\x80"), "HT block coding"),
+        # Part 1 data under the HT style: the HT decoder refuses its 16
+        # passes, as OpenJPEG does (at most 3: no placeholder passes)
+        "style-ht": (_patch(base, cod + 12, b"\x40"), "16 coding passes"),
+        "style-mixed-ht": (_patch(base, cod + 12, b"\x80"),
+                           "mixed HT and Part 1 code-blocks"),
         "part15-cap-in-tile-part": (_insert_tile(regen.part15(base),
                                                  regen.CAP),
                                     "in a tile-part header"),
@@ -373,7 +377,7 @@ _REFUSALS = _refusals()
 # what PIL refuses as well; the other cases stay refused where PIL reads
 # them (Part 2) or fail PIL another way
 _PIL_REFUSES = ("jp2", "precision", "ppm", "ppt", "five-components",
-                "style-ht", "part15-cap-in-tile-part",
+                "style-ht", "style-mixed-ht", "part15-cap-in-tile-part",
                 "part15-cpf-in-tile-part")
 
 
@@ -411,7 +415,7 @@ def test_part15_signalling_like_pil(name):
     bit 14 set, a CAP segment (Pcap 0x00020000) and CAP with CPF after
     SIZ. OpenJPEG picks HT decoding by each code-block's style, so PIL
     decodes these to the unpatched stream's pixels, and so does the port;
-    the HT style itself stays refused (``style-ht``)."""
+    Part 1 data under the HT style is refused (``style-ht``)."""
     base = _base_stream()
     data = regen.part15(base, **_PART15[name])
     want = regen.pil_rgb(base)

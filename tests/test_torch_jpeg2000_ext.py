@@ -38,6 +38,7 @@ from classpose_tpu_torch.io import jpeg2000
 from golden import regenerate_j2k as regen
 from golden.regenerate_j2k import (box, cdef, cmap, colr, ihdr, pclr,
                                    wrap_jp2)
+from golden.jax_native import jax_native_geometry  # noqa: F401
 
 GOLDEN = Path(__file__).parent / "golden"
 

@@ -33,6 +33,7 @@ from hypothesis import strategies as st
 
 from classpose_tpu_torch.io import jpeg2000
 from golden import regenerate_j2k as regen
+from golden.jax_native import jax_native_geometry  # noqa: F401
 
 GOLDEN = Path(__file__).parent / "golden"
 _GOLDEN = json.loads((GOLDEN / regen.JSON_NAME).read_text())

@@ -32,6 +32,7 @@ import pytest
 from PIL import Image
 
 from classpose_tpu_torch.io import jpeg
+from golden.jax_native import jax_native_geometry  # noqa: F401
 
 GOLDEN = Path(__file__).parent / "golden"
 sys.path.insert(0, str(GOLDEN))

@@ -32,6 +32,7 @@ from PIL import Image
 
 from classpose_tpu_torch.io import jpeg
 from golden.regenerate_jpeg import image, lossless_jpeg
+from golden.jax_native import jax_native_geometry  # noqa: F401
 
 GOLDEN = Path(__file__).parent / "golden"
 SPEC = json.loads((GOLDEN / "jpeg_golden.json").read_text())

@@ -27,6 +27,7 @@ from classpose_tpu_torch.metrics.pq import (
     write_csv,
 )
 from classpose_tpu_torch.metrics.stats_utils import get_multi_r2, r2_score
+from golden.jax_native import jax_native_geometry  # noqa: F401
 
 KEYS = ("pq", "dq", "sq", "tp", "fp", "fn", "precision", "recall", "f1",
         "iou_sum")

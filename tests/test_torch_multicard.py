@@ -51,6 +51,7 @@ from classpose_tpu_torch.parallel.inference import ShardedTileRunner
 from classpose_tpu_torch.pipeline.predict_wsi import DeviceWorker
 from classpose_tpu_torch.runner import ClassposeModel
 from classpose_tpu_torch.utils import get_device, get_devices
+from golden.jax_native import jax_native_geometry  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "tests"))

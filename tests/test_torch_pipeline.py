@@ -25,6 +25,7 @@ from classpose_tpu.nn.synthetic import perturbed_structured_params
 from classpose_tpu.pipeline.predict_wsi import main as jax_main
 from classpose_tpu_torch.io.zarrlite import read_zarr_array
 from classpose_tpu_torch.pipeline.predict_wsi import main as port_main
+from golden.jax_native import jax_native_geometry  # noqa: F401
 
 CFG = dict(n_cell_classes=6, ps=4, embed_dim=64, depth=2, num_heads=4,
            neck_dim=64, bsize=64)

@@ -12,6 +12,7 @@ from classpose_tpu.ops.sample_pallas import (
     shift_sample_pallas,
 )
 from classpose_tpu_torch.ops.sample import bilinear_sample, landing_histogram
+from golden.jax_native import jax_native_geometry  # noqa: F401
 
 H, W = 64, 128
 

@@ -16,6 +16,7 @@ from classpose_tpu.nn.convert import save_params
 from classpose_tpu.nn.synthetic import perturbed_structured_params
 from classpose_tpu.runner import ClassposeModel as JaxModel
 from classpose_tpu_torch.runner import ClassposeModel
+from golden.jax_native import jax_native_geometry  # noqa: F401
 
 CFG = dict(n_cell_classes=6, ps=4, embed_dim=64, depth=2, num_heads=4,
            neck_dim=64, bsize=64)

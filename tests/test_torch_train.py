@@ -28,6 +28,7 @@ from classpose_tpu_torch.train.train_utils import process_train_test
 
 from test_torch_data import disc_sample
 from test_torch_nn import _random_jax_params
+from golden.jax_native import jax_native_geometry  # noqa: F401
 
 NC = 4
 SMALL = dict(embed_dim=64, depth=2, num_heads=1, neck_dim=16, bsize=64,

@@ -26,6 +26,7 @@ import classpose_tpu_torch.pipeline.outputs as pout
 import classpose_tpu_torch.pipeline.postprocess as ppost
 import classpose_tpu_torch.pipeline.slide_loader as pload
 import classpose_tpu_torch.pipeline.tile_filter as pfilt
+from golden.jax_native import jax_native_geometry  # noqa: F401
 
 LABELS = ["Tumour", "Stroma", "Lymphocyte", "Other"]
 

@@ -29,6 +29,7 @@ from classpose_tpu.pipeline.predict_wsi import main as jax_main
 from classpose_tpu_torch.pipeline.predict_wsi import main as port_main
 from golden.regenerate_j2k import write_j2k_tiff
 from test_torch_pipeline import CFG, LABELS, _args, _centroids
+from golden.jax_native import jax_native_geometry  # noqa: F401
 
 
 def _tiff_args(tmp, out, device):
