@@ -101,16 +101,17 @@
    model whose ``eval`` of a 256² image gives finite outputs; it prints
    the CLI's wall, its steps and the seconds its items took in
    ``ClassposeHDF5Dataset.__getitem__``; then several ranks: two
-   processes run the trainer's configuration above for its first 2
-   epochs of 2 steps (epoch 0's learning rate is 0 by the schedule, so a
-   single epoch would move no weight) at 4 images a rank, global batch
-   8, on the very items the one-process run drew (recorded, then
-   replayed by rank share), with NCCL on two cards (``torch.distributed.run``) where two
-   are visible, else both on ``cuda:0`` over gloo; both ranks' final
-   weights must be bitwise equal, rank 0's ``.npz`` (written
-   uncompressed, as every phase writes it) must hold them,
-   and each step's total loss must lie within 1e-4 of the one-process
-   run's; it prints the route, each rank's imgs/s and peak memory;
+   processes run the trainer's configuration above, cut to 4 blocks,
+   for its first 2 epochs of 2 steps (epoch 0's learning rate is 0 by
+   the schedule, so a single epoch would move no weight) at 4 images a
+   rank, global batch 8, on the very items the one-process run drew
+   (recorded, then replayed by rank share), with NCCL on two cards
+   (``torch.distributed.run``) where two are visible, else both on
+   ``cuda:0`` over gloo; both ranks' final weights must be bitwise
+   equal, rank 0's ``.npz`` (written uncompressed, as every phase writes
+   it) must hold them, and each step's total loss must lie within 1e-4
+   of a run of the same 4-block configuration on the same items in this
+   process; it prints the route, each rank's imgs/s and peak memory;
 6. writes a ViT-L checkpoint whose patch embed and attention are live
    (``perturbed_structured_params`` with ``attn_ripple``, 6 classes) as a
    published ``conic.pt`` (the published key layout, held against the
@@ -272,7 +273,32 @@
    ``ClassposeModel.eval`` on one 448² image under the profiler, on one
    256² image (kernel 4, not kernel 7), and ``eval(do_3D=True)`` in bf16
    on a 16 × 32 × 32 stack (kernel 1), compared with the plain
-   versions; then ``eval`` with a ViT-L at bsize 224 (28 × 28 tokens) on
+   versions; then the paper's semantic Cellpose-SAM baseline
+   (``classpose_tpu_torch.paper_experiments.run_cellpose_semantic.main``)
+   at full ViT-L width and fp32: ``--pretrained`` the WSI phase's
+   ``conic.pt`` (6 classes) grafted to 7 classes, two epochs on 8 seeded
+   disc images of 256² with (H, W, 2) labels (4 steps at batch 4, the
+   second epoch's at a learning rate above 0: flow targets by kernel
+   4), then the evaluate images as uint8 with
+   ``--training_to_inference_mpp 0.25:0.5`` (each read at 224²); then
+   ``main --skip_training`` on the donor's weights with the class head
+   that training learned (the trained net draws no cells: a step at a
+   learning rate above 0 moves the structured donor's blocks off the
+   exact cancellations its field rests on). Every launch count is reset
+   just before the first call and read just after the second: kernels
+   2, 3, 4, 7 and 8 must run (8 on 24 blocks of each image's one crop in
+   each call); both calls' predictions must be object arrays of the
+   images' (448, 448, 2) maps, the trainer must have written
+   ``checkpoint_last.train`` and a class head other than the donor's
+   graft, and the second call's maps must hold the design field's
+   cells, the same masks and classes as that model run through the
+   script's ``predict`` with the plain versions swapped in (worst IoU
+   1.0), and other classes than the bare graft gives on the same
+   masks; it prints the training imgs/s between steps of one epoch (the
+   trainer's wall, its warm-up and checkpoint writes included, apart),
+   the peak memory, the eval images/s and the phase's seconds beside the
+   card's name and power limit;
+   then ``eval`` with a ViT-L at bsize 224 (28 × 28 tokens) on
    one 480² image in fp32 and bf16, against the plain versions, and with
    a ViT-L at bsize 1024 (128 × 128 tokens, L = 16384) on one 1024² image
    in fp32 and bf16 against the plain versions run one head at a time,
@@ -445,6 +471,12 @@ from classpose_tpu_torch.ops.sample import (
     landing_histogram_plain,
 )
 from classpose_tpu_torch.ops.tiles import compute_tile_grid
+from classpose_tpu_torch.transforms.cvlite import resize_nearest
+from classpose_tpu_torch.paper_experiments.run_cellpose_semantic import (
+    main as semantic_main,
+    predict as semantic_predict,
+    semantic_head,
+)
 from classpose_tpu_torch.parallel.distributed import (
     setup_distributed,
     teardown_distributed,
@@ -589,6 +621,19 @@ AB_PARENT = "5846458"
 # gradients in another order: ~4e-6 apart on an H100)
 RANKS, RANK_EPOCHS, RANK_COLLECTIVE_S, RANKS_LIMIT_S = 2, 2, 300, 480
 RANK_LOSS_RTOL = 1e-4
+# the ranks' depth (cut from 24 to keep the script within its budget) and
+# that of the one-process run they are held to
+RANK_DEPTH = 4
+# the semantic baseline phase: the donor is the WSI phase's published
+# conic.pt (6 classes), grafted to Lizard's 6 classes plus background;
+# seeded disc images with (H, W, 2) labels for two epochs at the script's
+# batch 4 (epoch 0's learning rate is 0), then the evaluate phase's two
+# 448² design images as uint8, rescaled 0.25 → 0.5 µm/px (exactly 2×
+# down) and the maps back
+SEM_CLASSES, SEM_TRAIN, SEM_TRAIN_SIZE, SEM_SPEC = 7, 8, 256, "0.25:0.5"
+SEM_EPOCHS = 2
+SEM_KERNELS = ("masked_diffusion", "flash_attention_relpos",
+               "bilinear_sample", "landing_histogram", "diffuse_blocked")
 
 
 def log(msg: str) -> None:
@@ -1597,7 +1642,7 @@ def run_training(dev, out_dir: str) -> tuple[dict, dict, dict]:
     # the trainer: 3 epochs of 2 steps, epoch 0 at lr 0 by the schedule;
     # its items and step losses recorded for the several-ranks phase
     n_epochs, steps = 3, 3 * (TRAIN_IMAGES // TRAIN_BATCH)
-    recorded, step_totals, save_walls = RecordedDataset(ds), [], []
+    recorded, save_walls = RecordedDataset(ds), []
 
     def timed_save(*args, **kwargs):
         t = time.perf_counter()
@@ -1615,8 +1660,7 @@ def run_training(dev, out_dir: str) -> tuple[dict, dict, dict]:
             model, recorded, batch_size=TRAIN_BATCH, n_epochs=n_epochs,
             learning_rate=1e-4, save_path=out_dir, model_name="smoke",
             class_weights=cw, use_uncertainty_weighting=True,
-            random_seed=SEED,
-            on_step=lambda s, m: step_totals.append(m["total"]))
+            random_seed=SEED)
     torch.cuda.synchronize()
     trainer_s = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
@@ -1699,7 +1743,7 @@ def run_training(dev, out_dir: str) -> tuple[dict, dict, dict]:
                    diameters=np.asarray(tr_diam),
                    class_counts=ds.class_counts,
                    instance_counts=ds.instance_counts,
-                   replay=recorded.replay(step_totals, cw))
+                   replay=recorded.replay(cw))
     stats = dict(
         targets_s=targets_s, target_diffusion_launches=target_launches,
         trainer_s=trainer_s, batch_load_s=batch_load_s,
@@ -2023,16 +2067,15 @@ class RecordedDataset:
         self.items.append((int(i), item))
         return item
 
-    def replay(self, step_totals: list, class_weights) -> dict:
-        """What the ranks replay: the items in draw order, the run's
-        per-step total losses, its class weights and length. The learning
-        rate of epoch e does not depend on the run's epoch count, so a
-        replay of its first epochs takes its first steps."""
+    def replay(self, class_weights) -> dict:
+        """What the ranks replay: the items in draw order, the run's class
+        weights and length. The learning rate of epoch e does not depend
+        on the run's epoch count, so a replay of its first epochs takes
+        its first steps."""
         return dict(indices=np.array([i for i, _ in self.items]),
                     X=np.stack([x for _, (x, _) in self.items]),
                     L=np.stack([y for _, (_, y) in self.items]),
-                    totals=np.array(step_totals), class_weights=class_weights,
-                    length=len(self.ds))
+                    class_weights=class_weights, length=len(self.ds))
 
 
 class ReplayDataset:
@@ -2069,6 +2112,25 @@ def weights_sha256(sd: dict) -> str:
     return h.hexdigest()
 
 
+def replay_training(ds, class_weights, device, save_path: str, on_step
+                    ) -> tuple[ClassposeModel, str]:
+    """Phase 5's trainer configuration at :data:`RANK_DEPTH` blocks for
+    :data:`RANK_EPOCHS` epochs on ``ds`` (a :class:`ReplayDataset`); the
+    final ``.npz`` goes uncompressed, as in every phase (the parent reads
+    rank 0's back). Returns the model and that path."""
+    cfg = ClassTransformerConfig(n_cell_classes=6, dtype="bfloat16",
+                                 depth=RANK_DEPTH)
+    model = ClassposeModel(cfg=cfg, precision="bf16", device=device,
+                           seed=SEED)
+    with mock.patch.object(np, "savez_compressed", np.savez):
+        path, _, _ = train_class_seg(
+            model, ds, batch_size=TRAIN_BATCH, n_epochs=RANK_EPOCHS,
+            learning_rate=1e-4, save_path=save_path, model_name="ranks",
+            class_weights=class_weights, use_uncertainty_weighting=True,
+            random_seed=SEED, on_step=on_step)
+    return model, path
+
+
 def train_rank(work: str, backend: str) -> int:
     """One rank of the several-ranks phase (``chip_smoke.py --train-rank
     WORK BACKEND``, started by :func:`run_training_ranks`): phase 5's
@@ -2078,9 +2140,6 @@ def train_rank(work: str, backend: str) -> int:
     ctx = setup_distributed(torch.device("cuda", 0) if shared else "cuda",
                             backend=backend)
     rec = dict(np.load(f"{work}/replay.npz"))
-    cfg = ClassTransformerConfig(n_cell_classes=6, dtype="bfloat16")
-    model = ClassposeModel(cfg=cfg, precision="bf16", device=ctx.device,
-                           seed=SEED)
     ds = ReplayDataset(rec, ctx.rank, ctx.world_size, TRAIN_BATCH)
     totals, stamps = [], []
 
@@ -2092,16 +2151,8 @@ def train_rank(work: str, backend: str) -> int:
     torch.cuda.reset_peak_memory_stats(ctx.device)
     _build.reset_launches()
     t0 = time.perf_counter()
-    # rank 0's final .npz goes uncompressed, as in every phase (~65 s of
-    # zlib on the host otherwise), and the parent reads
-    # this one back
-    with mock.patch.object(np, "savez_compressed", np.savez):
-        path, _, _ = train_class_seg(
-            model, ds, batch_size=TRAIN_BATCH, n_epochs=RANK_EPOCHS,
-            learning_rate=1e-4, save_path=f"{work}/rank{ctx.rank}",
-            model_name="ranks", class_weights=rec["class_weights"],
-            use_uncertainty_weighting=True, random_seed=SEED,
-            on_step=on_step)
+    model, path = replay_training(ds, rec["class_weights"], ctx.device,
+                                  f"{work}/rank{ctx.rank}", on_step)
     wall = time.perf_counter() - t0
     # a step's wall: the second step of each epoch (the first follows the
     # previous epoch's checkpoint write)
@@ -2130,11 +2181,19 @@ def free_port() -> int:
 def run_training_ranks(work: str, replay: dict) -> dict:
     """Several ranks, training (module docstring, step 5): two processes
     replay the first 2 epochs of phase 5's trainer run at 4 images a rank
-    (global batch 8), with NCCL on two cards when there are two, else
-    both on ``cuda:0`` over gloo. Both ranks' final weights must be
-    bitwise equal and held in rank 0's ``.npz``, and each step's total
-    loss within :data:`RANK_LOSS_RTOL` of phase 5's one-process run."""
+    (global batch 8) at :data:`RANK_DEPTH` blocks, with NCCL on two cards
+    when there are two, else both on ``cuda:0`` over gloo. Both ranks'
+    final weights must be bitwise equal and held in rank 0's ``.npz``,
+    and each step's total loss within :data:`RANK_LOSS_RTOL` of one
+    process's run of the same configuration on the same items."""
     np.savez(f"{work}/replay.npz", **replay)
+    # the one-process run at the ranks' depth, on the same items
+    one = []
+    t0 = time.perf_counter()
+    replay_training(ReplayDataset(replay, 0, 1, TRAIN_BATCH),
+                    replay["class_weights"], torch.device("cuda", 0),
+                    f"{work}/one", lambda step, m: one.append(m["total"]))
+    one_s = time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
     two_cards = torch.cuda.device_count() >= RANKS
@@ -2174,7 +2233,7 @@ def run_training_ranks(work: str, replay: dict) -> dict:
         raise AssertionError(f"several-ranks phase: exit codes {rcs}")
     ranks = [json.loads(Path(f"{work}/rank{r}.json").read_text())
              for r in range(RANKS)]
-    ref = [float(v) for v in replay["totals"]]
+    ref = [float(v) for v in one]
     if len({r["sha256"] for r in ranks}) != 1:
         raise AssertionError("the ranks' final weights differ")
     if weights_sha256(load_checkpoint(ranks[0]["path"])[0]) \
@@ -2195,8 +2254,9 @@ def run_training_ranks(work: str, replay: dict) -> dict:
         route=("two cards, torch.distributed.run, NCCL" if two_cards
                else "cuda:0 shared by two processes, gloo (CUDA tensors "
                "staged through the host)"),
-        backend=backend, ranks=RANKS, per_rank_batch=TRAIN_BATCH // RANKS,
-        global_batch=TRAIN_BATCH, steps=len(got), wall_s=wall,
+        backend=backend, ranks=RANKS, depth=RANK_DEPTH,
+        per_rank_batch=TRAIN_BATCH // RANKS, global_batch=TRAIN_BATCH,
+        steps=len(got), wall_s=wall, one_process_s=one_s,
         step_totals=got, one_process_totals=ref, max_rel_diff=max(rel),
         weights_equal=True, npz_holds_weights=True,
         per_rank=[{k: r[k] for k in ("rank", "device", "imgs_per_s",
@@ -3294,8 +3354,8 @@ def run_grandqc(dev, wsi: dict) -> dict:
     t0 = time.perf_counter()
     raw = qc_helpers.predict_mask(sim10, t_fn) == 1
     stats["tissue_forward_s"] = time.perf_counter() - t0
-    tmask = qc_helpers.resize_nearest(raw.astype(np.uint8),
-                                      thumb1.shape[1], thumb1.shape[0])
+    tmask = resize_nearest(raw.astype(np.uint8), thumb1.shape[1],
+                           thumb1.shape[0])
     tmask = tmask.astype(bool)
 
     def patch_filter(y, x, p):
@@ -3596,6 +3656,163 @@ def run_evaluate(dev, work: str) -> tuple[dict, dict]:
                    instances=n3, plain_instances=n3_ref,
                    fg_agreement=fg3),
     )
+    return launches, stats
+
+
+def run_semantic(dev, work: str, wsi: dict, smi: str) -> tuple[dict, dict]:
+    """The paper's semantic Cellpose-SAM baseline (module docstring, step
+    7) at full ViT-L width and fp32 on the WSI phase's ``conic.pt``:
+    ``run_cellpose_semantic.main`` trains the graft for two epochs and
+    predicts; then ``main --skip_training`` on the donor's weights with the
+    class head that training learned, held to the plain versions and to
+    the bare graft. (A step at a learning rate above 0 moves the
+    structured donor's blocks off the exact cancellations its field rests
+    on, so the trained net itself draws no cells.)"""
+    d = f"{work}/semantic"
+    os.makedirs(d)
+    rng = np.random.default_rng(SEED + 23)
+    images, labels = disc_images(rng, SEM_TRAIN, SEM_TRAIN_SIZE, 20,
+                                 SEM_CLASSES)
+    np.save(f"{d}/train_x.npy", np.clip(np.stack(images), 0, 255).astype(
+        np.uint8).transpose(0, 2, 3, 1))
+    np.save(f"{d}/train_y.npy",
+            np.stack(labels).astype(np.int32).transpose(0, 2, 3, 1))
+    test = np.clip(design_dataset(rng)[0], 0, 255).astype(
+        np.uint8).transpose(0, 2, 3, 1)
+    np.save(f"{d}/test_x.npy", test)
+    argv = ["--train_data_path", f"{d}/train_x.npy", "--train_labels_path",
+            f"{d}/train_y.npy", "--test_data_path", f"{d}/test_x.npy",
+            "--dataset_name", "lizard", "--training_to_inference_mpp",
+            SEM_SPEC, "--device", "cuda"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    # the .npz files uncompressed, as in every phase
+    with mock.patch.object(np, "savez_compressed", np.savez):
+        res = semantic_main(argv + [
+            "--out_path", f"{d}/trained.npy", "--epochs", str(SEM_EPOCHS),
+            "--pretrained", wsi["pt"], "--save_path", f"{d}/models"])
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        trained_preds = np.load(f"{d}/trained.npy", allow_pickle=True)
+        if (trained_preds.dtype != object
+                or trained_preds.shape != test.shape[:3] + (2,)
+                or res["train_images"] != SEM_EPOCHS * SEM_TRAIN
+                or not os.path.isdir(
+                    f"{d}/models/cellpose_lizard/checkpoint_last.train")):
+            raise AssertionError(f"semantic outputs {trained_preds.dtype} "
+                                 f"{trained_preds.shape}, {res}")
+        trained, cfg = load_checkpoint(res["model_path"])
+        donor, _ = load_checkpoint(wsi["pt"])
+        graft = semantic_head(donor["out.weight"], donor["out.bias"],
+                              SEM_CLASSES, cfg.ps)
+        head = (trained["out_class.weight"], trained["out_class.bias"])
+        head_moved = max(float((p - g).abs().max())
+                         for p, g in zip(head, graft))
+        if cfg.n_cell_classes != SEM_CLASSES or head_moved == 0:
+            raise AssertionError(f"saved model: {cfg.n_cell_classes} "
+                                 f"classes, head moved {head_moved}")
+        os.makedirs(f"{d}/kept/cellpose_lizard")
+        save_params({**{k: v for k, v in donor.items()
+                        if not k.startswith("out_class.")},
+                     "out_class.weight": head[0], "out_class.bias": head[1]},
+                    f"{d}/kept/cellpose_lizard/cellpose_lizard.npz", cfg)
+        del trained, donor, head
+        t0 = time.perf_counter()
+        kept_res = semantic_main(argv + [
+            "--out_path", f"{d}/kept.npy", "--skip_training",
+            "--save_path", f"{d}/kept"])
+        torch.cuda.synchronize()
+        kept_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    log(f"semantic baseline launches: {launches}")
+    # both calls view each image as one crop
+    want_attn = 2 * ClassTransformerConfig().depth * len(test)
+    missing = [k for k in SEM_KERNELS if launches[k] == 0]
+    if missing or launches["flash_attention_relpos"] != want_attn \
+            or launches["attention_fwd"] or launches["attention_bwd"]:
+        raise AssertionError(f"semantic baseline launches {launches}")
+    preds = np.load(f"{d}/kept.npy", allow_pickle=True)
+    if preds.dtype != object or preds.shape != test.shape[:3] + (2,):
+        raise AssertionError(f"semantic outputs {preds.dtype} {preds.shape}")
+    maps = [np.asarray(p, np.int32) for p in preds]
+    counts = [int(len(np.unique(m[..., 0])) - 1) for m in maps]
+    trained_counts = [int(len(np.unique(np.asarray(p)[..., 0])) - 1)
+                      for p in trained_preds]
+    # the design field's cells in the model's 224² view (its padding to
+    # one 256² crop moves the field against the image's edges)
+    n_design = (EVAL_SIZE // 2 // PERIOD) ** 2
+    if not all(0.5 * n_design <= c <= 2 * n_design for c in counts) or any(
+            m[..., 1].max() >= SEM_CLASSES or m[..., 1].min() < 0
+            for m in maps):
+        raise AssertionError(f"semantic instances {counts} (design "
+                             f"{n_design})")
+
+    # the same model under the plain versions, then with the bare graft,
+    # through the script's own prediction loop
+    t0 = time.perf_counter()
+    model = ClassposeModel(pretrained_model=kept_res["model_path"],
+                           precision="fp32", device=dev)
+    load_s = time.perf_counter() - t0
+    restore = plain_versions()
+    try:
+        plain = semantic_predict(model, test, SEM_SPEC)
+    finally:
+        restore()
+    worst = compare_slices([(m[..., 0], m[..., 1]) for m in maps],
+                           [(m[..., 0], m[..., 1]) for m in plain])
+    if worst != 1.0:
+        raise AssertionError(f"semantic baseline vs plain: worst IoU {worst}")
+    with torch.no_grad():
+        model.net.out_class.weight.copy_(graft[0])
+        model.net.out_class.bias.copy_(graft[1])
+    bare = semantic_predict(model, test, SEM_SPEC)
+    del model, graft
+
+    def cell_classes(ms):
+        return [int(m[..., 1][m[..., 0] == i][0]) for m in ms
+                for i in np.unique(m[..., 0]) if i > 0]
+
+    classes, bare_classes = cell_classes(maps), cell_classes(bare)
+    if any(not np.array_equal(m[..., 0], b[..., 0])
+           for m, b in zip(maps, bare)) or classes == bare_classes:
+        raise AssertionError(f"trained head's classes {set(classes)} vs "
+                             f"the bare graft's {set(bare_classes)}")
+    # steps within one epoch: the intervals between epochs hold the
+    # checkpoint writes, the first step the warm-up
+    ends, per_epoch = res["step_ends"], SEM_TRAIN // 4
+    inner = [ends[i] - ends[i - 1] for i in range(1, len(ends))
+             if i % per_epoch]
+    stats = dict(
+        donor=os.path.basename(wsi["pt"]), classes=SEM_CLASSES,
+        train_images=SEM_TRAIN, train_size=SEM_TRAIN_SIZE,
+        epochs=SEM_EPOCHS, train_steps=res["train_images"] // 4,
+        step_ends_s=ends, train_imgs_per_s=4 * len(inner) / sum(inner),
+        trainer_s=res["train_s"],
+        trainer_imgs_per_s=res["train_images"] / res["train_s"],
+        head_max_change=head_moved, trained_instances=trained_counts,
+        peak_mem_gib=peak, test_images=len(test), test_size=EVAL_SIZE,
+        spec=SEM_SPEC, eval_s=kept_res["eval_s"],
+        eval_images_per_s=kept_res["eval_images"] / kept_res["eval_s"],
+        main_s=main_s, skip_training_main_s=kept_s, npz_load_s=load_s,
+        instances=counts, n_design=n_design,
+        cell_classes={c: classes.count(c) for c in sorted(set(classes))},
+        bare_graft_cell_classes={c: bare_classes.count(c)
+                                 for c in sorted(set(bare_classes))},
+        worst_iou_vs_plain=worst, launches=launches)
+    log(f"semantic baseline ({smi}): training {stats['train_imgs_per_s']:.2f}"
+        f" imgs/s between steps of one epoch; trainer {res['train_s']:.2f} s "
+        f"for {res['train_images']} images ({stats['trainer_imgs_per_s']:.2f}"
+        f" imgs/s, with its warm-up and checkpoint writes), peak "
+        f"{peak:.1f} GiB; head moved {head_moved:.3g}; trained net "
+        f"{trained_counts} cells; eval {stats['eval_images_per_s']:.2f} "
+        f"images/s; main {main_s:.1f} s + {kept_s:.1f} s; cell classes "
+        f"{stats['cell_classes']} (bare graft "
+        f"{stats['bare_graft_cell_classes']})")
     return launches, stats
 
 
@@ -3916,7 +4133,11 @@ def main() -> int:
             f"{grandqc_stats['pipeline_s']:.3f} s with QC vs "
             f"{grandqc_stats['plain_pipeline_s']:.3f} s")
         ev_launches, ev_stats = run_evaluate(dev, work)
-    log(f"evaluate: {json.dumps(ev_stats)}")
+        log(f"evaluate: {json.dumps(ev_stats)}")
+        t0 = time.perf_counter()
+        _, sem_stats = run_semantic(dev, work, wsi, smi)
+        sem_stats["phase_s"] = time.perf_counter() - t0
+    log(f"semantic baseline: {json.dumps(sem_stats)}")
     fault3_eval = run_fault3_eval(dev)
     log(f"fault 3 eval: {json.dumps(fault3_eval)}")
     big_eval = run_fault3_eval(dev, BIG_BSIZE, BIG_SIZE)
@@ -3957,6 +4178,7 @@ def main() -> int:
                       "several_cards_wsi": multi,
                       "several_ranks_training": ranks_stats,
                       "fast_qc": fast_qc, "evaluate": ev_stats,
+                      "semantic_baseline": sem_stats,
                       "layernorm_neck": by_name["layernorm"]["neck"],
                       "diffuse_blocked_shapes": by_name["diffuse_blocked"][
                           "shapes"],

@@ -20,11 +20,11 @@ from classpose_tpu_torch.grandqc.helpers import (
     contours_with_holes,
     extract_slide_thumbnail,
     predict_mask,
-    resize_nearest,
     simulate_jpeg_compression,
 )
 from classpose_tpu_torch.io import get_wsi_reader
 from classpose_tpu_torch.log import get_logger
+from classpose_tpu_torch.transforms.cvlite import resize_nearest
 
 logger = get_logger(__name__)
 

@@ -10,8 +10,8 @@ and reproduces each bit for bit:
   integer-factor block mean, its fractional area table with float32
   accumulation and round-half-even, or, where a side grows (a slide
   coarser than the model's MPP), its fixed-point bilinear rule;
-- ``cv2.resize`` with ``INTER_NEAREST`` (:func:`resize_nearest`):
-  ``floor(x * (1 / (dst / src)))`` clamped to the last pixel;
+- ``cv2.resize`` with ``INTER_NEAREST``: ``transforms/cvlite.py``
+  :func:`resize_nearest`;
 - ``cv2.connectedComponents`` (8-connected): ``scipy.ndimage.label``;
 - ``cv2.findContours(RETR_CCOMP, CHAIN_APPROX_SIMPLE)`` and
   ``cv2.contourArea``: ``geometry/contours.py``.
@@ -159,17 +159,6 @@ def resize_area(img: np.ndarray, width: int, height: int) -> np.ndarray:
                 * buf[pos[:, t]]
         out[r0:r1] = np.clip(np.rint(acc), 0, 255)
     return out
-
-
-def resize_nearest(img: np.ndarray, width: int, height: int) -> np.ndarray:
-    """``cv2.resize(img, (width, height), interpolation=cv2.INTER_NEAREST)``:
-    source pixel ``min(floor(x * (1 / (width / W))), W - 1)``."""
-    sh, sw = img.shape[:2]
-    xs = np.minimum(np.floor(np.arange(width) * (1.0 / (width / sw))),
-                    sw - 1).astype(np.int64)
-    ys = np.minimum(np.floor(np.arange(height) * (1.0 / (height / sh))),
-                    sh - 1).astype(np.int64)
-    return img[ys[:, None], xs[None, :]]
 
 
 def extract_slide_thumbnail(

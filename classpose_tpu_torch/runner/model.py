@@ -222,13 +222,17 @@ class ClassposeModel:
         self.cfg = ClassTransformerConfig(**{**cfg.__dict__, "dtype": dtype})
         self.nclasses = self.cfg.n_cell_classes
         self.timing: list[float] = []
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(seed)
-            self.net = ClassTransformer(self.cfg)
         if sd is not None:
+            # every tensor comes from sd: allocate on the device, no init
+            with torch.device("meta"):
+                self.net = ClassTransformer(self.cfg)
+            self.net.to_empty(device=self.device)
             load_into(self.net, sd)
         else:
             logger.warning("no weights given: random init from seed %d", seed)
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(seed)
+                self.net = ClassTransformer(self.cfg)
         self.net.to(self.device).eval()
 
     def replicate(self, devices) -> list["ClassposeModel"]:

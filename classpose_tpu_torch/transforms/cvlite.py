@@ -1,7 +1,8 @@
-"""numpy copies of the two OpenCV calls of the image-quality transforms:
+"""numpy copies of OpenCV calls, bit for bit as OpenCV 5's x86-64 build
+(with its IPP HAL) computes them: the image-quality transforms'
 ``cv2.GaussianBlur(img, (0, 0), σ, σ)`` and ``cv2.cvtColor`` between RGB
-and HSV, on float32 images, bit for bit as OpenCV 5's x86-64 build
-computes them.
+and HSV on float32 images, and ``cv2.resize`` with ``INTER_LINEAR`` and
+``INTER_NEAREST`` (the semantic baseline's rescale; see :func:`resize_linear`).
 
 The blur is OpenCV's separable filter. Its kernel is
 ``getGaussianKernel(round(8σ + 1) | 1, σ)``: exp(-x²/2σ²) in float64,
@@ -208,3 +209,192 @@ def hsv2rgb(hsv: np.ndarray) -> np.ndarray:
            for c in range(3)]
     out = np.stack(bgr[::-1], axis=-1)
     return np.where((tail & (s == 0))[..., None], v[..., None], out)
+
+
+# ------------------------------------------------------------------ resize
+
+INTER_RESIZE_COEF_SCALE = 2048  # OpenCV's 11-bit fixed-point weights
+
+
+def _check_image(img: np.ndarray, dtypes: tuple) -> np.ndarray:
+    img = np.asarray(img)
+    if img.dtype not in dtypes:
+        raise TypeError(f"resize takes {[np.dtype(d).name for d in dtypes]}"
+                        f" images, got {img.dtype.name}")
+    if img.ndim not in (2, 3) or 0 in img.shape:
+        raise ValueError(f"resize takes a non-empty (H, W) or (H, W, C) "
+                         f"image, got shape {img.shape}")
+    return img
+
+
+def _as_cv_shape(out: np.ndarray, img: np.ndarray) -> np.ndarray:
+    """cv2 returns an (H, W) array for one channel, (H, W, 1) included."""
+    return out[..., 0] if img.ndim == 2 or img.shape[2] == 1 else out
+
+
+def _opencv_axis(n: int, m: int):
+    """OpenCV's own linear table for one axis of ``n`` → ``m``: the source
+    index, the float32 weights (1 - f, f) and the first output index whose
+    right neighbour lies past the edge (OpenCV's ``xmax``). The position
+    ``(d + 0.5) · (1 / (m / n)) - 0.5`` is rounded to float32; an index
+    before the first pixel or at the last one is clamped with f = 0."""
+    f = ((np.arange(m) + 0.5) * (1.0 / (m / n)) - 0.5).astype(np.float32)
+    s = np.floor(f)
+    f = f - s
+    s = s.astype(np.int64)
+    past = np.nonzero(s + 1 >= n)[0]
+    edge = int(past[0]) if len(past) else m
+    clamp = (s < 0) | (s >= n - 1)
+    f[clamp] = 0
+    s = np.clip(s, 0, n - 1)
+    return s, np.float32(1) - f, f, edge
+
+
+def _ipp_axis(n: int, m: int):
+    """IPP's linear table for one axis: the position ``(d + 0.5) · n / m -
+    0.5`` in float64, its fraction rounded to float32, clamped at both
+    edges with t = 0. Returns (left index, right index, t)."""
+    f = (np.arange(m) + 0.5) * (n / m) - 0.5
+    s = np.floor(f)
+    t = (f - s).astype(np.float32)
+    s = s.astype(np.int64)
+    t[(s < 0) | (s >= n - 1)] = 0
+    s = np.clip(s, 0, n - 1)
+    return s, np.minimum(s + 1, n - 1), t
+
+
+def _ipp_unfused(n: int, m: int, cn: int) -> np.ndarray:
+    """(m, cn) mask of the outputs whose vertical step IPP rounds after
+    the product. IPP runs the clamped outer columns of each side apart
+    from the interior: in runs of 16 pixels from the side's first column,
+    then the rest. A 4-channel run of 16, and a rest of 5 or more pixels
+    (all 4 channels; the first two of 3), go through code that does not
+    fuse; 1-channel images and rests under 5 pixels fuse throughout."""
+    f = np.floor((np.arange(m) + 0.5) * (n / m) - 0.5)
+    mask = np.zeros((m, cn), bool)
+    channels = {3: 2, 4: 4}.get(cn, 0)
+    for start, w in ((0, int((f < 0).sum())),
+                     (m - int((f >= n - 1).sum()), int((f >= n - 1).sum()))):
+        runs = w // 16 * 16
+        if cn == 4:
+            mask[start:start + runs] = True
+        if w - runs >= 5:
+            mask[start + runs:start + w, :channels] = True
+    return mask
+
+
+def _resize_ipp(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """IPP's ``ippiResizeLinear`` on uint16 or float32: rows first, then
+    columns, each a float32 ``fma(t, b - a, a)`` (the vertical step of
+    the outer columns in :func:`_ipp_unfused` rounded after the product);
+    uint16 rounds half to even and saturates."""
+    a = img.astype(np.float32)
+    s0, s1, t = _ipp_axis(img.shape[1], width)
+    a = fma32(t[None, :, None], a[:, s1] - a[:, s0], a[:, s0])
+    s0, s1, t = _ipp_axis(img.shape[0], height)
+    t = t[:, None, None]
+    d = a[s1] - a[s0]
+    a = np.where(_ipp_unfused(img.shape[1], width, img.shape[2]),
+                 a[s0] + t * d, fma32(t, d, a[s0]))
+    if img.dtype == np.uint16:
+        return np.clip(np.rint(a), 0, 65535).astype(np.uint16)
+    return a
+
+
+def _resize_half(img: np.ndarray) -> np.ndarray:
+    """OpenCV's ``INTER_AREA`` fast path for an exact 2× downsample (which
+    ``INTER_LINEAR`` takes too): integers with 1, 3 or 4 channels round
+    ``(sum + 2) >> 2``; other channel counts multiply the sum by 0.25f and
+    round half to even; float32 sums the four in row order."""
+    h, w, cn = img.shape
+    q = img.reshape(h // 2, 2, w // 2, 2, cn)
+    p00, p01, p10, p11 = q[:, 0, :, 0], q[:, 0, :, 1], q[:, 1, :, 0], \
+        q[:, 1, :, 1]
+    if img.dtype == np.float32:
+        return ((p00 + p01) + p10 + p11) * np.float32(0.25)
+    total = p00.astype(np.int64) + p01 + p10 + p11
+    if cn in (1, 3, 4):
+        return ((total + 2) >> 2).astype(img.dtype)
+    return np.rint(total.astype(np.float32) * np.float32(0.25)).astype(
+        img.dtype)
+
+
+def _resize_opencv(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """OpenCV's separable linear resize (``resizeGeneric_``). uint8 works
+    in 11-bit fixed point: the row pass sums ``pixel · weight`` exactly,
+    the column pass as OpenCV's vector code rounds it,
+    ``((b0 · (r0 >> 4)) >> 16) + ((b1 · (r1 >> 4)) >> 16) + 2 >> 2``.
+    uint16 and float32 work in float32, ``a · w0 + b · w1`` rounded after
+    each product, uint16 rounded half to even and saturated. Outputs past
+    ``xmax`` copy the last source column; rows above the first or below
+    the last are the edge row taken twice with their unclamped weights."""
+    sh, sw = img.shape[:2]
+    xs, xw0, xw1, xmax = _opencv_axis(sw, width)
+    fy = ((np.arange(height) + 0.5) * (1.0 / (height / sh)) - 0.5).astype(
+        np.float32)
+    y0 = np.floor(fy)
+    yw1 = fy - y0
+    yw0 = np.float32(1) - yw1
+    y0 = y0.astype(np.int64)
+    r0, r1 = np.clip(y0, 0, sh - 1), np.clip(y0 + 1, 0, sh - 1)
+    xs1 = np.minimum(xs + 1, sw - 1)
+    ex, ey = (None, slice(None), None), (slice(None), None, None)
+    if img.dtype == np.uint8:
+        one = np.float32(INTER_RESIZE_COEF_SCALE)
+        ax0, ax1 = (np.rint(w * one).astype(np.int64) for w in (xw0, xw1))
+        by0, by1 = (np.rint(w * one).astype(np.int64) for w in (yw0, yw1))
+        a = img.astype(np.int64)
+        rows = a[:, xs] * ax0[ex] + a[:, xs1] * ax1[ex]
+        rows[:, xmax:] = a[:, xs[xmax:]] * INTER_RESIZE_COEF_SCALE
+        out = (((by0[ey] * (rows[r0] >> 4)) >> 16)
+               + ((by1[ey] * (rows[r1] >> 4)) >> 16) + 2) >> 2
+        return np.clip(out, 0, 255).astype(np.uint8)
+    a = img.astype(np.float32)
+    rows = a[:, xs] * xw0[ex] + a[:, xs1] * xw1[ex]
+    rows[:, xmax:] = a[:, xs[xmax:]]
+    out = rows[r0] * yw0[ey] + rows[r1] * yw1[ey]
+    if img.dtype == np.uint16:
+        return np.clip(np.rint(out), 0, 65535).astype(np.uint16)
+    return out
+
+
+def resize_linear(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """``cv2.resize(img, (width, height), interpolation=cv2.INTER_LINEAR)``
+    on a uint8, uint16 or float32 (H, W) or (H, W, C) image. cv2 takes one
+    of four routes, and so does this copy:
+
+    - the same size: a copy;
+    - uint16 or float32 with 1, 3 or 4 channels and both sides over one
+      pixel: the IPP HAL's linear resize (:func:`_resize_ipp`), the exact
+      2× downsample included;
+    - otherwise an exact 2× downsample on both sides: the ``INTER_AREA``
+      fast path (:func:`_resize_half`);
+    - otherwise OpenCV's own separable resize (:func:`_resize_opencv`),
+      in fixed point for uint8."""
+    img = _check_image(img, (np.uint8, np.uint16, np.float32))
+    a = img if img.ndim == 3 else img[..., None]
+    sh, sw, cn = a.shape
+    if (sh, sw) == (height, width):
+        return _as_cv_shape(a.copy(), img)
+    if img.dtype != np.uint8 and cn in (1, 3, 4) and sh > 1 and sw > 1:
+        out = _resize_ipp(a, width, height)
+    elif (sh, sw) == (2 * height, 2 * width):
+        out = _resize_half(a)
+    else:
+        out = _resize_opencv(a, width, height)
+    return _as_cv_shape(out, img)
+
+
+def resize_nearest(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """``cv2.resize(img, (width, height), interpolation=cv2.INTER_NEAREST)``:
+    source pixel ``min(floor(x · (1 / (width / W))), W - 1)`` in float64
+    (not ``INTER_NEAREST_EXACT``'s centre rule). A gather, so exact for
+    every dtype; cv2 returns (H, W) for one channel."""
+    img = np.asarray(img)
+    sh, sw = img.shape[:2]
+    xs = np.minimum(np.floor(np.arange(width) * (1.0 / (width / sw))),
+                    sw - 1).astype(np.int64)
+    ys = np.minimum(np.floor(np.arange(height) * (1.0 / (height / sh))),
+                    sh - 1).astype(np.int64)
+    out = img[ys[:, None], xs[None, :]]
+    return out[..., 0] if out.ndim == 3 and out.shape[2] == 1 else out

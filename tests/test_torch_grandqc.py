@@ -59,6 +59,7 @@ from classpose_tpu_torch.grandqc.nets import (  # noqa: E402
 )
 from classpose_tpu_torch.io.array_reader import ArraySlide  # noqa: E402
 from classpose_tpu_torch.nn.manifest import grandqc_manifest  # noqa: E402
+from classpose_tpu_torch.transforms import cvlite  # noqa: E402
 
 ATOL = 1e-4  # logits, fp32 on the CPU (measured ≤ 1e-5 at these sizes)
 
@@ -392,7 +393,8 @@ def test_resize_nearest_bitwise_cv2(src, dst):
     rng = np.random.default_rng(sum(src))
     m = rng.integers(0, 2, src, dtype=np.uint8)
     ref = cv2.resize(m, dst[::-1], interpolation=cv2.INTER_NEAREST)
-    np.testing.assert_array_equal(ph.resize_nearest(m, dst[1], dst[0]), ref)
+    np.testing.assert_array_equal(
+        cvlite.resize_nearest(m, dst[1], dst[0]), ref)
 
 
 def test_thumbnail_matches_jax():
