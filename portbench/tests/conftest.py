@@ -1,0 +1,8 @@
+"""The benchmark's tests import ``portbench`` from the checkout's root."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
