@@ -42,6 +42,7 @@ from classpose_tpu_torch.dynamics.flows import (
     masks_to_flows,
 )
 from classpose_tpu_torch.ops.sample import bilinear_sample, landing_histogram
+from classpose_tpu_torch.tracing import span
 
 STEP_CAP = 2.0  # max px per Euler step (binds only for |dP| > 10)
 
@@ -315,34 +316,41 @@ def compute_masks(dP, cellprob, niter: int = 200,
     """Mask recovery for one (2, H, W) flow field and (H, W) cellprob
     (numpy or tensors) → (H, W) int32. ``qc_downsample = d > 1`` runs the
     flow QC on every d-th pixel (an approximation the JAX signature
-    offers); ``qc_niter`` fixes its horizon."""
+    offers); ``qc_niter`` fixes its horizon. Its stages run under the
+    spans ``masks.follow``, ``.labels``, ``.max_size``, ``.qc`` and
+    ``.holes``."""
     dP = torch.as_tensor(dP, dtype=torch.float32, device=device)
     cellprob = torch.as_tensor(cellprob, dtype=torch.float32, device=device)
-    iscell = cellprob > cellprob_threshold
-    if not bool(iscell.any()):
-        return np.zeros(tuple(cellprob.shape), np.int32)
-    p = follow_flows(dP.contiguous(), iscell, niter=niter)
-    masks = densify_labels(get_masks_from_positions(p, iscell).cpu().numpy())
-    nmax = int(masks.max())
+    with span("masks.follow"):
+        iscell = cellprob > cellprob_threshold
+        if not bool(iscell.any()):
+            return np.zeros(tuple(cellprob.shape), np.int32)
+        p = follow_flows(dP.contiguous(), iscell, niter=niter)
+    with span("masks.labels"):
+        masks = densify_labels(
+            get_masks_from_positions(p, iscell).cpu().numpy())
+        nmax = int(masks.max())
     if nmax == 0:
         return masks
-    # max-size filter (cellpose get_masks tail)
-    counts = np.bincount(masks.ravel(), minlength=nmax + 1)
-    H, W = masks.shape
-    too_big = counts > max_size_fraction * H * W
-    too_big[0] = False
-    if too_big.any():
-        masks[too_big[masks]] = 0
-        masks = densify_labels(masks)
-        nmax = int(masks.max())
-        if nmax == 0:
-            return masks
+    with span("masks.max_size"):  # cellpose get_masks tail
+        counts = np.bincount(masks.ravel(), minlength=nmax + 1)
+        H, W = masks.shape
+        too_big = counts > max_size_fraction * H * W
+        too_big[0] = False
+        if too_big.any():
+            masks[too_big[masks]] = 0
+            masks = densify_labels(masks)
+            nmax = int(masks.max())
+            if nmax == 0:
+                return masks
     if flow_threshold is not None and flow_threshold > 0:
-        d = max(1, int(qc_downsample))
-        errs = flow_errors(masks[::d, ::d], dP.cpu().numpy()[:, ::d, ::d],
-                           max_id=nmax, niter=qc_niter, device=device)
-        bad = errs > flow_threshold
-        bad[0] = False
-        if bad.any():
-            masks[bad[masks]] = 0
-    return fill_holes_and_remove_small_masks(masks, min_size=min_size)
+        with span("masks.qc"):
+            d = max(1, int(qc_downsample))
+            errs = flow_errors(masks[::d, ::d], dP.cpu().numpy()[:, ::d, ::d],
+                               max_id=nmax, niter=qc_niter, device=device)
+            bad = errs > flow_threshold
+            bad[0] = False
+            if bad.any():
+                masks[bad[masks]] = 0
+    with span("masks.holes"):
+        return fill_holes_and_remove_small_masks(masks, min_size=min_size)

@@ -116,7 +116,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--profile", type=str, default=None,
-        help="Directory for a torch.profiler trace of the run.",
+        help="Directory for a profile of each slide: trace.json (every "
+             "thread, the stages as classpose.* ranges) and spans.json "
+             "(each stage's seconds and count).",
     )
     parser.add_argument(
         "--tile_batch", type=int, default=None,

@@ -24,6 +24,11 @@ gradient it takes the plain version under autograd (``attention_relpos``
 on the CPU, whose plain route has the kernels' autograd plumbing). The blocks' ``norm1``/``norm2`` and the neck's two LayerNorm2d
 take the LayerNorm kernel (``nn/layernorm.py``) in bf16 on the card when
 ``CLASSPOSE_LN_PALLAS=1``, and its plain version otherwise.
+
+Each block's sublayers run under spans (``net.norm1``, ``net.qkv``,
+``net.relpos``, ``net.attention``, ``net.proj``, ``net.norm2``,
+``net.fc1``, ``net.gelu``, ``net.fc2``; ``tracing.py``), which name the
+kernels they launch in a profile and cost one flag read otherwise.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from classpose_tpu_torch.nn.attention import (
 from classpose_tpu_torch.nn.layernorm import LayerNorm
 from classpose_tpu_torch.nn.layers import Conv2d, Linear
 from classpose_tpu_torch.nn.unet import UNet
+from classpose_tpu_torch.tracing import span
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -129,30 +135,40 @@ class Attention(nn.Module):
         n = self.num_heads
         hd = C // n
         scale = hd ** -0.5
-        qkv = self.qkv(x).reshape(B, L, 3 * C)
-        Rh = get_rel_pos(H, H, self.rel_pos_h).to(x.dtype)  # (H, H, hd)
-        Rw = get_rel_pos(W, W, self.rel_pos_w).to(x.dtype)  # (W, W, hd)
+        with span("net.qkv"):
+            qkv = self.qkv(x).reshape(B, L, 3 * C)
         if x.dtype == torch.float32 and not torch.is_grad_enabled():
             # the JAX fp32 branch: head-major q, k, v and two einsums
-            q, k, v = qkv.reshape(B, L, 3, n, hd).permute(2, 0, 3, 1, 4)
-            q_hw = q.reshape(B, n, H, W, hd)
-            rel_h = torch.einsum("bnhwc,hkc->bnhwk", q_hw, Rh)
-            rel_w = torch.einsum("bnhwc,wkc->bnhwk", q_hw, Rw)
-            out = flash_attention_relpos(
-                q.contiguous(), k.contiguous(), v.contiguous(),
-                rel_h.reshape(B, n, L, H).contiguous(),
-                rel_w.reshape(B, n, L, W).contiguous(), scale, (H, W))
-            return self.proj(out.transpose(1, 2).reshape(B, H, W, C))
-        # per-token table [Rh[i // W] | Rw[i % W]]: (L, H+W, hd)
-        T = torch.cat([Rh.repeat_interleave(W, dim=0), Rw.repeat(H, 1, 1)],
-                      dim=1)
-        q_tok = qkv[..., :C].reshape(B, L, n, hd)
-        rel = torch.einsum("blnc,lkc->blnk", q_tok, T).contiguous()
-        if x.dtype == torch.bfloat16 or x.device.type == "cpu":
-            out = attention_relpos(qkv.contiguous(), rel, scale, (H, W), n)
-        else:
-            out = attention_relpos_plain(qkv, rel, scale, (H, W), n)
-        return self.proj(out.reshape(B, H, W, C))
+            with span("net.relpos"):
+                Rh = get_rel_pos(H, H, self.rel_pos_h).to(x.dtype)
+                Rw = get_rel_pos(W, W, self.rel_pos_w).to(x.dtype)
+                q, k, v = qkv.reshape(B, L, 3, n, hd).permute(2, 0, 3, 1, 4)
+                q_hw = q.reshape(B, n, H, W, hd)
+                rel_h = torch.einsum("bnhwc,hkc->bnhwk", q_hw, Rh)
+                rel_w = torch.einsum("bnhwc,wkc->bnhwk", q_hw, Rw)
+            with span("net.attention"):
+                out = flash_attention_relpos(
+                    q.contiguous(), k.contiguous(), v.contiguous(),
+                    rel_h.reshape(B, n, L, H).contiguous(),
+                    rel_w.reshape(B, n, L, W).contiguous(), scale, (H, W))
+            with span("net.proj"):
+                return self.proj(out.transpose(1, 2).reshape(B, H, W, C))
+        with span("net.relpos"):
+            Rh = get_rel_pos(H, H, self.rel_pos_h).to(x.dtype)  # (H, H, hd)
+            Rw = get_rel_pos(W, W, self.rel_pos_w).to(x.dtype)  # (W, W, hd)
+            # per-token table [Rh[i // W] | Rw[i % W]]: (L, H+W, hd)
+            T = torch.cat([Rh.repeat_interleave(W, dim=0),
+                           Rw.repeat(H, 1, 1)], dim=1)
+            q_tok = qkv[..., :C].reshape(B, L, n, hd)
+            rel = torch.einsum("blnc,lkc->blnk", q_tok, T).contiguous()
+        with span("net.attention"):
+            if x.dtype == torch.bfloat16 or x.device.type == "cpu":
+                out = attention_relpos(qkv.contiguous(), rel, scale, (H, W),
+                                       n)
+            else:
+                out = attention_relpos_plain(qkv, rel, scale, (H, W), n)
+        with span("net.proj"):
+            return self.proj(out.reshape(B, H, W, C))
 
 
 class MLPBlock(nn.Module):
@@ -162,11 +178,14 @@ class MLPBlock(nn.Module):
         self.lin2 = Linear(mlp_dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.lin1(x)
-        yf = y.float()
-        y = (0.5 * yf * (1.0 + torch.erf(yf * 0.7071067811865476))).to(
-            x.dtype)
-        return self.lin2(y)
+        with span("net.fc1"):
+            y = self.lin1(x)
+        with span("net.gelu"):
+            yf = y.float()
+            y = (0.5 * yf * (1.0 + torch.erf(yf * 0.7071067811865476))).to(
+                x.dtype)
+        with span("net.fc2"):
+            return self.lin2(y)
 
 
 class Block(nn.Module):
@@ -181,8 +200,12 @@ class Block(nn.Module):
         self.mlp = MLPBlock(dim, int(dim * mlp_ratio))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+        with span("net.norm1"):
+            h = self.norm1(x)
+        x = x + self.attn(h)
+        with span("net.norm2"):
+            h = self.norm2(x)
+        return x + self.mlp(h)
 
 
 def pixel_shuffle(x: torch.Tensor, ps: int, n_channels: int) -> torch.Tensor:

@@ -40,6 +40,15 @@ Weights are a published ``.pt`` (the built-in configs) or a native
 ``percentile_subsample=2``. Slides are read by the reader ``WSI_READER``
 selects (by default the package's TIFF/SVS reader; ``array`` for
 ``.npy``; ``czi`` for Zeiss ``.czi``).
+
+Every stage runs under a span (``tracing.py``): the reads and resizes,
+the waits for a tile, a batch's submission, queue wait and
+``eval_batch``, the polygon jobs' queue wait and work, the drain, dedup
+and the export's parts. ``main`` returns their totals as
+``stage_seconds``. ``--profile DIR`` profiles every thread from the
+first read to the last export write into ``DIR/trace.json``, where the
+spans are ``classpose.*`` ranges, and writes their seconds and counts to
+``DIR/spans.json``.
 """
 
 from __future__ import annotations
@@ -82,6 +91,7 @@ from classpose_tpu_torch.pipeline.slide_loader import (
     SlideLoader,
 )
 from classpose_tpu_torch.pipeline.tile_filter import filter_tile
+from classpose_tpu_torch.tracing import add, profiled, reset_profiled, span
 from classpose_tpu_torch.utils import (
     get_device,
     get_devices,
@@ -135,7 +145,11 @@ class DeviceWorker:
     thread with its own CUDA stream (:meth:`_stream`). Whole batches are
     dealt: the next one goes to the replica with the fewest batches in
     flight (the first such), so every batch runs the program it runs on
-    one device."""
+    one device.
+
+    ``seconds`` holds the thread-seconds of its spans (``wsi.batch``,
+    ``wsi.post``) and of the spans its caller adds to it; a batch's spans
+    and its tiles' polygon jobs carry the batch's number."""
 
     def __init__(
         self,
@@ -182,25 +196,25 @@ class DeviceWorker:
         self._tls = threading.local()
         self.n_tiles = 0
         self.n_invalid = 0
-        self.infer_seconds = 0.0  # cumulative seconds in eval_batch
+        self.n_flushed = 0        # batches dealt so far: the next's number
         # live-progress and stage counters
         self.n_done = 0           # tiles through the device path
         self.n_cells_found = 0    # cells extracted so far (may lag)
-        self.post_seconds = 0.0   # cumulative host polygon CPU-seconds
+        self.seconds: dict[str, float] = {}  # span name -> thread-seconds
         self._stats_lock = threading.Lock()
 
     @property
     def batches_per_device(self) -> list[int]:
         return [r.batches for r in self.replicas]
 
-    def _timed_process_tile(self, *a, **kw):
+    def _post_tile(self, batch: int, submitted: float, *a):
         """process_tile + GeoJSON feature conversion + stage counters, in
         the post pool."""
-        t0 = time.time()
-        cells, inv = process_tile(*a, **kw)
-        feats = [to_geojson_polygon(c) for c in cells]
+        add("wsi.post_queue", time.perf_counter() - submitted)
+        with span("wsi.post", into=self.seconds, args=f"batch={batch}"):
+            cells, inv = process_tile(*a)
+            feats = [to_geojson_polygon(c) for c in cells]
         with self._stats_lock:
-            self.post_seconds += time.time() - t0
             self.n_cells_found += len(feats)
             self.n_done += 1
         return feats, inv
@@ -228,21 +242,25 @@ class DeviceWorker:
         items = self._pending.pop(b, [])
         if not items:
             return
-        tiles = np.stack([t for t, _, _ in items])
-        with self._stats_lock:
-            rep = min(self.replicas, key=lambda r: r.in_flight)
-            rep.in_flight += 1
-            rep.batches += 1
-        ready = None
-        if rep.copy_stream is not None:
-            host = torch.from_numpy(tiles).pin_memory()
-            with torch.cuda.device(rep.device), \
-                    torch.cuda.stream(rep.copy_stream):
-                tiles = host.to(rep.device, non_blocking=True)
-                ready = torch.cuda.Event()
-                ready.record(rep.copy_stream)
-        self._futures.append(
-            rep.pool.submit(self._run_batch, rep, tiles, ready, items))
+        batch = self.n_flushed
+        self.n_flushed += 1
+        with span("wsi.submit", args=f"batch={batch}"):
+            tiles = np.stack([t for t, _, _ in items])
+            with self._stats_lock:
+                rep = min(self.replicas, key=lambda r: r.in_flight)
+                rep.in_flight += 1
+                rep.batches += 1
+            ready = None
+            if rep.copy_stream is not None:
+                host = torch.from_numpy(tiles).pin_memory()
+                with torch.cuda.device(rep.device), \
+                        torch.cuda.stream(rep.copy_stream):
+                    tiles = host.to(rep.device, non_blocking=True)
+                    ready = torch.cuda.Event()
+                    ready.record(rep.copy_stream)
+            self._futures.append(rep.pool.submit(
+                self._run_batch, rep, tiles, ready, items, batch,
+                time.perf_counter()))
 
     def _stream(self, device) -> torch.cuda.Stream:
         """This inference thread's own CUDA stream (on its replica's
@@ -252,31 +270,33 @@ class DeviceWorker:
             s = self._tls.stream = torch.cuda.Stream(device)
         return s
 
-    def _run_batch(self, rep, tiles, ready, items):
+    def _run_batch(self, rep, tiles, ready, items, batch: int,
+                   flushed: float):
         """One ``eval_batch`` for a bucket on replica ``rep``; returns its
-        post-proc futures."""
-        t0 = time.time()
+        post-proc futures. ``flushed`` is the ``perf_counter`` second its
+        bucket was dealt: the wait until now counts once per tile."""
+        add("wsi.batch_queue", (time.perf_counter() - flushed) * len(items))
         kw = dict(batch_size=self.batch_size, augment=self.augment,
                   niter=self.niter, flow_threshold=self.flow_threshold,
                   cellprob_threshold=self.cellprob_threshold,
                   min_size=self.min_size, qc_downsample=self.qc_downsample,
                   percentile_subsample=self.percentile_subsample)
-        try:
-            if ready is not None:
-                stream = self._stream(rep.device)
-                with torch.cuda.stream(stream):
-                    stream.wait_event(ready)
-                    tiles.record_stream(stream)
+        with span("wsi.batch", into=self.seconds, args=f"batch={batch}"):
+            try:
+                if ready is not None:
+                    stream = self._stream(rep.device)
+                    with torch.cuda.stream(stream):
+                        stream.wait_event(ready)
+                        tiles.record_stream(stream)
+                        results = rep.model.eval_batch(tiles, **kw)
+                else:
                     results = rep.model.eval_batch(tiles, **kw)
-            else:
-                results = rep.model.eval_batch(tiles, **kw)
-        finally:
-            with self._stats_lock:
-                rep.in_flight -= 1
-                self.infer_seconds += time.time() - t0
+            finally:
+                with self._stats_lock:
+                    rep.in_flight -= 1
         return [
             self._pool.submit(
-                self._timed_process_tile,
+                self._post_tile, batch, time.perf_counter(),
                 masks[:out_size, :out_size],
                 cm[:out_size, :out_size] if self.labels is not None
                 else None,
@@ -326,11 +346,13 @@ class ProgressReporter:
         w = self.worker
         el = max(time.time() - self._t0, 1e-6)
         total = f"/{self.n_total}" if self.n_total else ""
+        s = w.seconds
         return (
             f"\rtiles {w.n_done}{total} predicted "
             f"({w.n_tiles} read) | {w.n_cells_found} cells "
             f"({w.n_invalid} invalid) | {w.n_done / el:.2f} tiles/s "
-            f"| device {w.infer_seconds:.1f}s host {w.post_seconds:.1f}s"
+            f"| batches {s.get('wsi.batch', 0.0):.1f}s "
+            f"host {s.get('wsi.post', 0.0):.1f}s"
         )
 
     def _run(self):
@@ -387,6 +409,72 @@ def build_model_from_config(model_config: ModelConfig,
         logger.warning("Model has %d classes but config lists %d cell types",
                        n_classes, n_config_labels)
     return model
+
+
+def _filter_cells(args, features, roi_tree, tissue, tissue_polygons,
+                  device):
+    """The cells inside the ROIs and the tissue and, with
+    ``--filter_artefacts``, outside the artefacts; returns them and the
+    artefact model's result (None without ``--artefact_detection_model_
+    path``)."""
+    if roi_tree is not None:
+        features = filter_cells_by_tree(features, roi_tree, keep_inside=True)
+    if tissue_polygons:
+        features = filter_cells_by_tree(features, STRtree(tissue_polygons),
+                                        keep_inside=True)
+    art = None
+    if getattr(args, "artefact_detection_model_path", None):
+        from classpose_tpu_torch.grandqc import detect_artefacts_wsi
+
+        # the artefact stage's tissue mask has no area filter: the tissue
+        # stage's mask before its filter is that mask
+        art = detect_artefacts_wsi(
+            args.slide_path, model_path=args.artefact_detection_model_path,
+            tissue_model_path=getattr(args, "tissue_detection_model_path",
+                                      None),
+            tissue_result=(None if tissue is None
+                           else {"mask": tissue["mask_unfiltered"]}),
+            device=device)
+        if getattr(args, "filter_artefacts", False) and art["polygons"]:
+            features = filter_cells_by_tree(
+                features, STRtree(art["polygons_level0"]), keep_inside=False)
+    return features, art
+
+
+def _shifted(features, bx: float, by: float):
+    """GeoJSON features moved by QuPath's bounds offset (None stays
+    None)."""
+    if features is None:
+        return None
+    return [apply_bounds_offset_to_feature(f, bx, by) for f in features]
+
+
+def _densities(args, loader, features, labels, roi_class_dict, tissue_area,
+               art) -> dict:
+    """Cells per class per mm² of tissue (per ROI class with
+    ``--roi_geojson``'s classes), the artefacts' area taken off."""
+    artefact_l0 = art["polygons_level0"] if art else []
+    if roi_class_dict:
+        cells_by_roi = map_cells_to_roi_classes(
+            features, roi_class_dict,
+            getattr(args, "roi_class_priority", None))
+        tissue_by_roi = {k: sum(p.area for p in v)
+                         for k, v in roi_class_dict.items()}
+        # per-ROI artefact correction: effective area = ROI − ROI ∩
+        # artefact
+        artefact_by_roi = {
+            k: sum(intersection_area(ap, rp)
+                   for ap in artefact_l0 for rp in v)
+            for k, v in roi_class_dict.items()}
+        return calculate_cellular_densities(
+            cells_by_roi, tissue_by_roi, artefact_by_roi, loader.mpp[0],
+            loader.mpp[1], labels)
+    W, H = loader.slide.level_dimensions[0]
+    artefact_area = (sum(p.area for p in art["polygons"])  # level-0 px²
+                     if art else 0.0)
+    return calculate_cellular_densities(
+        features, tissue_area or float(W) * float(H), artefact_area,
+        loader.mpp[0], loader.mpp[1], labels)
 
 
 def main(args, model_override=None, devices=None) -> dict:
@@ -480,149 +568,105 @@ def main(args, model_override=None, devices=None) -> dict:
     profile_dir = getattr(args, "profile", None)
     prof = None
     if profile_dir:
+        from torch._C._profiler import _ExperimentalConfig
         from torch.profiler import ProfilerActivity, profile
 
+        # every thread: the readers', the inference threads' and the
+        # polygon pool's spans as well as this thread's
         acts = [ProfilerActivity.CPU] + (
             [ProfilerActivity.CUDA] if device.type == "cuda" else [])
-        prof = profile(activities=acts)
+        reset_profiled()
+        prof = profile(activities=acts, experimental_config=(
+            _ExperimentalConfig(profile_all_threads=True)))
         prof.__enter__()
         logger.info("torch profiler trace → %s", profile_dir)
 
+    stages = worker.seconds
     tile_filter = filter_tile if getattr(args, "filter_background_tiles",
                                          False) else None
     n_streamed = 0
-    t_stream0 = time.time()
     with ProgressReporter(worker, len(loader.coords) or None,
                           enabled=getattr(args, "progress", None)):
-        for tile, coords, out_size in loader.stream(tile_filter=tile_filter):
-            worker.submit(tile, coords, out_size)
-            n_streamed += 1
-            if n_streamed % 50 == 0:
-                logger.info(
-                    "tiles: %d submitted (%.2f tiles/s, device %.1fs)",
-                    n_streamed, n_streamed / (time.time() - t_stream0),
-                    worker.infer_seconds)
-        t_stream = time.time() - t_stream0
+        with span("wsi.stream", into=stages):
+            for tile, coords, out_size in loader.stream(
+                    tile_filter=tile_filter):
+                worker.submit(tile, coords, out_size)
+                n_streamed += 1
+                if n_streamed % 50 == 0:
+                    logger.info(
+                        "tiles: %d submitted (%.2f tiles/s, batches "
+                        "%.1fs)", n_streamed,
+                        n_streamed / (time.time() - t_start),
+                        stages.get("wsi.batch", 0.0))
         logger.info("Processed %d tiles", n_streamed)
         # drain: in-flight batches and polygon jobs after the last submit
-        t_drain0 = time.time()
-        features = worker.collect()
-        t_drain = time.time() - t_drain0
+        with span("wsi.drain", into=stages):
+            features = worker.collect()
+    logger.info(
+        "Detected %d cells (%d invalid polygons dropped); stage timers: "
+        "read+infer %.1fs drain %.1fs (batches %.1fs, host polygons "
+        "%.1fs)", len(features), worker.n_invalid, stages["wsi.stream"],
+        stages["wsi.drain"], stages.get("wsi.batch", 0.0),
+        stages.get("wsi.post", 0.0))
+
+    with span("wsi.dedup", into=stages):
+        features = deduplicate(features)
+    with span("wsi.export", into=stages):
+        with span("wsi.export.filter"):
+            features, art = _filter_cells(args, features, roi_tree,
+                                          tissue, tissue_polygons, device)
+        artefact_features = art["geojson"]["features"] if art else None
+        with span("wsi.export.geojson"):
+            centroids = polygons_to_centroids(features)
+            bx, by = loader.bounds_x, loader.bounds_y
+            if bx or by:
+                features, centroids, tissue_features, artefact_features = (
+                    _shifted(fs, bx, by) for fs in (
+                        features, centroids, tissue_features,
+                        artefact_features))
+            out = Path(args.output_folder)
+            for kind, fs in (("cell_contours", features),
+                             ("cell_centroids", centroids),
+                             ("tissue_contours", tissue_features),
+                             ("artefact_contours", artefact_features)):
+                if fs is not None:
+                    write_feature_collection(
+                        fs, out / get_geojson_output_filename(kind,
+                                                              base_name))
+        densities = None
+        if output_types and labels is not None:
+            with span("wsi.export.densities"):
+                densities = _densities(args, loader, features, labels,
+                                       roi_class_dict, tissue_area, art)
+                if "csv" in output_types:
+                    write_densities_csv(
+                        densities,
+                        out / f"{base_name}_cellular_densities.csv")
+        if "spatialdata" in output_types:
+            with span("wsi.export.spatialdata"):
+                roi_features = None
+                if getattr(args, "roi_geojson", None):
+                    with open(args.roi_geojson) as f:
+                        roi_features = json.load(f).get("features")
+                create_spatialdata_output(
+                    out / f"{base_name}_spatialdata.zarr", features,
+                    tissue_features, artefact_features, roi_features,
+                    densities, metadata={
+                        "slide": str(args.slide_path),
+                        "mpp": loader.mpp,
+                        "model_config": str(args.model_config),
+                        "n_cells": len(features),
+                        "timestamp": time.strftime("%Y-%m-%dT%H:%M:%S"),
+                    })
+
     if prof is not None:
         prof.__exit__(None, None, None)
         Path(profile_dir).mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(Path(profile_dir) / "trace.json"))
-    logger.info(
-        "Detected %d cells (%d invalid polygons dropped); stage timers: "
-        "read+infer %.1fs drain %.1fs (device-path %.1fs, host polygons "
-        "%.1fs)", len(features), worker.n_invalid, t_stream, t_drain,
-        worker.infer_seconds, worker.post_seconds)
-
-    t_dedup0 = time.time()
-    features = deduplicate(features)
-    t_dedup = time.time() - t_dedup0
-    t_export0 = time.time()
-
-    if roi_tree is not None:
-        features = filter_cells_by_tree(features, roi_tree, keep_inside=True)
-    if tissue_polygons:
-        features = filter_cells_by_tree(features, STRtree(tissue_polygons),
-                                        keep_inside=True)
-
-    artefact_features = None
-    artefact_area = 0.0
-    artefact_polygons_l0: list = []
-    if getattr(args, "artefact_detection_model_path", None):
-        from classpose_tpu_torch.grandqc import detect_artefacts_wsi
-
-        # the artefact stage's tissue mask has no area filter: the tissue
-        # stage's mask before its filter is that mask
-        art = detect_artefacts_wsi(
-            args.slide_path, model_path=args.artefact_detection_model_path,
-            tissue_model_path=getattr(args, "tissue_detection_model_path",
-                                      None),
-            tissue_result=(None if tissue is None
-                           else {"mask": tissue["mask_unfiltered"]}),
-            device=device)
-        artefact_features = art["geojson"]["features"]
-        artefact_polygons_l0 = art["polygons_level0"]
-        artefact_area = sum(p.area for p in art["polygons"])  # level-0 px²
-        if getattr(args, "filter_artefacts", False) and art["polygons"]:
-            features = filter_cells_by_tree(
-                features, STRtree(art["polygons_level0"]), keep_inside=False)
-
-    centroids = polygons_to_centroids(features)
-
-    bx, by = loader.bounds_x, loader.bounds_y
-    if bx or by:
-        features = [apply_bounds_offset_to_feature(f, bx, by)
-                    for f in features]
-        centroids = [apply_bounds_offset_to_feature(f, bx, by)
-                     for f in centroids]
-        if tissue_features:
-            tissue_features = [apply_bounds_offset_to_feature(f, bx, by)
-                               for f in tissue_features]
-        if artefact_features:
-            artefact_features = [apply_bounds_offset_to_feature(f, bx, by)
-                                 for f in artefact_features]
-
-    out = Path(args.output_folder)
-    write_feature_collection(
-        features, out / get_geojson_output_filename("cell_contours",
-                                                    base_name))
-    write_feature_collection(
-        centroids, out / get_geojson_output_filename("cell_centroids",
-                                                     base_name))
-    if tissue_features is not None:
-        write_feature_collection(
-            tissue_features,
-            out / get_geojson_output_filename("tissue_contours", base_name))
-    if artefact_features is not None:
-        write_feature_collection(
-            artefact_features,
-            out / get_geojson_output_filename("artefact_contours",
-                                              base_name))
-
-    densities = None
-    if output_types and labels is not None:
-        if roi_class_dict:
-            cells_by_roi = map_cells_to_roi_classes(
-                features, roi_class_dict,
-                getattr(args, "roi_class_priority", None))
-            tissue_by_roi = {k: sum(p.area for p in v)
-                             for k, v in roi_class_dict.items()}
-            # per-ROI artefact correction: effective area = ROI − ROI ∩
-            # artefact
-            artefact_by_roi = {
-                k: sum(intersection_area(ap, rp)
-                       for ap in artefact_polygons_l0 for rp in v)
-                for k, v in roi_class_dict.items()}
-            densities = calculate_cellular_densities(
-                cells_by_roi, tissue_by_roi, artefact_by_roi, loader.mpp[0],
-                loader.mpp[1], labels)
-        else:
-            W, H = loader.slide.level_dimensions[0]
-            densities = calculate_cellular_densities(
-                features, tissue_area or float(W) * float(H), artefact_area,
-                loader.mpp[0], loader.mpp[1], labels)
-        if "csv" in output_types:
-            write_densities_csv(
-                densities, out / f"{base_name}_cellular_densities.csv")
-    if "spatialdata" in output_types:
-        roi_features = None
-        if getattr(args, "roi_geojson", None):
-            with open(args.roi_geojson) as f:
-                roi_features = json.load(f).get("features")
-        create_spatialdata_output(
-            out / f"{base_name}_spatialdata.zarr", features,
-            tissue_features, artefact_features, roi_features, densities,
-            metadata={
-                "slide": str(args.slide_path),
-                "mpp": loader.mpp,
-                "model_config": str(args.model_config),
-                "n_cells": len(features),
-                "timestamp": time.strftime("%Y-%m-%dT%H:%M:%S"),
-            })
+        with open(Path(profile_dir) / "spans.json", "w") as f:
+            json.dump({k: {"seconds": v[0], "count": v[1]}
+                       for k, v in sorted(profiled().items())}, f,
+                      indent=1)
 
     loader.close()
     dt = time.time() - t_start
@@ -635,18 +679,18 @@ def main(args, model_override=None, devices=None) -> dict:
         "features": features,
         "devices": [str(d) for d in devices],
         "batches_per_device": worker.batches_per_device,
-        # stream = read+submit wall and drain = post-submit finish wall,
-        # both walls over overlapped device and host work; device = the
-        # inference threads' cumulative seconds in eval_batch (two threads
-        # overlap, so it over-counts card-serial time); host_post = the
-        # post pool's cumulative polygon + feature CPU-seconds; dedup and
-        # export are the single-threaded tail
+        # thread-seconds of the spans: stream = read+submit and drain =
+        # post-submit finish, both walls of this thread over overlapped
+        # device and host work; batch = the inference threads' seconds in
+        # eval_batch (two threads overlap, so it is not card time);
+        # host_post = the post pool's polygon + feature seconds; dedup and
+        # export are this thread's tail
         "stage_seconds": {
-            "stream": round(t_stream, 3),
-            "drain": round(t_drain, 3),
-            "device": round(worker.infer_seconds, 3),
-            "host_post": round(worker.post_seconds, 3),
-            "dedup": round(t_dedup, 3),
-            "export": round(time.time() - t_export0, 3),
-        },
+            key: round(stages.get(name, 0.0), 3)
+            for key, name in (("stream", "wsi.stream"),
+                              ("drain", "wsi.drain"),
+                              ("batch", "wsi.batch"),
+                              ("host_post", "wsi.post"),
+                              ("dedup", "wsi.dedup"),
+                              ("export", "wsi.export"))},
     }

@@ -27,6 +27,7 @@ import numpy as np
 from classpose_tpu_torch.geometry import Polygon, STRtree
 from classpose_tpu_torch.io import WSIReader
 from classpose_tpu_torch.log import get_logger
+from classpose_tpu_torch.tracing import span
 from classpose_tpu_torch.utils import (
     download_if_unavailable,
     get_slide_resolution,
@@ -216,7 +217,9 @@ class SlideLoader:
     # ------------------------------------------------------------- streaming
     def stream(self, coords_list=None, tile_filter=None):
         """Yield (tile_rgb_at_model_mpp, level0_coords, out_size) from a
-        reader thread pool (order not guaranteed)."""
+        reader thread pool (order not guaranteed). Spans: each reader's
+        ``wsi.read`` and ``wsi.resize``, and the caller's ``wsi.read_wait``
+        for the next tile."""
         coords_list = coords_list if coords_list is not None \
             else self.filtered_coords()
         q: queue.Queue = queue.Queue(maxsize=self.queue_size)
@@ -232,12 +235,14 @@ class SlideLoader:
                     state["i"] += 1
                 try:
                     (x, y), tsize = coords_list[k]
-                    region = self.slide.read_region(
-                        (int(x), int(y)), self.level, (tsize, tsize))
-                    tile = np.asarray(region)[..., :3]
+                    with span("wsi.read"):
+                        region = self.slide.read_region(
+                            (int(x), int(y)), self.level, (tsize, tsize))
+                        tile = np.asarray(region)[..., :3]
                     out_size = int(round(tsize * self.resize_factor))
                     if tile.shape[0] != out_size:
-                        tile = resize_linear_u8(tile, out_size, out_size)
+                        with span("wsi.resize"):
+                            tile = resize_linear_u8(tile, out_size, out_size)
                     if tile_filter is not None and not tile_filter(tile):
                         q.put(None)
                         continue
@@ -251,7 +256,8 @@ class SlideLoader:
         for t in threads:
             t.start()
         for _ in range(len(coords_list)):
-            item = q.get()
+            with span("wsi.read_wait"):
+                item = q.get()
             if item is None:
                 continue
             if len(item) == 2 and item[0] == "__error__":

@@ -17,6 +17,12 @@ calls) segments one image, a list, or a 3D stack: convert → optional
 → ``TileRunner`` → optional resample → ``compute_masks`` (the flow QC
 recomputed per image by ``masks_to_flows``) → class vote. Resizes follow
 ``jax.image.resize`` (``ops/resize.py``).
+
+Both run their stages under spans (``tracing.py``): ``batch.program``,
+``batch.readback`` and ``batch.finish`` with the program's ``model.*``;
+``image`` with ``image.normalize``, ``.net``, ``.readback``, ``.masks``,
+``.vote`` and ``.circ``. The first copy to the host after the device
+work waits for it.
 """
 
 from __future__ import annotations
@@ -70,6 +76,7 @@ from classpose_tpu_torch.runner.core import (
     run_net,
 )
 from classpose_tpu_torch.runner.run3d import compute_masks_3d, run_3D, stitch3D
+from classpose_tpu_torch.tracing import span
 
 logger = logging.getLogger(__name__)
 
@@ -273,38 +280,43 @@ class ClassposeModel:
 
         ys = []
         for b in range(B):
-            img = normalize_img(x[b].to(torch.float32), axis=-1,
-                                percentile_subsample=percentile_subsample,
-                                integral_stats=integral)
-            chw = torch.nn.functional.pad(
-                img.permute(2, 0, 1), (xpad1, xpad2, ypad1, ypad2))
-            t = make_tiles(chw, grid)
-            ys.append(torch.cat([
-                self.net(t[c * bs:(c + 1) * bs])[0] for c in range(nchunk)
-            ]))
-        y = torch.stack(ys)  # (B, nt, ncls+3, b, b), compute dtype
-
-        crop = (Ellipsis, slice(ypad1, ypad1 + S), slice(xpad1, xpad1 + S))
-        class_pix = None
-        if ncls > 1:
-            y_class, y_seg = y[:, :, :ncls], y[:, :, ncls:]
+            with span("model.normalize"):
+                img = normalize_img(x[b].to(torch.float32), axis=-1,
+                                    percentile_subsample=percentile_subsample,
+                                    integral_stats=integral)
+                chw = torch.nn.functional.pad(
+                    img.permute(2, 0, 1), (xpad1, xpad2, ypad1, ypad2))
+                t = make_tiles(chw, grid)
+            with span("model.net"):
+                ys.append(torch.cat([self.net(t[c * bs:(c + 1) * bs])[0]
+                                     for c in range(nchunk)]))
+        with span("model.blend"):
+            y = torch.stack(ys)  # (B, nt, ncls+3, b, b), compute dtype
+            crop = (Ellipsis, slice(ypad1, ypad1 + S),
+                    slice(xpad1, xpad1 + S))
+            class_pix = None
+            if ncls > 1:
+                y_class, y_seg = y[:, :, :ncls], y[:, :, ncls:]
+                if augment:
+                    y_class = unaugment_class_tiles(y_class, grid)
+                ycf = average_tiles_separable(y_class, grid)[crop]
+                class_pix = torch.argmax(ycf, dim=1).to(torch.int8)
+            else:
+                y_seg = y
             if augment:
-                y_class = unaugment_class_tiles(y_class, grid)
-            ycf = average_tiles_separable(y_class, grid)[crop]
-            class_pix = torch.argmax(ycf, dim=1).to(torch.int8)
-        else:
-            y_seg = y
-        if augment:
-            y_seg = unaugment_tiles(y_seg, grid)
-        yf = average_tiles_separable(y_seg, grid)[crop]
-        dP = yf[:, :2].contiguous()
-        iscell = yf[:, 2] > cellprob_threshold
+                y_seg = unaugment_tiles(y_seg, grid)
+            yf = average_tiles_separable(y_seg, grid)[crop]
+            dP = yf[:, :2].contiguous()
+            iscell = yf[:, 2] > cellprob_threshold
 
-        p = follow_flows_batched(dP, iscell, niter=niter)
-        raw = get_masks_from_positions_batched(p, iscell)
+        with span("model.flows"):
+            p = follow_flows_batched(dP, iscell, niter=niter)
+        with span("model.masks"):
+            raw = get_masks_from_positions_batched(p, iscell)
         if qc:
-            raw = qc_filter_masks(raw, dP, flow_threshold=flow_threshold,
-                                  max_size_fraction=max_size_fraction)
+            with span("model.qc"):
+                raw = qc_filter_masks(raw, dP, flow_threshold=flow_threshold,
+                                      max_size_fraction=max_size_fraction)
         return raw, class_pix, dP
 
     def eval_batch(self, tiles, batch_size: int = 8, augment: bool = False,
@@ -333,27 +345,30 @@ class ClassposeModel:
             x = x.to(torch.float32)
         x = x.to(self.device)
         fast = qc_downsample > 1
-        raw, class_pix, dP = self._device_program(
-            x, batch_size, augment, niter, flow_threshold,
-            cellprob_threshold, max_size_fraction, percentile_subsample,
-            qc=not fast)
-        raw = raw.cpu().numpy()
-        class_pix = None if class_pix is None else class_pix.cpu().numpy()
-        masks_list = [densify_labels(m) for m in raw]
-        if fast:
-            self._fast_qc(masks_list, dP, qc_downsample, flow_threshold,
-                          max_size_fraction)
-
-        out = []
-        for i, masks in enumerate(masks_list):
-            if masks.max():
-                masks = fill_holes_and_remove_small_masks(masks, min_size)
-            if self.nclasses > 1 and masks.max():
-                cm = compute_class_masks_from_pixels(masks, class_pix[i],
-                                                     self.nclasses)
-            else:
-                cm = np.zeros_like(masks)
-            out.append((masks.astype(np.int32), cm))
+        with span("batch.program"):
+            raw, class_pix, dP = self._device_program(
+                x, batch_size, augment, niter, flow_threshold,
+                cellprob_threshold, max_size_fraction, percentile_subsample,
+                qc=not fast)
+        with span("batch.readback"):
+            raw = raw.cpu().numpy()
+            class_pix = (None if class_pix is None
+                         else class_pix.cpu().numpy())
+        with span("batch.finish"):
+            masks_list = [densify_labels(m) for m in raw]
+            if fast:
+                self._fast_qc(masks_list, dP, qc_downsample, flow_threshold,
+                              max_size_fraction)
+            out = []
+            for i, masks in enumerate(masks_list):
+                if masks.max():
+                    masks = fill_holes_and_remove_small_masks(masks, min_size)
+                if self.nclasses > 1 and masks.max():
+                    cm = compute_class_masks_from_pixels(
+                        masks, class_pix[i], self.nclasses)
+                else:
+                    cm = np.zeros_like(masks)
+                out.append((masks.astype(np.int32), cm))
         return out
 
     def _fast_qc(self, masks_list: list[np.ndarray], dP: torch.Tensor,
@@ -447,7 +462,8 @@ class ClassposeModel:
                     acc.append(v)
                 self.timing.append(time.time() - tic)
             return results
-        return self._eval_2d(x, **kw)
+        with span("image"):
+            return self._eval_2d(x, **kw)
 
     def _eval_2d(self, x, batch_size, resample, channel_axis, normalize,
                  invert, diameter, flow_threshold, cellprob_threshold,
@@ -463,40 +479,47 @@ class ClassposeModel:
                                int(Lx0 * image_scaling), img.shape[-1]))
         norm = _norm_params(normalize, invert)
         if norm["normalize"]:
-            img = normalize_img(
-                img, axis=-1, lowhigh=norm["lowhigh"],
-                percentile=norm["percentile"], invert=norm["invert"],
-                sharpen_radius=norm["sharpen_radius"],
-                smooth_radius=norm["smooth_radius"],
-                tile_norm_blocksize=norm["tile_norm_blocksize"],
-                percentile_subsample=norm["percentile_subsample"])
-        out = TileRunner(self.net, self.nclasses, bsize=bsize,
-                         batch_size=batch_size, tile_overlap=tile_overlap,
-                         augment=augment)(img.permute(2, 0, 1).contiguous())
-        y = out["y"]
-        dP, cellprob = y[:2], y[2]
-        y_class = out["y_class"] if self.nclasses > 1 else torch.zeros(
-            (1,) + tuple(cellprob.shape), device=dev)
-        styles = out["style"].cpu().numpy()
-        if resample and tuple(dP.shape[1:]) != (Ly0, Lx0):
-            dP = resize(dP, (2, Ly0, Lx0))
-            cellprob = resize(cellprob, (Ly0, Lx0))
-            y_class = resize(y_class, (y_class.shape[0], Ly0, Lx0))
-        dP_np, cellprob_np = dP.cpu().numpy(), cellprob.cpu().numpy()
-        y_class_np = y_class.cpu().numpy()
+            with span("image.normalize"):
+                img = normalize_img(
+                    img, axis=-1, lowhigh=norm["lowhigh"],
+                    percentile=norm["percentile"], invert=norm["invert"],
+                    sharpen_radius=norm["sharpen_radius"],
+                    smooth_radius=norm["smooth_radius"],
+                    tile_norm_blocksize=norm["tile_norm_blocksize"],
+                    percentile_subsample=norm["percentile_subsample"])
+        with span("image.net"):
+            out = TileRunner(
+                self.net, self.nclasses, bsize=bsize, batch_size=batch_size,
+                tile_overlap=tile_overlap,
+                augment=augment)(img.permute(2, 0, 1).contiguous())
+            y = out["y"]
+            dP, cellprob = y[:2], y[2]
+            y_class = out["y_class"] if self.nclasses > 1 else torch.zeros(
+                (1,) + tuple(cellprob.shape), device=dev)
+        # the first copy to the host waits for the net
+        with span("image.readback"):
+            styles = out["style"].cpu().numpy()
+            if resample and tuple(dP.shape[1:]) != (Ly0, Lx0):
+                dP = resize(dP, (2, Ly0, Lx0))
+                cellprob = resize(cellprob, (Ly0, Lx0))
+                y_class = resize(y_class, (y_class.shape[0], Ly0, Lx0))
+            dP_np, cellprob_np = dP.cpu().numpy(), cellprob.cpu().numpy()
+            y_class_np = y_class.cpu().numpy()
 
         if compute_masks:
-            masks = _dyn_compute_masks(
-                dP, cellprob, niter=200 if not niter else niter,
-                cellprob_threshold=cellprob_threshold,
-                flow_threshold=flow_threshold, min_size=min_size,
-                max_size_fraction=max_size_fraction,
-                qc_downsample=qc_downsample, device=dev)
+            with span("image.masks"):
+                masks = _dyn_compute_masks(
+                    dP, cellprob, niter=200 if not niter else niter,
+                    cellprob_threshold=cellprob_threshold,
+                    flow_threshold=flow_threshold, min_size=min_size,
+                    max_size_fraction=max_size_fraction,
+                    qc_downsample=qc_downsample, device=dev)
             # the vote at the resolution the masks were computed at
-            if self.nclasses > 1:
-                class_masks, _ = compute_class_masks(masks, y_class_np)
-            else:
-                class_masks = np.zeros_like(masks)
+            with span("image.vote"):
+                if self.nclasses > 1:
+                    class_masks, _ = compute_class_masks(masks, y_class_np)
+                else:
+                    class_masks = np.zeros_like(masks)
             if not resample and masks.shape != (Ly0, Lx0):
                 masks = _resize_chw(masks.astype(np.int32), Ly0, Lx0, True)
                 class_masks = _resize_chw(class_masks.astype(np.int32), Ly0,
@@ -512,9 +535,10 @@ class ClassposeModel:
             dP_np = _resize_chw(dP_np, Ly0, Lx0)
             cellprob_np = _resize_chw(cellprob_np, Ly0, Lx0)
             y_class_np = _resize_chw(y_class_np, Ly0, Lx0)
-        return (masks,
-                (dx_to_circ(dP_np), dP_np, cellprob_np, y_class_np,
-                 tuple(img.shape)),
+        with span("image.circ"):
+            circ = dx_to_circ(dP_np)
+        return (masks, (circ, dP_np, cellprob_np, y_class_np,
+                        tuple(img.shape)),
                 class_masks, styles)
 
     def _eval_3d(self, x, batch_size, normalize, invert, flow_threshold,

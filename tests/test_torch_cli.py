@@ -3,6 +3,8 @@ same argparse surface (the QuPath contract), the flags that wait and the
 device lists that name no card of the machine raising before any slide
 is opened, and ``get_device`` never falling back to the CPU."""
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -191,9 +193,20 @@ def test_cli_runs_on_cpu_and_writes_profile(tmp_path, monkeypatch):
         "--profile", str(tmp_path / "trace")])
     assert len(res) == 2 and res[0]["n_tiles"] == res[1]["n_tiles"] == 3
     assert res[0]["n_cells"] == res[1]["n_cells"] > 0
-    assert set(res[0]["stage_seconds"]) == {"stream", "drain", "device",
+    assert set(res[0]["stage_seconds"]) == {"stream", "drain", "batch",
                                             "host_post", "dedup", "export"}
     for name in ("a", "b"):
         assert (tmp_path / "out" / f"{name}_cell_contours.geojson").exists()
         assert (tmp_path / "out" / f"{name}_cell_centroids.geojson").exists()
     assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+    # the second slide's profile: the reader, inference and polygon
+    # threads' spans are in the trace (every thread is profiled), and
+    # spans.json holds their totals
+    trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
+    ranges = {e["name"] for e in trace["traceEvents"]}
+    assert {"classpose.wsi.read", "classpose.batch.finish",
+            "classpose.wsi.post", "classpose.wsi.export"} <= ranges
+    spans = json.loads((tmp_path / "trace" / "spans.json").read_text())
+    assert spans["wsi.read"]["count"] == spans["wsi.post"]["count"] == 3
+    assert spans["batch.finish"]["count"] >= 1
+    assert spans["batch.finish"]["seconds"] > 0
